@@ -1,0 +1,163 @@
+"""End-to-end decode API, the paper's receiver path: port of
+``repro.core.pipeline``.
+
+clip -> depuncture -> frame -> unified decode (CUDA kernel, or the plain
+torch reference) -> stitch. ``make_frame_decoder`` exposes the
+frames -> bits core with one backend dispatch.
+
+Device. ``make_decoder`` and ``make_frame_decoder`` take ``device=None``,
+which means ``"cuda"``; without a card they raise unless ``device="cpu"``
+is given. On the CPU the ``kernel`` backend runs the kernel's plain torch
+version.
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import lru_cache
+
+import torch
+
+from .framed import FrameSpec, decode_frame, frame_llr
+from .puncture import check_alignment, depuncture
+from .sanitize import LLR_CLIP as _LLR_CLIP
+from .trellis import STD_K7, Trellis
+
+__all__ = ["DecoderConfig", "make_decoder", "make_frame_decoder"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    """Everything needed to build a decode function (same fields and
+    validation as the JAX package's DecoderConfig).
+
+    Every kernel knob decodes bit-identically to the reference backend,
+    except ``bm_dtype='bfloat16'`` (branch metrics rounded once; BER-neutral
+    to within 1e-3) and ``block_frames``/``overlap`` (intra-frame
+    block-parallel decode, a truncated traceback applied by all backends,
+    reference included, so kernel and reference stay bit-identical).
+
+    ``interpret`` (Pallas interpret mode) and ``layout`` (the TPU memory
+    orientation) are kept so configurations and checkpoints carry over
+    unchanged between the two packages; neither changes what CUDA runs.
+    ``frames_per_tile`` is the kernel's frames per thread block (``"auto"``
+    = ``kernels.ops.AUTO_FRAMES_PER_TILE``). ``renorm_every`` != 1 is a
+    reference-backend knob, as in the JAX package.
+    """
+    trellis: Trellis = STD_K7
+    spec: FrameSpec = FrameSpec()
+    rate: str = "1/2"
+    backend: str = "reference"     # 'reference' | 'kernel' | 'kernel_split'
+    interpret: bool = True         # Pallas interpret mode; no meaning on CUDA
+    pack_survivors: bool = True    # bit-pack survivors 32x (kernel backends)
+    radix: int = 4                 # 2 | 4 trellis stages per ACS step
+    frames_per_tile: int | str = "auto"   # frames per thread block
+    layout: str = "lane"           # 'lane' | 'sublane' (TPU knob, recorded)
+    bm_dtype: str = "float32"      # 'float32' | 'bfloat16' branch metrics
+    renorm_every: int = 1          # path-metric renormalization period
+    block_frames: int | str = 1    # intra-frame blocks per frame, or 'auto'
+    overlap: int | None = None     # block training/truncation stages
+
+    def __post_init__(self):
+        if self.rate != "1/2":
+            check_alignment(self.spec.f, self.spec.v1, self.spec.v2, self.rate)
+        if self.radix not in (2, 4):
+            raise ValueError(f"radix must be 2 or 4, got {self.radix}")
+        if self.layout not in ("lane", "sublane"):
+            raise ValueError(f"layout must be 'lane' or 'sublane', "
+                             f"got {self.layout!r}")
+        if self.bm_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"bm_dtype must be 'float32' or 'bfloat16', "
+                             f"got {self.bm_dtype!r}")
+        if self.renorm_every < 0:
+            raise ValueError(f"renorm_every must be >= 0, "
+                             f"got {self.renorm_every}")
+        if self.renorm_every != 1 and self.backend != "reference":
+            raise ValueError(
+                "renorm_every != 1 requires backend='reference' (the "
+                "kernels renormalize every stage unconditionally)")
+        if not (self.block_frames == "auto"
+                or (isinstance(self.block_frames, int)
+                    and self.block_frames >= 1)):
+            raise ValueError(
+                f"block_frames must be 'auto' or an int >= 1, "
+                f"got {self.block_frames!r}")
+        if self.overlap is not None and self.overlap < 0:
+            raise ValueError(f"overlap must be >= 0, got {self.overlap}")
+        if (self.block_frames not in (1, "auto")
+                or self.overlap is not None):
+            from ..kernels.block import resolve_block
+            resolve_block(self.trellis, self.spec, self.block_frames,
+                          self.overlap)
+
+
+def _build_frame_decoder(cfg: DecoderConfig, device: torch.device):
+    from ..kernels.block import merge_blocks, reframe_blocks, resolve_block
+    bf, ov = resolve_block(cfg.trellis, cfg.spec, cfg.block_frames,
+                           cfg.overlap)
+    if cfg.backend == "reference":
+        # the reference applies the same block decomposition as the
+        # kernels, so kernel and reference stay bit-identical
+        sub = cfg.spec.blocked(bf, ov) if bf > 1 else cfg.spec
+
+        def decode_frames(frames):
+            frames = torch.as_tensor(frames).to(device)
+            if bf > 1:
+                frames = reframe_blocks(frames, cfg.spec, bf, ov)
+            bits = decode_frame(frames, cfg.trellis, sub, cfg.renorm_every)
+            return merge_blocks(bits, bf) if bf > 1 else bits
+    elif cfg.backend == "kernel":
+        from ..kernels import ops as kops
+
+        def decode_frames(frames):
+            return kops.viterbi_decode_frames(
+                frames, cfg.trellis, cfg.spec, unified=True,
+                frames_per_tile=cfg.frames_per_tile,
+                pack_survivors=cfg.pack_survivors, radix=cfg.radix,
+                layout=cfg.layout, bm_dtype=cfg.bm_dtype,
+                block_frames=bf, overlap=ov, interpret=cfg.interpret,
+                device=device)
+    elif cfg.backend == "kernel_split":
+        raise NotImplementedError(
+            "backend='kernel_split' (the split kernel) is ported in the "
+            "next slice of the port")
+    else:
+        raise ValueError(cfg.backend)
+    return decode_frames
+
+
+@lru_cache(maxsize=None)
+def _frame_decoder(cfg: DecoderConfig, device: torch.device):
+    return _build_frame_decoder(cfg, device)
+
+
+def make_frame_decoder(cfg: DecoderConfig, device=None):
+    """Returns decode_frames(frames (F, L, beta)) -> (F, f) int32 bits on
+    ``device`` (``None`` = ``"cuda"``). Memoized per (cfg, device): every
+    caller gets the same closure."""
+    from ..kernels.ops import resolve_device
+    return _frame_decoder(cfg, resolve_device(device))
+
+
+def make_decoder(cfg: DecoderConfig, device=None):
+    """Returns decode(stream, n) -> (n,) int32 bits on ``device``
+    (``None`` = ``"cuda"``). ``stream`` is the punctured soft-symbol stream
+    (m,) for rate != 1/2, or (n, beta) LLRs; numpy or torch."""
+    from ..kernels.ops import resolve_device
+    dev = resolve_device(device)
+    decode_frames = make_frame_decoder(cfg, dev)
+
+    def decode(stream, n: int) -> torch.Tensor:
+        stream = torch.as_tensor(stream).to(dev)
+        # input hardening (core.sanitize): NaN/Inf -> neutral zero,
+        # |llr| > clip -> ±clip; the identity on clean in-range inputs
+        stream = torch.where(torch.isfinite(stream), stream,
+                             torch.zeros_like(stream)
+                             ).clamp(-_LLR_CLIP, _LLR_CLIP)
+        if cfg.rate != "1/2":
+            llr = depuncture(stream, cfg.rate, n)
+        else:
+            llr = stream if stream.ndim == 2 else stream.reshape(n, -1)
+        bits = decode_frames(frame_llr(llr, cfg.spec))        # (F, f)
+        return bits.reshape(-1)[:n]
+
+    return decode

@@ -1,0 +1,123 @@
+"""Public decode call over the kernels: port of ``repro.kernels.ops``.
+
+Validates the frames, applies the intra-frame block reframe/merge, resolves
+the tile, encodes the serial traceback as one subframe (``f0=f, v2s=v2``),
+records a ``kernel_trace`` event, pads the frame count to the tile and
+dispatches to the unified kernel. The split path (``unified=False``) comes
+with its kernel in the next slice of the port.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.framed import FrameSpec, merge_blocks, reframe_blocks
+from ..core.trellis import Trellis
+from ..obs.tracer import get_tracer
+from .packing import Layout
+from .viterbi_unified import unified_decode_frames
+
+__all__ = ["viterbi_decode_frames", "resolve_device", "AUTO_FRAMES_PER_TILE"]
+
+#: What ``frames_per_tile="auto"`` resolves to until the planner is ported:
+#: four frames per thread block (256 threads at K=7). Small blocks leave
+#: several resident blocks per SM to cover each other's two barriers per
+#: stage. Bits do not depend on the tile.
+AUTO_FRAMES_PER_TILE = 4
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``"cuda"``. A CUDA device without a usable card
+    raises: the port never carries on on the CPU unless asked to."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain torch version")
+    return dev
+
+
+def _pad_frames(frames: torch.Tensor, tile: int):
+    F = frames.shape[0]
+    Fp = -(-F // tile) * tile
+    if Fp != F:
+        frames = torch.nn.functional.pad(frames, (0, 0, 0, 0, 0, Fp - F))
+    return frames, F
+
+
+def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
+                          unified: bool = True,
+                          frames_per_tile: int | str = "auto",
+                          pack_survivors: bool = True, radix: int = 4,
+                          layout: str = "lane", bm_dtype: str = "float32",
+                          block_frames: int = 1, overlap: int = 0,
+                          interpret: bool = True,
+                          device=None) -> torch.Tensor:
+    """(F, L, beta) LLR frames -> (F, f) int32 decoded bits, on ``device``
+    (``None`` = ``"cuda"``; frames are moved there).
+
+    Knobs as in the JAX package: every combination decodes bit-identically
+    to the reference except ``bm_dtype='bfloat16'`` (branch metrics rounded
+    once) and ``block_frames > 1`` (truncated traceback per block, exact
+    when ``overlap >= block.full_overlap``). ``layout`` and ``interpret``
+    are TPU knobs, recorded and without effect here."""
+    if not unified:
+        raise NotImplementedError(
+            "unified=False (the split kernel, backend='kernel_split') is "
+            "ported in the next slice of the port")
+    dev = resolve_device(device)
+    frames = torch.as_tensor(frames).to(dev)
+    spec.validate()
+    if frames.ndim != 3:
+        raise ValueError(
+            f"frames must be (F, L, beta), got {frames.ndim}-D "
+            f"{tuple(frames.shape)}")
+    if frames.shape[1] != spec.frame_len:
+        raise ValueError(
+            f"frames.shape[1]={frames.shape[1]} != spec.frame_len="
+            f"{spec.frame_len} (v1 + f + v2 overlap window)")
+    if frames.shape[2] != trellis.beta:
+        raise ValueError(
+            f"frames.shape[2]={frames.shape[2]} != trellis.beta="
+            f"{trellis.beta} coded bits per stage")
+    if not frames.dtype.is_floating_point:
+        raise ValueError(
+            f"frames must be floating-point LLRs, got dtype {frames.dtype}")
+    if frames.dtype == torch.float64:      # the kernel reads f32/bf16/f16
+        frames = frames.to(torch.float32)
+    F_in = frames.shape[0]
+    if block_frames < 1:
+        raise ValueError(f"block_frames must be >= 1, got {block_frames}")
+    if block_frames > 1:
+        sub = spec.blocked(block_frames, overlap)
+        frames = reframe_blocks(frames, spec, block_frames, overlap)
+        spec = sub
+    lay = Layout(layout)
+    if frames_per_tile == "auto":
+        frames_per_tile = AUTO_FRAMES_PER_TILE
+    # serial traceback == one subframe spanning the kept region
+    f0 = spec.f0 if spec.parallel_tb else spec.f
+    v2s = spec.v2s if spec.parallel_tb else spec.v2
+    start = spec.start if spec.parallel_tb else "boundary"
+
+    # PyTorch runs eagerly, so unlike the JAX package (one event per XLA
+    # compile) this records every call, under the same names.
+    trace = get_tracer()
+    trace.event("kernel_trace", kernel="unified",
+                frames=int(frames.shape[0]),
+                frames_per_tile=int(frames_per_tile), layout=lay.value,
+                bm_dtype=str(bm_dtype), radix=int(radix),
+                pack_survivors=bool(pack_survivors),
+                block_frames=int(block_frames), overlap=int(overlap),
+                interpret=bool(interpret), device=str(dev))
+    trace.count("kernel_traces")
+
+    padded, F = _pad_frames(frames.contiguous(), frames_per_tile)
+    bits = unified_decode_frames(
+        padded, trellis=trellis, v1=spec.v1, f=spec.f, v2=spec.v2,
+        f0=f0, v2s=v2s, start=start, frames_per_tile=frames_per_tile,
+        pack_survivors=pack_survivors, radix=radix, layout=lay.value,
+        bm_dtype=bm_dtype)[:F]
+    if block_frames > 1:
+        bits = merge_blocks(bits, block_frames)       # (F_in, f)
+        assert bits.shape[0] == F_in
+    return bits

@@ -1,0 +1,237 @@
+"""Unified Viterbi decode (paper §IV-A, Alg. 3): port of
+``repro.kernels.viterbi_unified``.
+
+The paper's central idea: branch metrics, ACS and traceback in ONE kernel,
+so the survivor matrix lives in on-chip memory and never touches device
+memory. On Hopper it lives in shared memory (``csrc/viterbi_unified.cu``,
+whose head note gives the design).
+
+Three functions:
+
+* ``unified_decode_frames`` — the entry the rest of the port calls. A CUDA
+  tensor goes to the kernel, a CPU tensor to the plain version. There is no
+  fallback: on a CUDA tensor the kernel runs or this raises.
+* ``unified_decode_frames_cuda`` — the kernel's wrapper. It checks the
+  inputs, allocates the output (and, for frames too long for shared
+  memory, a device-memory survivor scratch) and launches on the current
+  stream. ``unified_decode_frames_cuda.launches`` counts its launches.
+* ``unified_decode_frames_plain`` — the same arithmetic in plain torch
+  (``acs.acs_scan``, ``packing``), on any device; the CPU path, and what
+  the kernel is held against on the card.
+
+Frames per thread block. ``frames_per_tile`` is the padding granule (the
+frame count must be a multiple of it, as in the JAX kernel) and the most
+frames one thread block decodes. The kernel runs ``max(S, 32)`` threads per
+frame, so a block holds at most ``1024 // max(S, 32)`` frames, and fewer
+when their survivors would overflow shared memory. Bits never depend on
+the tile.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..core.trellis import Trellis
+from .acs import BM_DTYPES, acs_scan
+from .build import build
+from .packing import Layout, extract_bit, pack_bits, packed_width
+from .tables import kernel_tables
+
+__all__ = ["unified_decode_frames", "unified_decode_frames_cuda",
+           "unified_decode_frames_plain", "kernel_library", "device_tables"]
+
+SOURCE = "viterbi_unified.cu"
+_LLR_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_tables: dict = {}
+
+
+def kernel_library():
+    """Build (at first use) and load the kernel; returns build.Built."""
+    built = build(SOURCE)
+    lib = built.lib
+    if not getattr(lib, "_argtypes_set", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.viterbi_unified_launch.argtypes = [vp] * 7 + [i] * 14 + [vp]
+        lib.viterbi_unified_launch.restype = i
+        lib.viterbi_unified_smem_bytes.argtypes = [i] * 7
+        lib.viterbi_unified_smem_bytes.restype = ctypes.c_longlong
+        lib.viterbi_unified_smem_limit.argtypes = [i]
+        lib.viterbi_unified_smem_limit.restype = i
+        lib._argtypes_set = True
+    return built
+
+
+def device_tables(trellis: Trellis, device: torch.device):
+    """(idx (2,S) int32, sgn (2,S) f32, signs_half (half,beta) f32) on
+    ``device``, built once on the host (kernels/tables.py) and cached."""
+    key = (trellis.k, trellis.polys, str(device))
+    if key not in _tables:
+        _, idx_p, sgn_p, signs_half = kernel_tables(trellis)
+        _tables[key] = (
+            torch.as_tensor(np.stack(idx_p), dtype=torch.int32).to(device),
+            torch.as_tensor(np.stack(sgn_p), dtype=torch.float32).to(device),
+            torch.as_tensor(signs_half, dtype=torch.float32).to(device))
+    return _tables[key]
+
+
+def _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
+           radix, layout, bm_dtype):
+    if frames.ndim != 3 or frames.shape[2] != trellis.beta:
+        raise ValueError(f"frames must be (F, L, beta={trellis.beta}), got "
+                         f"{tuple(frames.shape)}")
+    if frames.shape[1] != v1 + f + v2:
+        raise ValueError(f"frames.shape[1]={frames.shape[1]} != v1+f+v2="
+                         f"{v1 + f + v2}")
+    if f0 < 1 or f % f0 or v2s > v2 or v2s < 0:
+        raise ValueError(f"need f % f0 == 0 and 0 <= v2s <= v2, got f={f} "
+                         f"f0={f0} v2s={v2s} v2={v2}")
+    if frames.shape[0] % frames_per_tile:
+        raise ValueError(f"frame count {frames.shape[0]} is not a multiple "
+                         f"of frames_per_tile={frames_per_tile}")
+    if radix not in (2, 4):
+        raise ValueError(f"radix must be 2 or 4, got {radix}")
+    if start not in ("boundary", "fixed"):
+        raise ValueError(f"start must be 'boundary' or 'fixed', got {start!r}")
+    Layout(layout)
+    if bm_dtype not in BM_DTYPES:
+        raise ValueError(f"bm_dtype must be one of {sorted(BM_DTYPES)}, got "
+                         f"{bm_dtype!r}")
+
+
+def unified_decode_frames(frames: torch.Tensor, *, trellis: Trellis,
+                          v1: int, f: int, v2: int, f0: int, v2s: int,
+                          start: str = "boundary", frames_per_tile: int = 8,
+                          pack_survivors: bool = False, radix: int = 2,
+                          layout: str = "lane", bm_dtype: str = "float32",
+                          interpret: bool = True) -> torch.Tensor:
+    """Decode (F, L, beta) LLR frames -> (F, f) int32 bits.
+
+    The serial traceback is the case ``f0=f, v2s=v2, start='boundary'``.
+    ``interpret`` is the JAX package's Pallas interpret-mode flag, kept so
+    the signatures pair; it has no meaning on CUDA."""
+    kw = dict(trellis=trellis, v1=v1, f=f, v2=v2, f0=f0, v2s=v2s,
+              start=start, frames_per_tile=frames_per_tile,
+              pack_survivors=pack_survivors, radix=radix, layout=layout,
+              bm_dtype=bm_dtype)
+    if frames.is_cuda:
+        return unified_decode_frames_cuda(frames, **kw)
+    if frames.device.type != "cpu":
+        raise ValueError(f"no unified decode for device {frames.device}")
+    return unified_decode_frames_plain(frames, **kw)
+
+
+def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
+                               v1: int, f: int, v2: int, f0: int, v2s: int,
+                               start: str = "boundary",
+                               frames_per_tile: int = 8,
+                               pack_survivors: bool = False, radix: int = 2,
+                               layout: str = "lane",
+                               bm_dtype: str = "float32") -> torch.Tensor:
+    """Launch the CUDA kernel on ``frames`` (a contiguous CUDA tensor of
+    float32, bfloat16 or float16); raises on anything else or if the build
+    or the launch fails."""
+    _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
+           radix, layout, bm_dtype)
+    if not frames.is_cuda:
+        raise ValueError(f"frames must lie on a CUDA device, got "
+                         f"{frames.device}")
+    if frames.dtype not in _LLR_DTYPES:
+        raise ValueError(f"frames dtype must be float32, bfloat16 or "
+                         f"float16, got {frames.dtype}")
+    if not frames.is_contiguous():
+        raise ValueError("frames must be contiguous")
+    k, beta = trellis.k, trellis.beta
+    if not 2 <= k <= 11 or beta > 8:
+        raise ValueError(f"the CUDA kernel takes 2 <= k <= 11 and beta <= 8, "
+                         f"got k={k} beta={beta}")
+    lib = kernel_library().lib
+    dev = frames.device
+    F, L, _ = frames.shape
+    if F == 0:
+        return torch.empty((0, f), dtype=torch.int32, device=dev)
+    S = trellis.num_states
+    tpf = max(S, 32)
+    nsub = f // f0
+    pack = int(pack_survivors)
+    fixed = int(start == "fixed")
+    limit = lib.viterbi_unified_smem_limit(dev.index)
+    if limit <= 0:
+        raise RuntimeError(f"cannot query shared memory of {dev}")
+    fpb = min(frames_per_tile, 1024 // tpf, F)
+    while fpb and lib.viterbi_unified_smem_bytes(
+            k, L, nsub, pack, fixed, fpb, 0) > limit:
+        fpb -= 1
+    glob = fpb == 0                      # survivors too long for on-chip
+    if glob:
+        fpb = min(frames_per_tile, 1024 // tpf, F)
+    idx, sgn, signs_half = device_tables(trellis, dev)
+    out = torch.empty((F, f), dtype=torch.int32, device=dev)
+    sel = amax = None
+    if glob:
+        nframes = -(-F // fpb) * fpb
+        row = 4 * packed_width(S) if pack else S
+        sel = torch.empty((nframes, L, row), dtype=torch.uint8, device=dev)
+        amax = torch.empty((nframes, nsub, packed_width(S)),
+                           dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.viterbi_unified_launch(
+            frames.data_ptr(), idx.data_ptr(), sgn.data_ptr(),
+            signs_half.data_ptr(), out.data_ptr(),
+            sel.data_ptr() if glob else None,
+            amax.data_ptr() if glob else None,
+            F, L, beta, k, v1, f, f0, v2s, _LLR_DTYPES[frames.dtype], fixed,
+            pack, radix, int(bm_dtype == "bfloat16"), fpb, stream)
+    if err != 0:
+        raise RuntimeError(f"viterbi_unified launch failed: CUDA error {err}")
+    unified_decode_frames_cuda.launches += 1
+    return out
+
+
+unified_decode_frames_cuda.launches = 0
+
+
+def unified_decode_frames_plain(frames: torch.Tensor, *, trellis: Trellis,
+                                v1: int, f: int, v2: int, f0: int, v2s: int,
+                                start: str = "boundary",
+                                frames_per_tile: int = 8,
+                                pack_survivors: bool = False, radix: int = 2,
+                                layout: str = "lane",
+                                bm_dtype: str = "float32") -> torch.Tensor:
+    """The kernel's arithmetic in plain torch, on any device."""
+    _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
+           radix, layout, bm_dtype)
+    S = trellis.num_states
+    kshift = trellis.k - 2
+    F, L, _ = frames.shape
+    nsub = f // f0
+    sels, amaxs = [], []
+
+    def store(t, sel, sigma):
+        sels.append(pack_bits(sel) if pack_survivors else sel.to(torch.int32))
+        amaxs.append(torch.argmax(sigma, dim=1).to(torch.int32))
+
+    acs_scan(frames.to(torch.float32), trellis=trellis, L=L, radix=radix,
+             store=store, bm_dtype=bm_dtype)
+    sel_all = torch.stack(sels, 1)                   # (F, L, W|S)
+    amax_all = torch.stack(amaxs, 1)                 # (F, L)
+
+    e = v1 + (torch.arange(nsub, device=frames.device) + 1) * f0 - 1 + v2s
+    if start == "boundary":
+        states = amax_all[:, e]                      # (F, nsub)
+    else:
+        states = torch.zeros((F, nsub), dtype=torch.int32,
+                             device=frames.device)
+    tb = []
+    for r in range(f0 + v2s):
+        tb.append(states >> kshift)                  # bits at stages e - r
+        rows = sel_all[:, e - r]                     # (F, nsub, W|S)
+        if pack_survivors:
+            p = extract_bit(rows, states)
+        else:
+            p = torch.gather(rows, 2, states[..., None].to(torch.long))[..., 0]
+        states = ((states << 1) & (S - 1)) | p
+    kept = torch.stack(tb[v2s:][::-1], -1)           # (F, nsub, f0) ascending
+    return kept.reshape(F, f).to(torch.int32)

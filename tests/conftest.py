@@ -30,3 +30,9 @@ def noisy_llr(bits, trellis, snr_db, rng):
     tx = 1.0 - 2.0 * coded.astype(np.float32)
     sigma = 10.0 ** (-snr_db / 20.0)
     return tx + sigma * rng.standard_normal(tx.shape).astype(np.float32)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one (run on the "
+        "card with `pytest -m gpu tests/test_torch_gpu.py`)")

@@ -1,0 +1,109 @@
+"""The port's CUDA kernel against its plain torch version, on the card.
+
+Marked ``gpu``: each test asks its fixture for a card and skips without
+one. Run on the card with ``pytest -m gpu tests/test_torch_gpu.py``. The
+card's machine has no JAX, so this file imports none: parity with the JAX
+package is held on the CPU (test_torch_kernels.py, test_torch_pipeline.py)
+and the kernel is held here, exactly (torch.equal), to the plain version.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.encoder import encode
+from repro_torch.core.framed import FrameSpec, frame_llr
+from repro_torch.core.pipeline import DecoderConfig, make_decoder
+from repro_torch.core.trellis import make_trellis
+from repro_torch.kernels import viterbi_unified as vu
+
+pytestmark = pytest.mark.gpu
+
+CODES = [(4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)), (7, (0o171, 0o133)),
+         (9, (0o753, 0o561))]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _frames(code, spec, nframes, seed, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    tr = make_trellis(*code)
+    bits = torch.from_numpy(rng.integers(0, 2, nframes * spec.f))
+    tx = 1.0 - 2.0 * encode(bits, tr).to(torch.float32)
+    llr = tx + 0.7 * torch.from_numpy(
+        rng.standard_normal(tuple(tx.shape)).astype(np.float32))
+    return frame_llr(llr, spec).to(device=device, dtype=dtype).contiguous()
+
+
+def _kw(code, spec, **knobs):
+    parallel = spec.parallel_tb
+    return dict(trellis=make_trellis(*code), v1=spec.v1, f=spec.f,
+                v2=spec.v2, f0=spec.f0 if parallel else spec.f,
+                v2s=spec.v2s if parallel else spec.v2, start=spec.start,
+                **knobs)
+
+
+@pytest.mark.parametrize("code", CODES)
+@pytest.mark.parametrize("spec", [
+    FrameSpec(f=64, v1=20, v2=21),
+    FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21),
+    FrameSpec(f=96, v1=12, v2=24, f0=24, v2s=20, start="fixed")])
+@pytest.mark.parametrize("bm", ["float32", "bfloat16"])
+def test_kernel_equals_plain(cuda, code, spec, bm):
+    frames = _frames(code, spec, 12, 0, cuda)
+    for pack in (False, True):
+        for radix in (2, 4):
+            kw = _kw(code, spec, frames_per_tile=4, pack_survivors=pack,
+                     radix=radix, bm_dtype=bm)
+            before = vu.unified_decode_frames_cuda.launches
+            got = vu.unified_decode_frames(frames, **kw)
+            torch.cuda.synchronize()
+            assert vu.unified_decode_frames_cuda.launches == before + 1
+            assert torch.equal(got, vu.unified_decode_frames_plain(frames,
+                                                                   **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_kernel_reads_half_inputs(cuda, dtype):
+    spec = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)
+    frames = _frames(CODES[2], spec, 8, 1, cuda, dtype)
+    kw = _kw(CODES[2], spec, frames_per_tile=8, pack_survivors=True, radix=4)
+    assert torch.equal(vu.unified_decode_frames_cuda(frames, **kw),
+                       vu.unified_decode_frames_plain(frames, **kw))
+
+
+def test_long_frame_uses_device_scratch(cuda):
+    """Unpacked K=7 survivors of an f=4096 frame exceed shared memory: the
+    same kernel keeps them in device memory and still decodes exactly."""
+    spec = FrameSpec(f=4096, v1=45, v2=45)
+    frames = _frames(CODES[2], spec, 2, 2, cuda)
+    kw = _kw(CODES[2], spec, frames_per_tile=1, pack_survivors=False)
+    assert torch.equal(vu.unified_decode_frames_cuda(frames, **kw),
+                       vu.unified_decode_frames_plain(frames, **kw))
+
+
+def test_main_path_goes_through_kernel(cuda):
+    spec = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
+    n = 64 * 256 + 17
+    rng = np.random.default_rng(3)
+    stream = rng.standard_normal(2 * n).astype(np.float32)
+    before = vu.unified_decode_frames_cuda.launches
+    got = make_decoder(DecoderConfig(spec=spec, backend="kernel"))(stream, n)
+    assert vu.unified_decode_frames_cuda.launches == before + 1
+    want = make_decoder(DecoderConfig(spec=spec), "cuda")(stream, n)
+    assert got.is_cuda and torch.equal(got, want)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    spec = FrameSpec(f=64, v1=16, v2=16)
+    frames = _frames(CODES[2], spec, 4, 4, cuda)
+    kw = _kw(CODES[2], spec, frames_per_tile=4)
+    with pytest.raises(ValueError, match="dtype"):
+        vu.unified_decode_frames_cuda(frames.to(torch.float64), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        vu.unified_decode_frames_cuda(
+            frames.transpose(0, 1).contiguous().transpose(0, 1), **kw)
