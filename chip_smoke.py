@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's receiver path on one CUDA card.
+"""Drive the PyTorch port's decode paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card,
 `nvcc` and PyTorch built for CUDA. It imports the port (`src/repro_torch`)
-and nothing of JAX. Phases, one line each; any failure exits non-zero:
+and nothing of JAX. Phases, one line each or more; any failure exits
+non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
-2. build   — nvcc builds every kernel of the path from `kernels/csrc`;
-             prints the seconds and the -Xptxas -v report.
+2. build   — nvcc builds every kernel of the paths from `kernels/csrc`, one
+             process per source, all started together; prints the seconds
+             and the -Xptxas -v report of each.
 3. parity  — each kernel's wrapper against its plain torch version on the
-             card, exactly (torch.equal), over the knob grid and codes, a
-             ragged frame count, a frame too long for shared memory, and
-             the main path's own shape.
-4. main    — make_decoder(backend="kernel") at full size: K=7, n = 2^22
-             bits, Eb/N0 = 3 dB, rates 1/2 and 3/4. Launch counts are set
-             to 0 just before and read just after; the bits must equal
-             backend="reference" on the same LLRs, and the rate-1/2 BER
-             must be below 1e-3.
+             card, exactly (torch.equal). Unified kernel: the knob grid and
+             codes, a ragged frame count, a frame too long for shared
+             memory. Forward kernel: sel and amax over the same grid, both
+             layouts. Traceback kernel: against the plain serial/parallel
+             chase over the forward kernel's outputs. The split path through
+             ops with a ragged frame count.
+4. main    — make_decoder(backend="kernel"), then
+             make_decoder(backend="kernel_split"), each at full size: K=7,
+             n = 2^22 bits, Eb/N0 = 3 dB, rates 1/2 and 3/4. Launch counts
+             are set to 0 just before each path and read just after (split:
+             one forward and one traceback launch per call, no unified
+             launch); the bits must equal backend="reference" on the same
+             LLRs (and the split bits the unified bits), and the rate-1/2
+             BER must be below 1e-3.
 5. time    — each kernel at the main path's shape with CUDA events, beside
-             its plain version and its bound.
+             its plain version and its bound; the unified kernel's knob
+             sweep and its auto tile against tile 4 (must be within 2 %);
+             the split path's layouts; the whole split call against the
+             whole unified call; plan_decode(measure=True) into a temporary
+             tune DB, then read back from it.
 
     python3 chip_smoke.py --profile
 
@@ -32,10 +44,12 @@ JSON `ok` line with the device.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,6 +60,8 @@ N_BITS = 1 << 22
 EBN0_DB = 3.0
 BER_LIMIT = 1e-3
 SEED = 0
+#: The auto tile may be at most this much slower than tile 4 (B1).
+AUTO_TILE_SLACK = 0.02
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
 # operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -53,6 +69,12 @@ PEAK_F32_OPS_S = 67e12
 # ACS operations per state and stage: two candidate adds, compare, select,
 # the max reduction's compare and the normalising subtract.
 ACS_OPS = 6
+# Integer operations per traceback step: word index, load offset, shift,
+# mask, the butterfly's shift-and-or, the bit out. Counted against the f32
+# non-tensor rate, the table's nearest; they never bind.
+TB_OPS = 6
+CODES = [(4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)), (7, (0o171, 0o133)),
+         (9, (0o753, 0o561))]
 
 
 def log(phase: str, msg: str) -> None:
@@ -70,6 +92,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn) -> float:
+    """One call on the host clock, synchronised (for the plain versions,
+    which are loops of small launches)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def bound(nbytes: float, nops: float):
+    """(bound_ms, bound_by) from the bytes moved and operations done."""
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = nops / PEAK_F32_OPS_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
+                                   else "operations")
+
+
 def phase_device():
     import torch
     smi = subprocess.run(
@@ -84,24 +125,41 @@ def phase_device():
         f"count {torch.cuda.device_count()}")
 
 
-def phase_build():
-    from repro_torch.kernels import viterbi_unified as vu
-    built = vu.kernel_library()
-    # ptxas -v: per instantiation (one per beta) a spill line, then "Used"
-    report, beta = [], "?"
+def _ptxas_report(built, kernel: str) -> str:
+    """ptxas -v: per instantiation a 'Compiling entry' line, a spill line,
+    then 'Used N registers'."""
+    report, name, spill = [], None, None
     for ln in built.log.splitlines():
-        m = re.search(r"viterbi_unified_kernelILi(\d+)E", ln)
+        m = re.search(kernel + r"\w*", ln)
         if m and "Compiling entry" in ln:
-            beta = m.group(1)
+            beta = re.search(r"ILi(\d+)E", m.group(0))
+            name = f"beta={beta.group(1)}" if beta else kernel
         elif "spill" in ln:
             spill = re.findall(r"(\d+) bytes spill stores", ln)
-        elif "Used" in ln and beta != "?":
+        elif "Used" in ln and name:
             regs = re.search(r"Used (\d+) registers", ln)
-            report.append(f"beta={beta}: {regs.group(1) if regs else '?'} "
-                          f"regs, {spill[0] if spill else '?'} B spilled")
-            beta = "?"
-    log("build", f"{built.path.name} nvcc {built.seconds:.1f} s; "
-        + "; ".join(report))
+            report.append(f"{name}: {regs.group(1) if regs else '?'} regs, "
+                          f"{spill[0] if spill else '?'} B spilled")
+            name = None
+    return "; ".join(report)
+
+
+def phase_build():
+    from repro_torch.kernels import traceback_frames as tbf
+    from repro_torch.kernels import viterbi_fwd as vf
+    from repro_torch.kernels import viterbi_unified as vu
+    libs = {"viterbi_unified_kernel": vu.kernel_library,
+            "viterbi_fwd_kernel": vf.kernel_library,
+            "traceback_frames_kernel": tbf.kernel_library}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        futures = {k: pool.submit(fn) for k, fn in libs.items()}
+        built = {k: fut.result() for k, fut in futures.items()}
+    wall = time.perf_counter() - t0
+    for kernel, b in built.items():
+        log("build", f"{b.path.name} nvcc {b.seconds:.1f} s; "
+            + _ptxas_report(b, kernel))
+    log("build", f"all {len(built)} sources in {wall:.1f} s (parallel)")
 
 
 def _frames(trellis, spec, nframes, gen, dtype):
@@ -116,40 +174,71 @@ def _frames(trellis, spec, nframes, gen, dtype):
     return frame_llr(llr, spec).to(dtype).contiguous()
 
 
+def _tb_geometry(spec):
+    """(f0, v2s, start) as the kernels take them: serial = one subframe."""
+    if spec.parallel_tb:
+        return spec.f0, spec.v2s, spec.start
+    return spec.f, spec.v2, "boundary"
+
+
+def _check_equal(got, want, what):
+    import torch
+    if isinstance(got, tuple):
+        ok = all(g.dtype == w.dtype and torch.equal(g, w)
+                 for g, w in zip(got, want))
+    else:
+        ok = got.dtype == want.dtype and torch.equal(got, want)
+    if not ok:
+        raise AssertionError(f"kernel != plain: {what}")
+
+
 def phase_parity(gen):
     import torch
     from repro_torch.core.framed import FrameSpec
     from repro_torch.core.trellis import make_trellis
     from repro_torch.kernels import ops
+    from repro_torch.kernels import traceback_frames as tbf
+    from repro_torch.kernels import viterbi_fwd as vf
     from repro_torch.kernels import viterbi_unified as vu
 
-    codes = [(4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)),
-             (7, (0o171, 0o133)), (9, (0o753, 0o561))]
     specs = [FrameSpec(f=64, v1=20, v2=21),                         # serial
              FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21),          # boundary
              FrameSpec(f=96, v1=12, v2=24, f0=24, v2s=20, start="fixed")]
-    checked = 0
-    for k, polys in codes:
+    counts = {"unified": 0, "forward": 0, "traceback": 0}
+    for k, polys in CODES:
         tr = make_trellis(k, polys)
         for spec in specs:
             frames = _frames(tr, spec, 12, gen, torch.float32)
-            f0 = spec.f0 if spec.parallel_tb else spec.f
-            v2s = spec.v2s if spec.parallel_tb else spec.v2
+            f0, v2s, start = _tb_geometry(spec)
             for pack in (False, True):
                 for radix in (2, 4):
                     for layout in ("lane", "sublane"):
                         for bm in ("float32", "bfloat16"):
-                            kw = dict(trellis=tr, v1=spec.v1, f=spec.f,
+                            knobs = dict(trellis=tr, frames_per_tile=4,
+                                         pack_survivors=pack, radix=radix,
+                                         layout=layout, bm_dtype=bm)
+                            kw = dict(knobs, v1=spec.v1, f=spec.f,
                                       v2=spec.v2, f0=f0, v2s=v2s,
-                                      start=spec.start, frames_per_tile=4,
-                                      pack_survivors=pack, radix=radix,
-                                      layout=layout, bm_dtype=bm)
-                            got = vu.unified_decode_frames_cuda(frames, **kw)
-                            want = vu.unified_decode_frames_plain(frames, **kw)
-                            if not torch.equal(got, want):
-                                raise AssertionError(f"kernel != plain: k={k} "
-                                                     f"{spec} {kw}")
-                            checked += 1
+                                      start=start)
+                            what = f"k={k} {spec} {knobs}"
+                            _check_equal(
+                                vu.unified_decode_frames_cuda(frames, **kw),
+                                vu.unified_decode_frames_plain(frames, **kw),
+                                "unified " + what)
+                            counts["unified"] += 1
+                            fwd = vf.forward_frames_cuda(frames, **knobs)
+                            _check_equal(
+                                fwd, vf.forward_frames_plain(frames, **knobs),
+                                "forward " + what)
+                            counts["forward"] += 1
+                            tkw = dict(trellis=tr, v1=spec.v1, f=spec.f,
+                                       f0=f0, v2s=v2s, start=start,
+                                       packed=pack, layout=layout)
+                            _check_equal(
+                                tbf.traceback_frames_cuda(*fwd, **tkw),
+                                tbf.traceback_frames_plain(*fwd, **tkw),
+                                "traceback " + what)
+                            counts["traceback"] += 1
     # LLRs arriving in bf16/f16, a ragged frame count through ops' padding
     tr = make_trellis(7, (0o171, 0o133))
     spec = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)
@@ -157,31 +246,39 @@ def phase_parity(gen):
         frames = _frames(tr, spec, 8, gen, dtype)
         kw = dict(trellis=tr, v1=16, f=64, v2=20, f0=16, v2s=20,
                   frames_per_tile=8, pack_survivors=True, radix=4)
-        if not torch.equal(vu.unified_decode_frames_cuda(frames, **kw),
-                           vu.unified_decode_frames_plain(frames, **kw)):
-            raise AssertionError(f"kernel != plain for {dtype} LLRs")
-        checked += 1
+        _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
+                     vu.unified_decode_frames_plain(frames, **kw),
+                     f"unified {dtype} LLRs")
+        fkw = dict(trellis=tr, frames_per_tile=8, pack_survivors=True,
+                   radix=4, layout="sublane")
+        _check_equal(vf.forward_frames_cuda(frames, **fkw),
+                     vf.forward_frames_plain(frames, **fkw),
+                     f"forward {dtype} LLRs")
+        counts["unified"] += 1
+        counts["forward"] += 1
     frames = _frames(tr, spec, 13, gen, torch.float32)
-    got = ops.viterbi_decode_frames(frames, tr, spec, frames_per_tile=8,
-                                    device="cuda")
-    want = ops.viterbi_decode_frames(frames.cpu(), tr, spec,
-                                     frames_per_tile=8, device="cpu")
-    if not torch.equal(got.cpu(), want):
-        raise AssertionError("ragged frame count: card != cpu")
-    checked += 1
+    for unified in (True, False):
+        for layout in ("lane", "sublane"):
+            kw = dict(unified=unified, layout=layout, frames_per_tile=8)
+            got = ops.viterbi_decode_frames(frames, tr, spec, device="cuda",
+                                            **kw)
+            want = ops.viterbi_decode_frames(frames.cpu(), tr, spec,
+                                             device="cpu", **kw)
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"ragged frame count: card != cpu {kw}")
     # one frame too long for shared memory: survivors in device scratch
     long_spec = FrameSpec(f=4096, v1=45, v2=45)
     frames = _frames(tr, long_spec, 2, gen, torch.float32)
     kw = dict(trellis=tr, v1=45, f=4096, v2=45, f0=4096, v2s=45,
               frames_per_tile=1, pack_survivors=False, radix=2)
-    if not torch.equal(vu.unified_decode_frames_cuda(frames, **kw),
-                       vu.unified_decode_frames_plain(frames, **kw)):
-        raise AssertionError("device-memory survivor scratch: kernel != plain")
-    checked += 1
-    log("parity", f"{checked} kernel calls equal to the plain version "
+    _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
+                 vu.unified_decode_frames_plain(frames, **kw),
+                 "device-memory survivor scratch")
+    counts["unified"] += 1
+    log("parity", f"kernel calls equal to the plain version: {counts} "
         f"(codes K=4 beta=3, K=5, K=7, K=9; pack x radix x layout x "
-        f"bm_dtype; serial, boundary, fixed; bf16/f16 LLRs; ragged F; "
-        f"device-memory survivors)")
+        f"bm_dtype; serial, boundary, fixed; bf16/f16 LLRs; device-memory "
+        f"survivors); split and unified ops with a ragged F equal to the CPU")
 
 
 def main_config(rate: str, backend: str):
@@ -195,75 +292,134 @@ def main_config(rate: str, backend: str):
     return DecoderConfig(spec=spec, rate=rate, backend=backend)
 
 
-def phase_main(gen):
-    """Returns (launches on the main path, the rate-1/2 frames and
-    received stream)."""
-    import torch
-    from repro_torch.channel.sim import ber, channel
-    from repro_torch.core.framed import frame_llr
-    from repro_torch.core.pipeline import make_decoder
-    from repro_torch.core.puncture import depuncture
+def _counters():
+    from repro_torch.kernels import traceback_frames as tbf
+    from repro_torch.kernels import viterbi_fwd as vf
     from repro_torch.kernels import viterbi_unified as vu
+    return {"viterbi_unified": vu.unified_decode_frames_cuda,
+            "viterbi_fwd": vf.forward_frames_cuda,
+            "traceback_frames": tbf.traceback_frames_cuda}
 
-    streams = {rate: channel(gen, N_BITS, EBN0_DB, rate)
-               for rate in ("1/2", "3/4")}
-    decoders = {rate: make_decoder(main_config(rate, "kernel"), "cuda")
+
+def _drive(backend, streams):
+    """Decode every stream through make_decoder(backend) with all launch
+    counts set to 0 just before; returns (bits by rate, counts, wall)."""
+    import torch
+    from repro_torch.core.pipeline import make_decoder
+    decoders = {rate: make_decoder(main_config(rate, backend), "cuda")
                 for rate in streams}
     torch.cuda.synchronize()
-    vu.unified_decode_frames_cuda.launches = 0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     decoded = {rate: decoders[rate](rx, N_BITS)
                for rate, (_, rx) in streams.items()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = vu.unified_decode_frames_cuda.launches
-    if launches < 1:
+    counts = {name: fn.launches for name, fn in counters.items()}
+    return decoded, counts, wall
+
+
+def phase_main(gen):
+    """Returns (launch counts by kernel on their own paths, the rate-1/2
+    frames and received stream)."""
+    import torch
+    from repro_torch.channel.sim import ber, channel
+    from repro_torch.core.framed import frame_llr
+    from repro_torch.core.pipeline import make_decoder
+    from repro_torch.core.puncture import depuncture
+
+    streams = {rate: channel(gen, N_BITS, EBN0_DB, rate)
+               for rate in ("1/2", "3/4")}
+    unified, ucounts, uwall = _drive("kernel", streams)
+    if ucounts["viterbi_unified"] < 1:
         raise AssertionError("the main path never launched viterbi_unified")
+    split, scounts, swall = _drive("kernel_split", streams)
+    want = {"viterbi_unified": 0, "viterbi_fwd": 2, "traceback_frames": 2}
+    if scounts != want:
+        raise AssertionError(f"split path launches {scounts}, expected "
+                             f"{want} (one forward and one traceback launch "
+                             f"per call, no unified launch)")
     for rate, (bits, rx) in streams.items():
         ref = make_decoder(main_config(rate, "reference"), "cuda")(rx, N_BITS)
-        if not torch.equal(decoded[rate], ref):
-            raise AssertionError(f"rate {rate}: kernel != reference backend")
-        b = ber(decoded[rate], bits)
-        if not (decoded[rate].shape == (N_BITS,)
-                and decoded[rate].dtype == torch.int32):
-            raise AssertionError(f"rate {rate}: bad output "
-                                 f"{decoded[rate].shape} {decoded[rate].dtype}")
-        log("main", f"rate {rate}: n={N_BITS} Eb/N0={EBN0_DB} dB BER={b:.3e} "
-            f"equal to the reference backend")
+        for name, out in (("kernel", unified[rate]),
+                          ("kernel_split", split[rate])):
+            if not (out.shape == (N_BITS,) and out.dtype == torch.int32):
+                raise AssertionError(f"rate {rate} {name}: bad output "
+                                     f"{out.shape} {out.dtype}")
+            if not torch.equal(out, ref):
+                raise AssertionError(f"rate {rate}: {name} != reference")
+        if not torch.equal(split[rate], unified[rate]):
+            raise AssertionError(f"rate {rate}: kernel_split != kernel")
+        b = ber(unified[rate], bits)
+        log("main", f"rate {rate}: n={N_BITS} Eb/N0={EBN0_DB} dB BER={b:.3e}; "
+            f"kernel and kernel_split equal to the reference backend")
         if rate == "1/2" and not b < BER_LIMIT:
             raise AssertionError(f"rate 1/2 BER {b} >= {BER_LIMIT}")
-    log("main", f"viterbi_unified launches={launches}; both rates decoded in "
-        f"{wall * 1e3:.1f} ms (host clock, after synchronize)")
+    log("main", f"backend=kernel launches {ucounts}, both rates in "
+        f"{uwall * 1e3:.1f} ms; backend=kernel_split launches {scounts}, "
+        f"both rates in {swall * 1e3:.1f} ms (host clock, after synchronize, "
+        f"first calls)")
     rx = streams["1/2"][1]
     spec = main_config("1/2", "kernel").spec
     frames = frame_llr(depuncture(rx, "1/2", N_BITS), spec).contiguous()
+    launches = {"viterbi_unified": ucounts["viterbi_unified"],
+                "viterbi_fwd": scounts["viterbi_fwd"],
+                "traceback_frames": scounts["traceback_frames"]}
     return launches, frames, rx
 
 
-def phase_time(frames, rx_half, launches):
+def _interleaved(fns: dict, reps: int, rounds: int = 2) -> dict:
+    """Min ms per call of each fn, timed in turns a, b, ..., b, a."""
+    best = {k: float("inf") for k in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            best[k] = min(best[k], cuda_ms(fns[k], reps))
+    return best
+
+
+def time_unified(frames, launches):
     import torch
-    from repro_torch.core.pipeline import make_decoder
     from repro_torch.core.trellis import STD_K7
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import viterbi_unified as vu
 
     F, L, beta = frames.shape
     S = STD_K7.num_states
+    spec = main_config("1/2", "kernel").spec
+    auto = autotune.plan_tiles(STD_K7, spec, pack_survivors=True, radix=4,
+                               max_frames=F, device="cuda")
     kw = dict(trellis=STD_K7, v1=20, f=256, v2=45, f0=32, v2s=45,
-              frames_per_tile=ops.AUTO_FRAMES_PER_TILE, pack_survivors=True,
+              frames_per_tile=auto.frames_per_tile, pack_survivors=True,
               radix=4)
     got = vu.unified_decode_frames_cuda(frames, **kw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = vu.unified_decode_frames_plain(frames, **kw)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    want = None
+
+    def plain():
+        nonlocal want
+        want = vu.unified_decode_frames_plain(frames, **kw)
+    plain_ms = host_ms(plain)
     err = int((got - want).abs().max())
     if err:
-        raise AssertionError("main-shape kernel != plain version")
+        raise AssertionError("main-shape unified kernel != plain version")
     for _ in range(3):                                   # warm-up
         vu.unified_decode_frames_cuda(frames, **kw)
-    ms = cuda_ms(lambda: vu.unified_decode_frames_cuda(frames, **kw), 20)
+    tiles = _interleaved({
+        ft: (lambda ft=ft: vu.unified_decode_frames_cuda(
+            frames, **dict(kw, frames_per_tile=ft)))
+        for ft in dict.fromkeys((auto.frames_per_tile, 4))}, 20, rounds=4)
+    ms = tiles[auto.frames_per_tile]
+    if ms > tiles[4] * (1 + AUTO_TILE_SLACK):
+        raise AssertionError(f"auto tile {auto.frames_per_tile} takes "
+                             f"{ms:.4f} ms, more than {AUTO_TILE_SLACK:.0%} "
+                             f"over tile 4's {tiles[4]:.4f} ms")
+    log("time", f"viterbi_unified auto tile {auto.frames_per_tile} "
+        f"({auto.frames_per_sm} frames/SM, {auto.smem_bytes} B smem/block) "
+        f"{ms:.4f} ms vs tile 4 {tiles[4]:.4f} ms "
+        f"({(ms / tiles[4] - 1) * 100:+.2f} %, limit "
+        f"+{AUTO_TILE_SLACK:.0%}); limits {autotune.device_limits('cuda')}")
     sweep = {}
     for name, knobs in [(f"tile{ft}", dict(frames_per_tile=ft))
                         for ft in (1, 2, 4, 8, 16)] + [
@@ -275,63 +431,197 @@ def phase_time(frames, rx_half, launches):
         vu.unified_decode_frames_cuda(frames, **kt)
         sweep[name] = round(cuda_ms(
             lambda: vu.unified_decode_frames_cuda(frames, **kt), 10), 4)
-    # the whole receiver call (clip, depuncture, frame, kernel, stitch)
-    rx = rx_half.reshape(-1)
-    decode = make_decoder(main_config("1/2", "kernel"), "cuda")
-    decode(rx, N_BITS)
-    e2e_ms = cuda_ms(lambda: decode(rx, N_BITS), 5)
     nbytes = frames.numel() * frames.element_size() + F * 256 * 4
-    nops = ACS_OPS * F * L * S
-    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-    ops_ms = nops / PEAK_F32_OPS_S * 1e3
-    bits_out = F * 256
+    bound_ms, bound_by = bound(nbytes, ACS_OPS * F * L * S)
     log("time", f"viterbi_unified F={F} L={L}: {ms * 1e3:.1f} us/launch "
-        f"({bits_out / ms / 1e3:.1f} Mb/s); plain version {plain_ms:.1f} ms "
-        f"(host clock, once); bound {max(bytes_ms, ops_ms) * 1e3:.1f} us "
-        f"(bytes {bytes_ms * 1e3:.1f} us, ops {ops_ms * 1e3:.1f} us)")
-    log("time", f"ms per launch by knob (default tile "
-        f"{ops.AUTO_FRAMES_PER_TILE}, packed, radix 4, f32 bm, parallel "
-        f"traceback): {sweep}")
-    log("time", f"make_decoder rate 1/2 end to end: {e2e_ms:.3f} ms per "
-        f"{N_BITS}-bit call ({N_BITS / e2e_ms / 1e3:.1f} Mb/s), kernel "
-        f"{ms / e2e_ms:.0%} of it")
+        f"({F * 256 / ms / 1e3:.1f} Mb/s); plain version {plain_ms:.1f} ms "
+        f"(host clock, once); bound {bound_ms * 1e3:.1f} us ({bound_by})")
+    log("time", f"ms per launch by knob (auto tile "
+        f"{auto.frames_per_tile} unless named; packed, radix 4, f32 bm, "
+        f"parallel traceback): {sweep}")
     return {"name": "viterbi_unified", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/viterbi_unified.cu",
             "replaces": "src/repro/kernels/viterbi_unified.py:199",
-            "launches": launches, "max_abs_err": err, "parity": "equal",
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": None}
+            "launches": launches["viterbi_unified"], "max_abs_err": err,
+            "parity": "equal", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def time_split(frames, launches):
+    """B3 and the traceback kernel at the main shape, both layouts."""
+    import torch
+    from repro_torch.core.trellis import STD_K7
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import traceback_frames as tbf
+    from repro_torch.kernels import viterbi_fwd as vf
+
+    F, L, beta = frames.shape
+    S = STD_K7.num_states
+    spec = main_config("1/2", "kernel_split").spec
+    ft = autotune.plan_tiles(STD_K7, spec, pack_survivors=True, radix=4,
+                             unified=False, max_frames=F,
+                             device="cuda").frames_per_tile
+    entries, by_layout = {}, {}
+    for layout in ("lane", "sublane"):
+        fkw = dict(trellis=STD_K7, frames_per_tile=ft, pack_survivors=True,
+                   radix=4, layout=layout)
+        tkw = dict(trellis=STD_K7, v1=20, f=256, f0=32, v2s=45,
+                   packed=True, layout=layout)
+        sel, amax = vf.forward_frames_cuda(frames, **fkw)
+        bits = tbf.traceback_frames_cuda(sel, amax, **tkw)
+        plain = {}
+        fplain_ms = host_ms(lambda: plain.__setitem__(
+            "fwd", vf.forward_frames_plain(frames, **fkw)))
+        tplain_ms = host_ms(lambda: plain.__setitem__(
+            "tb", tbf.traceback_frames_plain(sel, amax, **tkw)))
+        ferr = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                   for a, b in zip((sel, amax), plain["fwd"]))
+        terr = int((bits - plain["tb"]).abs().max())
+        if ferr or terr:
+            raise AssertionError(f"main-shape split kernels != plain "
+                                 f"({layout}): {ferr} {terr}")
+        best = _interleaved({
+            "fwd": lambda: vf.forward_frames_cuda(frames, **fkw),
+            "tb": lambda: tbf.traceback_frames_cuda(sel, amax, **tkw)},
+            10)
+        by_layout[layout] = best
+        fbytes = (frames.numel() * frames.element_size()
+                  + sel.numel() * sel.element_size() + amax.numel() * 4)
+        fb = bound(fbytes, ACS_OPS * F * L * S)
+        nsub, T = 256 // 32, 32 + 45
+        cursors = F * nsub
+        tbytes = cursors * T * sel.element_size() + cursors * 4 + F * 256 * 4
+        tb = bound(tbytes, TB_OPS * cursors * T)
+        log("time", f"split {layout} tile {ft}: viterbi_fwd "
+            f"{best['fwd'] * 1e3:.1f} us (bound {fb[0] * 1e3:.1f} us "
+            f"{fb[1]}: {fbytes / 1e6:.1f} MB; plain {fplain_ms:.1f} ms); "
+            f"traceback_frames {best['tb'] * 1e3:.1f} us (bound "
+            f"{tb[0] * 1e3:.1f} us {tb[1]}: {tbytes / 1e6:.1f} MB; plain "
+            f"{tplain_ms:.1f} ms)")
+        if layout == "lane":                 # the main path's layout
+            entries["fwd"] = {
+                "name": "viterbi_fwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/viterbi_fwd.cu",
+                "replaces": "src/repro/kernels/viterbi_fwd.py:114",
+                "launches": launches["viterbi_fwd"], "max_abs_err": ferr,
+                "parity": "equal", "ms": best["fwd"], "plain_ms": fplain_ms,
+                "bound_ms": fb[0], "bound_by": fb[1], "library_ms": None}
+            entries["tb"] = {
+                "name": "traceback_frames", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/traceback_frames.cu",
+                "replaces": "src/repro/core/traceback.py:160 (XLA scan, "
+                            "not a pallas_call)",
+                "launches": launches["traceback_frames"],
+                "max_abs_err": terr, "parity": "equal", "ms": best["tb"],
+                "plain_ms": tplain_ms, "bound_ms": tb[0], "bound_by": tb[1],
+                "library_ms": None}
+    # unpacked and serial variants of the lane stream
+    fkw = dict(trellis=STD_K7, frames_per_tile=ft, pack_survivors=False,
+               radix=4, layout="lane")
+    sel, amax = vf.forward_frames_cuda(frames, **fkw)
+    unpacked = _interleaved({
+        "fwd": lambda: vf.forward_frames_cuda(frames, **fkw),
+        "tb": lambda: tbf.traceback_frames_cuda(
+            sel, amax, trellis=STD_K7, v1=20, f=256, f0=32, v2s=45,
+            packed=False, layout="lane")}, 5, rounds=1)
+    fkw["pack_survivors"] = True
+    sel, amax = vf.forward_frames_cuda(frames, **fkw)
+    serial = cuda_ms(lambda: tbf.traceback_frames_cuda(
+        sel, amax, trellis=STD_K7, v1=20, f=256, f0=256, v2s=45, packed=True,
+        layout="lane"), 10)
+    log("time", f"split lane unpacked: viterbi_fwd "
+        f"{unpacked['fwd'] * 1e3:.1f} us, traceback_frames "
+        f"{unpacked['tb'] * 1e3:.1f} us; packed serial traceback "
+        f"{serial * 1e3:.1f} us")
+    return entries
+
+
+def time_end_to_end(rx_half):
+    """The paper's unified vs split comparison: whole make_decoder calls on
+    the same card, in turns."""
+    from repro_torch.core.pipeline import make_decoder
+    rx = rx_half.reshape(-1)
+    calls = {}
+    for backend in ("kernel", "kernel_split"):
+        decode = make_decoder(main_config("1/2", backend), "cuda")
+        decode(rx, N_BITS)
+        calls[backend] = (lambda d=decode: d(rx, N_BITS))
+    ms = _interleaved(calls, 5)
+    log("time", f"make_decoder rate 1/2 end to end: kernel {ms['kernel']:.3f} "
+        f"ms ({N_BITS / ms['kernel'] / 1e3:.1f} Mb/s), kernel_split "
+        f"{ms['kernel_split']:.3f} ms ({N_BITS / ms['kernel_split'] / 1e3:.1f}"
+        f" Mb/s); split / unified = {ms['kernel_split'] / ms['kernel']:.3f}")
+
+
+def time_planner(frames):
+    """plan_decode(measure=True) at the main shape into a temporary tune DB,
+    then again from the DB without measuring."""
+    from repro_torch.core.trellis import STD_K7
+    from repro_torch.kernels.autotune import plan_decode
+    from repro_torch.kernels.tunedb import TuneDB
+    spec = main_config("1/2", "kernel").spec
+    F = frames.shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {}
+        for unified in (True, False):
+            db = TuneDB(str(Path(tmp) / f"tunedb-{unified}.json"))
+            t0 = time.perf_counter()
+            plan = plan_decode(STD_K7, spec, unified=unified, measure=True,
+                               tunedb=db, measure_frames=F, device="cuda")
+            sec = time.perf_counter() - t0
+            again = TuneDB(db.path)
+            plan2 = plan_decode(STD_K7, spec, unified=unified, measure=True,
+                                tunedb=again, measure_frames=F, device="cuda")
+            if again.stats()["measures"] != 0 or plan2 != plan:
+                raise AssertionError("the tune DB did not serve the second "
+                                     f"plan_decode: {again.stats()}")
+            rows = {fp: round(r["ms"], 4) for fp, r in
+                    json.loads(Path(db.path).read_text())["platforms"]
+                    .popitem()[1].items()}
+            out[plan.tile.kernel] = (plan, sec, rows)
+    for kernel, (plan, sec, rows) in out.items():
+        log("time", f"plan_decode(measure=True, {kernel}) at F={F}: "
+            f"{sec:.2f} s (host clock); chose tile "
+            f"{plan.frames_per_tile} {plan.tile.layout.value}, measured ms "
+            f"by fingerprint {rows}; re-read from the DB with 0 measures")
+
+
+def phase_time(frames, rx_half, launches):
+    unified = time_unified(frames, launches)
+    split = time_split(frames, launches)
+    time_end_to_end(rx_half)
+    time_planner(frames)
+    return [unified, split["fwd"], split["tb"]]
 
 
 def phase_profile(rx_half):
-    """Device time by kernel over one warm make_decoder call."""
+    """Device time by kernel over one warm make_decoder call per backend."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.pipeline import make_decoder
-    decode = make_decoder(main_config("1/2", "kernel"), "cuda")
     rx = rx_half.reshape(-1)
-    decode(rx, N_BITS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    for backend in ("kernel", "kernel_split"):
+        decode = make_decoder(main_config("1/2", backend), "cuda")
         decode(rx, N_BITS)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        # device-side rows only (kernels, copies): an operator's row
-        # repeats the time of the kernels it launched
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
-            rows.append((ev.self_device_time_total, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    log("profile", f"one call: host {wall_us:.0f} us, device busy "
-        f"{busy:.0f} us ({busy / wall_us:.0%}); by kernel: "
-        + "; ".join(f"{k[:60]} x{c} {us:.0f} us" for us, k, c in rows[:8]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode(rx, N_BITS)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = []
+        for ev in prof.key_averages():
+            # device-side rows only (kernels, copies): an operator's row
+            # repeats the time of the kernels it launched
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+                rows.append((ev.self_device_time_total, ev.key, ev.count))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        log("profile", f"{backend}, one call: host {wall_us:.0f} us, device "
+            f"busy {busy:.0f} us ({busy / wall_us:.0%}); by kernel: "
+            + "; ".join(f"{k[:60]} x{c} {us:.0f} us" for us, k, c in rows[:8]))
 
 
 def main() -> int:
@@ -354,14 +644,14 @@ def main() -> int:
     phase_build()
     phase_parity(gen)
     launches, frames, rx = phase_main(gen)
-    entry = phase_time(frames, rx, launches)
+    entries = phase_time(frames, rx, launches)
     if "--profile" in sys.argv[1:]:
         phase_profile(rx)
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:
         raise AssertionError(f"JAX-side modules were imported: {bad[:5]}")
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,14 +1,19 @@
 """End-to-end decode API, the paper's receiver path: port of
 ``repro.core.pipeline``.
 
-clip -> depuncture -> frame -> unified decode (CUDA kernel, or the plain
-torch reference) -> stitch. ``make_frame_decoder`` exposes the
-frames -> bits core with one backend dispatch.
+clip -> depuncture -> frame -> decode -> stitch. ``make_frame_decoder``
+exposes the frames -> bits core with one backend dispatch:
+
+* ``reference`` — the plain torch reference decoder;
+* ``kernel`` — the unified CUDA kernel (survivors on chip);
+* ``kernel_split`` — the split path, the prior-work baseline: the forward
+  CUDA kernel streams survivors to device memory and the traceback CUDA
+  kernel reads them back.
 
 Device. ``make_decoder`` and ``make_frame_decoder`` take ``device=None``,
 which means ``"cuda"``; without a card they raise unless ``device="cpu"``
-is given. On the CPU the ``kernel`` backend runs the kernel's plain torch
-version.
+is given. On the CPU the kernel backends run the kernels' plain torch
+versions.
 """
 from __future__ import annotations
 
@@ -36,12 +41,13 @@ class DecoderConfig:
     block-parallel decode, a truncated traceback applied by all backends,
     reference included, so kernel and reference stay bit-identical).
 
-    ``interpret`` (Pallas interpret mode) and ``layout`` (the TPU memory
-    orientation) are kept so configurations and checkpoints carry over
-    unchanged between the two packages; neither changes what CUDA runs.
+    ``interpret`` (Pallas interpret mode) is kept so configurations and
+    checkpoints carry over unchanged between the two packages; it changes
+    nothing that CUDA runs.
     ``frames_per_tile`` is the kernel's frames per thread block (``"auto"``
-    = ``kernels.ops.AUTO_FRAMES_PER_TILE``). ``renorm_every`` != 1 is a
-    reference-backend knob, as in the JAX package.
+    = the tile planner's choice, kernels/autotune.py). ``layout`` orients
+    the ``kernel_split`` survivor stream in device memory. ``renorm_every``
+    != 1 is a reference-backend knob, as in the JAX package.
     """
     trellis: Trellis = STD_K7
     spec: FrameSpec = FrameSpec()
@@ -51,7 +57,7 @@ class DecoderConfig:
     pack_survivors: bool = True    # bit-pack survivors 32x (kernel backends)
     radix: int = 4                 # 2 | 4 trellis stages per ACS step
     frames_per_tile: int | str = "auto"   # frames per thread block
-    layout: str = "lane"           # 'lane' | 'sublane' (TPU knob, recorded)
+    layout: str = "lane"           # 'lane' | 'sublane' split survivor stream
     bm_dtype: str = "float32"      # 'float32' | 'bfloat16' branch metrics
     renorm_every: int = 1          # path-metric renormalization period
     block_frames: int | str = 1    # intra-frame blocks per frame, or 'auto'
@@ -105,21 +111,18 @@ def _build_frame_decoder(cfg: DecoderConfig, device: torch.device):
                 frames = reframe_blocks(frames, cfg.spec, bf, ov)
             bits = decode_frame(frames, cfg.trellis, sub, cfg.renorm_every)
             return merge_blocks(bits, bf) if bf > 1 else bits
-    elif cfg.backend == "kernel":
+    elif cfg.backend in ("kernel", "kernel_split"):
         from ..kernels import ops as kops
 
         def decode_frames(frames):
             return kops.viterbi_decode_frames(
-                frames, cfg.trellis, cfg.spec, unified=True,
+                frames, cfg.trellis, cfg.spec,
+                unified=cfg.backend == "kernel",
                 frames_per_tile=cfg.frames_per_tile,
                 pack_survivors=cfg.pack_survivors, radix=cfg.radix,
                 layout=cfg.layout, bm_dtype=cfg.bm_dtype,
                 block_frames=bf, overlap=ov, interpret=cfg.interpret,
                 device=device)
-    elif cfg.backend == "kernel_split":
-        raise NotImplementedError(
-            "backend='kernel_split' (the split kernel) is ported in the "
-            "next slice of the port")
     else:
         raise ValueError(cfg.backend)
     return decode_frames

@@ -7,17 +7,25 @@
   argmax state (``start='boundary'``) or from state 0 (``'fixed'``).
 
 Both take optional leading batch dimensions: ``sel (..., L, S)`` (or
-packed ``(..., L, W)`` int32 words), one cursor set per batch entry. The
-``*_frames`` variants over the split kernel's survivor streams come with
-that kernel, in the next slice of the port.
+packed ``(..., L, W)`` int32 words), one cursor set per batch entry.
+
+The ``*_frames`` variants take a batch of frames in one of the two
+survivor-stream layouts the split kernel writes (kernels/packing.Layout):
+frame-major ``lane`` streams go through the batched functions above, and
+``sublane`` streams (frames on the trailing axis) are chased directly with
+the frame axis vectorised, so the stream is never transposed. They are the
+plain version of the split path's traceback kernel
+(kernels/csrc/traceback_frames.cu).
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.packing import Layout, extract_bit, packed_width
 from .trellis import Trellis
 
-__all__ = ["serial_traceback", "parallel_traceback"]
+__all__ = ["serial_traceback", "parallel_traceback",
+           "serial_traceback_frames", "parallel_traceback_frames"]
 
 
 def _sel_bit(sel_t: torch.Tensor, states: torch.Tensor,
@@ -87,3 +95,86 @@ def parallel_traceback(sel: torch.Tensor, amax: torch.Tensor,
     # reversed, are each subframe's stages in ascending order
     kept = torch.stack(bits[v2s:][::-1], -1)          # (..., nsub, f0)
     return kept.reshape(*batch, f).to(torch.int32)
+
+
+def _sel_stages(sel: torch.Tensor, trellis: Trellis,
+                packed: bool) -> torch.Tensor:
+    """Sublane stream -> (L, W|S, F) stage-major int32 view (packed rows
+    are stored flat as (L*W, F))."""
+    sel = sel.to(torch.int32)
+    if packed:
+        return sel.reshape(-1, packed_width(trellis.num_states),
+                           sel.shape[-1])
+    return sel
+
+
+def serial_traceback_frames(sel: torch.Tensor, amax: torch.Tensor,
+                            trellis: Trellis, v1: int, f: int,
+                            packed: bool = False,
+                            layout: Layout = Layout.LANE) -> torch.Tensor:
+    """Serial traceback of a frame batch -> (F, f) int32 bits.
+
+    sel: lane (F, L, S|W); sublane (L*W, F) packed / (L, S, F) unpacked.
+    amax: (F, L); the chase starts from each frame's last-stage argmax."""
+    if Layout(layout) is Layout.LANE:
+        return serial_traceback(sel, trellis, amax[:, -1], v1, f,
+                                packed=packed)
+    sel3 = _sel_stages(sel, trellis, packed)          # (L, W|S, F)
+    L, _, F = sel3.shape
+    kshift = trellis.k - 2
+    S = trellis.num_states
+    states = amax[:, -1].to(torch.int32)              # (F,)
+    cols = torch.arange(F, device=sel.device)
+    bits = [None] * L
+    for t in range(L - 1, -1, -1):
+        bits[t] = states >> kshift
+        if packed:
+            p = extract_bit(sel3[t], states, Layout.SUBLANE)
+        else:
+            p = sel3[t][states.to(torch.long), cols]
+        states = ((states << 1) & (S - 1)) | p        # butterfly arithmetic
+    return torch.stack(bits[v1:v1 + f], -1).to(torch.int32)
+
+
+def parallel_traceback_frames(sel: torch.Tensor, amax: torch.Tensor,
+                              trellis: Trellis, v1: int, f: int, f0: int,
+                              v2s: int, start: str = "boundary",
+                              packed: bool = False,
+                              layout: Layout = Layout.LANE) -> torch.Tensor:
+    """Parallel traceback of a frame batch -> (F, f) int32 bits.
+
+    sel: lane (F, L, S|W); sublane (L*W, F) packed / (L, S, F) unpacked.
+    amax: (F, L). In the sublane layout all nsub cursors of all F frames
+    advance in lock-step with frames on the trailing axis."""
+    if Layout(layout) is Layout.LANE:
+        return parallel_traceback(sel, amax, trellis, v1, f, f0, v2s, start,
+                                  packed=packed)
+    if f % f0 != 0:
+        raise ValueError("f must be a multiple of f0 (paper §IV-E alignment)")
+    nsub = f // f0
+    sel3 = _sel_stages(sel, trellis, packed)          # (L, W|S, F)
+    F = sel3.shape[-1]
+    dev = sel.device
+    kshift = trellis.k - 2
+    S = trellis.num_states
+
+    e = v1 + (torch.arange(nsub, device=dev) + 1) * f0 - 1 + v2s  # (nsub,)
+    if start == "boundary":
+        states = amax[:, e].T.to(torch.int32)         # (nsub, F)
+    elif start == "fixed":
+        states = torch.zeros((nsub, F), dtype=torch.int32, device=dev)
+    else:
+        raise ValueError(start)
+    ids = torch.arange(S, dtype=torch.int32, device=dev)[None, :, None]
+
+    bits = []
+    for r in range(f0 + v2s):
+        rows = sel3[e - r]                            # (nsub, W|S, F)
+        bits.append(states >> kshift)
+        if packed:
+            p = extract_bit(rows, states, Layout.SUBLANE)
+        else:                                         # one-hot sum, exact
+            p = (rows * (states[:, None, :] == ids)).sum(1, dtype=torch.int32)
+        states = ((states << 1) & (S - 1)) | p
+    kept = torch.stack(bits[v2s:][::-1])              # (f0, nsub, F) ascending
+    return kept.permute(2, 1, 0).reshape(F, f).to(torch.int32)

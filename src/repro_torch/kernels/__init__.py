@@ -9,7 +9,8 @@ launch.
 """
 import importlib
 
-_SUBMODULES = ("acs", "block", "build", "ops", "packing", "ref", "tables",
+_SUBMODULES = ("acs", "autotune", "block", "build", "ops", "packing", "ref",
+               "tables", "traceback_frames", "tunedb", "viterbi_fwd",
                "viterbi_unified")
 
 

@@ -7,7 +7,7 @@ Two forms of one recursion:
   ``store(t, sel, sigma)`` callback like the JAX original, so the plain
   versions of both kernels run one recursion.
 * ``csrc/acs.cuh``: the same arithmetic as CUDA device functions, which the
-  unified kernel (and, in the next slice, the split kernel) includes, so the
+  unified kernel and the split path's forward kernel include, so the
   kernels cannot drift apart.
 
 The arithmetic, which the gate holds bit for bit:

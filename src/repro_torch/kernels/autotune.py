@@ -1,0 +1,503 @@
+"""Shared-memory and occupancy tile planner for the port's CUDA kernels:
+port of ``repro.kernels.autotune``.
+
+A tile is the number of frames one thread block decodes
+(``frames_per_tile``, also the frame-count padding granule). On the TPU it
+was a memory decision: as many frames per grid step as a VMEM budget
+allows. On Hopper a block runs ``max(S, 32)`` threads per frame, so a
+block holds at most ``1024 // max(S, 32)`` frames (the thread cap), and
+its shared memory is the kernel's own carve-up, which
+``unified_smem_bytes`` / ``split_smem_bytes`` reproduce term for term
+(the kernels export the same numbers: ``viterbi_unified_smem_bytes``,
+``viterbi_fwd_smem_bytes``; the card tests hold them equal). A tile fits
+when its block's shared memory is within the budget: by default the
+per-block opt-in limit, queried on the card, and on the CPU the H100's
+227 KB (``H100_LIMITS``), so a plan made on the CPU is the H100's plan.
+
+``plan_tiles`` then picks, among the fitting power-of-two tiles up to the
+thread cap, the one that keeps the most frames resident on an SM (blocks
+per SM are limited by the SM's threads, its block slots, and its shared
+memory with the runtime's per-block reserve; registers are not modelled:
+``__launch_bounds__(1024)`` keeps one full block resident), and among
+those the smallest. Resident frames are what hides the latency of the
+ACS recursion's per-stage exchange; a smaller block has fewer threads
+waiting at each of the two barriers per stage and pads a short stream
+less. If no tile fits, the smallest is returned (``fits`` is false): the
+unified kernel then keeps its survivors in device memory.
+
+``plan_decode`` returns the whole plan the decode front end executes:
+kernel, layout, tile and chunk geometry (``chunk_frames`` = two tiles per
+device, as in the JAX package), optionally measured on the card
+(``measure=True``) and cached in the tune DB (kernels/tunedb.py).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+import time
+
+import numpy as np
+import torch
+
+from ..core.framed import FrameSpec
+from ..core.trellis import Trellis
+from ..obs.tracer import get_tracer
+from .block import resolve_block
+from .packing import Layout, packed_width
+from .tunedb import TUNE_DB, TuneDB, platform_id
+
+__all__ = ["TilePlan", "DecodePlan", "DeviceLimits", "H100_LIMITS",
+           "device_limits", "unified_smem_bytes", "split_smem_bytes",
+           "candidate_tiles", "plan_tiles", "plan_decode", "measure_plan",
+           "AUTO_LAYOUT", "MAX_THREADS_PER_BLOCK"]
+
+MAX_THREADS_PER_BLOCK = 1024
+_BM_DTYPES = ("float32", "bfloat16")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceLimits:
+    """What the planner models of one card (CUDA device attributes)."""
+    smem_per_block: int            # opt-in dynamic shared memory per block
+    smem_per_sm: int
+    threads_per_sm: int
+    blocks_per_sm: int
+    smem_reserved_per_block: int   # the runtime's own share of each block
+
+
+#: NVIDIA H100 (compute capability 9.0), CUDA C++ Programming Guide table
+#: of compute capabilities: 227 KB opt-in per block, 228 KB per SM, 2048
+#: threads and 32 blocks per SM, 1 KB reserved per block. What the CPU
+#: plans with.
+H100_LIMITS = DeviceLimits(232448, 233472, 2048, 32, 1024)
+
+_limits: dict = {}
+
+
+def _resolve_device(device) -> torch.device:
+    from .ops import resolve_device           # ops imports this module
+    return resolve_device(device)
+
+
+def device_limits(device=None) -> DeviceLimits:
+    """The card's limits (``device=None`` = ``"cuda"``; raises without a
+    card), queried once per device; ``H100_LIMITS`` for the CPU."""
+    dev = _resolve_device(device)
+    if dev.type != "cuda":
+        return H100_LIMITS
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _limits:
+        from .viterbi_unified import kernel_library
+        out = (ctypes.c_int * 5)()
+        err = kernel_library().lib.viterbi_device_limits(index, out)
+        if err != 0:
+            raise RuntimeError(f"cannot query cuda:{index}: CUDA error {err}")
+        _limits[index] = DeviceLimits(*out)
+    return _limits[index]
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """Chosen tile and the footprint that justified it."""
+    frames_per_tile: int
+    smem_bytes: int           # dynamic shared memory of one block
+    breakdown: tuple          # ((name, bytes), ...) for reports/debugging
+    budget: int
+    kernel: str = "unified"   # 'unified' | 'split'
+    layout: Layout = Layout.LANE
+    bm_dtype: str = "float32"
+    #: The JAX plan's padded-VMEM flag, a TPU notion: always False here.
+    #: Kept so the two packages' plans have the same fields.
+    mosaic: bool = False
+    frames_per_sm: int = 0    # resident frames per SM (0: does not fit)
+
+    @property
+    def fits(self) -> bool:
+        return self.smem_bytes <= self.budget
+
+    def utilization(self) -> float:
+        return self.smem_bytes / self.budget
+
+    def cache_key(self) -> tuple:
+        """The knobs that select a distinct kernel launch; the JAX
+        package's tuple. Footprint bookkeeping is excluded: two plans that
+        picked the same knobs launch the same kernel."""
+        return (self.kernel, int(self.frames_per_tile),
+                Layout(self.layout).value, str(self.bm_dtype))
+
+
+def _geometry(spec: FrameSpec):
+    """(f0, v2s) as the kernel sees them (serial tb = one full subframe)."""
+    if spec.parallel_tb:
+        return spec.f0, spec.v2s
+    return spec.f, spec.v2
+
+
+def _check_knobs(layout, bm_dtype):
+    Layout(layout)
+    if str(bm_dtype) not in _BM_DTYPES:
+        raise ValueError(f"bm_dtype must be one of {list(_BM_DTYPES)}, got "
+                         f"{bm_dtype!r}")
+
+
+def _block_terms(trellis: Trellis, fpb: int):
+    """Path metrics [2][fpb][tpf] f32 and the per-warp max [fpb][nw] f32,
+    common to both kernels."""
+    tpf = max(trellis.num_states, 32)
+    return (("path_metrics", 2 * fpb * tpf * 4),
+            ("max_reduce", fpb * (tpf // 32) * 4))
+
+
+def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
+                       frames_per_tile: int, *, pack_survivors: bool = False,
+                       radix: int = 2, layout=Layout.LANE,
+                       bm_dtype: str = "float32"):
+    """(total_bytes, breakdown) of one unified-kernel block: the carve-up of
+    ``csrc/viterbi_unified.cu::smem_layout``. Survivors are one bit per
+    state packed (``4 * ceil(S/32)`` bytes a stage) or one byte; argmax
+    words are kept at the traceback starts only (none for
+    ``start='fixed'``). Branch metrics live in registers, so ``bm_dtype``
+    and ``radix`` change nothing, and the layout is not a shared-memory
+    orientation on Hopper; they are accepted so call sites can pass the
+    whole configuration."""
+    _check_knobs(layout, bm_dtype)
+    del radix
+    S = trellis.num_states
+    W = packed_width(S)
+    fpb = int(frames_per_tile)
+    f0, _ = _geometry(spec)
+    nsub = spec.f // f0
+    fixed = spec.parallel_tb and spec.start == "fixed"
+    row = 4 * W if pack_survivors else S
+    breakdown = (*_block_terms(trellis, fpb),
+                 ("argmax_words", 0 if fixed else fpb * nsub * W * 4),
+                 ("sel_survivors", fpb * spec.frame_len * row))
+    return sum(b for _, b in breakdown), breakdown
+
+
+def split_smem_bytes(trellis: Trellis, spec: FrameSpec,
+                     frames_per_tile: int, *, pack_survivors: bool = False,
+                     radix: int = 2, layout=Layout.LANE,
+                     bm_dtype: str = "float32"):
+    """(total_bytes, breakdown) of one forward-kernel block: the carve-up
+    of ``csrc/viterbi_fwd.cu::fwd_smem``. Its survivors go to device
+    memory, so only the path metrics and the per-warp max and argmax
+    words stay on chip; no knob but the tile changes it."""
+    _check_knobs(layout, bm_dtype)
+    del spec, pack_survivors, radix
+    fpb = int(frames_per_tile)
+    terms = _block_terms(trellis, fpb)
+    breakdown = (*terms, ("argmax_words", terms[1][1]))
+    return sum(b for _, b in breakdown), breakdown
+
+
+def candidate_tiles(trellis: Trellis, max_frames: int | None = None):
+    """Powers of two from 1 up to the thread cap ``1024 // max(S, 32)``,
+    and up to the smallest one that covers ``max_frames``."""
+    cap = MAX_THREADS_PER_BLOCK // max(trellis.num_states, 32)
+    tiles = [1 << i for i in range(cap.bit_length()) if 1 << i <= cap]
+    if max_frames is not None:
+        cover = next((t for t in tiles if t >= max_frames), tiles[-1])
+        tiles = [t for t in tiles if t <= cover]
+    return tiles
+
+
+def _resident_frames(smem: int, threads: int, fpb: int,
+                     limits: DeviceLimits) -> int:
+    blocks = min(limits.threads_per_sm // threads, limits.blocks_per_sm,
+                 limits.smem_per_sm // (smem + limits.smem_reserved_per_block))
+    return blocks * fpb
+
+
+def _tile_at(trellis: Trellis, spec: FrameSpec, ft: int, *, unified: bool,
+             pack_survivors: bool, radix: int, layout, bm_dtype: str,
+             budget: int, limits: DeviceLimits) -> TilePlan:
+    """The TilePlan of one tile under the kernel's footprint model."""
+    model = unified_smem_bytes if unified else split_smem_bytes
+    total, breakdown = model(trellis, spec, ft, pack_survivors=pack_survivors,
+                             radix=radix, layout=layout, bm_dtype=bm_dtype)
+    threads = ft * max(trellis.num_states, 32)
+    resident = (_resident_frames(total, threads, ft, limits)
+                if total <= budget else 0)
+    return TilePlan(int(ft), total, breakdown, budget,
+                    "unified" if unified else "split", Layout(layout),
+                    str(bm_dtype), False, resident)
+
+
+def plan_tiles(trellis: Trellis, spec: FrameSpec, *,
+               pack_survivors: bool = False, radix: int = 2,
+               smem_budget: int | None = None,
+               max_frames: int | None = None, unified: bool = True,
+               layout=Layout.LANE, bm_dtype: str = "float32",
+               device=None) -> TilePlan:
+    """Pick frames_per_tile for one kernel configuration.
+
+    Among the candidate tiles (``candidate_tiles``) whose block fits
+    ``smem_budget`` (default: the device's opt-in per-block limit), the
+    one with the most resident frames per SM, and among those the
+    smallest; the smallest candidate when none fits. ``max_frames`` caps
+    the tile near the frame count. ``unified=False`` budgets the forward
+    kernel of the split path. ``device=None`` is ``"cuda"`` (its limits
+    are queried; raises without a card); the CPU plans for the H100."""
+    spec.validate()
+    _check_knobs(layout, bm_dtype)
+    limits = device_limits(device)
+    budget = limits.smem_per_block if smem_budget is None else int(smem_budget)
+    best = None
+    for ft in candidate_tiles(trellis, max_frames):
+        plan = _tile_at(trellis, spec, ft, unified=unified,
+                        pack_survivors=pack_survivors, radix=radix,
+                        layout=layout, bm_dtype=bm_dtype, budget=budget,
+                        limits=limits)
+        if best is None or plan.frames_per_sm > best.frames_per_sm:
+            best = plan
+        if not plan.fits:                    # footprints grow with the tile
+            break
+    return best
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The full configuration the decode front end executes: kernel knobs
+    (tile) plus the streaming geometry (chunk sizing across devices).
+    ``block_frames``/``overlap`` are the intra-frame block-parallel knobs
+    (kernels/block.py), always stored resolved (1/0 = blocking off); when
+    on, ``tile`` is planned for the derived per-block spec and
+    ``frames_per_tile`` counts blocks."""
+    tile: TilePlan
+    pack_survivors: bool
+    radix: int
+    chunk_frames: int         # frames the stream front end batches per chunk
+    num_devices: int          # chunk_frames is a multiple of tiles x devices
+    block_frames: int = 1     # intra-frame blocks per frame (1 = off)
+    overlap: int = 0          # per-block training/truncation stages
+
+    @property
+    def unified(self) -> bool:
+        return self.tile.kernel == "unified"
+
+    @property
+    def frames_per_tile(self) -> int:
+        return self.tile.frames_per_tile
+
+    def kernel_kwargs(self) -> dict:
+        """kwargs for ops.viterbi_decode_frames, ready to splat."""
+        return dict(unified=self.unified,
+                    frames_per_tile=self.tile.frames_per_tile,
+                    pack_survivors=self.pack_survivors, radix=self.radix,
+                    layout=Layout(self.tile.layout).value,
+                    bm_dtype=self.tile.bm_dtype,
+                    block_frames=self.block_frames, overlap=self.overlap)
+
+    def cache_key(self) -> tuple:
+        """Stable, hashable identity of the full plan, with the JAX
+        package's tuple structure: everything that changes the launched
+        decode (kernel knobs, block decomposition) or the launch geometry
+        (chunk sizing across devices)."""
+        return (*self.tile.cache_key(), bool(self.pack_survivors),
+                int(self.radix), int(self.chunk_frames),
+                int(self.num_devices), int(self.block_frames),
+                int(self.overlap))
+
+    def fingerprint(self) -> str:
+        """Short hex digest of cache_key(), the same across processes."""
+        import hashlib
+        return hashlib.sha1(repr(self.cache_key()).encode()).hexdigest()[:10]
+
+
+def measure_plan(trellis: Trellis, spec: FrameSpec, plan: DecodePlan, *,
+                 reps: int = 2, frames: int | None = None,
+                 device=None) -> dict:
+    """Time one DecodePlan with real launches of the kernels it selects.
+
+    One warm-up call (it also builds the kernels), then ``reps`` timed
+    calls of ``ops.viterbi_decode_frames``, keeping the minimum. On the
+    card each call is timed with CUDA events; on the CPU (``device="cpu"``,
+    the plain versions) with the host clock. ``frames`` defaults to the
+    plan's ``chunk_frames``. Returns the tune-DB record
+    ``{ms, mbps, frames, reps, interpret, timer, fingerprint}``, where
+    ``interpret`` says the plain version ran instead of the kernels (the
+    JAX record's Pallas interpret flag)."""
+    from . import ops
+    dev = _resolve_device(device)
+    F = int(frames if frames is not None else plan.chunk_frames)
+    rng = np.random.default_rng(0)
+    llr = torch.from_numpy(rng.standard_normal(
+        (F, spec.frame_len, trellis.beta)).astype(np.float32)).to(dev)
+    kw = plan.kernel_kwargs()
+
+    def launch():
+        return ops.viterbi_decode_frames(llr, trellis, spec, device=dev,
+                                         **kw)
+
+    cuda = dev.type == "cuda"
+    launch()                                  # build + warm-up
+    best = math.inf
+    for _ in range(max(1, int(reps))):
+        if cuda:
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0.record()
+            launch()
+            t1.record()
+            t1.synchronize()
+            sec = t0.elapsed_time(t1) / 1e3
+        else:
+            c0 = time.perf_counter()
+            launch()
+            sec = time.perf_counter() - c0
+        best = min(best, sec)
+    return {"ms": best * 1e3, "mbps": F * spec.f / best / 1e6, "frames": F,
+            "reps": int(reps), "interpret": not cuda,
+            "timer": "cuda_events" if cuda else "host_clock",
+            "fingerprint": plan.fingerprint()}
+
+
+#: What ``layout='auto'`` takes, for both kernels. On Hopper the layout
+#: changes no shared memory, so both layouts plan the same tile. The
+#: unified kernel keeps its survivors on chip, where the layout does
+#: nothing. For the split path it orients the survivor stream in device
+#: memory, and the lane stream measured faster on the H100 (chip_smoke.py's
+#: split timings, PERF.md): the forward kernel writes each frame's words
+#: into a row of its own, and the traceback kernel reads either layout in
+#: the same time. ``measure=True`` still times the other layout.
+AUTO_LAYOUT = Layout.LANE
+
+
+def _measure_candidates(trellis: Trellis, plan_spec: FrameSpec,
+                        analytic: DecodePlan, *, layout, unified: bool,
+                        pack_survivors: bool, radix: int, bm_dtype: str,
+                        budget: int, limits: DeviceLimits, num_devices: int,
+                        bf: int, ov: int, chunk_frames, top_k: int):
+    """Top-k candidate plans for the timing pass: the analytic winner, the
+    other layout at the same tile (layout='auto' only: the measurement
+    second-guesses the layout rule), and the half/double tile variants.
+    Deduped by cache_key; analytic order kept so ties resolve to the
+    model's choice."""
+    tiles = [analytic.tile]
+    ft0 = analytic.tile.frames_per_tile
+    tile_kw = dict(unified=unified, pack_survivors=pack_survivors,
+                   radix=radix, bm_dtype=bm_dtype, budget=budget,
+                   limits=limits)
+    if layout == "auto":
+        other = (Layout.SUBLANE if analytic.tile.layout is Layout.LANE
+                 else Layout.LANE)
+        tiles.append(_tile_at(trellis, plan_spec, ft0, layout=other,
+                              **tile_kw))
+    cap = candidate_tiles(trellis)[-1]
+    for ft in (ft0 // 2, ft0 * 2):
+        if 1 <= ft <= cap:
+            tiles.append(_tile_at(trellis, plan_spec, ft,
+                                  layout=analytic.tile.layout, **tile_kw))
+    out, seen = [], set()
+    for t in tiles:
+        cf = (int(chunk_frames) if chunk_frames is not None
+              else 2 * max(1, t.frames_per_tile // bf) * num_devices)
+        p = DecodePlan(t, pack_survivors, radix, cf, num_devices, bf, ov)
+        if p.cache_key() not in seen:
+            seen.add(p.cache_key())
+            out.append(p)
+    return out[:max(1, int(top_k))]
+
+
+def plan_decode(trellis: Trellis, spec: FrameSpec, *, unified: bool = True,
+                pack_survivors: bool = True, radix: int = 4,
+                bm_dtype: str = "float32", layout="auto",
+                smem_budget: int | None = None, num_devices: int = 1,
+                chunk_frames: int | None = None,
+                max_frames: int | None = None,
+                frames_per_tile: int | None = None,
+                block_frames: int | str = 1,
+                overlap: int | None = None,
+                measure: bool = False, tunedb: TuneDB | None = None,
+                measure_top_k: int = 3, measure_reps: int = 2,
+                measure_frames: int | None = None,
+                device=None) -> DecodePlan:
+    """Plan the whole decode: kernel, layout, tile, and chunk geometry.
+
+    ``layout='auto'`` takes ``lane`` (``AUTO_LAYOUT`` gives the reason).
+    ``chunk_frames`` defaults to two tiles per device.
+    ``frames_per_tile`` pins the tile instead of planning it.
+    ``block_frames``/``overlap`` (an int, or ``"auto"``) plan the tile for
+    the derived per-block spec; tiles then count blocks, while
+    ``chunk_frames`` stays in outer frames.
+
+    ``measure=True`` times the top-k candidates (``_measure_candidates``)
+    on ``device`` (``measure_plan``) and keeps the one with the highest
+    measured Mb/s. Timings persist in the tune DB (``tunedb=``, default
+    ``TUNE_DB``) keyed by ``DecodePlan.fingerprint()`` x
+    ``platform_id(device)``, so a plan is measured once per (card, code).
+
+    Every call runs under a ``plan_decode`` tracing span whose attributes
+    carry the chosen plan and its shared memory against the budget and,
+    under ``measure=True``, the measured ms and Mb/s and how many
+    candidates came from the DB.
+    """
+    with get_tracer().span("plan_decode") as sp:
+        spec.validate()
+        device = _resolve_device(device)
+        limits = device_limits(device)
+        budget = (limits.smem_per_block if smem_budget is None
+                  else int(smem_budget))
+        bf, ov = resolve_block(trellis, spec, block_frames, overlap)
+        plan_spec = spec.blocked(bf, ov) if bf > 1 else spec
+        eff_max = (max_frames * bf if (max_frames is not None and bf > 1)
+                   else max_frames)
+        lay = AUTO_LAYOUT if layout == "auto" else Layout(layout)
+        if frames_per_tile is not None:
+            tile = _tile_at(trellis, plan_spec, int(frames_per_tile),
+                            unified=unified, pack_survivors=pack_survivors,
+                            radix=radix, layout=lay, bm_dtype=bm_dtype,
+                            budget=budget, limits=limits)
+        else:
+            tile = plan_tiles(trellis, plan_spec,
+                              pack_survivors=pack_survivors, radix=radix,
+                              smem_budget=budget, max_frames=eff_max,
+                              unified=unified, layout=lay, bm_dtype=bm_dtype,
+                              device=device)
+        chunk = (int(chunk_frames) if chunk_frames is not None
+                 else 2 * max(1, tile.frames_per_tile // bf) * num_devices)
+        plan = DecodePlan(tile, pack_survivors, radix, chunk,
+                          num_devices, bf, ov)
+        if measure:
+            db = tunedb if tunedb is not None else TUNE_DB
+            if frames_per_tile is not None:
+                candidates = [plan]       # pinned tile: measure + record it
+            else:
+                candidates = _measure_candidates(
+                    trellis, plan_spec, plan, layout=layout, unified=unified,
+                    pack_survivors=pack_survivors, radix=radix,
+                    bm_dtype=bm_dtype, budget=budget, limits=limits,
+                    num_devices=num_devices, bf=bf, ov=ov,
+                    chunk_frames=chunk_frames, top_k=measure_top_k)
+            plat = platform_id(device)
+            records, fresh = [], 0
+            for cand in candidates:
+                rec = db.get(cand.fingerprint(), plat)
+                if rec is None:
+                    rec = measure_plan(trellis, spec, cand,
+                                       reps=measure_reps,
+                                       frames=measure_frames, device=device)
+                    db.put(cand.fingerprint(), rec, plat)
+                    db.record_measure()
+                    fresh += 1
+                records.append((cand, rec))
+            analytic_fp = plan.fingerprint()
+            plan, best = max(records,
+                             key=lambda pr: pr[1].get("mbps", 0.0))
+            tile = plan.tile
+            sp.set(measured_ms=round(float(best["ms"]), 4),
+                   measured_mbps=round(float(best["mbps"]), 4),
+                   measure_candidates=len(records), measure_new=fresh,
+                   measure_cached=len(records) - fresh,
+                   analytic_fingerprint=analytic_fp)
+        sp.set(kernel=tile.kernel, layout=Layout(tile.layout).value,
+               frames_per_tile=tile.frames_per_tile,
+               bm_dtype=str(tile.bm_dtype),
+               chunk_frames=int(plan.chunk_frames),
+               num_devices=int(num_devices), block_frames=int(bf),
+               overlap=int(ov), smem_bytes=tile.smem_bytes,
+               smem_budget=tile.budget, fits=tile.fits,
+               frames_per_sm=tile.frames_per_sm,
+               fingerprint=plan.fingerprint())
+        return plan

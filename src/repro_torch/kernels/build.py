@@ -42,7 +42,8 @@ class Built:
 
 
 _built: dict[str, Built] = {}
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -72,8 +73,12 @@ def _digest() -> str:
 
 def build(source: str) -> Built:
     """Compile ``csrc/<source>`` (once per process and content hash) and
-    load it. Raises RuntimeError with nvcc's output if the build fails."""
-    with _lock:
+    load it. Raises RuntimeError with nvcc's output if the build fails.
+    Different sources build concurrently when called from several
+    threads; one source is built once."""
+    with _locks_guard:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         if source in _built:
             return _built[source]
         stem = Path(source).stem

@@ -3,8 +3,8 @@
 //
 // CUDA counterpart of repro.kernels.acs.acs_scan (the JAX package's shared
 // Pallas body) and of the plain torch acs_scan in repro_torch/kernels/acs.py.
-// The unified kernel includes this header; the split kernel will include it
-// too, so the two kernels run one recursion and cannot drift apart.
+// The unified kernel and the split path's forward kernel both include this
+// header, so the two kernels run one recursion and cannot drift apart.
 //
 // Arithmetic, held bit for bit against the plain version:
 //   bm(h)  = sum_b signs_half[h][b] * llr[b], over b in order, in float32,

@@ -244,13 +244,22 @@ long long viterbi_unified_smem_bytes(int k, int L, int nsub, int pack,
       .total;
 }
 
-// Largest dynamic shared memory a block may opt in to on `device`.
-int viterbi_unified_smem_limit(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  return v;
+// The limits the tile planner (kernels/autotune.py) models, for `device`:
+// out = {opt-in shared memory per block, shared memory per SM, threads per
+// SM, resident blocks per SM, shared memory the runtime reserves per
+// block}. Returns 0, or the CUDA error of the first query that fails.
+int viterbi_device_limits(int device, int* out) {
+  const cudaDeviceAttr attrs[5] = {
+      cudaDevAttrMaxSharedMemoryPerBlockOptin,
+      cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+      cudaDevAttrMaxThreadsPerMultiProcessor,
+      cudaDevAttrMaxBlocksPerMultiprocessor,
+      cudaDevAttrReservedSharedMemoryPerBlock};
+  for (int i = 0; i < 5; ++i) {
+    const cudaError_t err = cudaDeviceGetAttribute(&out[i], attrs[i], device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).

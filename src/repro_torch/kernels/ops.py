@@ -1,10 +1,15 @@
 """Public decode call over the kernels: port of ``repro.kernels.ops``.
 
-Validates the frames, applies the intra-frame block reframe/merge, resolves
-the tile, encodes the serial traceback as one subframe (``f0=f, v2s=v2``),
-records a ``kernel_trace`` event, pads the frame count to the tile and
-dispatches to the unified kernel. The split path (``unified=False``) comes
-with its kernel in the next slice of the port.
+Validates the frames, applies the intra-frame block reframe/merge,
+resolves ``frames_per_tile="auto"`` through the tile planner
+(kernels/autotune.py, for the kernel that will run), encodes the serial
+traceback as one subframe (``f0=f, v2s=v2``), records a ``kernel_trace``
+event, pads the frame count to the tile and dispatches:
+
+* ``unified=True``  — the unified kernel: survivors never leave the chip;
+* ``unified=False`` — the split path, the prior-work baseline: the forward
+  kernel streams survivors and per-stage argmax to device memory in the
+  chosen layout, and the traceback kernel reads them back.
 """
 from __future__ import annotations
 
@@ -13,16 +18,13 @@ import torch
 from ..core.framed import FrameSpec, merge_blocks, reframe_blocks
 from ..core.trellis import Trellis
 from ..obs.tracer import get_tracer
+from .autotune import plan_tiles
 from .packing import Layout
+from .traceback_frames import traceback_frames
+from .viterbi_fwd import forward_frames
 from .viterbi_unified import unified_decode_frames
 
-__all__ = ["viterbi_decode_frames", "resolve_device", "AUTO_FRAMES_PER_TILE"]
-
-#: What ``frames_per_tile="auto"`` resolves to until the planner is ported:
-#: four frames per thread block (256 threads at K=7). Small blocks leave
-#: several resident blocks per SM to cover each other's two barriers per
-#: stage. Bits do not depend on the tile.
-AUTO_FRAMES_PER_TILE = 4
+__all__ = ["viterbi_decode_frames", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,12 +60,11 @@ def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
     Knobs as in the JAX package: every combination decodes bit-identically
     to the reference except ``bm_dtype='bfloat16'`` (branch metrics rounded
     once) and ``block_frames > 1`` (truncated traceback per block, exact
-    when ``overlap >= block.full_overlap``). ``layout`` and ``interpret``
-    are TPU knobs, recorded and without effect here."""
-    if not unified:
-        raise NotImplementedError(
-            "unified=False (the split kernel, backend='kernel_split') is "
-            "ported in the next slice of the port")
+    when ``overlap >= block.full_overlap``). ``layout`` orients the split
+    path's survivor stream in device memory (lane: frame-major; sublane:
+    frames trailing) and is recorded without effect by the unified
+    kernel, whose survivors stay on chip. ``interpret`` is a TPU knob,
+    recorded and without effect here."""
     dev = resolve_device(device)
     frames = torch.as_tensor(frames).to(dev)
     spec.validate()
@@ -93,7 +94,10 @@ def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
         spec = sub
     lay = Layout(layout)
     if frames_per_tile == "auto":
-        frames_per_tile = AUTO_FRAMES_PER_TILE
+        frames_per_tile = plan_tiles(
+            trellis, spec, pack_survivors=pack_survivors, radix=radix,
+            unified=unified, layout=lay, bm_dtype=bm_dtype,
+            max_frames=frames.shape[0], device=dev).frames_per_tile
     # serial traceback == one subframe spanning the kept region
     f0 = spec.f0 if spec.parallel_tb else spec.f
     v2s = spec.v2s if spec.parallel_tb else spec.v2
@@ -102,7 +106,7 @@ def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
     # PyTorch runs eagerly, so unlike the JAX package (one event per XLA
     # compile) this records every call, under the same names.
     trace = get_tracer()
-    trace.event("kernel_trace", kernel="unified",
+    trace.event("kernel_trace", kernel="unified" if unified else "split",
                 frames=int(frames.shape[0]),
                 frames_per_tile=int(frames_per_tile), layout=lay.value,
                 bm_dtype=str(bm_dtype), radix=int(radix),
@@ -112,11 +116,26 @@ def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
     trace.count("kernel_traces")
 
     padded, F = _pad_frames(frames.contiguous(), frames_per_tile)
-    bits = unified_decode_frames(
-        padded, trellis=trellis, v1=spec.v1, f=spec.f, v2=spec.v2,
-        f0=f0, v2s=v2s, start=start, frames_per_tile=frames_per_tile,
-        pack_survivors=pack_survivors, radix=radix, layout=lay.value,
-        bm_dtype=bm_dtype)[:F]
+    if unified:
+        bits = unified_decode_frames(
+            padded, trellis=trellis, v1=spec.v1, f=spec.f, v2=spec.v2,
+            f0=f0, v2s=v2s, start=start, frames_per_tile=frames_per_tile,
+            pack_survivors=pack_survivors, radix=radix, layout=lay.value,
+            bm_dtype=bm_dtype)[:F]
+    else:
+        sel, amax = forward_frames(
+            padded, trellis=trellis, frames_per_tile=frames_per_tile,
+            pack_survivors=pack_survivors, radix=radix, layout=lay.value,
+            bm_dtype=bm_dtype)
+        # the device-memory round trip; the sublane stream keeps frames on
+        # the trailing axis
+        if lay is Layout.SUBLANE:
+            sel = sel[..., :F]
+        else:
+            sel = sel[:F]
+        bits = traceback_frames(
+            sel, amax[:F], trellis=trellis, v1=spec.v1, f=spec.f, f0=f0,
+            v2s=v2s, start=start, packed=pack_survivors, layout=lay.value)
     if block_frames > 1:
         bits = merge_blocks(bits, block_frames)       # (F_in, f)
         assert bits.shape[0] == F_in

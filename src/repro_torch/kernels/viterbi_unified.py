@@ -35,6 +35,7 @@ import torch
 
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
+from .autotune import device_limits
 from .build import build
 from .packing import Layout, extract_bit, pack_bits, packed_width
 from .tables import kernel_tables
@@ -57,8 +58,8 @@ def kernel_library():
         lib.viterbi_unified_launch.restype = i
         lib.viterbi_unified_smem_bytes.argtypes = [i] * 7
         lib.viterbi_unified_smem_bytes.restype = ctypes.c_longlong
-        lib.viterbi_unified_smem_limit.argtypes = [i]
-        lib.viterbi_unified_smem_limit.restype = i
+        lib.viterbi_device_limits.argtypes = [i, ctypes.POINTER(i)]
+        lib.viterbi_device_limits.restype = i
         lib._argtypes_set = True
     return built
 
@@ -156,9 +157,7 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     nsub = f // f0
     pack = int(pack_survivors)
     fixed = int(start == "fixed")
-    limit = lib.viterbi_unified_smem_limit(dev.index)
-    if limit <= 0:
-        raise RuntimeError(f"cannot query shared memory of {dev}")
+    limit = device_limits(dev).smem_per_block
     fpb = min(frames_per_tile, 1024 // tpf, F)
     while fpb and lib.viterbi_unified_smem_bytes(
             k, L, nsub, pack, fixed, fpb, 0) > limit:

@@ -1,0 +1,574 @@
+"""The port's tile planner and tune DB (kernels/autotune.py,
+kernels/tunedb.py), on the CPU.
+
+Mirrors tests/test_autotune.py and tests/test_tunedb.py test for test.
+The TPU-specific cases (Mosaic lane padding, the sublane layout's doubled
+tiles) become their Hopper counterparts: the shared-memory model is the
+kernels' own carve-up, packing keeps its ratio in both layouts, and the
+packed plan holds more resident frames per SM. On the CPU the planner
+plans for the H100 (``H100_LIMITS``) and ``measure=True`` times the plain
+versions with the host clock. Also: a tune DB written by the JAX package
+loads here and keeps its rows, and ``DecodePlan.cache_key()`` is the JAX
+package's tuple for the same knobs.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.framed import FrameSpec, frame_llr
+from repro_torch.core.trellis import STD_K7, make_trellis
+from repro_torch.kernels import autotune, ops, ref
+from repro_torch.kernels.autotune import (H100_LIMITS, candidate_tiles,
+                                          measure_plan, plan_decode,
+                                          plan_tiles, split_smem_bytes,
+                                          unified_smem_bytes)
+from repro_torch.kernels.packing import Layout
+from repro_torch.kernels.tunedb import (SCHEMA, TuneDB, TuneDBWarning,
+                                        default_path, platform_id,
+                                        platform_key)
+from repro_torch.obs.tracer import Tracer, set_tracer
+
+torch.set_num_threads(1)
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+SPEC = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
+CPU = dict(device="cpu")
+K9 = make_trellis(9, (0o753, 0o561))
+
+
+# ---- tests/test_autotune.py ------------------------------------------------
+
+def test_footprint_matches_kernel_scratch():
+    """The sel term is the kernel's survivor carve-up: one byte per state
+    unpacked, one bit packed (8x less at S=64); the rest is
+    knob-independent."""
+    L, FT, S = SPEC.frame_len, 4, STD_K7.num_states
+    _, plain = unified_smem_bytes(STD_K7, SPEC, FT)
+    _, packed = unified_smem_bytes(STD_K7, SPEC, FT, pack_survivors=True)
+    d_plain, d_packed = dict(plain), dict(packed)
+    assert d_plain["sel_survivors"] == L * FT * S
+    assert d_packed["sel_survivors"] == L * FT * (S // 32) * 4
+    assert d_plain["sel_survivors"] == 8 * d_packed["sel_survivors"]
+    for k in d_plain:
+        if k != "sel_survivors":
+            assert d_plain[k] == d_packed[k]
+
+
+def test_footprint_scales_linearly_in_ft():
+    t4, _ = unified_smem_bytes(STD_K7, SPEC, 4)
+    t16, _ = unified_smem_bytes(STD_K7, SPEC, 16)
+    assert t16 == 4 * t4
+    s4, _ = split_smem_bytes(STD_K7, SPEC, 4)
+    s16, _ = split_smem_bytes(STD_K7, SPEC, 16)
+    assert s16 == 4 * s4
+
+
+def test_packed_plan_is_deeper():
+    """On Hopper the packed plan holds more resident frames per SM (the
+    unpacked survivors fill the SM's shared memory first)."""
+    plain = plan_tiles(STD_K7, SPEC, **CPU)
+    packed = plan_tiles(STD_K7, SPEC, pack_survivors=True, **CPU)
+    assert plain.frames_per_sm == 10          # 233472 // (21120 + 1024)
+    assert packed.frames_per_sm == 32         # 2048 threads / 64 per frame
+    assert packed.frames_per_sm > plain.frames_per_sm
+    assert packed.fits and packed.budget == H100_LIMITS.smem_per_block
+
+
+def test_plan_respects_budget_and_floor():
+    # a tiny budget still yields the smallest candidate (kernel must run)
+    p = plan_tiles(STD_K7, SPEC, smem_budget=1, **CPU)
+    assert p.frames_per_tile == 1 and not p.fits and p.frames_per_sm == 0
+    # whatever the budget, the tile stops at the thread cap
+    p = plan_tiles(STD_K7, SPEC, pack_survivors=True, smem_budget=1 << 30,
+                   **CPU)
+    assert p.frames_per_tile <= 1024 // 64
+    assert 0 < p.utilization() < 1
+
+
+def test_plan_caps_at_stream_length():
+    """K=5 (32 threads a frame) needs two frames a block to fill the SM's
+    threads within its 32 block slots; one frame caps the tile at 1."""
+    k5 = make_trellis(5, (0o23, 0o35))
+    p = plan_tiles(k5, SPEC, pack_survivors=True, **CPU)
+    assert p.frames_per_tile == 2 and p.frames_per_sm == 64
+    p = plan_tiles(k5, SPEC, pack_survivors=True, max_frames=1, **CPU)
+    assert p.frames_per_tile == 1
+    assert candidate_tiles(k5, max_frames=5) == [1, 2, 4, 8]
+
+
+def test_plan_scales_with_state_count():
+    """K=9 (S=256) frames take 4x the threads: fewer resident frames."""
+    p7 = plan_tiles(STD_K7, SPEC, pack_survivors=True, **CPU)
+    p9 = plan_tiles(K9, SPEC, pack_survivors=True, **CPU)
+    assert p9.frames_per_sm < p7.frames_per_sm
+    assert p9.frames_per_sm == 2048 // 256 and p9.fits
+
+
+def test_smem_model_is_the_kernel_carve_up():
+    """Hopper counterpart of test_mosaic_padding_model: the model is the
+    kernels' own arithmetic (csrc/*.cu smem_layout / fwd_smem), term by
+    term; tests/test_torch_gpu.py holds it to the compiled kernels."""
+    L, FT = SPEC.frame_len, 3
+    _, bd = unified_smem_bytes(STD_K7, SPEC, FT, pack_survivors=True)
+    assert dict(bd) == {"path_metrics": 2 * FT * 64 * 4,
+                        "max_reduce": FT * 2 * 4,
+                        "argmax_words": FT * (256 // 32) * 2 * 4,
+                        "sel_survivors": FT * L * 2 * 4}
+    fixed = dataclasses.replace(SPEC, start="fixed")
+    assert dict(unified_smem_bytes(STD_K7, fixed, FT)[1])["argmax_words"] == 0
+    serial = FrameSpec(f=256, v1=20, v2=45)        # one subframe per frame
+    assert dict(unified_smem_bytes(STD_K7, serial, FT)[1])[
+        "argmax_words"] == FT * 2 * 4
+    k4 = make_trellis(4, (0o13, 0o15, 0o17))       # S=8: padded to a warp
+    _, bd = unified_smem_bytes(k4, SPEC, FT, pack_survivors=True)
+    assert dict(bd)["path_metrics"] == 2 * FT * 32 * 4
+    assert dict(bd)["sel_survivors"] == FT * L * 4
+    _, bd = split_smem_bytes(K9, SPEC, FT)
+    assert dict(bd) == {"path_metrics": 2 * FT * 256 * 4,
+                        "max_reduce": FT * 8 * 4, "argmax_words": FT * 8 * 4}
+
+
+def test_lane_packing_evaporates_under_mosaic():
+    """Hopper counterpart: nothing pads a lane on Hopper, so packing keeps
+    its full ratio (one bit for a byte) in both layouts, and the layout
+    changes no shared memory."""
+    for layout in ("lane", "sublane"):
+        _, p = unified_smem_bytes(STD_K7, SPEC, 4, pack_survivors=True,
+                                  layout=layout)
+        _, u = unified_smem_bytes(STD_K7, SPEC, 4, layout=layout)
+        assert dict(u)["sel_survivors"] == 8 * dict(p)["sel_survivors"]
+    assert unified_smem_bytes(STD_K7, SPEC, 4, layout="lane") == \
+        unified_smem_bytes(STD_K7, SPEC, 4, layout="sublane")
+
+
+def test_sublane_plan_doubles_frames_at_equal_budget():
+    """Hopper counterpart: at the same budget the packed plan keeps over
+    2x (3.2x) the resident frames per SM of the unpacked one, in both
+    layouts (on the TPU it was the sublane layout that kept packing's
+    compression)."""
+    for layout in ("lane", "sublane"):
+        packed = plan_tiles(STD_K7, SPEC, pack_survivors=True, radix=4,
+                            layout=layout, **CPU)
+        plain = plan_tiles(STD_K7, SPEC, radix=4, layout=layout, **CPU)
+        assert packed.fits and packed.frames_per_sm >= 2 * plain.frames_per_sm
+
+
+def test_split_model_is_smaller_and_plans_deeper():
+    """plan_tiles(unified=False) budgets the forward kernel (no survivor
+    scratch): smaller at every tile, more resident frames than unpacked
+    unified survivors, and it fits a budget one unified frame exceeds."""
+    for ft in (1, 4, 16):
+        u, _ = unified_smem_bytes(STD_K7, SPEC, ft, pack_survivors=True)
+        s, bd = split_smem_bytes(STD_K7, SPEC, ft, pack_survivors=True)
+        assert s < u
+        assert {n for n, _ in bd} == {"path_metrics", "max_reduce",
+                                      "argmax_words"}
+    pu = plan_tiles(STD_K7, SPEC, **CPU)
+    ps = plan_tiles(STD_K7, SPEC, unified=False, **CPU)
+    assert ps.kernel == "split" and pu.kernel == "unified"
+    assert ps.frames_per_sm > pu.frames_per_sm
+    budget = 2048           # under one packed unified frame (3152 B)
+    pu = plan_tiles(STD_K7, SPEC, pack_survivors=True, smem_budget=budget,
+                    **CPU)
+    ps = plan_tiles(STD_K7, SPEC, pack_survivors=True, smem_budget=budget,
+                    unified=False, **CPU)
+    assert not pu.fits and ps.fits and ps.frames_per_sm > 0
+
+
+def test_bf16_halves_bm_term():
+    """Hopper counterpart: branch metrics live in registers, so bf16 (and
+    radix) change no shared memory; a bad bm_dtype still raises."""
+    _, f32 = unified_smem_bytes(STD_K7, SPEC, 4, pack_survivors=True)
+    _, bf16 = unified_smem_bytes(STD_K7, SPEC, 4, pack_survivors=True,
+                                 bm_dtype="bfloat16", radix=4)
+    assert bf16 == f32
+    with pytest.raises(ValueError, match="bm_dtype"):
+        unified_smem_bytes(STD_K7, SPEC, 4, bm_dtype="float16")
+    with pytest.raises(ValueError, match="bm_dtype"):
+        split_smem_bytes(STD_K7, SPEC, 4, bm_dtype="float16")
+
+
+def test_plan_decode_full_plan():
+    """plan_decode returns everything the front end executes: auto layout
+    resolves to lane (the layout measured faster on the H100 for the split
+    stream, and without effect on the unified kernel), kernel kwargs splat
+    into ops, and the chunk is a multiple of tiles x devices."""
+    p = plan_decode(STD_K7, SPEC, num_devices=4, **CPU)
+    assert p.tile.layout is Layout.LANE
+    assert p.unified and p.pack_survivors and p.radix == 4
+    assert p.chunk_frames == 2 * p.frames_per_tile * 4
+    kw = p.kernel_kwargs()
+    assert kw["layout"] == "lane" and kw["unified"] is True
+    assert kw["frames_per_tile"] == p.frames_per_tile
+    ps = plan_decode(STD_K7, SPEC, unified=False, **CPU)
+    assert not ps.unified and ps.tile.kernel == "split"
+    assert ps.tile.layout is Layout.LANE
+
+
+def test_candidates_lift_the_256_cap():
+    """Hopper counterpart: candidates are the powers of two up to the
+    thread cap 1024 // max(S, 32) (32 at K<=6, 16 at K=7, 4 at K=9, 1 at
+    K=11), capped at the smallest that covers max_frames."""
+    assert candidate_tiles(make_trellis(5, (0o23, 0o35)))[-1] == 32
+    assert candidate_tiles(STD_K7) == [1, 2, 4, 8, 16]
+    assert candidate_tiles(K9)[-1] == 4
+    k11 = make_trellis(11, (0o3345, 0o3613))
+    assert candidate_tiles(k11) == [1]
+    assert candidate_tiles(STD_K7, max_frames=3) == [1, 2, 4]
+    assert candidate_tiles(STD_K7, max_frames=300) == [1, 2, 4, 8, 16]
+
+
+def test_kernel_runs_beyond_256_frames_per_tile():
+    """A tile (padding granule) of 512 frames decodes exactly: the kernel
+    wrappers run at most the thread cap's frames per block."""
+    spec = FrameSpec(f=16, v1=8, v2=8)
+    rng = np.random.default_rng(0)
+    llr = torch.from_numpy(rng.standard_normal((330 * 16, 2))
+                           .astype(np.float32))
+    frames = frame_llr(llr, spec)
+    want = ref.unified_decode_frames_ref(frames, STD_K7, spec)
+    for unified in (True, False):
+        got = ops.viterbi_decode_frames(
+            frames, STD_K7, spec, unified=unified, frames_per_tile=512,
+            pack_survivors=True, radix=4, layout="sublane", device="cpu")
+        assert torch.equal(got, want)
+
+
+def test_plan_cache_key_and_pinned_tile():
+    a = plan_decode(STD_K7, SPEC, **CPU)
+    b = plan_decode(STD_K7, SPEC, **CPU)
+    assert a.cache_key() == b.cache_key()
+    assert a.fingerprint() == b.fingerprint()
+    c = plan_decode(STD_K7, SPEC, radix=2, **CPU)
+    assert a.cache_key() != c.cache_key()
+    d = plan_decode(STD_K7, SPEC, chunk_frames=7, **CPU)
+    assert a.cache_key() != d.cache_key()
+    p = plan_decode(STD_K7, SPEC, layout="lane", frames_per_tile=8, **CPU)
+    assert p.frames_per_tile == 8 and p.tile.layout is Layout.LANE
+    assert p.chunk_frames == 2 * 8            # chunk follows the pinned tile
+
+
+def test_geometry_validation_errors():
+    with pytest.raises(ValueError, match="multiple of f0"):
+        plan_tiles(STD_K7, FrameSpec(f=256, v1=20, v2=45, f0=48, v2s=45),
+                   **CPU)
+    with pytest.raises(ValueError, match="exceeds v2"):
+        plan_tiles(STD_K7, FrameSpec(f=256, v1=20, v2=20, f0=32, v2s=45),
+                   **CPU)
+    plan_tiles(STD_K7, SPEC, **CPU)
+
+
+def test_plan_identity_differs_for_every_knob():
+    base = plan_decode(STD_K7, SPEC, layout="sublane", **CPU)
+    variants = [
+        ("frames_per_tile",
+         dataclasses.replace(base, tile=dataclasses.replace(
+             base.tile, frames_per_tile=base.tile.frames_per_tile * 2))),
+        ("kernel", dataclasses.replace(base, tile=dataclasses.replace(
+            base.tile, kernel="split"))),
+        ("layout", dataclasses.replace(base, tile=dataclasses.replace(
+            base.tile, layout=Layout.LANE))),
+        ("bm_dtype", dataclasses.replace(base, tile=dataclasses.replace(
+            base.tile, bm_dtype="bfloat16"))),
+        ("pack_survivors", dataclasses.replace(base, pack_survivors=False)),
+        ("radix", dataclasses.replace(base, radix=2)),
+        ("chunk_frames",
+         dataclasses.replace(base, chunk_frames=base.chunk_frames + 1)),
+        ("num_devices", dataclasses.replace(base, num_devices=2)),
+        ("block_frames", dataclasses.replace(base, block_frames=4,
+                                             overlap=16)),
+        ("overlap", dataclasses.replace(base, block_frames=4, overlap=20)),
+    ]
+    keys = {}
+    for name, plan in [("base", base)] + variants:
+        key, fp = plan.cache_key(), plan.fingerprint()
+        for other, (okey, ofp) in keys.items():
+            assert key != okey, f"{name} aliases {other} in cache_key()"
+            assert fp != ofp, f"{name} aliases {other} in fingerprint()"
+        keys[name] = (key, fp)
+    relabeled = dataclasses.replace(base, tile=dataclasses.replace(
+        base.tile, smem_bytes=base.tile.smem_bytes + 1, frames_per_sm=1))
+    assert relabeled.cache_key() == base.cache_key()
+    assert relabeled.fingerprint() == base.fingerprint()
+
+
+def test_fingerprint_stable_across_processes():
+    prog = (
+        "from repro_torch.core.framed import FrameSpec\n"
+        "from repro_torch.core.trellis import STD_K7\n"
+        "from repro_torch.kernels.autotune import plan_decode\n"
+        "spec = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)\n"
+        "p = plan_decode(STD_K7, spec, layout='sublane', block_frames=4,\n"
+        "                overlap=45, device='cpu')\n"
+        "print(p.fingerprint())\n")
+    here = plan_decode(STD_K7, SPEC, layout="sublane", block_frames=4,
+                       overlap=45, **CPU)
+    assert here.block_frames == 4 and here.overlap == 45
+    out = subprocess.run([sys.executable, "-c", prog], check=True,
+                         capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)))
+    assert out.stdout.strip() == here.fingerprint()
+
+
+def test_cache_key_is_the_jax_tuple():
+    """For the same knobs (pinned tile and layout) the port's cache key is
+    the JAX package's tuple, element for element, and so is its
+    fingerprint."""
+    from repro.core import FrameSpec as JFrameSpec
+    from repro.core import STD_K7 as JSTD_K7
+    from repro.kernels import autotune as jautotune
+    jspec = JFrameSpec(**vars(SPEC))
+    for knobs in (dict(layout="sublane", frames_per_tile=8),
+                  dict(layout="lane", frames_per_tile=4, unified=False,
+                       radix=2, pack_survivors=False, num_devices=2),
+                  dict(layout="sublane", frames_per_tile=16,
+                       block_frames=4, overlap=45, chunk_frames=9)):
+        port = plan_decode(STD_K7, SPEC, **knobs, **CPU)
+        jax_plan = jautotune.plan_decode(JSTD_K7, jspec, **knobs)
+        assert port.cache_key() == jax_plan.cache_key()
+        assert [type(x) for x in port.cache_key()] == \
+            [type(x) for x in jax_plan.cache_key()]
+        assert port.fingerprint() == jax_plan.fingerprint()
+
+
+def test_auto_tile_in_ops_is_the_planners():
+    """frames_per_tile="auto" in ops comes from plan_tiles for the kernel
+    that runs, and decodes exactly."""
+    from repro_torch.obs import tracer as obs
+    spec = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)
+    k5 = make_trellis(5, (0o23, 0o35))
+    frames = torch.zeros((6, spec.frame_len, 2))
+    for unified in (True, False):
+        tracer = obs.Tracer()
+        prev = obs.set_tracer(tracer)
+        try:
+            ops.viterbi_decode_frames(frames, k5, spec, unified=unified,
+                                      device="cpu")
+        finally:
+            obs.set_tracer(prev)
+        (ev,) = [s for s in tracer.spans() if s.name == "kernel_trace"]
+        assert ev.attrs["frames_per_tile"] == plan_tiles(
+            k5, spec, pack_survivors=True, radix=4, unified=unified,
+            max_frames=6, **CPU).frames_per_tile == 2
+
+
+def test_device_limits_need_a_card_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert autotune.device_limits("cpu") == H100_LIMITS
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        plan_tiles(STD_K7, SPEC)
+
+
+# ---- tests/test_tunedb.py --------------------------------------------------
+
+TSPEC = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)
+MEASURE_KW = dict(measure=True, measure_reps=1, chunk_frames=4,
+                  frames_per_tile=8, device="cpu")
+
+
+@pytest.fixture
+def db_path(tmp_path, monkeypatch):
+    p = str(tmp_path / "tunedb.json")
+    monkeypatch.setenv("REPRO_TUNE_DB", p)
+    return p
+
+
+def test_default_path_env_override(db_path):
+    assert default_path() == db_path
+    assert TuneDB().path == db_path
+
+
+def test_default_path_without_env(monkeypatch):
+    monkeypatch.delenv("REPRO_TUNE_DB", raising=False)
+    assert default_path() == os.path.join(
+        os.path.expanduser("~"), ".cache", "repro_viterbi", "tunedb.json")
+
+
+def test_platform_key_includes_torch_version():
+    pid = platform_id("cpu")
+    assert set(pid) == {"backend", "device_kind", "torch_version",
+                        "cuda_version"}
+    assert pid["backend"] == "cpu" and pid["device_kind"] == "cpu"
+    key = platform_key(pid)
+    assert key.count("/") == 2 and pid["torch_version"] in key
+    other = dict(pid, device_kind="weird-accelerator")
+    assert platform_key(other) != key
+
+
+def test_measure_plan_record_shape(db_path):
+    plan = plan_decode(STD_K7, TSPEC, frames_per_tile=8, chunk_frames=4,
+                       **CPU)
+    rec = measure_plan(STD_K7, TSPEC, plan, reps=1, **CPU)
+    assert rec["ms"] > 0 and rec["mbps"] > 0
+    assert rec["frames"] == plan.chunk_frames
+    assert rec["fingerprint"] == plan.fingerprint()
+    assert rec["interpret"] is True and rec["timer"] == "host_clock"
+
+
+def test_round_trip_second_instance_zero_remeasure(db_path):
+    db1 = TuneDB()
+    p1 = plan_decode(STD_K7, TSPEC, tunedb=db1, **MEASURE_KW)
+    s1 = db1.stats()
+    assert s1["measures"] >= 1 and s1["entries"] >= 1
+    t = Tracer()
+    set_tracer(t)
+    try:
+        db2 = TuneDB()
+        p2 = plan_decode(STD_K7, TSPEC, tunedb=db2, **MEASURE_KW)
+    finally:
+        set_tracer(None)
+    s2 = db2.stats()
+    assert s2["measures"] == 0, "second instance re-measured a cached plan"
+    assert s2["hits"] >= 1 and s2["misses"] == 0
+    assert p2.cache_key() == p1.cache_key()
+    counters = t.counters()
+    assert counters.get("tunedb_hits", 0) >= 1
+    assert "tunedb_measures" not in counters
+    assert "tunedb_misses" not in counters
+
+
+def test_round_trip_across_real_processes(db_path):
+    db = TuneDB()
+    p = plan_decode(STD_K7, TSPEC, tunedb=db, **MEASURE_KW)
+    assert db.stats()["measures"] >= 1
+    prog = (
+        "import json\n"
+        "from repro_torch.core.framed import FrameSpec\n"
+        "from repro_torch.core.trellis import STD_K7\n"
+        "from repro_torch.kernels.autotune import plan_decode\n"
+        "from repro_torch.kernels.tunedb import TuneDB\n"
+        "from repro_torch.obs.tracer import Tracer, set_tracer\n"
+        "t = Tracer(); set_tracer(t)\n"
+        "db = TuneDB()\n"
+        "spec = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)\n"
+        "p = plan_decode(STD_K7, spec, measure=True, tunedb=db,\n"
+        "                measure_reps=1, chunk_frames=4, frames_per_tile=8,\n"
+        "                device='cpu')\n"
+        "print(json.dumps({'stats': db.stats(), 'counters': t.counters(),\n"
+        "                  'fp': p.fingerprint()}))\n")
+    out = subprocess.run([sys.executable, "-c", prog], check=True,
+                         capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)))
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["fp"] == p.fingerprint()
+    assert got["stats"]["measures"] == 0
+    assert got["stats"]["hits"] >= 1 and got["stats"]["misses"] == 0
+    assert got["counters"].get("tunedb_hits", 0) >= 1
+    assert "tunedb_measures" not in got["counters"]
+
+
+def test_changed_fingerprint_remeasures(db_path):
+    db = TuneDB()
+    plan_decode(STD_K7, TSPEC, tunedb=db, **MEASURE_KW)
+    before = db.stats()["measures"]
+    plan_decode(STD_K7, TSPEC, tunedb=db, radix=2, **MEASURE_KW)
+    assert db.stats()["measures"] > before
+
+
+def test_changed_device_kind_remeasures(db_path, monkeypatch):
+    db = TuneDB()
+    plan_decode(STD_K7, TSPEC, tunedb=db, **MEASURE_KW)
+    before = db.stats()["measures"]
+    fake = dict(platform_id("cpu"), device_kind="other-cpu")
+    monkeypatch.setattr(autotune, "platform_id", lambda device=None: fake)
+    plan_decode(STD_K7, TSPEC, tunedb=db, **MEASURE_KW)
+    stats = db.stats()
+    assert stats["measures"] > before
+    assert stats["platforms"] == 2
+
+
+def test_corrupt_db_warns_never_crashes(db_path):
+    with open(db_path, "w") as fh:
+        fh.write('{"schema": "repro.tunedb/v1", "platforms": [1, 2]}')
+    db = TuneDB()
+    with pytest.warns(TuneDBWarning, match="unusable"):
+        assert db.get("deadbeef00", platform_id("cpu")) is None
+    db.put("deadbeef00", {"ms": 1.0, "mbps": 2.0}, platform_id("cpu"))
+    with open(db_path) as fh:
+        doc = json.load(fh)
+    assert doc["schema"] == SCHEMA
+    assert TuneDB().get("deadbeef00", platform_id("cpu"))["mbps"] == 2.0
+
+
+@pytest.mark.parametrize("garbage", ["not json at all{{{",
+                                     '["a", "list"]',
+                                     '{"schema": "something/else"}'])
+def test_bad_files_all_warn(db_path, garbage):
+    with open(db_path, "w") as fh:
+        fh.write(garbage)
+    with pytest.warns(TuneDBWarning):
+        assert TuneDB().get("aa", platform_id("cpu")) is None
+
+
+def test_concurrent_writers_merge_rows(db_path):
+    cpu = platform_id("cpu")
+    a, b = TuneDB(), TuneDB()
+    a.get("fp_a", cpu)
+    b.get("fp_b", cpu)
+    a.put("fp_a", {"ms": 1.0, "mbps": 10.0}, cpu)
+    b.put("fp_b", {"ms": 2.0, "mbps": 20.0}, cpu)
+    c = TuneDB()
+    assert c.get("fp_a", cpu)["mbps"] == 10.0
+    assert c.get("fp_b", cpu)["mbps"] == 20.0
+    assert c.stats()["entries"] == 2
+
+
+def test_invalidate_deletes_file(db_path):
+    cpu = platform_id("cpu")
+    db = TuneDB()
+    db.put("fp", {"ms": 1.0, "mbps": 1.0}, cpu)
+    assert os.path.exists(db_path)
+    db.invalidate()
+    assert not os.path.exists(db_path)
+    assert db.get("fp", cpu) is None
+
+
+def test_measured_span_attrs(db_path):
+    t = Tracer()
+    set_tracer(t)
+    try:
+        plan_decode(STD_K7, TSPEC, tunedb=TuneDB(), **MEASURE_KW)
+    finally:
+        set_tracer(None)
+    (span,) = [r for r in t.spans() if r.name == "plan_decode"]
+    at = span.attrs
+    assert at["measured_ms"] > 0 and at["measured_mbps"] > 0
+    assert at["smem_bytes"] > 0                  # predicted, still there
+    assert at["measure_candidates"] == at["measure_new"] == 1
+    assert at["measure_cached"] == 0
+    assert at["fingerprint"] == at["analytic_fingerprint"]
+
+
+def test_measured_choice_among_candidates(db_path):
+    db = TuneDB()
+    plan = plan_decode(STD_K7, TSPEC, tunedb=db, measure=True,
+                       measure_reps=1, measure_top_k=2, chunk_frames=4,
+                       **CPU)
+    stats = db.stats()
+    assert stats["entries"] == 2 and stats["measures"] == 2
+    assert db.get(plan.fingerprint(), platform_id("cpu")) is not None
+
+
+def test_jax_written_db_loads_and_keeps_its_rows(db_path):
+    """A file written by the JAX package's TuneDB loads in the port: its
+    rows are found under the JAX platform key, and a port write keeps
+    them."""
+    from repro.kernels.tunedb import TuneDB as JTuneDB
+    from repro.kernels.tunedb import platform_id as jplatform_id
+    jpid = jplatform_id()
+    JTuneDB(db_path).put("jaxfp00001", {"ms": 3.0, "mbps": 4.0}, jpid)
+    port = TuneDB(db_path)
+    assert port.get("jaxfp00001", jpid)["mbps"] == 4.0
+    port.put("portfp0001", {"ms": 1.0, "mbps": 2.0}, platform_id("cpu"))
+    doc = json.loads(Path(db_path).read_text())
+    assert doc["schema"] == SCHEMA
+    assert doc["platforms"][platform_key(jpid)]["jaxfp00001"]["ms"] == 3.0
+    assert JTuneDB(db_path).get("jaxfp00001", jpid)["mbps"] == 4.0
+    assert port.stats()["platforms"] == 2

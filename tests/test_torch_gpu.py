@@ -1,10 +1,11 @@
-"""The port's CUDA kernel against its plain torch version, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card.
 
 Marked ``gpu``: each test asks its fixture for a card and skips without
 one. Run on the card with ``pytest -m gpu tests/test_torch_gpu.py``. The
 card's machine has no JAX, so this file imports none: parity with the JAX
-package is held on the CPU (test_torch_kernels.py, test_torch_pipeline.py)
-and the kernel is held here, exactly (torch.equal), to the plain version.
+package is held on the CPU (test_torch_kernels.py, test_torch_pipeline.py,
+test_torch_split.py, test_torch_autotune.py) and each kernel is held here,
+exactly (torch.equal), to its plain version.
 """
 import numpy as np
 import pytest
@@ -13,8 +14,12 @@ import torch
 from repro_torch.core.encoder import encode
 from repro_torch.core.framed import FrameSpec, frame_llr
 from repro_torch.core.pipeline import DecoderConfig, make_decoder
-from repro_torch.core.trellis import make_trellis
+from repro_torch.core.trellis import STD_K7, make_trellis
+from repro_torch.kernels import autotune
+from repro_torch.kernels import traceback_frames as tbf
+from repro_torch.kernels import viterbi_fwd as vf
 from repro_torch.kernels import viterbi_unified as vu
+from repro_torch.kernels.tunedb import TuneDB
 
 pytestmark = pytest.mark.gpu
 
@@ -107,3 +112,97 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         vu.unified_decode_frames_cuda(
             frames.transpose(0, 1).contiguous().transpose(0, 1), **kw)
+
+
+@pytest.mark.parametrize("code", CODES)
+@pytest.mark.parametrize("spec", [
+    FrameSpec(f=64, v1=20, v2=21),
+    FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21),
+    FrameSpec(f=96, v1=12, v2=24, f0=24, v2s=20, start="fixed")])
+@pytest.mark.parametrize("layout", ["lane", "sublane"])
+def test_split_kernels_equal_plain(cuda, code, spec, layout):
+    """The forward kernel's sel and amax, and the traceback kernel's bits,
+    equal their plain versions for every knob."""
+    frames = _frames(code, spec, 12, 5, cuda)
+    kw = _kw(code, spec)
+    for pack in (False, True):
+        for radix in (2, 4):
+            for bm in ("float32", "bfloat16"):
+                fkw = dict(trellis=kw["trellis"], frames_per_tile=4,
+                           pack_survivors=pack, radix=radix, layout=layout,
+                           bm_dtype=bm)
+                before = vf.forward_frames_cuda.launches
+                sel, amax = vf.forward_frames(frames, **fkw)
+                assert vf.forward_frames_cuda.launches == before + 1
+                psel, pamax = vf.forward_frames_plain(frames, **fkw)
+                assert sel.dtype == psel.dtype and torch.equal(sel, psel)
+                assert torch.equal(amax, pamax)
+                tkw = dict(trellis=kw["trellis"], v1=spec.v1, f=spec.f,
+                           f0=kw["f0"], v2s=kw["v2s"], start=spec.start,
+                           packed=pack, layout=layout)
+                before = tbf.traceback_frames_cuda.launches
+                got = tbf.traceback_frames(sel, amax, **tkw)
+                assert tbf.traceback_frames_cuda.launches == before + 1
+                assert torch.equal(got, tbf.traceback_frames_plain(
+                    psel, pamax, **tkw))
+
+
+def test_split_path_goes_through_both_kernels(cuda):
+    spec = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
+    n = 64 * 256 + 17
+    rng = np.random.default_rng(6)
+    stream = rng.standard_normal(2 * n).astype(np.float32)
+    counters = (vf.forward_frames_cuda, tbf.traceback_frames_cuda,
+                vu.unified_decode_frames_cuda)
+    before = [c.launches for c in counters]
+    got = make_decoder(DecoderConfig(spec=spec, backend="kernel_split"))(
+        stream, n)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0]
+    want = make_decoder(DecoderConfig(spec=spec), "cuda")(stream, n)
+    assert got.is_cuda and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("code", CODES)
+def test_smem_models_equal_kernel_carve_up(cuda, code):
+    """autotune's shared-memory models are the kernels' own numbers."""
+    tr = make_trellis(*code)
+    ulib, flib = vu.kernel_library().lib, vf.kernel_library().lib
+    specs = [FrameSpec(f=64, v1=20, v2=21),
+             FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45),
+             FrameSpec(f=96, v1=12, v2=24, f0=24, v2s=20, start="fixed")]
+    for spec in specs:
+        kw = _kw(code, spec)
+        nsub = spec.f // kw["f0"]
+        fixed = int(kw["start"] == "fixed")
+        for fpb in autotune.candidate_tiles(tr):
+            for pack in (False, True):
+                got, _ = autotune.unified_smem_bytes(
+                    tr, spec, fpb, pack_survivors=pack)
+                assert got == ulib.viterbi_unified_smem_bytes(
+                    tr.k, spec.frame_len, nsub, int(pack), fixed, fpb, 0)
+            got, _ = autotune.split_smem_bytes(tr, spec, fpb)
+            assert got == flib.viterbi_fwd_smem_bytes(tr.k, fpb)
+
+
+def test_device_limits_query(cuda):
+    """The queried limits are Hopper's, the ones the CPU plans with."""
+    limits = autotune.device_limits("cuda")
+    assert limits.smem_per_block >= 48 * 1024
+    if "H100" in torch.cuda.get_device_name(0):
+        assert limits == autotune.H100_LIMITS
+
+
+def test_plan_decode_measures_into_a_temporary_db(cuda, tmp_path):
+    spec = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)
+    path = str(tmp_path / "tunedb.json")
+    db = TuneDB(path)
+    plan = autotune.plan_decode(STD_K7, spec, measure=True, tunedb=db,
+                                measure_reps=2, measure_frames=64)
+    assert db.stats()["measures"] >= 1
+    rec = db.get(plan.fingerprint())
+    assert rec["ms"] > 0 and rec["timer"] == "cuda_events"
+    assert rec["interpret"] is False
+    again = TuneDB(path)
+    assert autotune.plan_decode(STD_K7, spec, measure=True, tunedb=again,
+                                measure_reps=2, measure_frames=64) == plan
+    assert again.stats()["measures"] == 0

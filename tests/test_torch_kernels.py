@@ -22,7 +22,7 @@ from repro.kernels import ref as jref
 from repro_torch.core.encoder import encode_bits
 from repro_torch.core.framed import FrameSpec, frame_llr
 from repro_torch.core.trellis import make_trellis
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import autotune, ops, ref
 from repro_torch.kernels import viterbi_unified as vu
 from repro_torch.obs import tracer as obs
 
@@ -207,8 +207,10 @@ def test_ops_entry_validation():
         ops.viterbi_decode_frames(frames[..., :1], tr, spec, **kw)
     with pytest.raises(ValueError, match="floating"):
         ops.viterbi_decode_frames(frames.to(torch.int32), tr, spec, **kw)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ops.viterbi_decode_frames(frames, tr, spec, unified=False, **kw)
+    # the split path (unified=False) decodes, to the unified kernel's bits
+    split = ops.viterbi_decode_frames(frames, tr, spec, unified=False, **kw)
+    assert torch.equal(split, ops.viterbi_decode_frames(frames, tr, spec,
+                                                        **kw))
 
 
 def test_no_card_without_device_raises(monkeypatch):
@@ -232,7 +234,9 @@ def test_kernel_trace_event_records_knobs():
     (ev,) = [s for s in tracer.spans() if s.name == "kernel_trace"]
     assert ev.kind == "instant"
     assert ev.attrs["frames"] == 3 and ev.attrs["layout"] == "sublane"
-    assert ev.attrs["frames_per_tile"] == ops.AUTO_FRAMES_PER_TILE
+    assert ev.attrs["frames_per_tile"] == autotune.plan_tiles(
+        make_trellis(*K7), spec, pack_survivors=True, radix=2,
+        layout="sublane", max_frames=3, device="cpu").frames_per_tile
     assert ev.attrs["radix"] == 2 and ev.attrs["device"] == "cpu"
     assert tracer.counters() == {"kernel_traces": 1}
     assert obs.get_tracer() is obs.NULL_TRACER
