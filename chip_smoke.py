@@ -11,14 +11,16 @@ non-zero:
 1. device  — the card's name and power limit (nvidia-smi) and torch's name.
 2. build   — nvcc builds every kernel of the paths from `kernels/csrc`, one
              process per source, all started together; prints the seconds
-             and the -Xptxas -v report of each.
+             and, for the two ACS kernels, the -Xptxas -v registers and
+             spills of every instantiation (registers per lane R x beta).
 3. parity  — each kernel's wrapper against its plain torch version on the
-             card, exactly (torch.equal). Unified kernel: the knob grid and
-             codes, a ragged frame count, a frame too long for shared
-             memory. Forward kernel: sel and amax over the same grid, both
-             layouts. Traceback kernel: against the plain serial/parallel
-             chase over the forward kernel's outputs. The split path through
-             ops with a ragged frame count.
+             card, exactly (torch.equal), over the codes K=3, 4 (beta=3),
+             5, 6, 7, 9, 11. Unified kernel: the knob grid, bf16/f16 LLRs,
+             frames too long for shared memory. Forward kernel: sel and
+             amax over the same grid, both layouts. Traceback kernel:
+             against the plain serial/parallel chase over the forward
+             kernel's outputs. Both paths through ops with a ragged frame
+             count.
 4. main    — make_decoder(backend="kernel"), then
              make_decoder(backend="kernel_split"), each at full size: K=7,
              n = 2^22 bits, Eb/N0 = 3 dB, rates 1/2 and 3/4. Launch counts
@@ -31,13 +33,15 @@ non-zero:
              its plain version and its bound; the unified kernel's knob
              sweep and its auto tile against tile 4 (must be within 2 %);
              the split path's layouts; the whole split call against the
-             whole unified call; plan_decode(measure=True) into a temporary
-             tune DB, then read back from it.
-
-    python3 chip_smoke.py --profile
-
-adds, after phase 5, a torch.profiler breakdown of one warm rate-1/2
-make_decoder call: device time by kernel and the device's busy share.
+             whole unified call (median and quartiles over 20 rounds, and
+             the host's dispatch time per call); plan_decode(measure=True)
+             into a temporary tune DB, then read back from it. Beside each
+             ACS kernel's time, the resident frames per SM and registers
+             the planner predicts.
+6. profile — a torch.profiler breakdown of one warm rate-1/2 make_decoder
+             call per backend: device time by kernel, the device's busy
+             share, and the glue's share (device time outside the decode
+             kernels: clip, depuncture, frame gather, pad) of the call.
 
 The line before the last is a JSON `kernels` line; the last line is the
 JSON `ok` line with the device.
@@ -62,6 +66,9 @@ BER_LIMIT = 1e-3
 SEED = 0
 #: The auto tile may be at most this much slower than tile 4 (B1).
 AUTO_TILE_SLACK = 0.02
+#: Whole make_decoder calls: rounds per backend, calls back to back each.
+E2E_ROUNDS = 20
+E2E_CALLS = 5
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
 # operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -73,8 +80,13 @@ ACS_OPS = 6
 # mask, the butterfly's shift-and-or, the bit out. Counted against the f32
 # non-tensor rate, the table's nearest; they never bind.
 TB_OPS = 6
-CODES = [(4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)), (7, (0o171, 0o133)),
-         (9, (0o753, 0o561))]
+#: K=3 (S=4: eight frames a warp), K=4 beta=3, K=5, K=6 (S=32: one
+#: register a lane), K=7, K=9 and K=11 (S=1024: 32 registers a lane).
+CODES = [(3, (0o7, 0o5)), (4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)),
+         (6, (0o65, 0o57)), (7, (0o171, 0o133)), (9, (0o753, 0o561)),
+         (11, (0o3345, 0o3613))]
+DECODE_KERNELS = ("viterbi_unified_kernel", "viterbi_fwd_kernel",
+                  "traceback_frames_kernel")
 
 
 def log(phase: str, msg: str) -> None:
@@ -125,23 +137,42 @@ def phase_device():
         f"count {torch.cuda.device_count()}")
 
 
-def _ptxas_report(built, kernel: str) -> str:
-    """ptxas -v: per instantiation a 'Compiling entry' line, a spill line,
-    then 'Used N registers'."""
-    report, name, spill = [], None, None
+def _ptxas_spills(built, kernel: str) -> dict:
+    """Spill stores (bytes) by (R, beta) from the -Xptxas -v report: a
+    'Function properties for <kernel><R, BETA>' line, then its stack and
+    spill line."""
+    spills, key = {}, None
     for ln in built.log.splitlines():
-        m = re.search(kernel + r"\w*", ln)
-        if m and "Compiling entry" in ln:
-            beta = re.search(r"ILi(\d+)E", m.group(0))
-            name = f"beta={beta.group(1)}" if beta else kernel
-        elif "spill" in ln:
-            spill = re.findall(r"(\d+) bytes spill stores", ln)
-        elif "Used" in ln and name:
-            regs = re.search(r"Used (\d+) registers", ln)
-            report.append(f"{name}: {regs.group(1) if regs else '?'} regs, "
-                          f"{spill[0] if spill else '?'} B spilled")
-            name = None
-    return "; ".join(report)
+        m = re.search(r"Function properties for \w*" + kernel +
+                      r"ILi(\d+)ELi(\d+)E", ln)
+        if m:
+            key = (int(m.group(1)), int(m.group(2)))
+            continue
+        sp = re.search(r"(\d+) bytes spill stores", ln)
+        if sp and key is not None:
+            spills[key] = int(sp.group(1))
+        key = None
+    return spills
+
+
+def register_report(built, kernel: str, attrs) -> str:
+    """Registers (cudaFuncGetAttributes) and ptxas spill stores of every
+    instantiation of one ACS kernel: per registers per lane R, beta 2..8."""
+    import ctypes
+    spills = _ptxas_spills(built, kernel)
+    rows = []
+    for k in (2, 7, 8, 9, 10, 11):                  # R = 1, 2, 4, ..., 32
+        R = max(1, (1 << (k - 1)) // 32)
+        regs = []
+        for beta in range(2, 9):
+            out = (ctypes.c_int * 3)()
+            if attrs(k, beta, out) != 0:
+                raise RuntimeError(f"{kernel} k={k} beta={beta}: no "
+                                   f"function attributes")
+            regs.append(f"{out[0]}/{spills.get((R, beta), '?')}")
+        rows.append(f"R={R}: " + " ".join(regs))
+    return (f"{kernel} registers/spilled bytes, beta 2..8 (R=1 serves "
+            f"k<=6): " + "; ".join(rows))
 
 
 def phase_build():
@@ -157,9 +188,13 @@ def phase_build():
         built = {k: fut.result() for k, fut in futures.items()}
     wall = time.perf_counter() - t0
     for kernel, b in built.items():
-        log("build", f"{b.path.name} nvcc {b.seconds:.1f} s; "
-            + _ptxas_report(b, kernel))
+        log("build", f"{b.path.name} nvcc {b.seconds:.1f} s")
     log("build", f"all {len(built)} sources in {wall:.1f} s (parallel)")
+    for kernel, attrs in (("viterbi_unified_kernel",
+                           "viterbi_unified_func_attrs"),
+                          ("viterbi_fwd_kernel", "viterbi_fwd_func_attrs")):
+        log("build", register_report(built[kernel], kernel,
+                                     getattr(built[kernel].lib, attrs)))
 
 
 def _frames(trellis, spec, nframes, gen, dtype):
@@ -240,45 +275,51 @@ def phase_parity(gen):
                                 "traceback " + what)
                             counts["traceback"] += 1
     # LLRs arriving in bf16/f16, a ragged frame count through ops' padding
-    tr = make_trellis(7, (0o171, 0o133))
     spec = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)
-    for dtype in (torch.bfloat16, torch.float16):
-        frames = _frames(tr, spec, 8, gen, dtype)
-        kw = dict(trellis=tr, v1=16, f=64, v2=20, f0=16, v2s=20,
-                  frames_per_tile=8, pack_survivors=True, radix=4)
+    for k, polys in CODES:
+        tr = make_trellis(k, polys)
+        for dtype in (torch.bfloat16, torch.float16):
+            frames = _frames(tr, spec, 8, gen, dtype)
+            kw = dict(trellis=tr, v1=16, f=64, v2=20, f0=16, v2s=20,
+                      frames_per_tile=8, pack_survivors=True, radix=4)
+            _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
+                         vu.unified_decode_frames_plain(frames, **kw),
+                         f"unified k={k} {dtype} LLRs")
+            fkw = dict(trellis=tr, frames_per_tile=8, pack_survivors=True,
+                       radix=4, layout="sublane")
+            _check_equal(vf.forward_frames_cuda(frames, **fkw),
+                         vf.forward_frames_plain(frames, **fkw),
+                         f"forward k={k} {dtype} LLRs")
+            counts["unified"] += 1
+            counts["forward"] += 1
+        frames = _frames(tr, spec, 13, gen, torch.float32)
+        for unified in (True, False):
+            for layout in ("lane", "sublane"):
+                kw = dict(unified=unified, layout=layout, frames_per_tile=8)
+                got = ops.viterbi_decode_frames(frames, tr, spec,
+                                                device="cuda", **kw)
+                want = ops.viterbi_decode_frames(frames.cpu(), tr, spec,
+                                                 device="cpu", **kw)
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(
+                        f"ragged frame count: card != cpu k={k} {kw}")
+    # frames too long for shared memory: survivors in device scratch
+    # (unpacked K=7 at f=4096, packed K=11 at f=2048)
+    for code, f, pack in ((CODES[4], 4096, False), (CODES[6], 2048, True)):
+        tr = make_trellis(*code)
+        long_spec = FrameSpec(f=f, v1=45, v2=45)
+        frames = _frames(tr, long_spec, 2, gen, torch.float32)
+        kw = dict(trellis=tr, v1=45, f=f, v2=45, f0=f, v2s=45,
+                  frames_per_tile=1, pack_survivors=pack, radix=2)
         _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
                      vu.unified_decode_frames_plain(frames, **kw),
-                     f"unified {dtype} LLRs")
-        fkw = dict(trellis=tr, frames_per_tile=8, pack_survivors=True,
-                   radix=4, layout="sublane")
-        _check_equal(vf.forward_frames_cuda(frames, **fkw),
-                     vf.forward_frames_plain(frames, **fkw),
-                     f"forward {dtype} LLRs")
+                     f"device-memory survivor scratch k={tr.k}")
         counts["unified"] += 1
-        counts["forward"] += 1
-    frames = _frames(tr, spec, 13, gen, torch.float32)
-    for unified in (True, False):
-        for layout in ("lane", "sublane"):
-            kw = dict(unified=unified, layout=layout, frames_per_tile=8)
-            got = ops.viterbi_decode_frames(frames, tr, spec, device="cuda",
-                                            **kw)
-            want = ops.viterbi_decode_frames(frames.cpu(), tr, spec,
-                                             device="cpu", **kw)
-            if not torch.equal(got.cpu(), want):
-                raise AssertionError(f"ragged frame count: card != cpu {kw}")
-    # one frame too long for shared memory: survivors in device scratch
-    long_spec = FrameSpec(f=4096, v1=45, v2=45)
-    frames = _frames(tr, long_spec, 2, gen, torch.float32)
-    kw = dict(trellis=tr, v1=45, f=4096, v2=45, f0=4096, v2s=45,
-              frames_per_tile=1, pack_survivors=False, radix=2)
-    _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
-                 vu.unified_decode_frames_plain(frames, **kw),
-                 "device-memory survivor scratch")
-    counts["unified"] += 1
     log("parity", f"kernel calls equal to the plain version: {counts} "
-        f"(codes K=4 beta=3, K=5, K=7, K=9; pack x radix x layout x "
-        f"bm_dtype; serial, boundary, fixed; bf16/f16 LLRs; device-memory "
-        f"survivors); split and unified ops with a ragged F equal to the CPU")
+        f"(codes K=3, K=4 beta=3, K=5, K=6, K=7, K=9, K=11; pack x radix x "
+        f"layout x bm_dtype; serial, boundary, fixed; bf16/f16 LLRs; "
+        f"device-memory survivors at K=7 and K=11); split and unified ops "
+        f"with a ragged F equal to the CPU for every code")
 
 
 def main_config(rate: str, backend: str):
@@ -416,13 +457,14 @@ def time_unified(frames, launches):
                              f"{ms:.4f} ms, more than {AUTO_TILE_SLACK:.0%} "
                              f"over tile 4's {tiles[4]:.4f} ms")
     log("time", f"viterbi_unified auto tile {auto.frames_per_tile} "
-        f"({auto.frames_per_sm} frames/SM, {auto.smem_bytes} B smem/block) "
+        f"({auto.frames_per_sm} resident frames/SM predicted, "
+        f"{auto.registers} registers, {auto.smem_bytes} B smem/block) "
         f"{ms:.4f} ms vs tile 4 {tiles[4]:.4f} ms "
         f"({(ms / tiles[4] - 1) * 100:+.2f} %, limit "
         f"+{AUTO_TILE_SLACK:.0%}); limits {autotune.device_limits('cuda')}")
     sweep = {}
     for name, knobs in [(f"tile{ft}", dict(frames_per_tile=ft))
-                        for ft in (1, 2, 4, 8, 16)] + [
+                        for ft in autotune.candidate_tiles(STD_K7)] + [
             ("unpacked", dict(pack_survivors=False)),
             ("radix2", dict(radix=2)),
             ("bf16_bm", dict(bm_dtype="bfloat16")),
@@ -458,9 +500,9 @@ def time_split(frames, launches):
     F, L, beta = frames.shape
     S = STD_K7.num_states
     spec = main_config("1/2", "kernel_split").spec
-    ft = autotune.plan_tiles(STD_K7, spec, pack_survivors=True, radix=4,
-                             unified=False, max_frames=F,
-                             device="cuda").frames_per_tile
+    plan = autotune.plan_tiles(STD_K7, spec, pack_survivors=True, radix=4,
+                               unified=False, max_frames=F, device="cuda")
+    ft = plan.frames_per_tile
     entries, by_layout = {}, {}
     for layout in ("lane", "sublane"):
         fkw = dict(trellis=STD_K7, frames_per_tile=ft, pack_survivors=True,
@@ -492,7 +534,9 @@ def time_split(frames, launches):
         cursors = F * nsub
         tbytes = cursors * T * sel.element_size() + cursors * 4 + F * 256 * 4
         tb = bound(tbytes, TB_OPS * cursors * T)
-        log("time", f"split {layout} tile {ft}: viterbi_fwd "
+        log("time", f"split {layout} tile {ft} ({plan.frames_per_sm} "
+            f"resident frames/SM predicted, {plan.registers} registers): "
+            f"viterbi_fwd "
             f"{best['fwd'] * 1e3:.1f} us (bound {fb[0] * 1e3:.1f} us "
             f"{fb[1]}: {fbytes / 1e6:.1f} MB; plain {fplain_ms:.1f} ms); "
             f"traceback_frames {best['tb'] * 1e3:.1f} us (bound "
@@ -538,7 +582,15 @@ def time_split(frames, launches):
 
 def time_end_to_end(rx_half):
     """The paper's unified vs split comparison: whole make_decoder calls on
-    the same card, in turns."""
+    the same card. E2E_ROUNDS rounds in turns (kernel, split, split,
+    kernel, ...), each E2E_CALLS calls back to back: their time per call on
+    the card's clock (CUDA events, synchronised after), and the host's time
+    per call until the last one returns, before the synchronisation. The
+    rate-1/2 path syncs nowhere, so that is what dispatching a call costs
+    the host: where it reaches the call's time, the card waits on the
+    host. Returns the median ms per call by backend."""
+    import statistics
+    import torch
     from repro_torch.core.pipeline import make_decoder
     rx = rx_half.reshape(-1)
     calls = {}
@@ -546,11 +598,34 @@ def time_end_to_end(rx_half):
         decode = make_decoder(main_config("1/2", backend), "cuda")
         decode(rx, N_BITS)
         calls[backend] = (lambda d=decode: d(rx, N_BITS))
-    ms = _interleaved(calls, 5)
-    log("time", f"make_decoder rate 1/2 end to end: kernel {ms['kernel']:.3f} "
-        f"ms ({N_BITS / ms['kernel'] / 1e3:.1f} Mb/s), kernel_split "
-        f"{ms['kernel_split']:.3f} ms ({N_BITS / ms['kernel_split'] / 1e3:.1f}"
-        f" Mb/s); split / unified = {ms['kernel_split'] / ms['kernel']:.3f}")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    card = {b: [] for b in calls}
+    host = {b: [] for b in calls}
+    order = list(calls)
+    for r in range(E2E_ROUNDS):
+        for b in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(E2E_CALLS):
+                calls[b]()
+            host[b].append((time.perf_counter() - t0) * 1e3 / E2E_CALLS)
+            end.record()
+            torch.cuda.synchronize()
+            card[b].append(start.elapsed_time(end) / E2E_CALLS)
+    ms = {}
+    for b in calls:
+        q, h = (statistics.quantiles(x[b], n=4) for x in (card, host))
+        ms[b] = statistics.median(card[b])
+        log("time", f"make_decoder rate 1/2 end to end, {b}: median "
+            f"{ms[b]:.4f} ms per call (q1 {q[0]:.4f}, q3 {q[2]:.4f}, min "
+            f"{min(card[b]):.4f}; {N_BITS / ms[b] / 1e3:.1f} Mb/s); host "
+            f"dispatch median {statistics.median(host[b]):.4f} ms per call "
+            f"(q1 {h[0]:.4f}, q3 {h[2]:.4f}); {E2E_ROUNDS} rounds of "
+            f"{E2E_CALLS} calls")
+    log("time", f"split / unified = "
+        f"{ms['kernel_split'] / ms['kernel']:.3f} (medians)")
+    return ms
 
 
 def time_planner(frames):
@@ -587,15 +662,20 @@ def time_planner(frames):
 
 
 def phase_time(frames, rx_half, launches):
+    """Returns the kernels' JSON entries and the whole calls' ms."""
     unified = time_unified(frames, launches)
     split = time_split(frames, launches)
-    time_end_to_end(rx_half)
+    calls = time_end_to_end(rx_half)
     time_planner(frames)
-    return [unified, split["fwd"], split["tb"]]
+    return [unified, split["fwd"], split["tb"]], calls
 
 
-def phase_profile(rx_half):
-    """Device time by kernel over one warm make_decoder call per backend."""
+def phase_profile(rx_half, call_ms):
+    """Device time by kernel over one warm make_decoder call per backend,
+    and the glue's share: device time outside the decode kernels (clip,
+    depuncture, frame gather, pad, copies) against the whole call's time
+    from phase 5 (CUDA events, no profiler) and against the device's busy
+    time in the profiled call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -619,9 +699,16 @@ def phase_profile(rx_half):
                 rows.append((ev.self_device_time_total, ev.key, ev.count))
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows)
+        decode = sum(us for us, k, _ in rows
+                     if any(name in k for name in DECODE_KERNELS))
+        glue = busy - decode
         log("profile", f"{backend}, one call: host {wall_us:.0f} us, device "
             f"busy {busy:.0f} us ({busy / wall_us:.0%}); by kernel: "
             + "; ".join(f"{k[:60]} x{c} {us:.0f} us" for us, k, c in rows[:8]))
+        log("profile", f"{backend}: decode kernels {decode:.0f} us, glue "
+            f"{glue:.0f} us = {glue / (call_ms[backend] * 1e3):.1%} of the "
+            f"{call_ms[backend]:.3f} ms call (phase 5), {glue / busy:.1%} of "
+            f"the device's busy time")
 
 
 def main() -> int:
@@ -644,9 +731,8 @@ def main() -> int:
     phase_build()
     phase_parity(gen)
     launches, frames, rx = phase_main(gen)
-    entries = phase_time(frames, rx, launches)
-    if "--profile" in sys.argv[1:]:
-        phase_profile(rx)
+    entries, call_ms = phase_time(frames, rx, launches)
+    phase_profile(rx, call_ms)
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:

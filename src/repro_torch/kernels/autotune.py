@@ -1,29 +1,38 @@
-"""Shared-memory and occupancy tile planner for the port's CUDA kernels:
-port of ``repro.kernels.autotune``.
+"""Shared-memory, register and occupancy tile planner for the port's CUDA
+kernels: port of ``repro.kernels.autotune``.
 
 A tile is the number of frames one thread block decodes
 (``frames_per_tile``, also the frame-count padding granule). On the TPU it
 was a memory decision: as many frames per grid step as a VMEM budget
-allows. On Hopper a block runs ``max(S, 32)`` threads per frame, so a
-block holds at most ``1024 // max(S, 32)`` frames (the thread cap), and
-its shared memory is the kernel's own carve-up, which
-``unified_smem_bytes`` / ``split_smem_bytes`` reproduce term for term
-(the kernels export the same numbers: ``viterbi_unified_smem_bytes``,
-``viterbi_fwd_smem_bytes``; the card tests hold them equal). A tile fits
-when its block's shared memory is within the budget: by default the
-per-block opt-in limit, queried on the card, and on the CPU the H100's
-227 KB (``H100_LIMITS``), so a plan made on the CPU is the H100's plan.
+allows. On Hopper both kernels run one warp per frame with the path
+metrics in registers (32 / S frames per warp when S < 32), and a block is
+at most ``BLOCK_THREADS`` = 256 threads, so a block holds at most
+``max_frames_per_block`` frames (the thread cap). Nothing in the kernels'
+stage loop is block-wide: a block is only a unit of scheduling. Its shared
+memory is the kernel's own carve-up, which ``unified_smem_bytes`` /
+``split_smem_bytes`` reproduce term for term (the kernels export the same
+numbers: ``viterbi_unified_smem_bytes``, ``viterbi_fwd_smem_bytes``; the
+card tests hold them equal): the unified kernel keeps its survivors and
+traceback starts there, the forward kernel nothing. A tile fits when its
+block's shared memory is within the budget: by default the per-block
+opt-in limit, queried on the card, and on the CPU the H100's 227 KB
+(``H100_LIMITS``).
 
 ``plan_tiles`` then picks, among the fitting power-of-two tiles up to the
-thread cap, the one that keeps the most frames resident on an SM (blocks
-per SM are limited by the SM's threads, its block slots, and its shared
-memory with the runtime's per-block reserve; registers are not modelled:
-``__launch_bounds__(1024)`` keeps one full block resident), and among
-those the smallest. Resident frames are what hides the latency of the
-ACS recursion's per-stage exchange; a smaller block has fewer threads
-waiting at each of the two barriers per stage and pads a short stream
-less. If no tile fits, the smallest is returned (``fits`` is false): the
-unified kernel then keeps its survivors in device memory.
+thread cap, the one that keeps the most frames resident on an SM, and
+among those the smallest. Blocks per SM are limited by the SM's threads,
+its block slots, its shared memory with the runtime's per-block reserve,
+and its registers: each kernel instantiation's register count, which the
+kernels export from ``cudaFuncGetAttributes``
+(``viterbi_*_func_attrs``). On the CPU every code plans with
+``H100_REGISTERS``, each kernel's count at K=7 beta=2 recorded from the
+card: there the tile only sets the padding, and a plan for another code
+may differ from the card's. With the path metrics in registers,
+registers bound the resident frames of most codes. Resident
+frames are what hides the latency of each stage's dependent chain (the
+butterfly's shuffles and the max's redux). If no tile fits, the smallest
+is returned (``fits`` is false): the unified kernel then keeps its
+survivors in device memory.
 
 ``plan_decode`` returns the whole plan the decode front end executes:
 kernel, layout, tile and chunk geometry (``chunk_frames`` = two tiles per
@@ -48,12 +57,32 @@ from .packing import Layout, packed_width
 from .tunedb import TUNE_DB, TuneDB, platform_id
 
 __all__ = ["TilePlan", "DecodePlan", "DeviceLimits", "H100_LIMITS",
-           "device_limits", "unified_smem_bytes", "split_smem_bytes",
-           "candidate_tiles", "plan_tiles", "plan_decode", "measure_plan",
-           "AUTO_LAYOUT", "MAX_THREADS_PER_BLOCK"]
+           "H100_REGISTERS", "device_limits", "kernel_registers",
+           "unified_smem_bytes", "split_smem_bytes", "candidate_tiles",
+           "plan_tiles", "plan_decode", "measure_plan", "AUTO_LAYOUT",
+           "BLOCK_THREADS", "lanes_per_frame", "max_frames_per_block",
+           "block_threads"]
 
-MAX_THREADS_PER_BLOCK = 1024
+#: Most threads one block of either kernel runs (csrc/acs.cuh
+#: VIT_BLOCK_THREADS): eight warps.
+BLOCK_THREADS = 256
 _BM_DTYPES = ("float32", "bfloat16")
+
+
+def lanes_per_frame(trellis: Trellis) -> int:
+    """Lanes of a warp one frame's path metrics take: ``min(S, 32)``."""
+    return min(trellis.num_states, 32)
+
+
+def max_frames_per_block(trellis: Trellis) -> int:
+    """The thread cap: eight warps of ``32 // lanes_per_frame`` frames."""
+    return BLOCK_THREADS // 32 * (32 // lanes_per_frame(trellis))
+
+
+def block_threads(trellis: Trellis, frames_per_block: int) -> int:
+    """Threads of a block of that many frames: whole warps."""
+    fpw = 32 // lanes_per_frame(trellis)
+    return -(-int(frames_per_block) // fpw) * 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,13 +93,21 @@ class DeviceLimits:
     threads_per_sm: int
     blocks_per_sm: int
     smem_reserved_per_block: int   # the runtime's own share of each block
+    regs_per_sm: int               # 32-bit registers
 
 
 #: NVIDIA H100 (compute capability 9.0), CUDA C++ Programming Guide table
 #: of compute capabilities: 227 KB opt-in per block, 228 KB per SM, 2048
-#: threads and 32 blocks per SM, 1 KB reserved per block. What the CPU
-#: plans with.
-H100_LIMITS = DeviceLimits(232448, 233472, 2048, 32, 1024)
+#: threads and 32 blocks per SM, 1 KB reserved per block, 64 K registers
+#: per SM. What the CPU plans with.
+H100_LIMITS = DeviceLimits(232448, 233472, 2048, 32, 1024, 65536)
+
+#: Registers per thread of each kernel's instantiation at the main path's
+#: code (K=7, beta=2): ``numRegs`` as ``cudaFuncGetAttributes`` reported it
+#: on an NVIDIA H100 80GB HBM3 (chip_smoke.py's build phase prints every
+#: instantiation's). The CPU plans every code with it; on the card the
+#: planner asks the kernels, whose counts grow with R and beta.
+H100_REGISTERS = {"unified": 48, "split": 48}
 
 _limits: dict = {}
 
@@ -89,12 +126,42 @@ def device_limits(device=None) -> DeviceLimits:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     if index not in _limits:
         from .viterbi_unified import kernel_library
-        out = (ctypes.c_int * 5)()
+        out = (ctypes.c_int * 6)()
         err = kernel_library().lib.viterbi_device_limits(index, out)
         if err != 0:
             raise RuntimeError(f"cannot query cuda:{index}: CUDA error {err}")
         _limits[index] = DeviceLimits(*out)
     return _limits[index]
+
+
+_registers: dict = {}
+
+
+def kernel_registers(trellis: Trellis, *, unified: bool = True,
+                     device=None) -> int:
+    """Registers per thread of the kernel instantiation that runs
+    ``trellis`` (``device=None`` = ``"cuda"``: asked of the built kernel
+    through ``cudaFuncGetAttributes``; the CPU takes ``H100_REGISTERS``,
+    the main path's count, for every code)."""
+    name = "unified" if unified else "split"
+    dev = _resolve_device(device)
+    if dev.type != "cuda":
+        return H100_REGISTERS[name]
+    key = (name, trellis.k, trellis.beta)
+    if key not in _registers:
+        if unified:
+            from .viterbi_unified import kernel_library
+            fn = "viterbi_unified_func_attrs"
+        else:
+            from .viterbi_fwd import kernel_library
+            fn = "viterbi_fwd_func_attrs"
+        out = (ctypes.c_int * 3)()
+        err = getattr(kernel_library().lib, fn)(trellis.k, trellis.beta, out)
+        if err != 0:
+            raise RuntimeError(f"{fn}(k={trellis.k}, beta={trellis.beta}): "
+                               f"CUDA error {err}")
+        _registers[key] = int(out[0])
+    return _registers[key]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +178,7 @@ class TilePlan:
     #: Kept so the two packages' plans have the same fields.
     mosaic: bool = False
     frames_per_sm: int = 0    # resident frames per SM (0: does not fit)
+    registers: int = 0        # per thread, of the kernel instantiation
 
     @property
     def fits(self) -> bool:
@@ -141,26 +209,19 @@ def _check_knobs(layout, bm_dtype):
                          f"{bm_dtype!r}")
 
 
-def _block_terms(trellis: Trellis, fpb: int):
-    """Path metrics [2][fpb][tpf] f32 and the per-warp max [fpb][nw] f32,
-    common to both kernels."""
-    tpf = max(trellis.num_states, 32)
-    return (("path_metrics", 2 * fpb * tpf * 4),
-            ("max_reduce", fpb * (tpf // 32) * 4))
-
-
 def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
                        frames_per_tile: int, *, pack_survivors: bool = False,
                        radix: int = 2, layout=Layout.LANE,
                        bm_dtype: str = "float32"):
     """(total_bytes, breakdown) of one unified-kernel block: the carve-up of
-    ``csrc/viterbi_unified.cu::smem_layout``. Survivors are one bit per
-    state packed (``4 * ceil(S/32)`` bytes a stage) or one byte; argmax
-    words are kept at the traceback starts only (none for
-    ``start='fixed'``). Branch metrics live in registers, so ``bm_dtype``
-    and ``radix`` change nothing, and the layout is not a shared-memory
-    orientation on Hopper; they are accepted so call sites can pass the
-    whole configuration."""
+    ``csrc/viterbi_unified.cu::smem_layout``. Each frame keeps its
+    traceback starts (one int32 state per subframe, the block's padded to
+    16 bytes; none for ``start='fixed'``) and its survivors, one bit per
+    state packed
+    (``4 * ceil(S/32)`` bytes a stage) or one byte. Path metrics and branch
+    metrics live in registers, so ``bm_dtype`` and ``radix`` change
+    nothing, and the layout is not a shared-memory orientation on Hopper;
+    they are accepted so call sites can pass the whole configuration."""
     _check_knobs(layout, bm_dtype)
     del radix
     S = trellis.num_states
@@ -170,8 +231,8 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     nsub = spec.f // f0
     fixed = spec.parallel_tb and spec.start == "fixed"
     row = 4 * W if pack_survivors else S
-    breakdown = (*_block_terms(trellis, fpb),
-                 ("argmax_words", 0 if fixed else fpb * nsub * W * 4),
+    breakdown = (("traceback_starts",
+                  0 if fixed else -(-fpb * nsub * 4 // 16) * 16),
                  ("sel_survivors", fpb * spec.frame_len * row))
     return sum(b for _, b in breakdown), breakdown
 
@@ -181,21 +242,22 @@ def split_smem_bytes(trellis: Trellis, spec: FrameSpec,
                      radix: int = 2, layout=Layout.LANE,
                      bm_dtype: str = "float32"):
     """(total_bytes, breakdown) of one forward-kernel block: the carve-up
-    of ``csrc/viterbi_fwd.cu::fwd_smem``. Its survivors go to device
-    memory, so only the path metrics and the per-warp max and argmax
-    words stay on chip; no knob but the tile changes it."""
+    of ``csrc/viterbi_fwd.cu::fwd_smem``. Its path metrics live in
+    registers and its survivors and argmax go to device memory; each warp
+    stages one run of them (32 words and 32 argmax, 256 bytes) in shared
+    memory, whatever the knobs."""
     _check_knobs(layout, bm_dtype)
     del spec, pack_survivors, radix
-    fpb = int(frames_per_tile)
-    terms = _block_terms(trellis, fpb)
-    breakdown = (*terms, ("argmax_words", terms[1][1]))
-    return sum(b for _, b in breakdown), breakdown
+    warps = block_threads(trellis, frames_per_tile) // 32
+    breakdown = (("run_buffers", warps * 256),)
+    return warps * 256, breakdown
 
 
 def candidate_tiles(trellis: Trellis, max_frames: int | None = None):
-    """Powers of two from 1 up to the thread cap ``1024 // max(S, 32)``,
-    and up to the smallest one that covers ``max_frames``."""
-    cap = MAX_THREADS_PER_BLOCK // max(trellis.num_states, 32)
+    """Powers of two from 1 up to the thread cap
+    ``max_frames_per_block``, and up to the smallest one that covers
+    ``max_frames``."""
+    cap = max_frames_per_block(trellis)
     tiles = [1 << i for i in range(cap.bit_length()) if 1 << i <= cap]
     if max_frames is not None:
         cover = next((t for t in tiles if t >= max_frames), tiles[-1])
@@ -203,26 +265,32 @@ def candidate_tiles(trellis: Trellis, max_frames: int | None = None):
     return tiles
 
 
-def _resident_frames(smem: int, threads: int, fpb: int,
+def _resident_frames(smem: int, threads: int, fpb: int, registers: int,
                      limits: DeviceLimits) -> int:
+    """Frames resident on one SM: blocks limited by threads, block slots,
+    shared memory (with the runtime's reserve) and registers (allocated
+    per warp in units of 256)."""
+    regs_per_warp = -(-registers * 32 // 256) * 256
     blocks = min(limits.threads_per_sm // threads, limits.blocks_per_sm,
-                 limits.smem_per_sm // (smem + limits.smem_reserved_per_block))
+                 limits.smem_per_sm // (smem + limits.smem_reserved_per_block),
+                 limits.regs_per_sm // regs_per_warp // (threads // 32))
     return blocks * fpb
 
 
 def _tile_at(trellis: Trellis, spec: FrameSpec, ft: int, *, unified: bool,
              pack_survivors: bool, radix: int, layout, bm_dtype: str,
-             budget: int, limits: DeviceLimits) -> TilePlan:
+             budget: int, limits: DeviceLimits,
+             registers: int) -> TilePlan:
     """The TilePlan of one tile under the kernel's footprint model."""
     model = unified_smem_bytes if unified else split_smem_bytes
     total, breakdown = model(trellis, spec, ft, pack_survivors=pack_survivors,
                              radix=radix, layout=layout, bm_dtype=bm_dtype)
-    threads = ft * max(trellis.num_states, 32)
-    resident = (_resident_frames(total, threads, ft, limits)
+    threads = block_threads(trellis, ft)
+    resident = (_resident_frames(total, threads, ft, registers, limits)
                 if total <= budget else 0)
     return TilePlan(int(ft), total, breakdown, budget,
                     "unified" if unified else "split", Layout(layout),
-                    str(bm_dtype), False, resident)
+                    str(bm_dtype), False, resident, int(registers))
 
 
 def plan_tiles(trellis: Trellis, spec: FrameSpec, *,
@@ -243,13 +311,14 @@ def plan_tiles(trellis: Trellis, spec: FrameSpec, *,
     spec.validate()
     _check_knobs(layout, bm_dtype)
     limits = device_limits(device)
+    registers = kernel_registers(trellis, unified=unified, device=device)
     budget = limits.smem_per_block if smem_budget is None else int(smem_budget)
     best = None
     for ft in candidate_tiles(trellis, max_frames):
         plan = _tile_at(trellis, spec, ft, unified=unified,
                         pack_survivors=pack_survivors, radix=radix,
                         layout=layout, bm_dtype=bm_dtype, budget=budget,
-                        limits=limits)
+                        limits=limits, registers=registers)
         if best is None or plan.frames_per_sm > best.frames_per_sm:
             best = plan
         if not plan.fits:                    # footprints grow with the tile
@@ -378,7 +447,7 @@ def _measure_candidates(trellis: Trellis, plan_spec: FrameSpec,
     ft0 = analytic.tile.frames_per_tile
     tile_kw = dict(unified=unified, pack_survivors=pack_survivors,
                    radix=radix, bm_dtype=bm_dtype, budget=budget,
-                   limits=limits)
+                   limits=limits, registers=analytic.tile.registers)
     if layout == "auto":
         other = (Layout.SUBLANE if analytic.tile.layout is Layout.LANE
                  else Layout.LANE)
@@ -448,7 +517,9 @@ def plan_decode(trellis: Trellis, spec: FrameSpec, *, unified: bool = True,
             tile = _tile_at(trellis, plan_spec, int(frames_per_tile),
                             unified=unified, pack_survivors=pack_survivors,
                             radix=radix, layout=lay, bm_dtype=bm_dtype,
-                            budget=budget, limits=limits)
+                            budget=budget, limits=limits,
+                            registers=kernel_registers(
+                                trellis, unified=unified, device=device))
         else:
             tile = plan_tiles(trellis, plan_spec,
                               pack_survivors=pack_survivors, radix=radix,
@@ -499,5 +570,5 @@ def plan_decode(trellis: Trellis, spec: FrameSpec, *, unified: bool = True,
                overlap=int(ov), smem_bytes=tile.smem_bytes,
                smem_budget=tile.budget, fits=tile.fits,
                frames_per_sm=tile.frames_per_sm,
-               fingerprint=plan.fingerprint())
+               registers=tile.registers, fingerprint=plan.fingerprint())
         return plan

@@ -7,7 +7,10 @@ flags, so an edited source is rebuilt and a stale library is never loaded.
 Nothing is compiled when a module is imported; no ``--use_fast_math``
 (it would flush denormals and approximate operations, and parity is
 bit-exact). ``-Xptxas -v`` keeps the register, shared-memory and spill
-report beside the library.
+report beside the library. ``-split-compile=0`` lets the device compiler
+optimise a source's kernel instantiations in parallel, one thread per
+core: the two ACS kernels are instantiated per registers-per-lane and
+beta (42 each).
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ __all__ = ["Built", "build", "nvcc_path", "BUILD_DIR", "CSRC", "NVCC_FLAGS"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 
 
 @dataclasses.dataclass

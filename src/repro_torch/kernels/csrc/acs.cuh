@@ -1,26 +1,62 @@
-// Branch metrics + add-compare-select: the device functions shared by the
-// port's Viterbi kernels.
+// Branch metrics + add-compare-select: the register-resident recursion that
+// the port's two Viterbi kernels share.
 //
 // CUDA counterpart of repro.kernels.acs.acs_scan (the JAX package's shared
 // Pallas body) and of the plain torch acs_scan in repro_torch/kernels/acs.py.
 // The unified kernel and the split path's forward kernel both include this
 // header, so the two kernels run one recursion and cannot drift apart.
 //
+// Mapping. One warp holds a frame's S = 2^(k-1) path metrics in registers:
+// state s = 32 r + l lies in lane l, register r < R = S / 32 (S >= 32).
+// Codes with S < 32 give each frame a segment of P = S lanes, R = 1, and a
+// warp decodes 32 / P frames side by side. With P = min(S, 32):
+//   * the predecessors of s, (2 s) & (S-1) and its | 1, lie in lanes
+//     (2 l) & (P-1) and (2 l + 1) & (P-1), register (2 r + (l >= 16)) mod R;
+//     states r and r + R/2 share them. A stage is 2R __shfl_sync and R
+//     selects, with no shared memory and no barrier;
+//   * __ballot_sync of register r is packing.py's LANE word r (state s at bit
+//     s % 32 of word s / 32); a segment's word is cut out of the ballot and
+//     zero-padded, as packing.py pads S < 32;
+//   * the stage's max is R - 1 local fmaxf and one redux.sync over the
+//     segment, on an order-preserving integer image of the floats.
+//
+// What bounds it. A stage of a warp is R / 2 butterflies of 4 shuffles,
+// beta shuffles of the stage's LLRs, R ballots, one redux and, per state,
+// two candidate sums, a compare and a select; no memory is waited on and
+// nothing is block-wide. The six float operations per state and stage are
+// the card's bound; the stage's chain (shuffle, add, compare, max, redux,
+// subtract) and the instructions that share the SM's shuffle and redux
+// pipe are what it spends its time on. The resident frames that hide the
+// chain are bounded by registers (autotune.py models them).
+//
 // Arithmetic, held bit for bit against the plain version:
-//   bm(h)  = sum_b signs_half[h][b] * llr[b], over b in order, in float32,
-//            rounded once to bfloat16 (nearest even) when bm_dtype is bf16.
-//            The signs are +-1, so every product is exact: the kernel
-//            negates instead of multiplying.
-//   cand_p = sigma[((j << 1) & (S-1)) | p] + sgn_p[j] * bm(idx_p[j])
+//   bm_h   = sum_b signs_half[h][b] * llr[b], over b in order, in float32,
+//            rounded once to bfloat16 (nearest even) when bm_dtype is bf16
+//            (a constant argument of the inlined loop: the kernels inline
+//            one loop per bm_dtype);
+//            edge p into state j has the metric sgn_p[j] * bm[idx_p[j]].
+//            Every product is +-x, exact, and rounding to nearest even is
+//            odd-symmetric, so a sign may be folded in before or after the
+//            sum and the rounding (a zero may change sign, which no
+//            comparison sees): each edge folds its sign into its terms.
+//   cand_p = sigma[((j << 1) & (S-1)) | p] + edge metric
 //   sel    = cand1 >= cand0          (ties go to predecessor 1)
 //   sigma' = sel ? cand1 : cand0, then minus the frame's max, every stage.
+//   The first maximal state (JAX's argmax) is the least s with v[s] == max:
+//   a redux.sync min over the lanes' first hits.
+// Radix 4 is two exact radix-2 stages; here every stage runs the same code.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
 
 #define VIT_MAX_BETA 8
+#define VIT_FULL 0xffffffffu
+// Most threads one block of either kernel runs (eight warps): nothing in the
+// recursion is block-wide, so a block is only a unit of scheduling.
+#define VIT_BLOCK_THREADS 256
 
 enum VitLlrDtype { VIT_F32 = 0, VIT_BF16 = 1, VIT_F16 = 2 };
 
@@ -34,59 +70,309 @@ __device__ __forceinline__ float vit_load_llr(const void* p, int dtype,
   return static_cast<const float*>(p)[i];
 }
 
-// The two incoming edges of one state j: which terms of their compressed
-// branch-metric words are negated (bit b set where signs_half[idx_p[j]][b]
-// is -1) and their signs sgn_p[j].
-struct VitEdges {
-  unsigned neg0, neg1;
-  float sgn0, sgn1;
+// Registers per lane (R) of a code with 2^(k-1) states.
+__host__ __device__ inline int vit_regs_per_lane(int k) {
+  const int S = 1 << (k - 1);
+  return S < 32 ? 1 : S >> 5;
+}
+// Lanes per frame (P) and frames per warp (32 / P).
+__host__ __device__ inline int vit_lanes_per_frame(int k) {
+  const int S = 1 << (k - 1);
+  return S < 32 ? S : 32;
+}
+
+// Most frames one block takes: VIT_BLOCK_THREADS / 32 warps of 32 / P.
+__host__ __device__ inline int vit_max_frames_per_block(int k) {
+  return VIT_BLOCK_THREADS / 32 * (32 / vit_lanes_per_frame(k));
+}
+
+// Order-preserving image of a float in a signed int (its own inverse):
+// a < b as floats iff key(a) < key(b) as ints (-0 sorts below +0).
+__device__ __forceinline__ int vit_key(int i) {
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+
+// The lane's view of one frame: geometry, edge signs, path metrics.
+template <int R, int BETA>
+struct VitFrame {
+  int P;              // lanes per frame
+  int l;              // lane within the frame's segment (state s = P r + l)
+  int segbase;        // first lane of the segment
+  unsigned segmask;   // the segment's lanes
+  unsigned lowmask;   // P low bits
+  int src0, src1;     // lanes of the predecessors within the segment
+  bool hi;            // l >= 16: predecessors in register 2r + 1
+  // Each edge sums its own terms, off the stage's critical path (the
+  // predecessor's metric joins in one add), by an fma chain over its
+  // terms' signs held as floats: 2 R beta registers, which spill past a
+  // few dozen and are still faster than sign bits negated term by term
+  // at every code tools/acs_variants.py timed.
+  float sg[R][2][BETA];  // sign of term b of edge p into state P r + l
+  float sig[R];
+
+  // idx (2, S), sgn (2, S), signs_half (half, beta) as the wrapper passes
+  // them (kernels/tables.py).
+  __device__ __forceinline__ void init(int k, const int* idx, const float* sgn,
+                                       const float* signs_half) {
+    const int S = 1 << (k - 1);
+    const int lane = threadIdx.x & 31;
+    P = vit_lanes_per_frame(k);
+    l = lane & (P - 1);
+    segbase = lane - l;
+    lowmask = P == 32 ? VIT_FULL : (1u << P) - 1u;
+    segmask = lowmask << segbase;
+    src0 = (2 * l) & (P - 1);
+    src1 = src0 | 1;
+    hi = l >= 16;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int s = P * r + l;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int h = idx[p * S + s];
+        const float e = sgn[p * S + s];
+#pragma unroll
+        for (int b = 0; b < BETA; ++b)
+          sg[r][p][b] = e * signs_half[h * BETA + b];       // +-1
+      }
+      sig[r] = 0.f;
+    }
+  }
+
+  // The segment's width and lanes and its cut of a ballot: compile-time for
+  // R >= 2, where a frame fills the warp.
+  __device__ __forceinline__ int lanes() const { return R >= 2 ? 32 : P; }
+  __device__ __forceinline__ unsigned mask() const {
+    return R >= 2 ? VIT_FULL : segmask;
+  }
+  __device__ __forceinline__ unsigned cut(unsigned ballot) const {
+    return R >= 2 ? ballot : (ballot >> segbase) & lowmask;
+  }
+
+  // Signed branch metric of edge p into state r from this stage's LLRs x.
+  __device__ __forceinline__ float bm(int r, int p, const float (&x)[BETA],
+                                      bool bf16) const {
+    float acc = __fmul_rn(sg[r][p][0], x[0]);
+#pragma unroll
+    for (int b = 1; b < BETA; ++b) acc = __fmaf_rn(sg[r][p][b], x[b], acc);
+    if (bf16) acc = __bfloat162float(__float2bfloat16_rn(acc));
+    return acc;
+  }
+
+  // One radix-2 stage: sig becomes this stage's normalised path metrics,
+  // words its survivor words (LANE word r of this frame, the same in every
+  // lane of the segment). Each register of sig is read by one butterfly
+  // pair only and each selector is balloted at once, so a lane holds about
+  // R path metrics, R sign words and R survivor words at a time.
+  __device__ __forceinline__ void step(const float (&x)[BETA], bool bf16,
+                                       unsigned (&words)[R]) {
+    float v[R];
+    auto acs = [&](int r, float p0, float p1) {
+      const float c0 = __fadd_rn(p0, bm(r, 0, x, bf16));
+      const float c1 = __fadd_rn(p1, bm(r, 1, x, bf16));
+      const bool sel = c1 >= c0;
+      v[r] = sel ? c1 : c0;
+      words[r] = cut(__ballot_sync(VIT_FULL, sel));
+    };
+    if constexpr (R == 1) {
+      acs(0, __shfl_sync(VIT_FULL, sig[0], src0, P),
+          __shfl_sync(VIT_FULL, sig[0], src1, P));
+    } else {
+#pragma unroll
+      for (int q = 0; q < R / 2; ++q) {
+        const float a0 = __shfl_sync(VIT_FULL, sig[2 * q], src0);
+        const float a1 = __shfl_sync(VIT_FULL, sig[2 * q + 1], src0);
+        const float b0 = __shfl_sync(VIT_FULL, sig[2 * q], src1);
+        const float b1 = __shfl_sync(VIT_FULL, sig[2 * q + 1], src1);
+        const float p0 = hi ? a1 : a0;
+        const float p1 = hi ? b1 : b0;
+        acs(q, p0, p1);
+        acs(q + R / 2, p0, p1);
+      }
+    }
+    float m = v[0];
+#pragma unroll
+    for (int r = 1; r < R; ++r) m = fmaxf(m, v[r]);
+    m = __int_as_float(
+        vit_key(__reduce_max_sync(mask(), vit_key(__float_as_int(m)))));
+#pragma unroll
+    for (int r = 0; r < R; ++r) sig[r] = __fsub_rn(v[r], m);   // normalise
+  }
+
+  // The first maximal state of the stage step() just ran: after the
+  // normalisation sig is exactly 0 there and negative elsewhere (v - max
+  // is 0 only for v == max; no flush to zero). Each lane's first hit, then
+  // one redux.sync min over the segment.
+  __device__ __forceinline__ int first_max() const {
+    int a = 0x7fffffff;
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r)
+      if (sig[r] == 0.f) a = lanes() * r + l;
+    return __reduce_min_sync(mask(), a);
+  }
 };
 
-__device__ __forceinline__ VitEdges vit_load_edges(const int* idx,
-                                                   const float* sgn,
-                                                   const float* signs_half,
-                                                   int j, int S, int beta) {
-  VitEdges e;
-  const int i0 = idx[j], i1 = idx[S + j];
-  e.neg0 = e.neg1 = 0u;
-  for (int b = 0; b < beta; ++b) {
-    e.neg0 |= (signs_half[i0 * beta + b] < 0.f ? 1u : 0u) << b;
-    e.neg1 |= (signs_half[i1 * beta + b] < 0.f ? 1u : 0u) << b;
-  }
-  e.sgn0 = sgn[j];
-  e.sgn1 = sgn[S + j];
-  return e;
-}
-
-// Compressed branch metric of one word (eq. 9) from one stage's LLRs x:
-// sum_b (+-1) * x[b] in b order; a product with -1 is the exact negation.
+// The LLRs of one chunk of P stages: lane l of the segment loads stage
+// c0 + l (zeros past L and for an invalid frame). Stage c0 + u is then
+// __shfl_sync(x, u, P) in every lane of the segment.
 template <int BETA>
-__device__ __forceinline__ float vit_bm(unsigned neg, const float* x,
-                                        bool bf16) {
-  float acc = (neg & 1u) ? -x[0] : x[0];
+__device__ __forceinline__ void vit_load_chunk(const void* llr, int dtype,
+                                               long long frame_base, int c0,
+                                               int l, int L, bool fvalid,
+                                               float (&out)[BETA]) {
+  const int t = c0 + l;
+  const bool ok = fvalid && t < L;
 #pragma unroll
-  for (int b = 1; b < BETA; ++b) acc = acc + (((neg >> b) & 1u) ? -x[b] : x[b]);
-  if (bf16) acc = __bfloat162float(__float2bfloat16_rn(acc));
-  return acc;
+  for (int b = 0; b < BETA; ++b)
+    out[b] = ok ? vit_load_llr(llr, dtype,
+                               frame_base + (long long)t * BETA + b)
+                : 0.f;
 }
 
-// One radix-2 ACS half-step for state j: returns the surviving candidate
-// (not yet normalised) and its selector.
-template <int BETA>
-__device__ __forceinline__ float vit_acs(const float* sigma, int j, int S,
-                                         const VitEdges& e, const float* x,
-                                         bool bf16, bool* sel) {
-  const int base = (j << 1) & (S - 1);
-  const float c0 = sigma[base] + e.sgn0 * vit_bm<BETA>(e.neg0, x, bf16);
-  const float c1 = sigma[base | 1] + e.sgn1 * vit_bm<BETA>(e.neg1, x, bf16);
-  *sel = c1 >= c0;
-  return *sel ? c1 : c0;
+// Shared-memory stores and loads at a 32-bit shared address
+// (__cvta_generic_to_shared): the survivors and run buffers sit in shared
+// memory in one mode and device memory in another, and an explicit
+// st.shared keeps the stage loop's store off the generic path. The stores
+// are predicated (one lane of a segment stores what the segment holds),
+// so the stage loop has no divergent branch.
+__device__ __forceinline__ void vit_sts_u8(uint32_t a, unsigned v) {
+  asm volatile("st.shared.u8 [%0], %1;" ::"r"(a), "r"(v) : "memory");
 }
-
-// Max over the 32 lanes of a warp (every lane takes part).
-__device__ __forceinline__ float vit_warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+__device__ __forceinline__ void vit_sts_u32_if(bool p, uint32_t a,
+                                               unsigned v) {
+  asm volatile(
+      "{ .reg .pred q; setp.ne.u32 q, %0, 0; @q st.shared.u32 [%1], %2; }"
+      ::"r"((unsigned)p), "r"(a), "r"(v) : "memory");
+}
+__device__ __forceinline__ unsigned vit_lds_u32(uint32_t a) {
+  unsigned v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
   return v;
+}
+template <int R>
+__device__ __forceinline__ void vit_sts_words_if(bool p, uint32_t a,
+                                                 const unsigned (&w)[R]) {
+  if constexpr (R == 1) {
+    vit_sts_u32_if(p, a, w[0]);
+  } else if constexpr (R == 2) {
+    asm volatile(
+        "{ .reg .pred q; setp.ne.u32 q, %0, 0;"
+        " @q st.shared.v2.u32 [%1], {%2, %3}; }"
+        ::"r"((unsigned)p), "r"(a), "r"(w[0]), "r"(w[1]) : "memory");
+  } else {
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i)
+      asm volatile(
+          "{ .reg .pred q; setp.ne.u32 q, %0, 0;"
+          " @q st.shared.v4.u32 [%1], {%2, %3, %4, %5}; }"
+          ::"r"((unsigned)p), "r"(a + 16 * i), "r"(w[4 * i]),
+          "r"(w[4 * i + 1]), "r"(w[4 * i + 2]), "r"(w[4 * i + 3])
+          : "memory");
+  }
+}
+
+// One stage's R survivor words to dst (R 32-bit words, aligned to 4 R
+// bytes up to 16): vector stores of up to four words.
+template <int R>
+__device__ __forceinline__ void vit_store_words(uint32_t* dst,
+                                                const unsigned (&w)[R]) {
+  if constexpr (R == 1) {
+    dst[0] = w[0];
+  } else if constexpr (R == 2) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i)
+      reinterpret_cast<uint4*>(dst)[i] =
+          make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+  }
+}
+
+// The stages of one run: RUN = P / R stages, whose R words each fill the
+// P lanes of a segment once (word i % R of stage i / R in slot i).
+// Runs the recursion over all L stages of a frame and calls, per stage,
+// st.stage(t, u, words) (u: the stage within its run) and, after each run,
+// st.run_end(t0, n) (n stages from t0). The LLR chunk of P stages is
+// loaded one chunk ahead.
+template <int R, int BETA, class Store>
+__device__ __forceinline__ void vit_recursion(VitFrame<R, BETA>& fr,
+                                              const void* llr, int dtype,
+                                              bool bf16,
+                                              long long frame_base, int L,
+                                              bool fvalid, Store& st) {
+  const int P = fr.lanes();
+  const int run = R >= 2 ? 32 / R : P;
+  float cur[BETA], nxt[BETA], x[BETA];
+  unsigned words[R];
+  vit_load_chunk<BETA>(llr, dtype, frame_base, 0, fr.l, L, fvalid, nxt);
+  auto stage = [&](int t, int u, int xl) {
+#pragma unroll
+    for (int b = 0; b < BETA; ++b) x[b] = __shfl_sync(VIT_FULL, cur[b], xl, P);
+    fr.step(x, bf16, words);
+    st.stage(t, u, words);
+  };
+  for (int c0 = 0; c0 < L; c0 += P) {
+#pragma unroll
+    for (int b = 0; b < BETA; ++b) cur[b] = nxt[b];
+    vit_load_chunk<BETA>(llr, dtype, frame_base, c0 + P, fr.l, L, fvalid,
+                         nxt);
+    for (int q = 0; q < R; ++q) {
+      const int t0 = c0 + q * run;
+      if (t0 >= L) break;
+      const int n = min(run, L - t0);
+      if (n == run) {
+        if constexpr (R >= 2) {
+#pragma unroll
+          for (int u = 0; u < 32 / R; ++u) stage(t0 + u, u, q * run + u);
+        } else {
+#pragma unroll 4
+          for (int u = 0; u < run; ++u) stage(t0 + u, u, u);
+        }
+      } else {
+#pragma unroll 1
+        for (int u = 0; u < n; ++u) stage(t0 + u, u, q * run + u);
+      }
+      st.run_end(t0, n);
+    }
+  }
+}
+
+// Calls F::template run<R, BETA>(a...) for the instantiation that serves
+// (k, beta): one per registers-per-lane R in {1, 2, 4, ..., 32} (k <= 11)
+// and per code rate 1/beta, beta in 2..8.
+template <class F, int R, class... A>
+int vit_dispatch_beta(int beta, A... a) {
+  switch (beta) {
+    case 2: return F::template run<R, 2>(a...);
+    case 3: return F::template run<R, 3>(a...);
+    case 4: return F::template run<R, 4>(a...);
+    case 5: return F::template run<R, 5>(a...);
+    case 6: return F::template run<R, 6>(a...);
+    case 7: return F::template run<R, 7>(a...);
+    default: return F::template run<R, 8>(a...);
+  }
+}
+
+template <class F, class... A>
+int vit_dispatch(int k, int beta, A... a) {
+  switch (vit_regs_per_lane(k)) {
+    case 1: return vit_dispatch_beta<F, 1>(beta, a...);
+    case 2: return vit_dispatch_beta<F, 2>(beta, a...);
+    case 4: return vit_dispatch_beta<F, 4>(beta, a...);
+    case 8: return vit_dispatch_beta<F, 8>(beta, a...);
+    case 16: return vit_dispatch_beta<F, 16>(beta, a...);
+    default: return vit_dispatch_beta<F, 32>(beta, a...);
+  }
+}
+
+// numRegs, localSizeBytes (spills) and maxThreadsPerBlock of one kernel
+// instantiation, for the tile planner (kernels/autotune.py).
+__host__ inline int vit_func_attrs(const void* fn, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  return 0;
 }

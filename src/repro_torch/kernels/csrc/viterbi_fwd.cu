@@ -16,24 +16,27 @@
 //   amax (F, L) int32 in both layouts: the first maximal state per stage.
 //
 // What bounds it. The ACS recursion is the unified kernel's (acs.cuh: the
-// two kernels include one recursion and cannot drift apart), about six
-// float32 operations per state and stage. Unlike the unified kernel, this
-// one writes the survivor stream and an argmax per stage to device memory:
-// at K=7 packed that is as many bytes out as LLR bytes in, plus half as
-// many again of argmax, so its bound is on the bytes side. In practice the
-// latency of the per-stage exchange still rules, as in the unified kernel.
+// two kernels include one recursion and cannot drift apart). Unlike the
+// unified kernel, this one writes the survivor stream and an argmax per
+// stage to device memory: at K=7 packed that is as many bytes out as LLR
+// bytes in, plus half as many again of argmax, so its bound is on the
+// bytes side. What the card reaches is set, as in the unified kernel, by
+// the instructions per stage (here also the argmax's redux every stage) and
+// the resident frames that hide each stage's dependent chain.
 //
-// Design: the unified kernel's mapping. One thread per state (S < 32 is
-// padded to a warp), a few frames per block, path metrics double-buffered
-// in shared memory, two __syncthreads per stage. The survivor word of a
-// warp is its __ballot_sync (packing.py's LANE word: state s at bit s % 32
-// of word s / 32; S < 32 gives one zero-padded word), written by lane 0;
-// unpacked, each state writes its byte. The argmax of every stage: after
-// normalisation sigma - max(sigma) is exactly 0 only at the maximal
-// states, so each warp ballots (v == max) into shared memory, and after the
-// stage's second barrier the frame's first thread takes the first set bit
-// over its warps' words (JAX's argmax: the first maximal state) and writes
-// it. `radix` 4 unrolls two exact radix-2 stages per loop step.
+// Design: the unified kernel's mapping, one warp per frame (32 / S frames
+// per warp for S < 32) with the path metrics in registers and nothing
+// block-wide in the stage loop. Every stage's first maximal state is one
+// redux.sync min over the lanes' first hits. The segment's first lane
+// stages it, and the stage's R survivor words, in the warp's run buffers
+// in shared memory (256 bytes a warp); after each run of 32 / R stages a
+// __syncwarp, and every lane stores one word and one argmax: the lane
+// stream's words of a run are one contiguous 128-byte row, its argmax one
+// row of 128 / R bytes; in the sublane stream each lane's word goes to its
+// own row of frames. Unpacked, each lane writes its states' bytes every
+// stage, 32 neighbouring bytes per warp in the lane stream. `radix` 4 and 2
+// run the same loop (the wrapper checks it; the card never sees it); the
+// kernel inlines one loop per bm_dtype.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,167 +53,132 @@ struct FwdParams {
   const float* signs_half;  // (half, beta)
   void* sel;                // survivor stream, see above
   int* amax;                // (F, L)
-  int F, L, k, llr_dtype, pack, sublane, radix, bf16_bm, fpb;
+  int F, L, k, llr_dtype, pack, sublane, bf16_bm, fpb;
 };
 
-struct FwdSmem {
-  long long sig, red, hit, total;
-};
-
-// Shared-memory carve-up of one block of fpb frames.
-__host__ __device__ inline FwdSmem fwd_smem(int k, int fpb) {
-  const int S = 1 << (k - 1);
-  const int tpf = S < 32 ? 32 : S;
-  const int nw = tpf >> 5;
-  FwdSmem s;
-  s.sig = 0;                                       // [2][fpb][tpf] f32
-  s.red = s.sig + 2LL * fpb * tpf * 4;             // [fpb][nw] f32
-  s.hit = s.red + (long long)fpb * nw * 4;         // [fpb][nw] u32
-  s.total = s.hit + (long long)fpb * nw * 4;
-  return s;
-}
-
-template <int BETA>
-__global__ void __launch_bounds__(1024) viterbi_fwd_kernel(const FwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int S = 1 << (p.k - 1);
-  const int tpf = S < 32 ? 32 : S;
-  const int nw = tpf >> 5;                 // warps per frame
-  const int W = (S + 31) >> 5;             // packed words per stage
-  const int lf = threadIdx.x / tpf;        // frame within the block
-  const int j = threadIdx.x - lf * tpf;    // state
-  const int lane = threadIdx.x & 31;
-  const int wf = j >> 5;                   // warp within the frame
-  const bool svalid = j < S;
-  const long long frame = (long long)blockIdx.x * p.fpb + lf;
-  const bool fvalid = frame < p.F;
-  const bool bf16 = p.bf16_bm != 0;
-  const FwdSmem lay = fwd_smem(p.k, p.fpb);
-
-  float* sig = reinterpret_cast<float*>(smem + lay.sig);
-  float* red = reinterpret_cast<float*>(smem + lay.red) + lf * nw;
-  uint32_t* hitw = reinterpret_cast<uint32_t*>(smem + lay.hit) + lf * nw;
-  uint32_t* sel32 = static_cast<uint32_t*>(p.sel);
-  int8_t* sel8 = static_cast<int8_t*>(p.sel);
-  int* amax = p.amax + frame * p.L;
-
-  VitEdges e = {};
-  if (svalid) e = vit_load_edges(p.idx, p.sgn, p.signs_half, j, S, BETA);
-
-  const long long lbase = frame * p.L * BETA;
-  float x[BETA], xn[BETA];
+// What the forward kernel keeps of each stage: its first maximal state and
+// its survivors. The segment's first lane stages both in the warp's run
+// buffers in shared memory (R words in one vector store, one int); at the
+// end of each run every lane stores one word and one argmax of them, so a
+// run leaves as contiguous rows. Unpacked survivors go out as bytes every
+// stage.
+template <int R, int BETA>
+struct FwdStore {
+  const VitFrame<R, BETA>& fr;
+  uint32_t run_w;            // this warp's 32 staged words (shared address)
+  uint32_t run_a;            // this warp's 32 staged argmax
+  uint32_t* sel32;
+  int8_t* sel8;
+  int* amax;                 // this frame's (L,) row
+  long long frame;
+  int F, L, S, pack, sublane;
+  bool fvalid;
+  __device__ __forceinline__ void stage(int t, int u,
+                                        const unsigned (&w)[R]) {
+    const int a = fr.first_max();
+    const bool first = fr.l == 0;
+    vit_sts_u32_if(first, run_a + 4 * (fr.segbase + u), a);
+    if (pack) vit_sts_words_if<R>(first, run_w + 4 * (fr.segbase + u * R), w);
+    if (!pack && fvalid) {
 #pragma unroll
-  for (int b = 0; b < BETA; ++b)
-    x[b] = fvalid ? vit_load_llr(p.llr, p.llr_dtype, lbase + b) : 0.f;
-  sig[lf * tpf + j] = 0.f;
-  __syncthreads();
-
-  int cur = 0;
-  const int bstride = p.fpb * tpf;
-
-  // The argmax of stage t - 1, from the hit words its second barrier made
-  // visible; they are overwritten only after this stage's first barrier.
-  auto write_amax = [&](int t) {
-    if (j == 0 && fvalid) {
-      int a = 0;
-      for (int w = 0; w < nw; ++w) {
-        const unsigned h = hitw[w];
-        if (h) {
-          a = (w << 5) + __ffs(h) - 1;
-          break;
-        }
+      for (int r = 0; r < R; ++r) {
+        const long long s = fr.lanes() * r + fr.l;
+        const long long o = sublane ? ((long long)t * S + s) * F + frame
+                                    : (frame * L + t) * S + s;
+        sel8[o] = (int8_t)((w[r] >> fr.l) & 1u);
       }
-      amax[t] = a;
     }
-  };
-
-  auto stage = [&](int t) {
-#pragma unroll
-    for (int b = 0; b < BETA; ++b)
-      xn[b] = (fvalid && t + 1 < p.L)
-                  ? vit_load_llr(p.llr, p.llr_dtype,
-                                 lbase + (long long)(t + 1) * BETA + b)
-                  : 0.f;
-    if (t > 0) write_amax(t - 1);
-    const float* sc = sig + cur * bstride + lf * tpf;
-    float* sn = sig + (cur ^ 1) * bstride + lf * tpf;
-    bool s = false;
-    float v = -INFINITY;
-    if (svalid) v = vit_acs<BETA>(sc, j, S, e, x, bf16, &s);
-    const float wmax = vit_warp_max(v);
-    if (lane == 0) red[wf] = wmax;
-    const unsigned bal = __ballot_sync(0xffffffffu, s);
+  }
+  __device__ __forceinline__ void run_end(int t0, int n) {
+    __syncwarp();                           // the run's staged values
     if (fvalid) {
-      if (p.pack) {
-        if (lane == 0) {
-          const long long o = p.sublane
-                                  ? ((long long)t * W + wf) * p.F + frame
-                                  : (frame * p.L + t) * W + wf;
-          sel32[o] = bal;
-        }
-      } else if (svalid) {
-        const long long o = p.sublane ? ((long long)t * S + j) * p.F + frame
-                                      : (frame * p.L + t) * S + j;
-        sel8[o] = s ? 1 : 0;
+      const int slot = 4 * (fr.segbase + fr.l);
+      if (fr.l < n) amax[t0 + fr.l] = (int)vit_lds_u32(run_a + slot);
+      if (pack && fr.l < n * R) {
+        const long long i = (long long)t0 * R + fr.l;    // word of the frame
+        sel32[sublane ? i * F + frame : frame * L * R + i] =
+            vit_lds_u32(run_w + slot);
       }
     }
-    __syncthreads();
-    float m = red[0];
-    for (int w = 1; w < nw; ++w) m = fmaxf(m, red[w]);
-    const unsigned hit = __ballot_sync(0xffffffffu, svalid && v == m);
-    if (lane == 0) hitw[wf] = hit;
-    sn[j] = v - m;                                      // normalise
-    __syncthreads();
-    cur ^= 1;
-#pragma unroll
-    for (int b = 0; b < BETA; ++b) x[b] = xn[b];
-  };
-
-  int t = 0;
-  if (p.radix == 4) {
-    for (; t + 1 < p.L; t += 2) {
-      stage(t);
-      stage(t + 1);
-    }
+    __syncwarp();                           // read before the next run
   }
-  for (; t < p.L; ++t) stage(t);
-  write_amax(p.L - 1);
+};
+
+template <int R, int BETA>
+__global__ void __launch_bounds__(VIT_BLOCK_THREADS)
+    viterbi_fwd_kernel(const FwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  VitFrame<R, BETA> fr;
+  fr.init(p.k, p.idx, p.sgn, p.signs_half);
+  const int warp = threadIdx.x >> 5;
+  const int fpw = 32 / fr.P;               // frames per warp
+  const int lf = warp * fpw + fr.segbase / fr.P;
+  const long long frame = (long long)blockIdx.x * p.fpb + lf;
+  const bool fvalid = lf < p.fpb && frame < p.F;
+  const uint32_t run =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + warp * 256;
+  FwdStore<R, BETA> st{fr, run, run + 128,
+                       static_cast<uint32_t*>(p.sel),
+                       static_cast<int8_t*>(p.sel), p.amax + frame * p.L,
+                       frame, p.F, p.L, 1 << (p.k - 1), p.pack, p.sublane,
+                       fvalid};
+  const long long base = frame * p.L * BETA;
+  if (p.bf16_bm)          // one inlined loop per bm_dtype
+    vit_recursion(fr, p.llr, p.llr_dtype, true, base, p.L, fvalid, st);
+  else
+    vit_recursion(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid, st);
 }
 
-template <int BETA>
-int launch(const FwdParams& p, long long smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        viterbi_fwd_kernel<BETA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int S = 1 << (p.k - 1);
-  const int tpf = S < 32 ? 32 : S;
-  const int grid = (p.F + p.fpb - 1) / p.fpb;
-  viterbi_fwd_kernel<BETA><<<grid, p.fpb * tpf, (size_t)smem, stream>>>(p);
-  return (int)cudaGetLastError();
+// Shared memory of one block of fpb frames: each warp's run buffers, 32
+// words and 32 argmax.
+inline long long fwd_smem(int k, int fpb) {
+  const int fpw = 32 / vit_lanes_per_frame(k);
+  return (long long)(fpb + fpw - 1) / fpw * 64 * 4;
 }
+
+struct Launch {
+  template <int R, int BETA>
+  static int run(const FwdParams* p, cudaStream_t stream) {
+    const int fpw = 32 / vit_lanes_per_frame(p->k);
+    const int threads = (p->fpb + fpw - 1) / fpw * 32;
+    const int grid = (p->F + p->fpb - 1) / p->fpb;
+    viterbi_fwd_kernel<R, BETA>
+        <<<grid, threads, (size_t)fwd_smem(p->k, p->fpb), stream>>>(*p);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct Attrs {
+  template <int R, int BETA>
+  static int run(int* out) {
+    return vit_func_attrs(
+        reinterpret_cast<const void*>(viterbi_fwd_kernel<R, BETA>), out);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block of fpb frames.
-long long viterbi_fwd_smem_bytes(int k, int fpb) {
-  return fwd_smem(k, fpb).total;
+// Dynamic shared memory of one block of fpb frames: the warps' run
+// buffers (the path metrics live in registers).
+long long viterbi_fwd_smem_bytes(int k, int fpb) { return fwd_smem(k, fpb); }
+
+// out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the instantiation
+// that runs (k, beta). Returns 0 or the CUDA error.
+int viterbi_fwd_func_attrs(int k, int beta, int* out) {
+  if (k < 2 || k > 11 || beta < 2 || beta > VIT_MAX_BETA)
+    return (int)cudaErrorInvalidValue;
+  return vit_dispatch<Attrs>(k, beta, out);
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
 int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
                        const void* signs_half, void* sel, void* amax, int F,
                        int L, int beta, int k, int llr_dtype, int pack,
-                       int sublane, int radix, int bf16_bm, int fpb,
-                       void* stream) {
-  const int S = 1 << (k - 1);
-  const int tpf = S < 32 ? 32 : S;
+                       int sublane, int bf16_bm, int fpb, void* stream) {
   if (k < 2 || k > 11 || beta < 2 || beta > VIT_MAX_BETA || fpb < 1 ||
-      fpb * tpf > 1024 || F < 1 || L < 1)
+      fpb > vit_max_frames_per_block(k) || F < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.llr = llr;
@@ -225,20 +193,9 @@ int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
   p.llr_dtype = llr_dtype;
   p.pack = pack;
   p.sublane = sublane;
-  p.radix = radix;
   p.bf16_bm = bf16_bm;
   p.fpb = fpb;
-  const long long smem = fwd_smem(k, fpb).total;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (beta) {              // one instantiation per code rate 1/beta
-    case 2: return launch<2>(p, smem, s);
-    case 3: return launch<3>(p, smem, s);
-    case 4: return launch<4>(p, smem, s);
-    case 5: return launch<5>(p, smem, s);
-    case 6: return launch<6>(p, smem, s);
-    case 7: return launch<7>(p, smem, s);
-    default: return launch<8>(p, smem, s);
-  }
+  return vit_dispatch<Launch>(k, beta, &p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

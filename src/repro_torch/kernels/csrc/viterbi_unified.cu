@@ -10,27 +10,34 @@
 // stage depends on the previous one: about six float32 operations per state
 // and stage, a max over the frame's S states, and a butterfly exchange of
 // path metrics between states. Bytes are few (each LLR is read once, each
-// bit written once), so the bound is on the operations side, and in
-// practice on the latency of the per-stage exchange.
+// bit written once), so the bound is on the operations side; what the card
+// can reach is set by the instructions each stage issues (shuffles, the
+// max's redux, ballots, survivor bookkeeping besides the six operations) and
+// by how many frames are resident to hide each stage's dependent chain.
 //
-// Design. One thread per state (S < 32 is padded to a warp), a few frames
-// per thread block. Path metrics sit in shared memory, double-buffered, and
-// two __syncthreads per stage separate the max reduction and the exchange.
-// Survivors never touch device memory: per stage one __ballot_sync word per
-// warp (state s at bit s % 32 of word s / 32, packing.py's LANE word) or
-// one byte per state. Only the argmax at the traceback start stages is
-// kept, as ballot words of the states that reach the frame's max; the
-// first set bit is the first maximal state. Then nsub = f / f0 traceback
-// cursors per frame, one per thread, chase the survivors in shared memory.
-// Each stage's LLRs are fetched one stage ahead into registers.
+// Design. One warp per frame (32 / S frames per warp for S < 32), with the
+// path metrics in registers: acs.cuh's VitFrame, shared with the forward
+// kernel. Nothing in the stage loop is block-wide: no __syncthreads, no
+// shared-memory path metrics. The LLRs come 32 stages at a time, one stage
+// per lane, a chunk ahead, and reach the segment by __shfl_sync. Survivors
+// never touch device memory: packed, the segment's first lane stores each
+// stage's R ballot words to shared memory in one vector store; unpacked,
+// each lane writes its states' bytes. The argmax is taken only at the
+// traceback start stages, as the first maximal state. After one
+// __syncwarp the frame's warp runs its nsub = f / f0 traceback cursors,
+// one per lane, over the survivors in shared memory. Blocks are up to
+// eight warps; a block is only a unit of scheduling. The kernel inlines
+// one loop per bm_dtype, so the f32 loop carries no bf16 rounding.
 //
 // When one frame's survivors exceed the shared memory a block can have
 // (unpacked K=7 survivors of one f=4096 frame need L*S ~ 266 KB), the same
-// kernel keeps survivors and argmax words in a device-memory scratch that
-// the wrapper allocates: slower, but it decodes every shape JAX decodes.
+// kernel keeps survivors and traceback starts in a device-memory scratch
+// that the wrapper allocates: slower, but it decodes every shape JAX
+// decodes.
 //
-// `radix` 4 unrolls two exact radix-2 stages per loop step; `layout` is a
-// TPU orientation knob and is not passed here. Both decode identically.
+// `radix` 4 and 2 run the same loop (every stage is one exact radix-2
+// step, unrolled over a run) and `layout` is a TPU orientation knob: the
+// wrapper checks both and passes neither. All decode identically.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,158 +54,128 @@ struct UnifiedParams {
   const float* signs_half;    // (half, beta)
   int* out;                   // (F, f) decoded bits
   unsigned char* sel_global;  // survivor scratch, or null for shared memory
-  uint32_t* amax_global;      // argmax-word scratch (with sel_global)
-  int F, L, beta, k, v1, f, f0, v2s, nsub;
-  int llr_dtype, start_fixed, pack, radix, bf16_bm, fpb;
+  int* amax_global;           // traceback-start scratch (with sel_global)
+  int F, L, k, v1, f, f0, v2s, nsub;
+  int llr_dtype, start_fixed, pack, bf16_bm, fpb;
 };
 
 struct SmemLayout {
-  long long sig, red, am, sel, total;
+  long long am, sel, total;
 };
 
-// Shared-memory carve-up of one block of fpb frames. row = survivor bytes
-// per stage (4*W packed, S unpacked).
+// Shared-memory carve-up of one block of fpb frames: the traceback starts
+// [fpb][nsub] int32 (none for start=fixed), padded to 16 bytes, then the
+// survivors [fpb][L][row] bytes, row = 4 * R packed (R = max(1, S/32)
+// words, stored as one vector per stage), S unpacked.
 __host__ __device__ inline SmemLayout smem_layout(int k, int L, int nsub,
                                                   int pack, int start_fixed,
                                                   int fpb, int global) {
   const int S = 1 << (k - 1);
-  const int tpf = S < 32 ? 32 : S;
-  const int W = (S + 31) >> 5;
-  const long long row = pack ? 4LL * W : S;
+  const long long row = pack ? 4LL * vit_regs_per_lane(k) : S;
   SmemLayout s;
-  s.sig = 0;                                           // [2][fpb][tpf] f32
-  s.red = s.sig + 2LL * fpb * tpf * 4;                 // [fpb][tpf/32] f32
-  s.am = s.red + (long long)fpb * (tpf >> 5) * 4;      // [fpb][nsub][W] u32
-  s.sel = s.am + (global || start_fixed ? 0 : (long long)fpb * nsub * W * 4);
+  s.am = 0;
+  s.sel = global || start_fixed ? 0 : ((long long)fpb * nsub * 4 + 15) & ~15LL;
   s.total = s.sel + (global ? 0 : (long long)fpb * L * row);
   return s;
 }
 
-template <int BETA>
-__global__ void __launch_bounds__(1024)
+// What the unified kernel keeps of each stage: the survivors (packed: the
+// segment's first lane stores the stage's R words, one vector store; else
+// every lane its states' bytes) and, at the traceback start stages, the
+// first maximal state. Survivors go to shared memory (ssel, a shared
+// address) or, for frames too long for it, to the device-memory scratch.
+template <int R, int BETA>
+struct UnifiedStore {
+  const VitFrame<R, BETA>& fr;
+  uint32_t ssel;                               // this frame's [L][row]
+  unsigned char* gsel;                         // or its scratch
+  int* am;                                     // its [nsub] starts
+  int S, pack, nsub, f0, q;
+  int next_e;                                  // next start; INT_MAX: none
+  bool global, fvalid, writer;                 // writer: fvalid && l == 0
+  __device__ __forceinline__ void stage(int t, int /*u*/,
+                                        const unsigned (&w)[R]) {
+    if (pack) {
+      if (!global)
+        vit_sts_words_if<R>(writer, ssel + t * 4 * R, w);
+      else if (writer)
+        vit_store_words<R>(
+            reinterpret_cast<uint32_t*>(gsel + (long long)t * 4 * R), w);
+    } else if (fvalid) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int s = fr.lanes() * r + fr.l;
+        const unsigned bit = (w[r] >> fr.l) & 1u;
+        if (global)
+          gsel[(long long)t * S + s] = (unsigned char)bit;
+        else
+          vit_sts_u8(ssel + t * S + s, bit);
+      }
+    }
+    if (t == next_e) {                                  // warp-uniform
+      const int a = fr.first_max();
+      if (writer) am[q] = a;
+      ++q;
+      next_e = q < nsub ? next_e + f0 : 0x7fffffff;
+    }
+  }
+  __device__ __forceinline__ void run_end(int, int) {}
+};
+
+template <int R, int BETA>
+__global__ void __launch_bounds__(VIT_BLOCK_THREADS)
     viterbi_unified_kernel(const UnifiedParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  VitFrame<R, BETA> fr;
+  fr.init(p.k, p.idx, p.sgn, p.signs_half);
   const int S = 1 << (p.k - 1);
-  const int tpf = S < 32 ? 32 : S;
-  const int nw = tpf >> 5;                 // warps per frame
-  const int W = (S + 31) >> 5;             // packed words per stage
-  const int kshift = p.k - 2;
-  const int lf = threadIdx.x / tpf;        // frame within the block
-  const int j = threadIdx.x - lf * tpf;    // state
+  const int P = fr.P;
+  const int fpw = 32 / P;                  // frames per warp
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int wf = j >> 5;                   // warp within the frame
-  const bool svalid = j < S;
+  const int lf = warp * fpw + fr.segbase / P;   // frame within the block
   const long long frame = (long long)blockIdx.x * p.fpb + lf;
-  const bool fvalid = frame < p.F;
-  const bool bf16 = p.bf16_bm != 0;
-  const long long row = p.pack ? 4LL * W : S;
+  const bool fvalid = lf < p.fpb && frame < p.F;
+  const long long row = p.pack ? 4LL * R : S;
   const int global = p.sel_global != nullptr;
   const SmemLayout lay =
       smem_layout(p.k, p.L, p.nsub, p.pack, p.start_fixed, p.fpb, global);
-
-  float* sig = reinterpret_cast<float*>(smem + lay.sig);
-  float* red = reinterpret_cast<float*>(smem + lay.red) + lf * nw;
-  unsigned char* sel;
-  uint32_t* am;
-  if (global) {                            // scratch holds gridDim*fpb frames
-    sel = p.sel_global + frame * p.L * row;
-    am = p.amax_global + frame * p.nsub * W;
-  } else {
-    sel = smem + lay.sel + (long long)lf * p.L * row;
-    am = reinterpret_cast<uint32_t*>(smem + lay.am) + lf * p.nsub * W;
-  }
-
-  VitEdges e = {};
-  if (svalid) e = vit_load_edges(p.idx, p.sgn, p.signs_half, j, S, BETA);
-
-  // ---- phases 1+2: branch metrics + ACS; survivors stay on chip ----------
-  const long long lbase = frame * p.L * BETA;
-  float x[BETA], xn[BETA];
-#pragma unroll
-  for (int b = 0; b < BETA; ++b)
-    x[b] = fvalid ? vit_load_llr(p.llr, p.llr_dtype, lbase + b) : 0.f;
-  sig[lf * tpf + j] = 0.f;
-  __syncthreads();
-
-  int cur = 0;
-  int q = 0;                                   // next traceback start
-  int next_e = p.v1 + p.f0 - 1 + p.v2s;        // its stage
-  const int bstride = p.fpb * tpf;
-
-  auto stage = [&](int t) {
-#pragma unroll
-    for (int b = 0; b < BETA; ++b)
-      xn[b] = (fvalid && t + 1 < p.L)
-                  ? vit_load_llr(p.llr, p.llr_dtype,
-                                 lbase + (long long)(t + 1) * BETA + b)
-                  : 0.f;
-    const float* sc = sig + cur * bstride + lf * tpf;
-    float* sn = sig + (cur ^ 1) * bstride + lf * tpf;
-    bool s = false;
-    float v = -INFINITY;
-    if (svalid) v = vit_acs<BETA>(sc, j, S, e, x, bf16, &s);
-    const float wmax = vit_warp_max(v);
-    if (lane == 0) red[wf] = wmax;
-    const unsigned bal = __ballot_sync(0xffffffffu, s);
-    if (p.pack) {
-      if (lane == 0) reinterpret_cast<uint32_t*>(sel + t * row)[wf] = bal;
-    } else if (svalid) {
-      sel[t * row + j] = s ? 1 : 0;
-    }
-    __syncthreads();
-    float m = red[0];
-    for (int w = 1; w < nw; ++w) m = fmaxf(m, red[w]);
-    if (!p.start_fixed && q < p.nsub && t == next_e) {  // block-uniform
-      const unsigned hit = __ballot_sync(0xffffffffu, svalid && v == m);
-      if (lane == 0) am[q * W + wf] = hit;
-      ++q;
-      next_e += p.f0;
-    }
-    sn[j] = v - m;                                      // normalise
-    __syncthreads();
-    cur ^= 1;
-#pragma unroll
-    for (int b = 0; b < BETA; ++b) x[b] = xn[b];
+  auto sel_of = [&](int lfr, long long fr_) -> unsigned char* {
+    return global ? p.sel_global + fr_ * p.L * row
+                  : smem + lay.sel + (long long)lfr * p.L * row;
+  };
+  auto am_of = [&](int lfr, long long fr_) -> int* {
+    return global ? p.amax_global + fr_ * p.nsub
+                  : reinterpret_cast<int*>(smem + lay.am) + lfr * p.nsub;
   };
 
-  int t = 0;
-  if (p.radix == 4) {
-    for (; t + 1 < p.L; t += 2) {
-      stage(t);
-      stage(t + 1);
-    }
-  }
-  for (; t < p.L; ++t) stage(t);
+  // ---- phases 1+2: branch metrics + ACS; survivors stay on chip ----------
+  UnifiedStore<R, BETA> st{
+      fr,
+      static_cast<uint32_t>(__cvta_generic_to_shared(
+          smem + lay.sel + (global ? 0 : (long long)lf * p.L * row))),
+      p.sel_global + (global ? frame * p.L * row : 0),
+      am_of(lf, frame), S, p.pack, p.nsub, p.f0, 0,
+      p.start_fixed ? 0x7fffffff : p.v1 + p.f0 - 1 + p.v2s, global != 0,
+      fvalid, fvalid && fr.l == 0};
+  const long long base = frame * p.L * BETA;
+  if (p.bf16_bm)          // one inlined loop per bm_dtype
+    vit_recursion(fr, p.llr, p.llr_dtype, true, base, p.L, fvalid, st);
+  else
+    vit_recursion(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid, st);
+  __syncwarp();                 // the warp's survivors and starts, visible
 
-  // ---- phase 3: nsub traceback cursors per frame, one per thread ---------
-  // (the last __syncthreads made every survivor of the block visible)
+  // ---- phase 3: the warp's nsub cursors per frame, one per lane ----------
+  const int kshift = p.k - 2;
   const int T = p.f0 + p.v2s;
-  const int ncur = p.fpb * p.nsub;
-  for (int c = threadIdx.x; c < ncur; c += blockDim.x) {
-    const int lf2 = c / p.nsub;
-    const int q2 = c - lf2 * p.nsub;
+  const int ncur = fpw * p.nsub;
+  for (int c = lane; c < ncur; c += 32) {
+    const int lf2 = warp * fpw + c / p.nsub;
+    const int q2 = c - (c / p.nsub) * p.nsub;
     const long long fr2 = (long long)blockIdx.x * p.fpb + lf2;
-    if (fr2 >= p.F) continue;
-    const unsigned char* sel2;
-    const uint32_t* am2;
-    if (global) {
-      sel2 = p.sel_global + fr2 * p.L * row;
-      am2 = p.amax_global + fr2 * p.nsub * W;
-    } else {
-      sel2 = smem + lay.sel + (long long)lf2 * p.L * row;
-      am2 = reinterpret_cast<const uint32_t*>(smem + lay.am) +
-            lf2 * p.nsub * W;
-    }
-    int state = 0;                                      // start = "fixed"
-    if (!p.start_fixed) {                               // first maximal state
-      for (int w = 0; w < W; ++w) {
-        const unsigned h = am2[q2 * W + w];
-        if (h) {
-          state = (w << 5) + __ffs(h) - 1;
-          break;
-        }
-      }
-    }
+    if (lf2 >= p.fpb || fr2 >= p.F) continue;
+    const unsigned char* sel2 = sel_of(lf2, fr2);
+    int state = p.start_fixed ? 0 : am_of(lf2, fr2)[q2];
     const int e2 = p.v1 + (q2 + 1) * p.f0 - 1 + p.v2s;
     int* o = p.out + fr2 * p.f + (long long)q2 * p.f0;
     for (int r = 0; r < T; ++r) {
@@ -215,28 +192,43 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <int BETA>
-int launch(const UnifiedParams& p, long long smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        viterbi_unified_kernel<BETA>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int S = 1 << (p.k - 1);
-  const int tpf = S < 32 ? 32 : S;
-  const int grid = (p.F + p.fpb - 1) / p.fpb;
-  viterbi_unified_kernel<BETA>
-      <<<grid, p.fpb * tpf, (size_t)smem, stream>>>(p);
-  return (int)cudaGetLastError();
+// Threads of a block of fpb frames: whole warps of 32 / P frames each.
+inline int block_threads(int k, int fpb) {
+  const int fpw = 32 / vit_lanes_per_frame(k);
+  return (fpb + fpw - 1) / fpw * 32;
 }
+
+struct Launch {
+  template <int R, int BETA>
+  static int run(const UnifiedParams* p, long long smem,
+                 cudaStream_t stream) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          viterbi_unified_kernel<R, BETA>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int grid = (p->F + p->fpb - 1) / p->fpb;
+    viterbi_unified_kernel<R, BETA>
+        <<<grid, block_threads(p->k, p->fpb), (size_t)smem, stream>>>(*p);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct Attrs {
+  template <int R, int BETA>
+  static int run(int* out) {
+    return vit_func_attrs(
+        reinterpret_cast<const void*>(viterbi_unified_kernel<R, BETA>), out);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory of one block of fpb frames (global_scratch != 0:
-// survivors and argmax words live in device memory instead).
+// survivors and traceback starts live in device memory instead).
 long long viterbi_unified_smem_bytes(int k, int L, int nsub, int pack,
                                      int start_fixed, int fpb,
                                      int global_scratch) {
@@ -244,18 +236,28 @@ long long viterbi_unified_smem_bytes(int k, int L, int nsub, int pack,
       .total;
 }
 
+// out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the instantiation
+// that decodes (k, beta). Returns 0 or the CUDA error.
+int viterbi_unified_func_attrs(int k, int beta, int* out) {
+  if (k < 2 || k > 11 || beta < 2 || beta > VIT_MAX_BETA)
+    return (int)cudaErrorInvalidValue;
+  return vit_dispatch<Attrs>(k, beta, out);
+}
+
 // The limits the tile planner (kernels/autotune.py) models, for `device`:
 // out = {opt-in shared memory per block, shared memory per SM, threads per
 // SM, resident blocks per SM, shared memory the runtime reserves per
-// block}. Returns 0, or the CUDA error of the first query that fails.
+// block, 32-bit registers per SM}. Returns 0, or the CUDA error of the
+// first query that fails.
 int viterbi_device_limits(int device, int* out) {
-  const cudaDeviceAttr attrs[5] = {
+  const cudaDeviceAttr attrs[6] = {
       cudaDevAttrMaxSharedMemoryPerBlockOptin,
       cudaDevAttrMaxSharedMemoryPerMultiprocessor,
       cudaDevAttrMaxThreadsPerMultiProcessor,
       cudaDevAttrMaxBlocksPerMultiprocessor,
-      cudaDevAttrReservedSharedMemoryPerBlock};
-  for (int i = 0; i < 5; ++i) {
+      cudaDevAttrReservedSharedMemoryPerBlock,
+      cudaDevAttrMaxRegistersPerMultiprocessor};
+  for (int i = 0; i < 6; ++i) {
     const cudaError_t err = cudaDeviceGetAttribute(&out[i], attrs[i], device);
     if (err != cudaSuccess) return (int)err;
   }
@@ -268,11 +270,10 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
                            void* sel_global, void* amax_global, int F, int L,
                            int beta, int k, int v1, int f, int f0, int v2s,
                            int llr_dtype, int start_fixed, int pack,
-                           int radix, int bf16_bm, int fpb, void* stream) {
-  const int S = 1 << (k - 1);
-  const int tpf = S < 32 ? 32 : S;
+                           int bf16_bm, int fpb, void* stream) {
   if (k < 2 || k > 11 || beta < 2 || beta > VIT_MAX_BETA || fpb < 1 ||
-      fpb * tpf > 1024 || f0 < 1 || f % f0 != 0 || F < 1 ||
+      fpb > vit_max_frames_per_block(k) || f0 < 1 || f % f0 != 0 ||
+      F < 1 ||
       (sel_global == nullptr) != (amax_global == nullptr))
     return (int)cudaErrorInvalidValue;
   UnifiedParams p;
@@ -282,10 +283,9 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
   p.signs_half = static_cast<const float*>(signs_half);
   p.out = static_cast<int*>(out);
   p.sel_global = static_cast<unsigned char*>(sel_global);
-  p.amax_global = static_cast<uint32_t*>(amax_global);
+  p.amax_global = static_cast<int*>(amax_global);
   p.F = F;
   p.L = L;
-  p.beta = beta;
   p.k = k;
   p.v1 = v1;
   p.f = f;
@@ -295,21 +295,12 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
   p.llr_dtype = llr_dtype;
   p.start_fixed = start_fixed;
   p.pack = pack;
-  p.radix = radix;
   p.bf16_bm = bf16_bm;
   p.fpb = fpb;
   const long long smem = smem_layout(k, L, p.nsub, pack, start_fixed, fpb,
                                      sel_global != nullptr).total;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (beta) {              // one instantiation per code rate 1/beta
-    case 2: return launch<2>(p, smem, s);
-    case 3: return launch<3>(p, smem, s);
-    case 4: return launch<4>(p, smem, s);
-    case 5: return launch<5>(p, smem, s);
-    case 6: return launch<6>(p, smem, s);
-    case 7: return launch<7>(p, smem, s);
-    default: return launch<8>(p, smem, s);
-  }
+  return vit_dispatch<Launch>(k, beta, &p, smem,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -11,7 +11,10 @@ by::
 so a plan is measured once per (hardware, toolchain, code) and every later
 process reuses the timing. The platform identity (``platform_id``) is the
 backend (``cuda`` or ``cpu``), the device's name and the torch and CUDA
-versions, in place of the JAX package's ``jax_version``.
+versions, in place of the JAX package's ``jax_version``; on a card also
+the kernel build (``build._digest()``, a hash of the CUDA sources and the
+nvcc flags), so a row measured on one build of the kernels is never
+handed to another.
 
 The file format is the JAX package's, schema ``repro.tunedb/v1``
 (``{"schema": ..., "platforms": {platform_key: {fingerprint: record}}}``):
@@ -64,25 +67,29 @@ def platform_id(device=None) -> dict:
     else the CPU."""
     dev = torch.device(device if device is not None else
                        ("cuda" if torch.cuda.is_available() else "cpu"))
+    pid = {"backend": dev.type, "device_kind": dev.type,
+           "torch_version": torch.__version__,
+           "cuda_version": str(torch.version.cuda)}
     if dev.type == "cuda":
-        kind = torch.cuda.get_device_name(dev)
-    else:
-        kind = dev.type
-    return {"backend": dev.type, "device_kind": kind,
-            "torch_version": torch.__version__,
-            "cuda_version": str(torch.version.cuda)}
+        from .build import _digest
+        pid["device_kind"] = torch.cuda.get_device_name(dev)
+        pid["kernel_build"] = _digest()
+    return pid
 
 
 def platform_key(platform: dict | None = None) -> str:
     """Flatten a platform identity into the string the DB is keyed by. A
     JAX platform (with ``jax_version``) gets the JAX package's own key, so
-    its rows are found under the key JAX wrote them with."""
+    its rows are found under the key JAX wrote them with; a card's key
+    ends with its kernel build."""
     p = platform or platform_id()
     if "jax_version" in p:
         version = p["jax_version"]
     else:
         version = (f"torch{p.get('torch_version', '?')}"
                    f"-cuda{p.get('cuda_version', '?')}")
+        if p.get("kernel_build"):
+            version += f"-build{p['kernel_build']}"
     return f"{p['backend']}/{p['device_kind']}/{version}"
 
 

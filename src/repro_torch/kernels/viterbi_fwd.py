@@ -34,6 +34,7 @@ import torch
 
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
+from .autotune import max_frames_per_block
 from .build import build
 from .packing import Layout, pack_bits, packed_width
 from .viterbi_unified import _LLR_DTYPES, device_tables
@@ -50,10 +51,12 @@ def kernel_library():
     lib = built.lib
     if not getattr(lib, "_argtypes_set", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.viterbi_fwd_launch.argtypes = [vp] * 6 + [i] * 10 + [vp]
+        lib.viterbi_fwd_launch.argtypes = [vp] * 6 + [i] * 9 + [vp]
         lib.viterbi_fwd_launch.restype = i
         lib.viterbi_fwd_smem_bytes.argtypes = [i, i]
         lib.viterbi_fwd_smem_bytes.restype = ctypes.c_longlong
+        lib.viterbi_fwd_func_attrs.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.viterbi_fwd_func_attrs.restype = i
         lib._argtypes_set = True
     return built
 
@@ -97,7 +100,9 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     """Launch the CUDA kernel on ``frames`` (a contiguous CUDA tensor of
     float32, bfloat16 or float16); raises on anything else or if the build
     or the launch fails. A block holds at most ``frames_per_tile`` and at
-    most ``1024 // max(S, 32)`` frames."""
+    most ``autotune.max_frames_per_block`` frames. ``radix`` is checked as
+    in JAX but has no effect on the card: every stage is one exact radix-2
+    step, and the outputs are the same for both."""
     lay = _check(frames, trellis, frames_per_tile, radix, layout, bm_dtype)
     if not frames.is_cuda:
         raise ValueError(f"frames must lie on a CUDA device, got "
@@ -126,7 +131,7 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     if F == 0:
         return sel, amax
     lib = kernel_library().lib
-    fpb = min(frames_per_tile, 1024 // max(S, 32), F)
+    fpb = min(frames_per_tile, max_frames_per_block(trellis), F)
     idx, sgn, signs_half = device_tables(trellis, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -134,7 +139,7 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
             frames.data_ptr(), idx.data_ptr(), sgn.data_ptr(),
             signs_half.data_ptr(), sel.data_ptr(), amax.data_ptr(),
             F, L, beta, k, _LLR_DTYPES[frames.dtype], int(pack_survivors),
-            int(sub), radix, int(bm_dtype == "bfloat16"), fpb, stream)
+            int(sub), int(bm_dtype == "bfloat16"), fpb, stream)
     if err != 0:
         raise RuntimeError(f"viterbi_fwd launch failed: CUDA error {err}")
     forward_frames_cuda.launches += 1

@@ -3,8 +3,9 @@
 
 The paper's central idea: branch metrics, ACS and traceback in ONE kernel,
 so the survivor matrix lives in on-chip memory and never touches device
-memory. On Hopper it lives in shared memory (``csrc/viterbi_unified.cu``,
-whose head note gives the design).
+memory. On Hopper it lives in shared memory and the path metrics in
+registers, one warp per frame (``csrc/viterbi_unified.cu`` and
+``csrc/acs.cuh``, whose head notes give the design).
 
 Three functions:
 
@@ -21,10 +22,11 @@ Three functions:
 
 Frames per thread block. ``frames_per_tile`` is the padding granule (the
 frame count must be a multiple of it, as in the JAX kernel) and the most
-frames one thread block decodes. The kernel runs ``max(S, 32)`` threads per
-frame, so a block holds at most ``1024 // max(S, 32)`` frames, and fewer
-when their survivors would overflow shared memory. Bits never depend on
-the tile.
+frames one thread block decodes. The kernel runs one warp per frame (a
+segment of S lanes for S < 32), at most eight warps a block, so a block
+holds at most ``autotune.max_frames_per_block`` frames, and fewer when
+their survivors would overflow shared memory. Bits never depend on the
+tile.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import torch
 
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
-from .autotune import device_limits
+from .autotune import device_limits, max_frames_per_block
 from .build import build
 from .packing import Layout, extract_bit, pack_bits, packed_width
 from .tables import kernel_tables
@@ -54,10 +56,12 @@ def kernel_library():
     lib = built.lib
     if not getattr(lib, "_argtypes_set", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.viterbi_unified_launch.argtypes = [vp] * 7 + [i] * 14 + [vp]
+        lib.viterbi_unified_launch.argtypes = [vp] * 7 + [i] * 13 + [vp]
         lib.viterbi_unified_launch.restype = i
         lib.viterbi_unified_smem_bytes.argtypes = [i] * 7
         lib.viterbi_unified_smem_bytes.restype = ctypes.c_longlong
+        lib.viterbi_unified_func_attrs.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.viterbi_unified_func_attrs.restype = i
         lib.viterbi_device_limits.argtypes = [i, ctypes.POINTER(i)]
         lib.viterbi_device_limits.restype = i
         lib._argtypes_set = True
@@ -132,7 +136,9 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
                                bm_dtype: str = "float32") -> torch.Tensor:
     """Launch the CUDA kernel on ``frames`` (a contiguous CUDA tensor of
     float32, bfloat16 or float16); raises on anything else or if the build
-    or the launch fails."""
+    or the launch fails. ``radix`` and ``layout`` are checked as in JAX but
+    have no effect on the card: every stage is one exact radix-2 step, and
+    the bits are the same for both."""
     _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
            radix, layout, bm_dtype)
     if not frames.is_cuda:
@@ -153,18 +159,18 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     if F == 0:
         return torch.empty((0, f), dtype=torch.int32, device=dev)
     S = trellis.num_states
-    tpf = max(S, 32)
     nsub = f // f0
     pack = int(pack_survivors)
     fixed = int(start == "fixed")
     limit = device_limits(dev).smem_per_block
-    fpb = min(frames_per_tile, 1024 // tpf, F)
+    cap = min(frames_per_tile, max_frames_per_block(trellis), F)
+    fpb = cap
     while fpb and lib.viterbi_unified_smem_bytes(
             k, L, nsub, pack, fixed, fpb, 0) > limit:
         fpb -= 1
     glob = fpb == 0                      # survivors too long for on-chip
     if glob:
-        fpb = min(frames_per_tile, 1024 // tpf, F)
+        fpb = cap
     idx, sgn, signs_half = device_tables(trellis, dev)
     out = torch.empty((F, f), dtype=torch.int32, device=dev)
     sel = amax = None
@@ -172,8 +178,7 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
         nframes = -(-F // fpb) * fpb
         row = 4 * packed_width(S) if pack else S
         sel = torch.empty((nframes, L, row), dtype=torch.uint8, device=dev)
-        amax = torch.empty((nframes, nsub, packed_width(S)),
-                           dtype=torch.int32, device=dev)
+        amax = torch.empty((nframes, nsub), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.viterbi_unified_launch(
@@ -182,7 +187,7 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
             sel.data_ptr() if glob else None,
             amax.data_ptr() if glob else None,
             F, L, beta, k, v1, f, f0, v2s, _LLR_DTYPES[frames.dtype], fixed,
-            pack, radix, int(bm_dtype == "bfloat16"), fpb, stream)
+            pack, int(bm_dtype == "bfloat16"), fpb, stream)
     if err != 0:
         raise RuntimeError(f"viterbi_unified launch failed: CUDA error {err}")
     unified_decode_frames_cuda.launches += 1

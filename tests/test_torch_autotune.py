@@ -6,8 +6,10 @@ The TPU-specific cases (Mosaic lane padding, the sublane layout's doubled
 tiles) become their Hopper counterparts: the shared-memory model is the
 kernels' own carve-up, packing keeps its ratio in both layouts, and the
 packed plan holds more resident frames per SM. On the CPU the planner
-plans for the H100 (``H100_LIMITS``) and ``measure=True`` times the plain
-versions with the host clock. Also: a tune DB written by the JAX package
+plans for the H100 (``H100_LIMITS``, and the main path's registers
+recorded from the card, ``H100_REGISTERS``) and ``measure=True`` times the
+plain versions
+with the host clock. Also: a tune DB written by the JAX package
 loads here and keeps its rows, and ``DecodePlan.cache_key()`` is the JAX
 package's tuple for the same knobs.
 """
@@ -25,9 +27,10 @@ import torch
 from repro_torch.core.framed import FrameSpec, frame_llr
 from repro_torch.core.trellis import STD_K7, make_trellis
 from repro_torch.kernels import autotune, ops, ref
-from repro_torch.kernels.autotune import (H100_LIMITS, candidate_tiles,
-                                          measure_plan, plan_decode,
-                                          plan_tiles, split_smem_bytes,
+from repro_torch.kernels.autotune import (H100_LIMITS, H100_REGISTERS,
+                                          candidate_tiles, measure_plan,
+                                          plan_decode, plan_tiles,
+                                          split_smem_bytes,
                                           unified_smem_bytes)
 from repro_torch.kernels.packing import Layout
 from repro_torch.kernels.tunedb import (SCHEMA, TuneDB, TuneDBWarning,
@@ -41,6 +44,12 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 SPEC = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
 CPU = dict(device="cpu")
 K9 = make_trellis(9, (0o753, 0o561))
+
+
+def _reg_warps(kernel):
+    """Warps an SM's 64 K registers hold for one kernel (allocated per
+    warp in units of 256), at the registers the CPU plans with."""
+    return 65536 // (-(-H100_REGISTERS[kernel] * 32 // 256) * 256)
 
 
 # ---- tests/test_autotune.py ------------------------------------------------
@@ -62,21 +71,29 @@ def test_footprint_matches_kernel_scratch():
 
 
 def test_footprint_scales_linearly_in_ft():
-    t4, _ = unified_smem_bytes(STD_K7, SPEC, 4)
-    t16, _ = unified_smem_bytes(STD_K7, SPEC, 16)
-    assert t16 == 4 * t4
-    s4, _ = split_smem_bytes(STD_K7, SPEC, 4)
-    s16, _ = split_smem_bytes(STD_K7, SPEC, 16)
-    assert s16 == 4 * s4
+    """The unified block's shared memory grows with its frames, the
+    forward block's with its warps (one 256-byte run buffer each)."""
+    t2, _ = unified_smem_bytes(STD_K7, SPEC, 2)
+    t8, _ = unified_smem_bytes(STD_K7, SPEC, 8)
+    assert t8 == 4 * t2
+    s2, _ = split_smem_bytes(STD_K7, SPEC, 2)
+    s8, _ = split_smem_bytes(STD_K7, SPEC, 8)
+    assert s8 == 4 * s2 == 8 * 256
 
 
 def test_packed_plan_is_deeper():
     """On Hopper the packed plan holds more resident frames per SM (the
-    unpacked survivors fill the SM's shared memory first)."""
+    unpacked survivors fill the SM's shared memory first; the packed ones
+    leave the registers to bound it)."""
     plain = plan_tiles(STD_K7, SPEC, **CPU)
     packed = plan_tiles(STD_K7, SPEC, pack_survivors=True, **CPU)
-    assert plain.frames_per_sm == 10          # 233472 // (21120 + 1024)
-    assert packed.frames_per_sm == 32         # 2048 threads / 64 per frame
+    assert plain.frames_per_sm == 10          # 233472 // (20576 + 1024)
+    # one warp a frame; 48 registers a thread: 65536 // 1536 = 42 warps,
+    # so tile 1 stops at the 32 block slots, tile 2 takes 21 blocks of 2,
+    # tiles 4 and 8 only 40 frames
+    assert _reg_warps("unified") == 42
+    assert packed.frames_per_tile == 2 and packed.frames_per_sm == 42
+    assert packed.registers == H100_REGISTERS["unified"] == 48
     assert packed.frames_per_sm > plain.frames_per_sm
     assert packed.fits and packed.budget == H100_LIMITS.smem_per_block
 
@@ -88,27 +105,35 @@ def test_plan_respects_budget_and_floor():
     # whatever the budget, the tile stops at the thread cap
     p = plan_tiles(STD_K7, SPEC, pack_survivors=True, smem_budget=1 << 30,
                    **CPU)
-    assert p.frames_per_tile <= 1024 // 64
+    assert p.frames_per_tile <= autotune.max_frames_per_block(STD_K7) == 8
     assert 0 < p.utilization() < 1
 
 
 def test_plan_caps_at_stream_length():
-    """K=5 (32 threads a frame) needs two frames a block to fill the SM's
-    threads within its 32 block slots; one frame caps the tile at 1."""
+    """K=5 (two frames a warp) needs blocks of more than one frame to fill
+    the SM beyond its 32 block slots; one frame caps the tile at 1."""
     k5 = make_trellis(5, (0o23, 0o35))
     p = plan_tiles(k5, SPEC, pack_survivors=True, **CPU)
-    assert p.frames_per_tile == 2 and p.frames_per_sm == 64
+    # 42 warps of registers (48 a thread) hold 84 frames: tile 2 (one
+    # warp) stops at 32 blocks = 64 frames, tile 4 (two warps) takes
+    # 21 blocks = 84, tiles 8 and 16 only 10 x 8 and 5 x 16 = 80
+    assert p.frames_per_tile == 4 and p.frames_per_sm == 84
     p = plan_tiles(k5, SPEC, pack_survivors=True, max_frames=1, **CPU)
-    assert p.frames_per_tile == 1
+    assert p.frames_per_tile == 1 and p.frames_per_sm == 32
     assert candidate_tiles(k5, max_frames=5) == [1, 2, 4, 8]
 
 
 def test_plan_scales_with_state_count():
-    """K=9 (S=256) frames take 4x the threads: fewer resident frames."""
+    """K=9 (S=256) frames take 4x the packed survivors: fewer resident
+    frames, bounded by shared memory before registers (on the CPU every
+    code plans with the main path's registers)."""
     p7 = plan_tiles(STD_K7, SPEC, pack_survivors=True, **CPU)
     p9 = plan_tiles(K9, SPEC, pack_survivors=True, **CPU)
     assert p9.frames_per_sm < p7.frames_per_sm
-    assert p9.frames_per_sm == 2048 // 256 and p9.fits
+    assert p9.smem_bytes == 32 + SPEC.frame_len * 32   # starts + 8 words
+    by_smem = 233472 // (10304 + 1024)                  # 20 one-frame blocks
+    assert p9.frames_per_tile == 1 and p9.fits
+    assert p9.frames_per_sm == by_smem < _reg_warps("unified")
 
 
 def test_smem_model_is_the_kernel_carve_up():
@@ -117,22 +142,21 @@ def test_smem_model_is_the_kernel_carve_up():
     term; tests/test_torch_gpu.py holds it to the compiled kernels."""
     L, FT = SPEC.frame_len, 3
     _, bd = unified_smem_bytes(STD_K7, SPEC, FT, pack_survivors=True)
-    assert dict(bd) == {"path_metrics": 2 * FT * 64 * 4,
-                        "max_reduce": FT * 2 * 4,
-                        "argmax_words": FT * (256 // 32) * 2 * 4,
+    assert dict(bd) == {"traceback_starts": 96,   # 3 x 8 int32, 16-aligned
                         "sel_survivors": FT * L * 2 * 4}
     fixed = dataclasses.replace(SPEC, start="fixed")
-    assert dict(unified_smem_bytes(STD_K7, fixed, FT)[1])["argmax_words"] == 0
+    assert dict(unified_smem_bytes(STD_K7, fixed, FT)[1])[
+        "traceback_starts"] == 0
     serial = FrameSpec(f=256, v1=20, v2=45)        # one subframe per frame
     assert dict(unified_smem_bytes(STD_K7, serial, FT)[1])[
-        "argmax_words"] == FT * 2 * 4
-    k4 = make_trellis(4, (0o13, 0o15, 0o17))       # S=8: padded to a warp
+        "traceback_starts"] == 16                  # 3 x 1 int32, padded
+    k4 = make_trellis(4, (0o13, 0o15, 0o17))       # S=8: one padded word
     _, bd = unified_smem_bytes(k4, SPEC, FT, pack_survivors=True)
-    assert dict(bd)["path_metrics"] == 2 * FT * 32 * 4
     assert dict(bd)["sel_survivors"] == FT * L * 4
-    _, bd = split_smem_bytes(K9, SPEC, FT)
-    assert dict(bd) == {"path_metrics": 2 * FT * 256 * 4,
-                        "max_reduce": FT * 8 * 4, "argmax_words": FT * 8 * 4}
+    _, bd = split_smem_bytes(K9, SPEC, FT)          # a warp per frame
+    assert dict(bd) == {"run_buffers": FT * 256}
+    _, bd = split_smem_bytes(k4, SPEC, FT)          # 4 frames a warp
+    assert dict(bd) == {"run_buffers": 256}
 
 
 def test_lane_packing_evaporates_under_mosaic():
@@ -164,17 +188,16 @@ def test_split_model_is_smaller_and_plans_deeper():
     """plan_tiles(unified=False) budgets the forward kernel (no survivor
     scratch): smaller at every tile, more resident frames than unpacked
     unified survivors, and it fits a budget one unified frame exceeds."""
-    for ft in (1, 4, 16):
+    for ft in (1, 4, 8):
         u, _ = unified_smem_bytes(STD_K7, SPEC, ft, pack_survivors=True)
         s, bd = split_smem_bytes(STD_K7, SPEC, ft, pack_survivors=True)
         assert s < u
-        assert {n for n, _ in bd} == {"path_metrics", "max_reduce",
-                                      "argmax_words"}
+        assert {n for n, _ in bd} == {"run_buffers"}
     pu = plan_tiles(STD_K7, SPEC, **CPU)
     ps = plan_tiles(STD_K7, SPEC, unified=False, **CPU)
     assert ps.kernel == "split" and pu.kernel == "unified"
     assert ps.frames_per_sm > pu.frames_per_sm
-    budget = 2048           # under one packed unified frame (3152 B)
+    budget = 2048           # under one packed unified frame (2584 B)
     pu = plan_tiles(STD_K7, SPEC, pack_survivors=True, smem_budget=budget,
                     **CPU)
     ps = plan_tiles(STD_K7, SPEC, pack_survivors=True, smem_budget=budget,
@@ -214,15 +237,17 @@ def test_plan_decode_full_plan():
 
 def test_candidates_lift_the_256_cap():
     """Hopper counterpart: candidates are the powers of two up to the
-    thread cap 1024 // max(S, 32) (32 at K<=6, 16 at K=7, 4 at K=9, 1 at
-    K=11), capped at the smallest that covers max_frames."""
-    assert candidate_tiles(make_trellis(5, (0o23, 0o35)))[-1] == 32
-    assert candidate_tiles(STD_K7) == [1, 2, 4, 8, 16]
-    assert candidate_tiles(K9)[-1] == 4
+    thread cap, eight warps of 32 // min(S, 32) frames (64 at K=3, 16 at
+    K=5, 8 from K=6 on, K=11 too), capped at the smallest that covers
+    max_frames."""
+    assert candidate_tiles(make_trellis(3, (0o7, 0o5)))[-1] == 64
+    assert candidate_tiles(make_trellis(5, (0o23, 0o35)))[-1] == 16
+    assert candidate_tiles(STD_K7) == [1, 2, 4, 8]
+    assert candidate_tiles(K9)[-1] == 8
     k11 = make_trellis(11, (0o3345, 0o3613))
-    assert candidate_tiles(k11) == [1]
+    assert candidate_tiles(k11) == [1, 2, 4, 8]
     assert candidate_tiles(STD_K7, max_frames=3) == [1, 2, 4]
-    assert candidate_tiles(STD_K7, max_frames=300) == [1, 2, 4, 8, 16]
+    assert candidate_tiles(STD_K7, max_frames=300) == [1, 2, 4, 8]
 
 
 def test_kernel_runs_beyond_256_frames_per_tile():
@@ -340,7 +365,9 @@ def test_cache_key_is_the_jax_tuple():
 
 def test_auto_tile_in_ops_is_the_planners():
     """frames_per_tile="auto" in ops comes from plan_tiles for the kernel
-    that runs, and decodes exactly."""
+    that runs, and decodes exactly: at K=5 (two frames a warp) four frames
+    a block, the tile that covers the six frames with the most resident
+    frames per SM."""
     from repro_torch.obs import tracer as obs
     spec = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)
     k5 = make_trellis(5, (0o23, 0o35))
@@ -356,7 +383,7 @@ def test_auto_tile_in_ops_is_the_planners():
         (ev,) = [s for s in tracer.spans() if s.name == "kernel_trace"]
         assert ev.attrs["frames_per_tile"] == plan_tiles(
             k5, spec, pack_survivors=True, radix=4, unified=unified,
-            max_frames=6, **CPU).frames_per_tile == 2
+            max_frames=6, **CPU).frames_per_tile == 4
 
 
 def test_device_limits_need_a_card_unless_cpu(monkeypatch):
@@ -572,3 +599,28 @@ def test_jax_written_db_loads_and_keeps_its_rows(db_path):
     assert doc["platforms"][platform_key(jpid)]["jaxfp00001"]["ms"] == 3.0
     assert JTuneDB(db_path).get("jaxfp00001", jpid)["mbps"] == 4.0
     assert port.stats()["platforms"] == 2
+
+
+def test_cuda_rows_belong_to_a_kernel_build(db_path, monkeypatch):
+    """A card's platform key ends with the kernel build (a hash of the
+    CUDA sources and nvcc flags): a row measured on one build misses on
+    another, while a JAX-written row still hits under its own key."""
+    from repro.kernels.tunedb import TuneDB as JTuneDB
+    from repro.kernels.tunedb import platform_id as jplatform_id
+    from repro_torch.kernels import build
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda device=None: "NVIDIA H100 80GB HBM3")
+    card = platform_id("cuda")
+    assert card["kernel_build"] == build._digest()
+    assert platform_key(card).endswith(f"-build{build._digest()}")
+    jpid = jplatform_id()
+    JTuneDB(db_path).put("jaxfp00002", {"ms": 5.0, "mbps": 6.0}, jpid)
+    TuneDB(db_path).put("cudafp0001", {"ms": 1.0, "mbps": 2.0}, card)
+    assert TuneDB(db_path).get("cudafp0001", platform_id("cuda"))["ms"] == 1.0
+    monkeypatch.setattr(build, "_digest", lambda: "0123456789abcdef")
+    rebuilt = platform_id("cuda")
+    assert rebuilt["kernel_build"] == "0123456789abcdef"
+    db = TuneDB(db_path)
+    assert db.get("cudafp0001", rebuilt) is None
+    assert db.get("jaxfp00002", jpid)["mbps"] == 6.0
+    assert db.stats()["hits"] == 1 and db.stats()["misses"] == 1

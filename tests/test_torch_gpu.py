@@ -7,6 +7,8 @@ package is held on the CPU (test_torch_kernels.py, test_torch_pipeline.py,
 test_torch_split.py, test_torch_autotune.py) and each kernel is held here,
 exactly (torch.equal), to its plain version.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,7 @@ from repro_torch.core.encoder import encode
 from repro_torch.core.framed import FrameSpec, frame_llr
 from repro_torch.core.pipeline import DecoderConfig, make_decoder
 from repro_torch.core.trellis import STD_K7, make_trellis
-from repro_torch.kernels import autotune
+from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import traceback_frames as tbf
 from repro_torch.kernels import viterbi_fwd as vf
 from repro_torch.kernels import viterbi_unified as vu
@@ -23,8 +25,12 @@ from repro_torch.kernels.tunedb import TuneDB
 
 pytestmark = pytest.mark.gpu
 
-CODES = [(4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)), (7, (0o171, 0o133)),
-         (9, (0o753, 0o561))]
+#: K=3 (S=4: eight frames a warp), K=4 beta=3, K=5, K=6 (S=32: one
+#: register a lane), K=7, K=9 and K=11 (S=1024: 32 registers a lane).
+CODES = [(3, (0o7, 0o5)), (4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)),
+         (6, (0o65, 0o57)), (7, (0o171, 0o133)), (9, (0o753, 0o561)),
+         (11, (0o3345, 0o3613))]
+K7 = CODES[4]
 
 
 @pytest.fixture
@@ -72,23 +78,50 @@ def test_kernel_equals_plain(cuda, code, spec, bm):
                                                                    **kw))
 
 
+@pytest.mark.parametrize("code", CODES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_kernel_reads_half_inputs(cuda, dtype):
+def test_kernel_reads_half_inputs(cuda, dtype, code):
+    """Both kernels read bf16 and f16 LLRs as the plain version casts them."""
     spec = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)
-    frames = _frames(CODES[2], spec, 8, 1, cuda, dtype)
-    kw = _kw(CODES[2], spec, frames_per_tile=8, pack_survivors=True, radix=4)
+    frames = _frames(code, spec, 8, 1, cuda, dtype)
+    kw = _kw(code, spec, frames_per_tile=8, pack_survivors=True, radix=4)
+    assert torch.equal(vu.unified_decode_frames_cuda(frames, **kw),
+                       vu.unified_decode_frames_plain(frames, **kw))
+    fkw = dict(trellis=kw["trellis"], frames_per_tile=8,
+               pack_survivors=True, radix=4, layout="sublane")
+    got, want = (vf.forward_frames_cuda(frames, **fkw),
+                 vf.forward_frames_plain(frames, **fkw))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("code,f,pack", [(K7, 4096, False),
+                                         (CODES[6], 2048, True)])
+def test_long_frame_uses_device_scratch(cuda, code, f, pack):
+    """Unpacked K=7 survivors of an f=4096 frame (and packed K=11 ones of
+    an f=2048 frame) exceed shared memory: the same kernel keeps them in
+    device memory and still decodes exactly."""
+    spec = FrameSpec(f=f, v1=45, v2=45)
+    frames = _frames(code, spec, 2, 2, cuda)
+    kw = _kw(code, spec, frames_per_tile=1, pack_survivors=pack)
     assert torch.equal(vu.unified_decode_frames_cuda(frames, **kw),
                        vu.unified_decode_frames_plain(frames, **kw))
 
 
-def test_long_frame_uses_device_scratch(cuda):
-    """Unpacked K=7 survivors of an f=4096 frame exceed shared memory: the
-    same kernel keeps them in device memory and still decodes exactly."""
-    spec = FrameSpec(f=4096, v1=45, v2=45)
-    frames = _frames(CODES[2], spec, 2, 2, cuda)
-    kw = _kw(CODES[2], spec, frames_per_tile=1, pack_survivors=False)
-    assert torch.equal(vu.unified_decode_frames_cuda(frames, **kw),
-                       vu.unified_decode_frames_plain(frames, **kw))
+@pytest.mark.parametrize("code", CODES)
+def test_ragged_frame_count_through_ops(cuda, code):
+    """13 frames through ops' padding, with a tile that does not divide
+    them: the card's bits equal the CPU's, unified and split."""
+    spec = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)
+    frames = _frames(code, spec, 13, 7, cuda)
+    tr = make_trellis(*code)
+    for unified in (True, False):
+        for layout in ("lane", "sublane"):
+            kw = dict(unified=unified, layout=layout, frames_per_tile=4)
+            got = ops.viterbi_decode_frames(frames, tr, spec, device="cuda",
+                                            **kw)
+            want = ops.viterbi_decode_frames(frames.cpu(), tr, spec,
+                                             device="cpu", **kw)
+            assert torch.equal(got.cpu(), want)
 
 
 def test_main_path_goes_through_kernel(cuda):
@@ -105,8 +138,8 @@ def test_main_path_goes_through_kernel(cuda):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     spec = FrameSpec(f=64, v1=16, v2=16)
-    frames = _frames(CODES[2], spec, 4, 4, cuda)
-    kw = _kw(CODES[2], spec, frames_per_tile=4)
+    frames = _frames(K7, spec, 4, 4, cuda)
+    kw = _kw(K7, spec, frames_per_tile=4)
     with pytest.raises(ValueError, match="dtype"):
         vu.unified_decode_frames_cuda(frames.to(torch.float64), **kw)
     with pytest.raises(ValueError, match="contiguous"):
@@ -182,6 +215,28 @@ def test_smem_models_equal_kernel_carve_up(cuda, code):
                     tr.k, spec.frame_len, nsub, int(pack), fixed, fpb, 0)
             got, _ = autotune.split_smem_bytes(tr, spec, fpb)
             assert got == flib.viterbi_fwd_smem_bytes(tr.k, fpb)
+
+
+@pytest.mark.parametrize("unified", [True, False])
+def test_register_model_is_the_kernels(cuda, unified):
+    """The planner's registers are the built kernels' (cudaFuncGetAttributes),
+    and on an H100 the count the CPU plans with is the K=7 beta=2
+    instantiation's."""
+    lib = (vu if unified else vf).kernel_library().lib
+    attrs = (lib.viterbi_unified_func_attrs if unified
+             else lib.viterbi_fwd_func_attrs)
+    name = "unified" if unified else "split"
+    h100 = "H100" in torch.cuda.get_device_name(0)
+    for k in range(2, 12):
+        for beta in range(2, 9):
+            out = (ctypes.c_int * 3)()
+            assert attrs(k, beta, out) == 0
+            tr = make_trellis(k, tuple([(1 << k) - 1] * beta))
+            assert autotune.kernel_registers(tr, unified=unified,
+                                             device="cuda") == out[0]
+            assert out[2] >= autotune.BLOCK_THREADS
+            if h100 and (k, beta) == (7, 2):
+                assert autotune.H100_REGISTERS[name] == out[0]
 
 
 def test_device_limits_query(cuda):

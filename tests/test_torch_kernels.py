@@ -126,6 +126,26 @@ def test_other_codes_match_jax(code, spec):
         np.testing.assert_array_equal(got, want)
 
 
+#: The edges of the kernels' warp mapping: S=4 (8 frames per warp), S=32
+#: (one register per lane), S=1024 (32 registers per lane, the widest).
+EDGE_CODES = [(3, (0o7, 0o5)), (6, (0o65, 0o57)), (11, (0o3345, 0o3613))]
+
+
+@pytest.mark.parametrize("code", EDGE_CODES)
+def test_edge_codes_match_jax(code):
+    """The plain version equals JAX on the codes at the edges of the CUDA
+    kernels' lane mapping, which tests/test_torch_gpu.py holds the kernel
+    to on the card: parallel and serial traceback, packed and not."""
+    for spec in (FrameSpec(f=32, v1=12, v2=16, f0=8, v2s=16),
+                 FrameSpec(f=32, v1=12, v2=16)):
+        tf, _ = _both(code, spec, 96, 7, snr=6.0)
+        want = _jax_ref(code, spec, 96, 7, snr=6.0)
+        for pack, radix, layout in [(True, 4, "sublane"), (False, 2, "lane")]:
+            got = _port(tf, code, spec, pack_survivors=pack, radix=radix,
+                        layout=layout, frames_per_tile=2)
+            np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("code", [(4, (0o13, 0o15, 0o17)), K7])
 @pytest.mark.parametrize("layout", ["lane", "sublane"])
 def test_bf16_branch_metrics_match_jax_kernel(code, layout):

@@ -147,6 +147,31 @@ def test_forward_kernel_packed_stream():
     _assert_same(amax, np.asarray(jamax))
 
 
+@pytest.mark.parametrize("code", [(3, (0o7, 0o5)), (6, (0o65, 0o57)),
+                                  (11, (0o3345, 0o3613))])
+def test_forward_kernel_edge_codes_match_jax(code):
+    """The forward kernel's plain version equals JAX's oracle on the codes
+    at the edges of the CUDA kernels' lane mapping (S=4, 32, 1024): sel
+    unpacked and packed (both layouts) and the per-stage argmax."""
+    from repro.kernels.packing import pack_bits as jpack_bits
+    spec = FrameSpec(f=32, v1=12, v2=17)            # L = 61, odd
+    x, t, jf = _frames(code, spec, 32 * 3, 8, snr=5.0)
+    tr = make_trellis(*code)
+    jsel, jamax = jref.forward_frames_ref(jf, jmake_trellis(*code))
+    sel, amax = vf.forward_frames(t, trellis=tr, frames_per_tile=3)
+    _assert_same(sel, np.asarray(jsel))
+    _assert_same(amax, np.asarray(jamax))
+    packed = np.asarray(jpack_bits(jsel))                  # (F, L, W)
+    for layout, want in (("lane", packed),
+                         ("sublane", packed.transpose(1, 2, 0)
+                          .reshape(-1, packed.shape[0]))):
+        sel, amax = vf.forward_frames(t, trellis=tr, pack_survivors=True,
+                                      radix=4, layout=layout,
+                                      frames_per_tile=3)
+        _assert_same(sel, np.ascontiguousarray(want))
+        _assert_same(amax, np.asarray(jamax))
+
+
 def _streams(code, x, layout, pack):
     """(JAX sel, amax) and (port sel, amax) of the same frames."""
     knobs = dict(pack_survivors=pack, layout=layout, frames_per_tile=8)
