@@ -42,9 +42,37 @@ non-zero:
              call per backend: device time by kernel, the device's busy
              share, and the glue's share (device time outside the decode
              kernels: clip, depuncture, frame gather, pad) of the call.
+7. stream  — stream_decode's path (make_stream_decoder, push, flush) at
+             K=7, rates 1/2 and 3/4 (the main path's frames), n = 2^24
+             bits pushed in seeded random slices of 1-64 kbit (raw
+             symbols at rate 3/4, so slices cut puncturing periods), at the
+             one-wave chunk (the plan's resident frames per SM x SMs),
+             then n = 2^18 at the planner's default chunk. Launch counts
+             set to 0 just before each run and read just after: B1 once
+             per chunk, nothing else. Bits must equal make_decoder on the
+             card. Prints Mb/s and the host ms per chunk by phase
+             (framing, copy in, dispatch, drain). Then the no-sync check:
+             behind a spinning kernel, just after chunk i+1 is dispatched
+             (depth 1), chunk i's event must still be pending.
+8. serve   — one DecodeServer(slots=64, max_sessions=256) on the card:
+             256 sessions (192 K=7 rate 1/2, 64 rate 3/4, backend
+             "kernel", chunk_frames=64: 4096 frames a full launch), each
+             2^16 bits pushed in seeded random slices interleaved across
+             sessions, step/poll until every session is closed. Every
+             session's bits must equal make_decoder; plan-cache traces
+             must equal the distinct (bucket, batch) programs; every
+             fault counter must be 0; B1's launches must equal the
+             server's. Prints windows/s, Mb/s, and the p50/p99 of step
+             time and of window latency. Then drain(checkpoint) and
+             restore mid-stream (bits equal), a seeded FaultInjector run
+             (launch errors and one poisoned push: counters equal the
+             schedule, healthy sessions' bits equal), and one kernel_split
+             bucket of 16 sessions (B3 and the traceback kernel, bits
+             equal).
 
-The line before the last is a JSON `kernels` line; the last line is the
-JSON `ok` line with the device.
+The line before the last is a JSON `kernels` line (with each kernel's
+launches on the main path, and ``launches_stream``/``launches_serve`` on
+phases 7 and 8); the last line is the JSON `ok` line with the device.
 """
 from __future__ import annotations
 
@@ -711,6 +739,412 @@ def phase_profile(rx_half, call_ms):
             f"the device's busy time")
 
 
+STREAM_BITS = 1 << 24
+STREAM_SMALL_BITS = 1 << 18
+SERVE_BITS = 1 << 16
+SERVE_SESSIONS = (192, 64)              # rate 1/2, rate 3/4
+SERVE_SLOTS = 64
+SERVE_CHUNK = 64
+
+
+def _reset_counts():
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _read_counts(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def _slices(rng, total, rate, lo=1 << 10, hi=1 << 16):
+    """Seeded random push sizes of lo..hi decoded bits covering ``total``
+    input rows (stages at rate 1/2, raw symbols at rate 3/4: 4/3 a bit)."""
+    per_bit = 1.0 if rate == "1/2" else 4.0 / 3.0
+    out, pos = [], 0
+    while pos < total:
+        sz = max(1, int(rng.integers(lo, hi + 1) * per_bit))
+        out.append((pos, min(total, pos + sz)))
+        pos += sz
+    return out
+
+
+def _pctl(xs, p):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, np.float64), p)) if xs else 0.0
+
+
+def device_busy(fn):
+    """Run ``fn`` under torch.profiler; returns (wall ms on the host clock,
+    device busy ms by kind: B1, copies in and out, other kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = {"B1": 0.0, "copy_in": 0.0, "copy_out": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or not ev.self_device_time_total:
+            continue
+        kind = ("B1" if "viterbi_unified_kernel" in ev.key else
+                "copy_in" if "HtoD" in ev.key else
+                "copy_out" if "DtoH" in ev.key else "other")
+        busy[kind] += ev.self_device_time_total / 1e3
+    return wall, busy
+
+
+def _busy_line(wall, busy):
+    total = sum(busy.values())
+    return (f"wall {wall:.1f} ms, device busy {total:.2f} ms "
+            f"({total / wall:.1%}; idle {1 - total / wall:.1%}): " +
+            ", ".join(f"{k} {v:.2f} ms" for k, v in busy.items()))
+
+
+def one_wave_chunk(cfg):
+    """The plan's resident frames per SM x the SM count, rounded up to a
+    multiple of the tile (one device)."""
+    import torch
+    from repro_torch.kernels.autotune import plan_decode
+    plan = plan_decode(cfg.trellis, cfg.spec, pack_survivors=True, radix=4,
+                       device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ft = plan.frames_per_tile
+    wave = -(-plan.tile.frames_per_sm * sms // ft) * ft
+    return wave, plan
+
+
+def _stream_run(cfg, rx_host, n, chunk, rng):
+    """One stream_decode-path run; returns (bits, wall s, host_ms, counts)."""
+    import torch
+    from repro_torch.core.stream import make_stream_decoder
+    dec = make_stream_decoder(cfg, chunk_frames=chunk, device="cuda")
+    src = rx_host if cfg.rate != "1/2" else rx_host.reshape(-1, 2)
+    cuts = _slices(rng, src.shape[0], cfg.rate)
+    torch.cuda.synchronize()
+    counters = _reset_counts()
+    t0 = time.perf_counter()
+    parts = [dec.push(src[a:b]) for a, b in cuts]
+    parts.append(dec.flush())
+    wall = time.perf_counter() - t0
+    counts = _read_counts(counters)
+    import numpy as np
+    return (np.concatenate(parts)[:n], wall, dec.host_ms(), counts,
+            len(cuts))
+
+
+def _no_sync_check(cfg, rx_host, chunk):
+    """Behind a spinning kernel, dispatch two chunks with depth 1: just
+    after chunk i+1 is dispatched, chunk i's event must still be pending
+    (nothing on the dispatch path synchronised)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pipeline import make_decoder
+    from repro_torch.core.stream import make_stream_decoder
+    dec = make_stream_decoder(cfg, chunk_frames=chunk, depth=1,
+                              device="cuda")
+    src = rx_host.reshape(-1, 2)
+    need = 2 * chunk * cfg.spec.f + cfg.spec.v2
+    dec.push(src[:chunk * cfg.spec.f])          # builds the programs
+    dec.flush()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(5e8))                 # ~0.25 s of spinning
+    t0 = time.perf_counter()
+    dec._ctx.append(src[:need])
+    w0, w1 = dec._ctx.take_windows()
+    dec._dispatch(w0)
+    dec._dispatch(w1)
+    host = (time.perf_counter() - t0) * 1e3
+    first = dec._inflight[0][0].event
+    pending = not first.query()
+    bits = np.concatenate(dec._drain(0))
+    dec._ctx.reset()
+    want = make_decoder(cfg, "cuda")(src[:need], need).cpu().numpy()
+    if not np.array_equal(bits, want[:2 * chunk * cfg.spec.f]):
+        raise AssertionError("no-sync check: bits != make_decoder")
+    if not pending:
+        raise AssertionError("chunk i's event had completed just after "
+                             "chunk i+1 was dispatched behind a spinning "
+                             "kernel: the dispatch path synchronised")
+    return host
+
+
+def phase_stream(gen):
+    """Returns each kernel's launches over the stream runs."""
+    import numpy as np
+    import torch
+    from repro_torch.channel.sim import channel
+    from repro_torch.core.pipeline import make_decoder
+    rng = np.random.default_rng(SEED)
+    total = {k: 0 for k in _counters()}
+    for rate in ("1/2", "3/4"):
+        cfg = main_config(rate, "kernel")
+        wave, plan = one_wave_chunk(cfg)
+        for n, chunk, label in ((STREAM_BITS, wave, "one wave"),
+                                (STREAM_SMALL_BITS, plan.chunk_frames,
+                                 "default")):
+            _, rx = channel(gen, n, EBN0_DB, rate)
+            want = make_decoder(cfg, "cuda")(rx, n).cpu().numpy()
+            rx_host = rx.cpu().numpy()
+            bits, wall, host, counts, pushes = _stream_run(
+                cfg, rx_host, n, chunk, rng)
+            chunks = host["chunks"]
+            if counts != {"viterbi_unified": chunks, "viterbi_fwd": 0,
+                          "traceback_frames": 0}:
+                raise AssertionError(f"stream rate {rate} {label}: launches "
+                                     f"{counts} for {chunks} chunks")
+            if not (bits.shape == (n,) and np.array_equal(bits, want)):
+                raise AssertionError(f"stream rate {rate} {label}: bits != "
+                                     f"make_decoder")
+            for k, v in counts.items():
+                total[k] += v
+            per = {k: round(host[k] / chunks, 4)
+                   for k in ("framing", "copy_in", "dispatch", "drain")}
+            log("stream", f"rate {rate} {label} chunk {chunk} frames "
+                f"({chunk * cfg.spec.f} bits): n={n} in {pushes} pushes, "
+                f"{chunks} chunks, {n / wall / 1e6:.1f} Mb/s ({wall:.3f} s "
+                f"host clock, push to flush); B1 launches "
+                f"{counts['viterbi_unified']}; host ms per chunk {per} "
+                f"(sum {sum(per.values()):.4f} of "
+                f"{wall * 1e3 / chunks:.4f}); bits equal make_decoder")
+        if rate == "1/2":
+            _, rx = channel(gen, 1 << 22, EBN0_DB, rate)
+            rx_host = rx.cpu().numpy()
+            wall, busy = device_busy(lambda: _stream_run(
+                cfg, rx_host, 1 << 22, wave, rng))
+            log("stream", f"profile, rate 1/2 one wave, n=2^22: "
+                + _busy_line(wall, busy))
+            _, rx = channel(gen, 4 * wave * cfg.spec.f, EBN0_DB, rate)
+            host = _no_sync_check(cfg, rx.cpu().numpy(), wave)
+            log("stream", f"no-sync check: two one-wave chunks dispatched "
+                f"in {host:.3f} ms behind a spinning kernel; chunk i's "
+                f"event still pending after chunk i+1's dispatch; bits "
+                f"equal")
+    return total
+
+
+def _session_streams(gen, rates, n):
+    """One received stream per session, made on the card, kept on the
+    host (numpy), and make_decoder's bits for it."""
+    from repro_torch.channel.sim import channel
+    from repro_torch.core.pipeline import make_decoder
+    out = []
+    decoders = {}
+    for rate in rates:
+        cfg = main_config(rate, "kernel")
+        if rate not in decoders:
+            decoders[rate] = make_decoder(cfg, "cuda")
+        _, rx = channel(gen, n, EBN0_DB, rate)
+        out.append((cfg, rx.cpu().numpy(),
+                    decoders[rate](rx, n).cpu().numpy()))
+    return out
+
+
+def _serve_loop(srv, streams, rng, n, lo=1 << 10, hi=1 << 14,
+                step_ms=None, stop_at=None):
+    """Push every session's stream in seeded random slices, interleaved
+    across sessions in a random order each round; step and poll until
+    every slice went in. Returns (sids, bits so far, positions)."""
+    from repro_torch.serve import Backpressure
+    sids = [srv.open_session(cfg, chunk_frames=SERVE_CHUNK)
+            for cfg, _, _ in streams]
+    pos = [0] * len(streams)
+    got = {sid: [] for sid in sids}
+    srcs = [rx if cfg.rate != "1/2" else rx.reshape(-1, 2)
+            for cfg, rx, _ in streams]
+    while any(p < s.shape[0] for p, s in zip(pos, srcs)):
+        for j in rng.permutation(len(streams)):
+            src = srcs[j]
+            if pos[j] >= src.shape[0] or (
+                    stop_at is not None and pos[j] >= stop_at(src)):
+                continue
+            per_bit = 1.0 if streams[j][0].rate == "1/2" else 4.0 / 3.0
+            sz = max(1, int(rng.integers(lo, hi + 1) * per_bit))
+            if stop_at is not None:
+                sz = min(sz, stop_at(src) - pos[j])
+            try:
+                srv.push(sids[j], src[pos[j]:pos[j] + sz])
+                pos[j] += sz
+            except Backpressure:
+                pass
+        t0 = time.perf_counter()
+        srv.step()
+        if step_ms is not None:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        for sid in sids:
+            got[sid].append(srv.poll(sid))
+        if stop_at is not None and all(
+                p >= stop_at(s) for p, s in zip(pos, srcs)):
+            break
+    return sids, got, pos
+
+
+def _check_sessions(srv, streams, sids, got, n, what):
+    import numpy as np
+    for sid, (cfg, _, want) in zip(sids, streams):
+        got[sid].append(srv.close_session(sid))
+        bits = np.concatenate(got[sid])[:n]
+        if not np.array_equal(bits, want):
+            raise AssertionError(f"{what}: session {sid} (rate {cfg.rate}) "
+                                 f"!= make_decoder")
+
+
+def phase_serve(gen):
+    """Returns each kernel's launches over the serve runs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import DecodeServer, PlanCache
+    from repro_torch.testing import FaultInjector, FaultSpec
+    rng = np.random.default_rng(SEED + 1)
+    n = SERVE_BITS
+    rates = ["1/2"] * SERVE_SESSIONS[0] + ["3/4"] * SERVE_SESSIONS[1]
+    rates = [rates[i] for i in rng.permutation(len(rates))]
+    streams = _session_streams(gen, rates, n)
+    total = {k: 0 for k in _counters()}
+
+    # -- the clean run --------------------------------------------------
+    cache, tracer = PlanCache(), Tracer()
+    srv = DecodeServer(slots=SERVE_SLOTS, max_sessions=len(streams),
+                       cache=cache, trace=tracer, device="cuda")
+    steps = []
+    torch.cuda.synchronize()
+    counters = _reset_counts()
+    t0 = time.perf_counter()
+    sids, got, _ = _serve_loop(srv, streams, rng, n, step_ms=steps)
+    tc = time.perf_counter()
+    for sid in sids:
+        got[sid].append(srv.close_session(sid))
+    wall = time.perf_counter() - t0
+    counts = _read_counts(counters)
+    for sid, (cfg, _, want) in zip(sids, streams):
+        if not np.array_equal(np.concatenate(got[sid])[:n], want):
+            raise AssertionError(f"serve: session {sid} (rate {cfg.rate}) "
+                                 f"!= make_decoder")
+    snap = srv.metrics_snapshot()
+    tot = snap["totals"]
+    faults = {c: tot[c] for c in ("launch_errors", "retries", "timeouts",
+                                  "degraded", "breaker_trips", "evacuated")}
+    if any(faults.values()):
+        raise AssertionError(f"serve: fault counters {faults} in a clean run")
+    if counts != {"viterbi_unified": tot["launches"], "viterbi_fwd": 0,
+                  "traceback_frames": 0}:
+        raise AssertionError(f"serve: launches {counts}, server "
+                             f"{tot['launches']}")
+    programs = {(r.attrs["bucket"], r.attrs["frames"])
+                for r in tracer.spans() if r.name == "launch"}
+    stats = cache.stats()
+    if stats["traces"] != len(programs):
+        raise AssertionError(f"serve: plan cache traces {stats['traces']} != "
+                             f"{len(programs)} distinct (bucket, batch) "
+                             f"programs")
+    for k, v in counts.items():
+        total[k] += v
+    full = sum(1 for b, f in programs if f == SERVE_SLOTS * SERVE_CHUNK)
+    log("serve", f"{len(streams)} sessions ({SERVE_SESSIONS[0]} rate 1/2, "
+        f"{SERVE_SESSIONS[1]} rate 3/4), {n} bits each, slots "
+        f"{SERVE_SLOTS} x chunk {SERVE_CHUNK}: {tot['windows']} windows in "
+        f"{tot['launches']} launches ({len(programs)} programs, {full} at "
+        f"the full {SERVE_SLOTS * SERVE_CHUNK} frames) in {wall:.3f} s "
+        f"({tot['windows'] / wall:.1f} windows/s, "
+        f"{tot['bits'] / wall / 1e6:.1f} Mb/s; pushes and steps "
+        f"{tc - t0:.3f} s, closes {wall - (tc - t0):.3f} s); step p50 "
+        f"{_pctl(steps, 50):.3f} ms p99 {_pctl(steps, 99):.3f} ms over "
+        f"{len(steps)} steps; window latency p50 {tot['p50_ms']:.3f} ms "
+        f"p99 {tot['p99_ms']:.3f} ms; occupancy {tot['occupancy']:.4f}; "
+        f"B1 launches {counts['viterbi_unified']} = server launches; "
+        f"fault counters 0; plan cache {stats}")
+    log("serve", "stage ms (p50/p99/count): " + "; ".join(
+        f"{k} {v['p50']}/{v['p99']}/{v['count']}"
+        for k, v in snap["stages"].items()))
+
+    def profiled():
+        srv = DecodeServer(slots=SERVE_SLOTS, cache=PlanCache(),
+                           device="cuda")
+        sids, got, _ = _serve_loop(srv, streams[:64], rng, n)
+        for sid in sids:
+            srv.close_session(sid)
+    wall, busy = device_busy(profiled)
+    log("serve", "profile, 64 of the sessions, the same loop: "
+        + _busy_line(wall, busy))
+
+    # -- drain(checkpoint) -> restore, mid-stream ------------------------
+    sub = streams[:16]
+    srv = DecodeServer(slots=SERVE_SLOTS, cache=PlanCache(), device="cuda")
+    half = (lambda src: src.shape[0] // 2)
+    sids, got, pos = _serve_loop(srv, sub, rng, n, stop_at=half)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "serve.ckpt.json")
+        srv.drain(checkpoint=path)     # undelivered bits go with it
+        srv2 = DecodeServer.restore(path, cache=PlanCache(), device="cuda")
+    for sid, p, (cfg, rx, _) in zip(sids, pos, sub):
+        src = rx if cfg.rate != "1/2" else rx.reshape(-1, 2)
+        srv2.push(sid, src[p:p + src.shape[0] // 4])
+        srv2.step()
+        srv2.push(sid, src[p + src.shape[0] // 4:])
+    srv2.drain()
+    _check_sessions(srv2, sub, sids, got, n, "checkpoint/restore")
+    log("serve", f"drain(checkpoint) -> restore at mid-stream: {len(sub)} "
+        f"sessions resumed on the card, bits equal make_decoder")
+
+    # -- seeded faults: launch errors and one poisoned push ---------------
+    sub = list(streams[16:48])
+    inj = FaultInjector(FaultSpec("launch_error", p=0.3),
+                        FaultSpec("corrupt_llr", every=1, sessions=(0,),
+                                  mode="nan", frac=0.01), seed=SEED)
+    srv = DecodeServer(slots=8, cache=PlanCache(), device="cuda",
+                       faults=inj, max_retries=2, backoff_s=0.0,
+                       breaker_threshold=1000)
+    j = next(i for i, (cfg, _, _) in enumerate(sub) if cfg.rate == "1/2")
+    poisoned_cfg, poisoned_rx, _ = sub.pop(j)
+    bad = poisoned_rx.reshape(-1, 2)[:1024]
+    bad_sid = srv.open_session(poisoned_cfg, chunk_frames=SERVE_CHUNK)
+    if bad_sid != 0:
+        raise AssertionError(f"the poisoned session is {bad_sid}, not 0")
+    srv.push(bad_sid, bad)                      # the one poisoned push
+    sids, got, _ = _serve_loop(srv, sub, rng, n)
+    srv.close_session(bad_sid)
+    _check_sessions(srv, sub, sids, got, n, "fault run")
+    tot = srv.metrics.totals()
+    inj_stats = inj.stats()["injected"]
+    want = {"launch_errors": inj_stats.get("launch_error", 0),
+            "retries": inj_stats.get("launch_error", 0) - tot["degraded"],
+            "poisoned_pushes": inj_stats.get("corrupt_llr", 0),
+            "sanitized_values": int(0.01 * bad.size)}
+    seen = {k: tot[k] for k in want}
+    if seen != want or want["launch_errors"] == 0 or want[
+            "poisoned_pushes"] != 1:
+        raise AssertionError(f"fault run: counters {seen}, schedule {want}")
+    log("serve", f"fault run: {len(sub)} healthy sessions + 1 poisoned "
+        f"push; injected {inj_stats}; counters {seen}, degraded "
+        f"{tot['degraded']}; healthy sessions' bits equal make_decoder")
+
+    # -- one kernel_split bucket of 16 sessions --------------------------
+    sub = [(dataclasses.replace(cfg, backend="kernel_split"), rx, want)
+           for cfg, rx, want in streams if cfg.rate == "1/2"][:16]
+    srv = DecodeServer(slots=16, cache=PlanCache(), device="cuda")
+    counters = _reset_counts()
+    sids, got, _ = _serve_loop(srv, sub, rng, n)
+    _check_sessions(srv, sub, sids, got, n, "kernel_split bucket")
+    counts = _read_counts(counters)
+    launches = srv.metrics.totals()["launches"]
+    if counts != {"viterbi_unified": 0, "viterbi_fwd": launches,
+                  "traceback_frames": launches} or len(srv.buckets()) != 1:
+        raise AssertionError(f"kernel_split bucket: launches {counts}, "
+                             f"server {launches}")
+    for k, v in counts.items():
+        total[k] += v
+    log("serve", f"kernel_split bucket: {len(sub)} sessions in {launches} "
+        f"launches of B3 and the traceback kernel, bits equal make_decoder")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -733,6 +1167,11 @@ def main() -> int:
     launches, frames, rx = phase_main(gen)
     entries, call_ms = phase_time(frames, rx, launches)
     phase_profile(rx, call_ms)
+    stream = phase_stream(gen)
+    serve = phase_serve(gen)
+    for entry in entries:
+        entry["launches_stream"] = stream[entry["name"]]
+        entry["launches_serve"] = serve[entry["name"]]
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:

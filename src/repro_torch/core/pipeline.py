@@ -18,7 +18,6 @@ versions.
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
 
 import torch
 
@@ -128,17 +127,14 @@ def _build_frame_decoder(cfg: DecoderConfig, device: torch.device):
     return decode_frames
 
 
-@lru_cache(maxsize=None)
-def _frame_decoder(cfg: DecoderConfig, device: torch.device):
-    return _build_frame_decoder(cfg, device)
-
-
 def make_frame_decoder(cfg: DecoderConfig, device=None):
     """Returns decode_frames(frames (F, L, beta)) -> (F, f) int32 bits on
-    ``device`` (``None`` = ``"cuda"``). Memoized per (cfg, device): every
-    caller gets the same closure."""
-    from ..kernels.ops import resolve_device
-    return _frame_decoder(cfg, resolve_device(device))
+    ``device`` (``None`` = ``"cuda"``). Memoized per (cfg, device) in the
+    process-global plan cache (serve.plan_cache), as in the JAX package:
+    every caller, the stream and serve layers included, gets the same
+    closure."""
+    from ..serve.plan_cache import PLAN_CACHE
+    return PLAN_CACHE.frame_decoder(cfg, device=device)
 
 
 def make_decoder(cfg: DecoderConfig, device=None):

@@ -469,6 +469,20 @@ def _measure_candidates(trellis: Trellis, plan_spec: FrameSpec,
     return out[:max(1, int(top_k))]
 
 
+def _load_kernels(unified: bool) -> None:
+    """Build (at first use) and load every kernel a plan launches: B1, or
+    B3 and the traceback kernel. A build failure raises here, at planning
+    time, before any launch."""
+    if unified:
+        from .viterbi_unified import kernel_library
+        kernel_library()
+    else:
+        from .traceback_frames import kernel_library as tb_library
+        from .viterbi_fwd import kernel_library as fwd_library
+        fwd_library()
+        tb_library()
+
+
 def plan_decode(trellis: Trellis, spec: FrameSpec, *, unified: bool = True,
                 pack_survivors: bool = True, radix: int = 4,
                 bm_dtype: str = "float32", layout="auto",
@@ -497,6 +511,10 @@ def plan_decode(trellis: Trellis, spec: FrameSpec, *, unified: bool = True,
     ``TUNE_DB``) keyed by ``DecodePlan.fingerprint()`` x
     ``platform_id(device)``, so a plan is measured once per (card, code).
 
+    On a card, planning loads the libraries of the kernels the plan
+    launches (``_load_kernels``): a build failure raises here, never at a
+    later launch.
+
     Every call runs under a ``plan_decode`` tracing span whose attributes
     carry the chosen plan and its shared memory against the budget and,
     under ``measure=True``, the measured ms and Mb/s and how many
@@ -505,6 +523,8 @@ def plan_decode(trellis: Trellis, spec: FrameSpec, *, unified: bool = True,
     with get_tracer().span("plan_decode") as sp:
         spec.validate()
         device = _resolve_device(device)
+        if device.type == "cuda":
+            _load_kernels(unified)
         limits = device_limits(device)
         budget = (limits.smem_per_block if smem_budget is None
                   else int(smem_budget))

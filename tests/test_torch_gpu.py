@@ -261,3 +261,125 @@ def test_plan_decode_measures_into_a_temporary_db(cuda, tmp_path):
     assert autotune.plan_decode(STD_K7, spec, measure=True, tunedb=again,
                                 measure_reps=2, measure_frames=64) == plan
     assert again.stats()["measures"] == 0
+
+
+# -- the stream and serve paths on the card ---------------------------------
+def _stream_input(rate, n, seed):
+    """A received stream (host numpy): (n, 2) at rate 1/2, the raw
+    punctured symbols at rate 3/4."""
+    from repro_torch.core.puncture import PATTERNS
+    rng = np.random.default_rng(seed)
+    coded = encode(torch.from_numpy(rng.integers(0, 2, n)), STD_K7).numpy()
+    if rate != "1/2":
+        pat = PATTERNS[rate]
+        mask = np.tile(pat, (1, -(-n // pat.shape[1]))).T[:n]
+        coded = coded.reshape(-1)[mask.reshape(-1).astype(bool)]
+    out = 1.0 - 2.0 * coded + 0.6 * rng.standard_normal(coded.shape)
+    return out.astype(np.float32)
+
+
+_RATE_SPECS = {"1/2": FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45),
+               "3/4": FrameSpec(f=252, v1=21, v2=45, f0=42, v2s=45)}
+
+
+@pytest.mark.parametrize("rate", ["1/2", "3/4"])
+@pytest.mark.parametrize("chunk", [4, 37, 512])
+def test_stream_decode_equals_make_decoder(cuda, rate, chunk):
+    from repro_torch.core.stream import stream_decode
+    cfg = DecoderConfig(spec=_RATE_SPECS[rate], rate=rate, backend="kernel")
+    n = 600 * 256 + 77
+    stream = _stream_input(rate, n, seed=chunk)
+    want = make_decoder(cfg)(stream, n).cpu().numpy()
+    before = vu.unified_decode_frames_cuda.launches
+    got = stream_decode(cfg, stream, n, chunk_frames=chunk,
+                        push_size=12345)
+    assert vu.unified_decode_frames_cuda.launches > before
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+
+
+def test_three_bucket_server_equals_stream_decode(cuda):
+    """Rate 1/2 kernel, rate 3/4 kernel and rate 1/2 kernel_split buckets
+    on one server: every session's bits equal stream_decode on the card."""
+    import dataclasses
+    from repro_torch.core.stream import stream_decode
+    from repro_torch.serve import DecodeServer, PlanCache
+    cfgs = [DecoderConfig(spec=_RATE_SPECS["1/2"], backend="kernel"),
+            DecoderConfig(spec=_RATE_SPECS["3/4"], rate="3/4",
+                          backend="kernel"),
+            DecoderConfig(spec=_RATE_SPECS["1/2"], backend="kernel_split")]
+    srv = DecodeServer(slots=8, cache=PlanCache())
+    sessions = []
+    for i in range(9):
+        cfg = cfgs[i % 3]
+        n = 40 * 256 + 100 * i
+        stream = _stream_input(cfg.rate, n, seed=100 + i)
+        sessions.append((srv.open_session(cfg, chunk_frames=8), cfg,
+                         stream, n, []))
+    assert len(srv.buckets()) == 3
+    for start in range(0, 14000, 3000):
+        for sid, cfg, stream, n, out in sessions:
+            srv.push(sid, stream[start:start + 3000])
+        srv.step()
+        for sid, cfg, stream, n, out in sessions:
+            out.append(srv.poll(sid))
+    for sid, cfg, stream, n, out in sessions:
+        out.append(srv.close_session(sid))
+        got = np.concatenate(out)[:n]
+        want = stream_decode(dataclasses.replace(cfg, backend="kernel"),
+                             stream, n, chunk_frames=8)
+        assert np.array_equal(got, want), (sid, cfg.backend, cfg.rate)
+    tot = srv.metrics.totals()
+    assert tot["launch_errors"] == tot["degraded"] == 0
+
+
+def test_pinned_slots_reused_only_after_their_event(cuda):
+    """A depth=2 stream whose chunks differ: every slot the pool hands out
+    again has its last chunk's event completed, and the bits are exact —
+    while a spinning kernel keeps the chunks in flight."""
+    from repro_torch.core.stream import make_stream_decoder
+    cfg = DecoderConfig(spec=_RATE_SPECS["1/2"], backend="kernel")
+    n = 16 * 8 * 256
+    stream = _stream_input("1/2", n, seed=7)
+    stream[: n // 2] *= 0.25                    # chunks of unequal content
+    dec = make_stream_decoder(cfg, chunk_frames=8, depth=2)
+    pool = dec._staging
+    handed = []
+    acquire = pool.acquire
+
+    def watched(n_in, n_out):
+        slot = acquire(n_in, n_out)
+        if any(s is slot for s in handed):
+            assert slot.event.query(), "slot reused before its event"
+        handed.append(slot)
+        return slot
+
+    pool.acquire = watched
+    torch.cuda._sleep(int(2e8))
+    got = np.concatenate([dec.push(stream[i:i + 3000])
+                          for i in range(0, n, 3000)] + [dec.flush()])
+    want = make_decoder(cfg)(stream, n).cpu().numpy()
+    assert np.array_equal(got[:n], want)
+    assert len({id(s) for s in handed}) <= 4     # depth + 1, + the flush
+
+
+def test_stream_and_server_mesh_not_ported(cuda):
+    from repro_torch.core.stream import make_stream_decoder
+    from repro_torch.serve import DecodeServer
+    with pytest.raises(NotImplementedError, match="A12"):
+        make_stream_decoder(DecoderConfig(backend="kernel"), mesh=object())
+    with pytest.raises(NotImplementedError, match="A12"):
+        DecodeServer(mesh=object())
+
+
+def test_planning_a_bucket_loads_its_kernels(cuda):
+    """open_session plans the bucket, and planning loads every kernel the
+    bucket will launch (B3 and the traceback kernel for kernel_split), so
+    a build failure surfaces there, outside the server's retried launch."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import DecodeServer, PlanCache
+    for src in ("viterbi_fwd.cu", "traceback_frames.cu"):
+        build._built.pop(src, None)
+    srv = DecodeServer(cache=PlanCache())
+    srv.open_session(DecoderConfig(spec=_RATE_SPECS["1/2"],
+                                   backend="kernel_split"), chunk_frames=8)
+    assert {"viterbi_fwd.cu", "traceback_frames.cu"} <= set(build._built)
