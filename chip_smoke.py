@@ -69,14 +69,33 @@ non-zero:
              schedule, healthy sessions' bits equal), and one kernel_split
              bucket of 16 sessions (B3 and the traceback kernel, bits
              equal).
+9. mesh    — the frame-sharded decode (repro_torch.distributed). The
+             sharded frame decoder at the main shape over the meshes
+             [cuda:0] and [cuda:0, cuda:0], and the latter again at one
+             frame fewer (padding): bits equal the unsharded frame
+             decoder, B1 launches equal the shards, ms beside the
+             unsharded call's. stream_decode's path over [cuda:0, cuda:0]
+             at rates 1/2 and 3/4 (n = 2^22 at one wave per shard, 2^16 at
+             the mesh's default chunk): bits equal make_decoder, B1
+             launches equal chunks x shards, and the no-sync check. A
+             DecodeServer over it, 16 sessions (12 rate 1/2, 4 rate 3/4):
+             bits equal make_decoder, B1 launches equal the server's x
+             shards; drain(checkpoint) and restore under the mesh, bits
+             equal. With two or more cards the same checks over
+             frame_mesh() (every card); with one, a line says so. Then the
+             dry run (launch/viterbi_dryrun.py --run) at 10^8 bits on the
+             local mesh: measured Gb/s against decode_roofline's bound.
 
 The line before the last is a JSON `kernels` line (with each kernel's
-launches on the main path, and ``launches_stream``/``launches_serve`` on
-phases 7 and 8); the last line is the JSON `ok` line with the device.
+launches on the main path, and ``launches_stream``/``launches_serve``/
+``launches_mesh`` on phases 7, 8 and 9); each kernel's bound comes from
+launch/roofline.py. The last line is the JSON `ok` line with the device.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import re
 import subprocess
@@ -97,17 +116,6 @@ AUTO_TILE_SLACK = 0.02
 #: Whole make_decoder calls: rounds per backend, calls back to back each.
 E2E_ROUNDS = 20
 E2E_CALLS = 5
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
-# operations/s outside the tensor cores.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_OPS_S = 67e12
-# ACS operations per state and stage: two candidate adds, compare, select,
-# the max reduction's compare and the normalising subtract.
-ACS_OPS = 6
-# Integer operations per traceback step: word index, load offset, shift,
-# mask, the butterfly's shift-and-or, the bit out. Counted against the f32
-# non-tensor rate, the table's nearest; they never bind.
-TB_OPS = 6
 #: K=3 (S=4: eight frames a warp), K=4 beta=3, K=5, K=6 (S=32: one
 #: register a lane), K=7, K=9 and K=11 (S=1024: 32 registers a lane).
 CODES = [(3, (0o7, 0o5)), (4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)),
@@ -143,12 +151,14 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def bound(nbytes: float, nops: float):
-    """(bound_ms, bound_by) from the bytes moved and operations done."""
-    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-    ops_ms = nops / PEAK_F32_OPS_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
-                                   else "operations")
+def bound(kernel: str, spec, F: int, **knobs):
+    """(bound_ms, bound_by, bytes) of one launch of ``kernel`` over F
+    frames of the K=7 code: the work launch/roofline.py counts, over the
+    H100's data-sheet peaks."""
+    from repro_torch.core.trellis import STD_K7
+    from repro_torch.launch.roofline import kernel_bound, kernel_work
+    nbytes, nops = kernel_work(kernel, STD_K7, spec, F, **knobs)
+    return (*kernel_bound(nbytes, nops), nbytes)
 
 
 def phase_device():
@@ -456,7 +466,6 @@ def time_unified(frames, launches):
     from repro_torch.kernels import viterbi_unified as vu
 
     F, L, beta = frames.shape
-    S = STD_K7.num_states
     spec = main_config("1/2", "kernel").spec
     auto = autotune.plan_tiles(STD_K7, spec, pack_survivors=True, radix=4,
                                max_frames=F, device="cuda")
@@ -501,8 +510,8 @@ def time_unified(frames, launches):
         vu.unified_decode_frames_cuda(frames, **kt)
         sweep[name] = round(cuda_ms(
             lambda: vu.unified_decode_frames_cuda(frames, **kt), 10), 4)
-    nbytes = frames.numel() * frames.element_size() + F * 256 * 4
-    bound_ms, bound_by = bound(nbytes, ACS_OPS * F * L * S)
+    bound_ms, bound_by, _ = bound("viterbi_unified", spec, F,
+                                  llr_bytes=frames.element_size())
     log("time", f"viterbi_unified F={F} L={L}: {ms * 1e3:.1f} us/launch "
         f"({F * 256 / ms / 1e3:.1f} Mb/s); plain version {plain_ms:.1f} ms "
         f"(host clock, once); bound {bound_ms * 1e3:.1f} us ({bound_by})")
@@ -525,8 +534,7 @@ def time_split(frames, launches):
     from repro_torch.kernels import traceback_frames as tbf
     from repro_torch.kernels import viterbi_fwd as vf
 
-    F, L, beta = frames.shape
-    S = STD_K7.num_states
+    F = frames.shape[0]
     spec = main_config("1/2", "kernel_split").spec
     plan = autotune.plan_tiles(STD_K7, spec, pack_survivors=True, radix=4,
                                unified=False, max_frames=F, device="cuda")
@@ -555,13 +563,9 @@ def time_split(frames, launches):
             "tb": lambda: tbf.traceback_frames_cuda(sel, amax, **tkw)},
             10)
         by_layout[layout] = best
-        fbytes = (frames.numel() * frames.element_size()
-                  + sel.numel() * sel.element_size() + amax.numel() * 4)
-        fb = bound(fbytes, ACS_OPS * F * L * S)
-        nsub, T = 256 // 32, 32 + 45
-        cursors = F * nsub
-        tbytes = cursors * T * sel.element_size() + cursors * 4 + F * 256 * 4
-        tb = bound(tbytes, TB_OPS * cursors * T)
+        fb = bound("viterbi_fwd", spec, F, llr_bytes=frames.element_size())
+        tb = bound("traceback_frames", spec, F)
+        fbytes, tbytes = fb[2], tb[2]
         log("time", f"split {layout} tile {ft} ({plan.frames_per_sm} "
             f"resident frames/SM predicted, {plan.registers} registers): "
             f"viterbi_fwd "
@@ -819,11 +823,13 @@ def one_wave_chunk(cfg):
     return wave, plan
 
 
-def _stream_run(cfg, rx_host, n, chunk, rng):
-    """One stream_decode-path run; returns (bits, wall s, host_ms, counts)."""
+def _stream_run(cfg, rx_host, n, chunk, rng, mesh=None):
+    """One stream_decode-path run; returns (bits, wall s, host_ms, counts,
+    pushes, chunk frames). ``chunk=None`` is the planner's default."""
     import torch
     from repro_torch.core.stream import make_stream_decoder
-    dec = make_stream_decoder(cfg, chunk_frames=chunk, device="cuda")
+    dec = make_stream_decoder(cfg, chunk_frames=chunk, device="cuda",
+                              mesh=mesh)
     src = rx_host if cfg.rate != "1/2" else rx_host.reshape(-1, 2)
     cuts = _slices(rng, src.shape[0], cfg.rate)
     torch.cuda.synchronize()
@@ -835,10 +841,10 @@ def _stream_run(cfg, rx_host, n, chunk, rng):
     counts = _read_counts(counters)
     import numpy as np
     return (np.concatenate(parts)[:n], wall, dec.host_ms(), counts,
-            len(cuts))
+            len(cuts), dec.chunk_frames)
 
 
-def _no_sync_check(cfg, rx_host, chunk):
+def _no_sync_check(cfg, rx_host, chunk, mesh=None):
     """Behind a spinning kernel, dispatch two chunks with depth 1: just
     after chunk i+1 is dispatched, chunk i's event must still be pending
     (nothing on the dispatch path synchronised)."""
@@ -847,7 +853,7 @@ def _no_sync_check(cfg, rx_host, chunk):
     from repro_torch.core.pipeline import make_decoder
     from repro_torch.core.stream import make_stream_decoder
     dec = make_stream_decoder(cfg, chunk_frames=chunk, depth=1,
-                              device="cuda")
+                              device="cuda", mesh=mesh)
     src = rx_host.reshape(-1, 2)
     need = 2 * chunk * cfg.spec.f + cfg.spec.v2
     dec.push(src[:chunk * cfg.spec.f])          # builds the programs
@@ -891,7 +897,7 @@ def phase_stream(gen):
             _, rx = channel(gen, n, EBN0_DB, rate)
             want = make_decoder(cfg, "cuda")(rx, n).cpu().numpy()
             rx_host = rx.cpu().numpy()
-            bits, wall, host, counts, pushes = _stream_run(
+            bits, wall, host, counts, pushes, _ = _stream_run(
                 cfg, rx_host, n, chunk, rng)
             chunks = host["chunks"]
             if counts != {"viterbi_unified": chunks, "viterbi_fwd": 0,
@@ -1145,6 +1151,188 @@ def phase_serve(gen):
     return total
 
 
+MESH_STREAM_BITS = 1 << 22
+MESH_SMALL_BITS = 1 << 16
+MESH_SESSIONS = (12, 4)                 # rate 1/2, rate 3/4
+DRYRUN_BITS = 10 ** 8
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] += v
+
+
+def _b1_only(counts, n, what):
+    want = {"viterbi_unified": n, "viterbi_fwd": 0, "traceback_frames": 0}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def mesh_frames(mesh, frames, label, total):
+    """make_sharded_frame_decoder over ``mesh`` at the main shape (and one
+    frame fewer on a mesh of two or more, for the padding): bits equal the
+    unsharded frame decoder, one B1 launch per shard; ms beside the
+    unsharded call's, timed in turns."""
+    import torch
+    from repro_torch.core.pipeline import make_frame_decoder
+    from repro_torch.distributed import make_sharded_frame_decoder
+    cfg = main_config("1/2", "kernel")
+    sharded = make_sharded_frame_decoder(cfg, mesh)
+    plain = make_frame_decoder(cfg, "cuda")
+    for F in (frames.shape[0],) + ((frames.shape[0] - 1,)
+                                   if mesh.size > 1 else ()):
+        fr = frames[:F]
+        want = plain(fr)
+        torch.cuda.synchronize()
+        counters = _reset_counts()
+        got = sharded(fr)
+        torch.cuda.synchronize()
+        counts = _read_counts(counters)
+        _b1_only(counts, mesh.size, f"sharded frames {label} F={F}")
+        _add(total, counts)
+        if not (got.shape == want.shape and torch.equal(got, want)):
+            raise AssertionError(f"sharded frames {label} F={F}: bits != "
+                                 f"the unsharded frame decoder")
+        ms = _interleaved({"sharded": lambda: sharded(fr),
+                           "unsharded": lambda: plain(fr)}, 10, rounds=4)
+        log("mesh", f"make_sharded_frame_decoder {label} F={F}: "
+            f"{ms['sharded']:.4f} ms vs unsharded {ms['unsharded']:.4f} ms "
+            f"({ms['sharded'] / ms['unsharded']:.3f}x; min of 4 rounds of "
+            f"10 calls, CUDA events); B1 launches {counts['viterbi_unified']}"
+            f" = shards; bits equal")
+
+
+def mesh_stream(gen, mesh, label, total, rates=("1/2", "3/4")):
+    """stream_decode's path over ``mesh``: n = 2^22 at one wave per shard,
+    then 2^16 at the mesh's default chunk; bits equal make_decoder, B1
+    launches equal chunks x shards; then the no-sync check."""
+    import numpy as np
+    from repro_torch.channel.sim import channel
+    from repro_torch.core.pipeline import make_decoder
+    rng = np.random.default_rng(SEED + 2)
+    for rate in rates:
+        cfg = main_config(rate, "kernel")
+        wave, _ = one_wave_chunk(cfg)
+        for n, chunk, what in ((MESH_STREAM_BITS, wave * mesh.size,
+                                "one wave per shard"),
+                               (MESH_SMALL_BITS, None, "default")):
+            _, rx = channel(gen, n, EBN0_DB, rate)
+            want = make_decoder(cfg, "cuda")(rx, n).cpu().numpy()
+            bits, wall, host, counts, pushes, chunk = _stream_run(
+                cfg, rx.cpu().numpy(), n, chunk, rng, mesh=mesh)
+            _b1_only(counts, host["chunks"] * mesh.size,
+                     f"stream {label} rate {rate} {what}")
+            _add(total, counts)
+            if not (bits.shape == (n,) and np.array_equal(bits, want)):
+                raise AssertionError(f"stream {label} rate {rate} {what}: "
+                                     f"bits != make_decoder")
+            log("mesh", f"stream {label} rate {rate} {what}, chunk {chunk} "
+                f"frames: n={n} in {pushes} pushes, {host['chunks']} chunks, "
+                f"{n / wall / 1e6:.1f} Mb/s ({wall:.3f} s host clock); B1 "
+                f"launches {counts['viterbi_unified']} = chunks x "
+                f"{mesh.size}; bits equal make_decoder")
+        if rate == "1/2":
+            chunk = wave * mesh.size
+            _, rx = channel(gen, 4 * chunk * cfg.spec.f, EBN0_DB, rate)
+            counters = _reset_counts()
+            host = _no_sync_check(cfg, rx.cpu().numpy(), chunk, mesh=mesh)
+            _add(total, _read_counts(counters))
+            log("mesh", f"no-sync check {label}: two chunks of {chunk} "
+                f"frames dispatched in {host:.3f} ms behind a spinning "
+                f"kernel; chunk i's event still pending after chunk i+1's "
+                f"dispatch; bits equal")
+
+
+def mesh_serve(gen, mesh, label, total):
+    """One DecodeServer over ``mesh``: 16 sessions, bits equal make_decoder,
+    B1 launches equal the server's launches x shards; then
+    drain(checkpoint) and restore under the same mesh, bits equal."""
+    import numpy as np
+    from repro_torch.serve import DecodeServer, PlanCache
+    rng = np.random.default_rng(SEED + 3)
+    n = SERVE_BITS
+    rates = ["1/2"] * MESH_SESSIONS[0] + ["3/4"] * MESH_SESSIONS[1]
+    streams = _session_streams(gen, [rates[i] for i in
+                                     rng.permutation(len(rates))], n)
+    srv = DecodeServer(slots=8, mesh=mesh, cache=PlanCache(), device="cuda")
+    counters = _reset_counts()
+    t0 = time.perf_counter()
+    sids, got, _ = _serve_loop(srv, streams, rng, n)
+    _check_sessions(srv, streams, sids, got, n, f"serve {label}")
+    wall = time.perf_counter() - t0
+    counts = _read_counts(counters)
+    tot = srv.metrics.totals()
+    _b1_only(counts, tot["launches"] * mesh.size, f"serve {label}")
+    _add(total, counts)
+    log("mesh", f"DecodeServer {label}: {len(streams)} sessions "
+        f"({MESH_SESSIONS[0]} rate 1/2, {MESH_SESSIONS[1]} rate 3/4), "
+        f"{tot['windows']} windows in {tot['launches']} launches, "
+        f"{tot['bits'] / wall / 1e6:.1f} Mb/s ({wall:.3f} s); B1 launches "
+        f"{counts['viterbi_unified']} = launches x {mesh.size}; bits equal "
+        f"make_decoder")
+    srv = DecodeServer(slots=8, mesh=mesh, cache=PlanCache(), device="cuda")
+    counters = _reset_counts()
+    sids, got, pos = _serve_loop(srv, streams, rng, n,
+                                 stop_at=lambda src: src.shape[0] // 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "serve.ckpt.json")
+        srv.drain(checkpoint=path)
+        srv2 = DecodeServer.restore(path, mesh=mesh, cache=PlanCache(),
+                                    device="cuda")
+    if srv2.mesh != mesh:
+        raise AssertionError(f"restored server's mesh {srv2.mesh}")
+    for sid, p, (cfg, rx, _) in zip(sids, pos, streams):
+        src = rx if cfg.rate != "1/2" else rx.reshape(-1, 2)
+        srv2.push(sid, src[p:p + src.shape[0] // 4])
+        srv2.step()
+        srv2.push(sid, src[p + src.shape[0] // 4:])
+    srv2.drain()
+    _check_sessions(srv2, streams, sids, got, n,
+                    f"serve {label} checkpoint/restore")
+    _add(total, _read_counts(counters))
+    log("mesh", f"drain(checkpoint) -> restore under {label} at "
+        f"mid-stream: {len(streams)} sessions resumed, bits equal "
+        f"make_decoder")
+
+
+def phase_mesh(gen, frames):
+    """Returns each kernel's launches over phase 9."""
+    import torch
+    from repro_torch.distributed import FrameMesh, frame_mesh
+    from repro_torch.launch import viterbi_dryrun
+    total = {k: 0 for k in _counters()}
+    one, two = FrameMesh(("cuda:0",)), FrameMesh(("cuda:0", "cuda:0"))
+    mesh_frames(one, frames, "[cuda:0]", total)
+    mesh_frames(two, frames, "[cuda:0, cuda:0]", total)
+    mesh_stream(gen, two, "[cuda:0, cuda:0]", total)
+    mesh_serve(gen, two, "[cuda:0, cuda:0]", total)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        every = frame_mesh()
+        label = f"frame_mesh() ({cards} cards)"
+        mesh_frames(every, frames, label, total)
+        mesh_stream(gen, every, label, total, rates=("1/2",))
+        mesh_serve(gen, every, label, total)
+    else:
+        log("mesh", "one card: the checks across every card need two or "
+            "more and did not run; the two-shard mesh on cuda:0 ran above")
+    counters = _reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):   # its JSON row is not our line
+        row = viterbi_dryrun.main(["--nbits", str(DRYRUN_BITS), "--gpus",
+                                   str(cards), "--run"])
+    _add(total, _read_counts(counters))
+    for line in out.getvalue().splitlines()[:-1]:
+        log("mesh", "dry run: " + line)
+    log("mesh", f"dry run at {DRYRUN_BITS} bits on {row['measured_chips']} "
+        f"card(s): measured {row['measured_gbps']:.3f} Gb/s "
+        f"({row['measured_s'] * 1e3:.3f} ms per decode) against the "
+        f"decode_roofline bound {row['measured_bound_gbps']:.1f} Gb/s "
+        f"({row['measured_bottleneck']}); home card HBM "
+        f"{row['peak_memory_per_chip'] / 1e9:.2f} GB projected")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -1169,9 +1357,11 @@ def main() -> int:
     phase_profile(rx, call_ms)
     stream = phase_stream(gen)
     serve = phase_serve(gen)
+    mesh = phase_mesh(gen, frames)
     for entry in entries:
         entry["launches_stream"] = stream[entry["name"]]
         entry["launches_serve"] = serve[entry["name"]]
+        entry["launches_mesh"] = mesh[entry["name"]]
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:

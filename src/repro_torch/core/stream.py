@@ -45,8 +45,12 @@ per device, as in the JAX package. Window decoders are built once per
 Device. ``make_stream_decoder``, ``StreamDecoder`` and ``stream_decode``
 take ``device=None``, which means ``"cuda"``; without a card they raise
 unless ``device="cpu"`` is given, where the same calls run synchronously
-through the kernels' plain versions. ``mesh`` is accepted only as None
-(ROADMAP A12).
+through the kernels' plain versions. With ``mesh=`` (a
+``distributed.FrameMesh``) each chunk's window is staged and framed on the
+mesh's home device and its frames are decoded across the mesh's devices
+(distributed/stream.py); ``device`` is then the home device. There is
+still one staging slot and one event per chunk, recorded on the home
+device's stream after it has waited on every shard.
 """
 from __future__ import annotations
 
@@ -465,7 +469,7 @@ class StagingPool:
         flat = bits.reshape(-1)
         slot.out[:flat.numel()].copy_(flat, non_blocking=True)
         if slot.event is not None:
-            slot.event.record()
+            slot.event.record(torch.cuda.current_stream(self.device))
 
     def read(self, slot: _Slot, n: int) -> np.ndarray:
         """Wait for the slot's event, copy its first ``n`` bits out and
@@ -506,17 +510,15 @@ class StreamDecoder:
                  depth: int = 1, mesh=None, decode_frames=None, cache=None,
                  faults=None, sanitize: str = "zero", trace=None,
                  device=None):
-        from ..kernels.ops import resolve_device
-        from ..serve.plan_cache import check_mesh
+        from ..serve.plan_cache import resolve_placement
         assert chunk_frames > 0 and depth >= 0
-        check_mesh(mesh)
+        mesh, self.device = resolve_placement(mesh, device)
         self.cfg = cfg
         self.spec = cfg.spec
         self.beta = cfg.trellis.beta
         self.chunk_frames = chunk_frames
         self.depth = depth                      # chunks left in flight
         self.mesh = mesh
-        self.device = resolve_device(device)
         self._decode_frames = decode_frames     # explicit override only
         self._local_fns = {}                    # override path: per-instance
         if cache is None:
@@ -641,7 +643,9 @@ def make_stream_decoder(cfg: DecoderConfig, *, chunk_frames: int | None = None,
 
     chunk_frames: frames per chunk; default comes from
       kernels.autotune.plan_decode — two kernel tiles per device.
-    mesh: only None (the frame-sharded stream is ROADMAP A12).
+    mesh: optional distributed.FrameMesh; each chunk's frames are then
+      decoded across the mesh's devices and the default chunk is two tiles
+      per device (``device`` must be None or the mesh's home device).
     depth: chunks allowed in flight behind the dispatch front (1 = classic
       double buffering; 0 = synchronous, for debugging).
     cache: plan cache override (default: the process-global PLAN_CACHE).
@@ -649,16 +653,15 @@ def make_stream_decoder(cfg: DecoderConfig, *, chunk_frames: int | None = None,
     trace: optional repro_torch.obs.Tracer (None = the process-global
       tracer, a no-op unless one was set).
     """
-    from ..kernels.ops import resolve_device
-    from ..serve.plan_cache import check_mesh
-    check_mesh(mesh)
-    device = resolve_device(device)
+    from ..serve.plan_cache import resolve_placement
+    mesh, device = resolve_placement(mesh, device)
     if chunk_frames is None:
         from ..kernels.autotune import plan_decode
         plan = plan_decode(
             cfg.trellis, cfg.spec, unified=cfg.backend != "kernel_split",
             pack_survivors=cfg.pack_survivors, radix=cfg.radix,
-            bm_dtype=cfg.bm_dtype, layout=cfg.layout, num_devices=1,
+            bm_dtype=cfg.bm_dtype, layout=cfg.layout,
+            num_devices=mesh.size if mesh is not None else 1,
             block_frames=cfg.block_frames, overlap=cfg.overlap,
             device=device)
         chunk_frames = plan.chunk_frames

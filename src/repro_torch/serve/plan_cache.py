@@ -26,8 +26,10 @@ each built window or batch program, when it first runs, so one per
 (cfg, nframes, device) no matter how many sessions come and go.
 
 Device. Every entry takes ``device=None``, which means ``"cuda"`` (raises
-without a card unless ``device="cpu"``). ``mesh`` is accepted only as
-None: the frame-sharded decode is ROADMAP A12.
+without a card unless ``device="cpu"``), and ``mesh=None``. With a
+``distributed.FrameMesh`` the frame axis is sharded across the mesh's
+devices (distributed/stream.py) and the entry's inputs and outputs live on
+the mesh's home device; ``device``, if given too, must be that device.
 """
 from __future__ import annotations
 
@@ -35,18 +37,27 @@ import threading
 import time
 
 from ..core.pipeline import DecoderConfig, _build_frame_decoder
+from ..distributed.stream import FrameMesh, normalise_device
 from ..kernels.ops import resolve_device
 from ..obs.tracer import get_tracer
 
-__all__ = ["PlanCache", "PLAN_CACHE", "build_window_fn", "check_mesh"]
+__all__ = ["PlanCache", "PLAN_CACHE", "build_window_fn", "resolve_placement"]
 
 
-def check_mesh(mesh) -> None:
-    """The port decodes on one device: ``mesh`` must be None."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: the frame-sharded decode across "
-            "devices is ROADMAP A12; pass mesh=None")
+def resolve_placement(mesh, device):
+    """(mesh, device) of an entry point that takes both: without a mesh,
+    ``resolve_device(device)``; with one, its home device. A ``device``
+    that is not the mesh's home raises ``ValueError``, a ``mesh`` that is
+    not a ``FrameMesh`` ``TypeError``."""
+    if mesh is None:
+        return None, resolve_device(device)
+    if not isinstance(mesh, FrameMesh):
+        raise TypeError(f"mesh must be a repro_torch.distributed.FrameMesh "
+                        f"or None, got {type(mesh).__name__}")
+    if device is not None and normalise_device(device) != mesh.home:
+        raise ValueError(f"device {device} is not the mesh's home device "
+                         f"{mesh.home}")
+    return mesh, mesh.home
 
 
 def _once(hook):
@@ -140,23 +151,30 @@ class PlanCache:
     # -- entries ----------------------------------------------------------
     def frame_decoder(self, cfg: DecoderConfig, mesh=None, device=None):
         """The backend-dispatch ``decode_frames`` closure for ``cfg`` on
-        ``device`` — ONE closure per (cfg, device)."""
-        check_mesh(mesh)
-        dev = resolve_device(device)
-        return self._get(("frames", cfg, dev),
-                         lambda: _build_frame_decoder(cfg, dev))
+        ``device`` — ONE closure per (cfg, device). With ``mesh``, the
+        frame axis is sharded across the mesh's devices — ONE closure per
+        (cfg, mesh) (distributed/stream.py)."""
+        mesh, dev = resolve_placement(mesh, device)
+        if mesh is None:
+            return self._get(("frames", cfg, dev),
+                             lambda: _build_frame_decoder(cfg, dev))
+
+        def build():
+            from ..distributed.stream import make_sharded_frame_decoder
+            return make_sharded_frame_decoder(cfg, mesh)
+
+        return self._get(("frames", cfg, mesh), build)
 
     def window_decoder(self, cfg: DecoderConfig, nframes: int, *, mesh=None,
                        device=None):
         """Chunk-window decoder (stream layer). Callers with a custom
         decode_frames closure memoize their own ``build_window_fn``
         result — an anonymous closure has no stable identity to key on."""
-        check_mesh(mesh)
-        dev = resolve_device(device)
+        mesh, dev = resolve_placement(mesh, device)
         key = ("window", cfg, int(nframes), mesh, dev)
         return self._get(key, lambda: build_window_fn(
-            cfg.spec, self.frame_decoder(cfg, device=dev), int(nframes),
-            self._mark_trace))
+            cfg.spec, self.frame_decoder(cfg, mesh, device=dev),
+            int(nframes), self._mark_trace))
 
     def batch_decoder(self, cfg: DecoderConfig, nframes: int, *, mesh=None,
                       refresh: bool = False, device=None):
@@ -165,12 +183,11 @@ class PlanCache:
         bucket's batch (slots x chunk_frames), so each bucket builds
         exactly once. ``refresh`` forces a rebuild (fault injection only —
         exercises the cold-cache path)."""
-        check_mesh(mesh)
-        dev = resolve_device(device)
+        mesh, dev = resolve_placement(mesh, device)
         key = ("batch", cfg, int(nframes), mesh, dev)
 
         def build():
-            decode_frames = self.frame_decoder(cfg, device=dev)
+            decode_frames = self.frame_decoder(cfg, mesh, device=dev)
             first = _once(self._mark_trace)
 
             def run(frames):

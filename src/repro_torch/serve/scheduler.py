@@ -201,8 +201,11 @@ class Session:
 class Bucket:
     """Live sessions sharing one plan — and one launch per step.
 
-    ``mesh`` is always None in the port (ROADMAP A12). ``device`` is where
-    the bucket's launches run; ``staging`` holds its pinned host buffers
+    ``mesh`` is the bucket's device placement (the server's mesh for
+    primary buckets; None for a failover bucket — device loss means the
+    evacuation target is the reference path on one device). ``device`` is
+    where the bucket's launches run (the mesh's home device under a mesh);
+    ``staging`` holds its pinned host buffers
     (core.stream.StagingPool), one per launch in flight. ``pinned`` marks a
     failover bucket: its launches are pinned to the reference backend,
     never consult the fault injector (the evacuation target is the path

@@ -76,8 +76,12 @@ outside the retried launch, so a build failure is never absorbed either.
 The failover and degrade paths run the reference backend on the server's
 device, as the JAX package runs its reference on its default device.
 
-``mesh`` is accepted only as None: the frame-sharded server is ROADMAP
-A12.
+With ``mesh=...`` (a ``distributed.FrameMesh``) every bucket's batch is
+sharded across the mesh's devices (distributed/stream.py): the batch is
+the frame axis, so the scale-out of the single stream carries over. The
+pinned buffers, the batches and the events live on the mesh's home
+device, which is the server's ``device``; the failover bucket runs on it
+alone (``mesh=None``: the mesh is the thing we do not trust).
 
 Durability (the service survives bad *processes* and bad
 *devices*, not just bad inputs and bad launches):
@@ -115,10 +119,9 @@ import torch
 from ..core.pipeline import DecoderConfig
 from ..core.sanitize import LLR_CLIP, sanitize_llr
 from ..core.stream import StreamContext, _host_array
-from ..kernels.ops import resolve_device
 from ..obs.tracer import get_tracer
 from .metrics import ServeMetrics
-from .plan_cache import PLAN_CACHE, PlanCache, check_mesh
+from .plan_cache import PLAN_CACHE, PlanCache, resolve_placement
 from .scheduler import Breaker, Bucket, Session, bucket_plan
 
 __all__ = ["DecodeServer", "ServeError", "ServerFull", "Backpressure",
@@ -215,7 +218,9 @@ class DecodeServer:
     depth:        batched launches allowed in flight per bucket behind
                   the dispatch front (1 = double buffering, as in
                   StreamDecoder; 0 = synchronous, for debugging).
-    mesh:         only None (the frame-sharded server is ROADMAP A12).
+    mesh:         optional distributed.FrameMesh; bucket batches are then
+                  sharded across its devices (``device`` must be None or
+                  the mesh's home device).
     device:       where every bucket launches (None = "cuda"; raises
                   without a card unless "cpu").
     cache:        PlanCache override (default: process-global PLAN_CACHE).
@@ -252,8 +257,7 @@ class DecodeServer:
         assert quarantine_after > 0
         assert breaker_threshold > 0 and breaker_cooldown > 0
         assert sanitize in ("zero", "raise", "off")
-        check_mesh(mesh)
-        self.device = resolve_device(device)
+        mesh, self.device = resolve_placement(mesh, device)
         self.slots = slots
         self.max_sessions = max_sessions
         self.queue_depth = queue_depth
@@ -329,7 +333,8 @@ class DecodeServer:
 
     def _bucket_for(self, cfg: DecoderConfig,
                     chunk_frames: int | None) -> Bucket:
-        plan = bucket_plan(cfg, num_devices=1, chunk_frames=chunk_frames,
+        ndev = self.mesh.size if self.mesh is not None else 1
+        plan = bucket_plan(cfg, num_devices=ndev, chunk_frames=chunk_frames,
                            device=self.device)
         key = (cfg.trellis, cfg.spec, plan.cache_key(), cfg.backend,
                cfg.interpret, self.mesh)
@@ -344,7 +349,8 @@ class DecodeServer:
     def _failover_bucket(self, primary: Bucket) -> Bucket:
         """The evacuation target for ``primary``: same trellis/spec/plan
         geometry (windows stay launch-compatible), pinned to the
-        reference backend on the server's device."""
+        reference backend on the server's device (``mesh=None`` — device
+        loss means the mesh is the thing we do not trust)."""
         key = primary.key + ("failover",)
         bucket = self._buckets.get(key)
         if bucket is None:

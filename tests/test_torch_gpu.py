@@ -362,13 +362,77 @@ def test_pinned_slots_reused_only_after_their_event(cuda):
     assert len({id(s) for s in handed}) <= 4     # depth + 1, + the flush
 
 
+def _mesh_checks(mesh):
+    """The sharded frame decoder (a frame count that does not divide the
+    mesh), stream_decode at both rates and a DecodeServer over ``mesh``:
+    bits equal the unsharded decode on the card, B1 launched once per
+    shard of every chunk or server launch."""
+    import dataclasses
+    from repro_torch.core.pipeline import make_frame_decoder
+    from repro_torch.core.stream import make_stream_decoder, stream_decode
+    from repro_torch.distributed import make_sharded_frame_decoder
+    from repro_torch.serve import DecodeServer, PlanCache
+    cfg = DecoderConfig(spec=_RATE_SPECS["1/2"], backend="kernel")
+    frames = _frames(K7, cfg.spec, 4 * mesh.size + 1, 3, mesh.home)
+    before = vu.unified_decode_frames_cuda.launches
+    got = make_sharded_frame_decoder(cfg, mesh)(frames)
+    assert vu.unified_decode_frames_cuda.launches - before == mesh.size
+    assert torch.equal(got, make_frame_decoder(cfg)(frames))
+    for rate in ("1/2", "3/4"):
+        rcfg = dataclasses.replace(cfg, spec=_RATE_SPECS[rate], rate=rate)
+        n = 300 * 256 + 77
+        stream = _stream_input(rate, n, seed=11)
+        want = make_decoder(rcfg)(stream, n).cpu().numpy()
+        dec = make_stream_decoder(rcfg, chunk_frames=37, mesh=mesh)
+        before = vu.unified_decode_frames_cuda.launches
+        got = np.concatenate([dec.push(stream[i:i + 12345])
+                              for i in range(0, stream.shape[0], 12345)]
+                             + [dec.flush()])[:n]
+        assert (vu.unified_decode_frames_cuda.launches - before
+                == dec.chunks * mesh.size)
+        assert np.array_equal(got, want)
+        assert np.array_equal(stream_decode(rcfg, stream, n, mesh=mesh),
+                              want)
+    srv = DecodeServer(slots=4, mesh=mesh, cache=PlanCache())
+    sessions = []
+    for i in range(4):
+        n = 30 * 256 + 100 * i
+        stream = _stream_input("1/2", n, seed=200 + i)
+        sessions.append((srv.open_session(cfg, chunk_frames=8), stream, n))
+    before = vu.unified_decode_frames_cuda.launches
+    for sid, stream, n in sessions:
+        srv.push(sid, stream)
+    srv.drain()
+    got = [np.concatenate([srv.poll(sid), srv.close_session(sid)])[:n]
+           for sid, stream, n in sessions]
+    assert (vu.unified_decode_frames_cuda.launches - before
+            == srv.metrics.totals()["launches"] * mesh.size)
+    for bits, (sid, stream, n) in zip(got, sessions):
+        assert np.array_equal(bits, make_decoder(cfg)(stream, n).cpu().numpy())
+
+
 def test_stream_and_server_mesh_not_ported(cuda):
-    from repro_torch.core.stream import make_stream_decoder
-    from repro_torch.serve import DecodeServer
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_stream_decoder(DecoderConfig(backend="kernel"), mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        DecodeServer(mesh=object())
+    """(The name predates the frame-sharded decode.) A one-card mesh: the
+    sharded frame decoder, the stream and the server equal the unsharded
+    decode."""
+    from repro_torch.distributed import FrameMesh
+    mesh = FrameMesh(("cuda",))
+    assert mesh.devices == (torch.device("cuda", torch.cuda.current_device()),)
+    _mesh_checks(mesh)
+
+
+def test_two_shard_mesh_on_one_card(cuda):
+    from repro_torch.distributed import FrameMesh
+    _mesh_checks(FrameMesh(("cuda:0", "cuda:0")))
+
+
+def test_mesh_over_every_card(cuda):
+    from repro_torch.distributed import frame_mesh
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    mesh = frame_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    _mesh_checks(mesh)
 
 
 def test_planning_a_bucket_loads_its_kernels(cuda):

@@ -331,9 +331,11 @@ def test_kernel_split_bucket_decodes_through_split_path():
 
 
 def test_mesh_device_and_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A12"):
+    """A mesh must be a FrameMesh (tests/test_torch_distributed.py holds
+    the sharded server); the device and the missing card as before."""
+    with pytest.raises(TypeError, match="FrameMesh"):
         DecodeServer(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="FrameMesh"):
         PlanCache().batch_decoder(DecoderConfig(), 4, mesh=object(),
                                   device="cpu")
     srv = DecodeServer(device="cpu")

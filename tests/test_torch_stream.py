@@ -301,10 +301,12 @@ def test_torch_pushes_and_outputs():
 
 
 def test_mesh_and_missing_card_raise(monkeypatch):
+    """A mesh must be a FrameMesh (tests/test_torch_distributed.py holds
+    the sharded stream); the missing card raises as before."""
     cfg = DecoderConfig(spec=SPEC)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="FrameMesh"):
         make_stream_decoder(cfg, chunk_frames=2, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="FrameMesh"):
         stream_decode(cfg, rx(64), 64, device="cpu", mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
