@@ -15,12 +15,17 @@ non-zero:
              spills of every instantiation (registers per lane R x beta).
 3. parity  — each kernel's wrapper against its plain torch version on the
              card, exactly (torch.equal), over the codes K=3, 4 (beta=3),
-             5, 6, 7, 9, 11. Unified kernel: the knob grid, bf16/f16 LLRs,
-             frames too long for shared memory. Forward kernel: sel and
-             amax over the same grid, both layouts. Traceback kernel:
-             against the plain serial/parallel chase over the forward
-             kernel's outputs. Both paths through ops with a ragged frame
-             count.
+             5, 6, 7, 9, 11 and the large codes K=12, 13, 15 (beta=4;
+             one block a frame, path metrics in shared memory). Unified
+             kernel: the knob grid, bf16/f16 LLRs, frames too long for
+             shared memory. Forward kernel: sel and amax over the same
+             grid, both layouts. Traceback kernel: against the plain
+             serial/parallel chase over the forward kernel's outputs, and
+             both of its chases (staged, direct) pinned at K=7 and K=11
+             on a sliced stream. Both paths through ops with a ragged
+             frame count. The block-parallel decode (block_frames > 1)
+             through both kernels against the CPU's, and at full overlap
+             against the unblocked decode.
 4. main    — make_decoder(backend="kernel"), then
              make_decoder(backend="kernel_split"), each at full size: K=7,
              n = 2^22 bits, Eb/N0 = 3 dB, rates 1/2 and 3/4. Launch counts
@@ -32,7 +37,11 @@ non-zero:
 5. time    — each kernel at the main path's shape with CUDA events, beside
              its plain version and its bound; the unified kernel's knob
              sweep and its auto tile against tile 4 (must be within 2 %);
-             the split path's layouts; the whole split call against the
+             the split path's layouts; the traceback's staged and direct
+             chases in turns, at K=7 (lane and sublane, packed, unpacked,
+             serial) and K=11 (4096 frames), beside the shape rule's pick
+             and the bound; B1 and B3 at K=12, 13, 15 beside their bounds;
+             the whole split call against the
              whole unified call (median and quartiles over 20 rounds, and
              the host's dispatch time per call); plan_decode(measure=True)
              into a temporary tune DB, then read back from it. Beside each
@@ -88,13 +97,15 @@ non-zero:
 
 The line before the last is a JSON `kernels` line (with each kernel's
 launches on the main path, and ``launches_stream``/``launches_serve``/
-``launches_mesh`` on phases 7, 8 and 9); each kernel's bound comes from
+``launches_mesh`` on phases 7, 8 and 9; B1's and B3's ``large_codes``
+times and the traceback's ``modes``); each kernel's bound comes from
 launch/roofline.py. The last line is the JSON `ok` line with the device.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -117,12 +128,24 @@ AUTO_TILE_SLACK = 0.02
 E2E_ROUNDS = 20
 E2E_CALLS = 5
 #: K=3 (S=4: eight frames a warp), K=4 beta=3, K=5, K=6 (S=32: one
-#: register a lane), K=7, K=9 and K=11 (S=1024: 32 registers a lane).
+#: register a lane), K=7, K=9 and K=11 (S=1024: 32 registers a lane);
+#: then the large-code mapping (one block of 1024 threads a frame, path
+#: metrics in shared memory): K=12, K=13 and the Galileo (15, 1/4) code.
 CODES = [(3, (0o7, 0o5)), (4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)),
          (6, (0o65, 0o57)), (7, (0o171, 0o133)), (9, (0o753, 0o561)),
-         (11, (0o3345, 0o3613))]
+         (11, (0o3345, 0o3613)), (12, (0o4335, 0o5723)),
+         (13, (0o10533, 0o17661)),
+         (15, (0o46321, 0o51271, 0o63667, 0o70535))]
+LARGE_K = 12
+#: Frames per parity call: 12, and 4 (one tile) for a large code (its
+#: plain version is S = 2^14 states wide at K=15).
+PARITY_FRAMES = {False: 12, True: 4}
+#: Frames of the large codes' timing (one and two waves of one frame per
+#: SM at 132 SMs): K=12 and K=13 at 264, K=15 at 132.
+LARGE_TIME_FRAMES = {12: 264, 13: 264, 15: 132}
 DECODE_KERNELS = ("viterbi_unified_kernel", "viterbi_fwd_kernel",
-                  "traceback_frames_kernel")
+                  "traceback_frames_kernel", "viterbi_unified_smem_kernel",
+                  "viterbi_fwd_smem_kernel")
 
 
 def log(phase: str, msg: str) -> None:
@@ -151,13 +174,13 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def bound(kernel: str, spec, F: int, **knobs):
+def bound(kernel: str, spec, F: int, trellis=None, **knobs):
     """(bound_ms, bound_by, bytes) of one launch of ``kernel`` over F
-    frames of the K=7 code: the work launch/roofline.py counts, over the
-    H100's data-sheet peaks."""
+    frames of ``trellis`` (default the K=7 code): the work
+    launch/roofline.py counts, over the H100's data-sheet peaks."""
     from repro_torch.core.trellis import STD_K7
     from repro_torch.launch.roofline import kernel_bound, kernel_work
-    nbytes, nops = kernel_work(kernel, STD_K7, spec, F, **knobs)
+    nbytes, nops = kernel_work(kernel, trellis or STD_K7, spec, F, **knobs)
     return (*kernel_bound(nbytes, nops), nbytes)
 
 
@@ -195,22 +218,29 @@ def _ptxas_spills(built, kernel: str) -> dict:
 
 def register_report(built, kernel: str, attrs) -> str:
     """Registers (cudaFuncGetAttributes) and ptxas spill stores of every
-    instantiation of one ACS kernel: per registers per lane R, beta 2..8."""
+    instantiation of one ACS kernel: per registers per lane R, beta 2..8;
+    then the large-code mapping's (``<kernel>`` with ``_smem`` before
+    ``_kernel``), one R per k = 12..15."""
     import ctypes
+    smem_kernel = kernel.replace("_kernel", "_smem_kernel")
     spills = _ptxas_spills(built, kernel)
+    smem_spills = _ptxas_spills(built, smem_kernel)
     rows = []
-    for k in (2, 7, 8, 9, 10, 11):                  # R = 1, 2, 4, ..., 32
-        R = max(1, (1 << (k - 1)) // 32)
+    for k in (2, 7, 8, 9, 10, 11, 12, 13, 14, 15):
+        large = k >= 12                     # R = S / 1024 states a thread
+        R = (1 << (k - 1)) // 1024 if large else max(1, (1 << (k - 1)) // 32)
         regs = []
         for beta in range(2, 9):
             out = (ctypes.c_int * 3)()
             if attrs(k, beta, out) != 0:
                 raise RuntimeError(f"{kernel} k={k} beta={beta}: no "
                                    f"function attributes")
-            regs.append(f"{out[0]}/{spills.get((R, beta), '?')}")
-        rows.append(f"R={R}: " + " ".join(regs))
+            sp = (smem_spills if large else spills).get((R, beta), "?")
+            regs.append(f"{out[0]}/{sp}")
+        rows.append(f"{f'k={k} ' if large else ''}R={R}: " + " ".join(regs))
     return (f"{kernel} registers/spilled bytes, beta 2..8 (R=1 serves "
-            f"k<=6): " + "; ".join(rows))
+            f"k<=6; k=12..15: {smem_kernel}, 1024 threads): "
+            + "; ".join(rows))
 
 
 def phase_build():
@@ -269,7 +299,7 @@ def phase_parity(gen):
     import torch
     from repro_torch.core.framed import FrameSpec
     from repro_torch.core.trellis import make_trellis
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import autotune, ops
     from repro_torch.kernels import traceback_frames as tbf
     from repro_torch.kernels import viterbi_fwd as vf
     from repro_torch.kernels import viterbi_unified as vu
@@ -281,7 +311,8 @@ def phase_parity(gen):
     for k, polys in CODES:
         tr = make_trellis(k, polys)
         for spec in specs:
-            frames = _frames(tr, spec, 12, gen, torch.float32)
+            frames = _frames(tr, spec, PARITY_FRAMES[k >= LARGE_K], gen,
+                             torch.float32)
             f0, v2s, start = _tb_geometry(spec)
             for pack in (False, True):
                 for radix in (2, 4):
@@ -342,22 +373,90 @@ def phase_parity(gen):
                     raise AssertionError(
                         f"ragged frame count: card != cpu k={k} {kw}")
     # frames too long for shared memory: survivors in device scratch
-    # (unpacked K=7 at f=4096, packed K=11 at f=2048)
-    for code, f, pack in ((CODES[4], 4096, False), (CODES[6], 2048, True)):
+    # (unpacked K=7 at f=4096, packed K=11 at f=2048, packed K=13 at
+    # f=512, packed K=15 at f=64)
+    for code, f, pack in ((CODES[4], 4096, False), (CODES[6], 2048, True),
+                          (CODES[8], 512, True), (CODES[9], 64, True)):
         tr = make_trellis(*code)
         long_spec = FrameSpec(f=f, v1=45, v2=45)
         frames = _frames(tr, long_spec, 2, gen, torch.float32)
+        if tr.k >= LARGE_K:
+            assert vu.kernel_library().lib.viterbi_unified_smem_bytes(
+                tr.k, long_spec.frame_len, 1, int(pack), 0, 1, 0) > \
+                autotune.device_limits("cuda").smem_per_block
         kw = dict(trellis=tr, v1=45, f=f, v2=45, f0=f, v2s=45,
                   frames_per_tile=1, pack_survivors=pack, radix=2)
         _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
                      vu.unified_decode_frames_plain(frames, **kw),
                      f"device-memory survivor scratch k={tr.k}")
         counts["unified"] += 1
+    # the traceback's two modes, pinned, on the forward kernel's streams
+    # (a sliced sublane stream too): K=7 rows are staged by the rule, K=11
+    # unpacked rows are chased in device memory
+    spec = FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21)
+    for code, pack in ((CODES[4], True), (CODES[4], False),
+                       (CODES[6], True), (CODES[6], False)):
+        tr = make_trellis(*code)
+        frames = _frames(tr, spec, 37, gen, torch.float32)
+        for layout in ("lane", "sublane"):
+            sel, amax = vf.forward_frames_cuda(
+                frames, trellis=tr, frames_per_tile=1, pack_survivors=pack,
+                layout=layout)
+            sel = sel[..., :33] if layout == "sublane" else sel[:33]
+            tkw = dict(trellis=tr, v1=20, f=64, f0=16, v2s=21, packed=pack,
+                       layout=layout)
+            want = tbf.traceback_frames_plain(sel, amax[:33], **tkw)
+            for chase in ("staged", "direct"):
+                _check_equal(tbf.traceback_frames_cuda(
+                    sel, amax[:33], chase=chase, **tkw), want,
+                    f"traceback {chase} k={tr.k} {layout} packed={pack}")
+                counts["traceback"] += 1
+    blocked = phase_blocked(gen)
     log("parity", f"kernel calls equal to the plain version: {counts} "
-        f"(codes K=3, K=4 beta=3, K=5, K=6, K=7, K=9, K=11; pack x radix x "
-        f"layout x bm_dtype; serial, boundary, fixed; bf16/f16 LLRs; "
-        f"device-memory survivors at K=7 and K=11); split and unified ops "
-        f"with a ragged F equal to the CPU for every code")
+        f"(codes K=3, K=4 beta=3, K=5, K=6, K=7, K=9, K=11, K=12, K=13, "
+        f"K=15 beta=4; pack x radix x layout x bm_dtype; serial, boundary, "
+        f"fixed; bf16/f16 LLRs; device-memory survivors at K=7, K=11, K=13 "
+        f"and K=15; the traceback's staged and direct chase at K=7 and "
+        f"K=11); split and unified ops with a ragged F equal to the CPU for "
+        f"every code; {blocked}")
+
+
+def phase_blocked(gen):
+    """The block-parallel decode (ops.py's reframe_blocks/merge_blocks) on
+    the card: block_frames > 1 through both kernels equals the blocked
+    plain decode on the CPU, and overlap >= full_overlap equals the
+    unblocked decode. Returns a summary for the parity line."""
+    import torch
+    from repro_torch.core.framed import FrameSpec
+    from repro_torch.core.trellis import STD_K7
+    from repro_torch.kernels import block, ops
+    spec = FrameSpec(f=2048, v1=20, v2=45, f0=32, v2s=45)
+    frames = _frames(STD_K7, spec, 6, gen, torch.float32)
+    full = block.full_overlap(spec, 4)
+    for unified in (True, False):
+        for layout in ("lane", "sublane"):
+            kw = dict(unified=unified, layout=layout)
+            for bf, ov in ((8, 45), (16, 64)):
+                got = ops.viterbi_decode_frames(
+                    frames, STD_K7, spec, device="cuda", block_frames=bf,
+                    overlap=ov, **kw)
+                want = ops.viterbi_decode_frames(
+                    frames.cpu(), STD_K7, spec, device="cpu",
+                    block_frames=bf, overlap=ov, **kw)
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"blocked decode bf={bf} ov={ov} "
+                                         f"{kw}: card != cpu")
+            got = ops.viterbi_decode_frames(frames, STD_K7, spec,
+                                            device="cuda", block_frames=4,
+                                            overlap=full, **kw)
+            if not torch.equal(got, ops.viterbi_decode_frames(
+                    frames, STD_K7, spec, device="cuda", **kw)):
+                raise AssertionError(f"blocked decode at full overlap "
+                                     f"{full} {kw} != unblocked")
+    return (f"blocked decode (K=7, f=2048, block_frames 8/16, overlap 45/64) "
+            f"equal to the CPU's through both kernels and layouts, and at "
+            f"overlap {full} (full_overlap, 4 blocks) equal to the "
+            f"unblocked decode")
 
 
 def main_config(rate: str, backend: str):
@@ -591,25 +690,127 @@ def time_split(frames, launches):
                 "max_abs_err": terr, "parity": "equal", "ms": best["tb"],
                 "plain_ms": tplain_ms, "bound_ms": tb[0], "bound_by": tb[1],
                 "library_ms": None}
-    # unpacked and serial variants of the lane stream
-    fkw = dict(trellis=STD_K7, frames_per_tile=ft, pack_survivors=False,
-               radix=4, layout="lane")
-    sel, amax = vf.forward_frames_cuda(frames, **fkw)
-    unpacked = _interleaved({
-        "fwd": lambda: vf.forward_frames_cuda(frames, **fkw),
-        "tb": lambda: tbf.traceback_frames_cuda(
-            sel, amax, trellis=STD_K7, v1=20, f=256, f0=32, v2s=45,
-            packed=False, layout="lane")}, 5, rounds=1)
-    fkw["pack_survivors"] = True
-    sel, amax = vf.forward_frames_cuda(frames, **fkw)
-    serial = cuda_ms(lambda: tbf.traceback_frames_cuda(
-        sel, amax, trellis=STD_K7, v1=20, f=256, f0=256, v2s=45, packed=True,
-        layout="lane"), 10)
-    log("time", f"split lane unpacked: viterbi_fwd "
-        f"{unpacked['fwd'] * 1e3:.1f} us, traceback_frames "
-        f"{unpacked['tb'] * 1e3:.1f} us; packed serial traceback "
-        f"{serial * 1e3:.1f} us")
+    entries["tb"]["modes"] = time_traceback_modes(frames, ft)
     return entries
+
+
+#: Frames of the K=11 traceback timings (an unpacked K=11 stream is
+#: L * 1024 bytes a frame).
+TB_K11_FRAMES = 4096
+
+
+def time_traceback_modes(frames, ft):
+    """The traceback kernel's two chases (staged in shared memory, direct
+    from device memory) and the shape rule's pick, timed in turns on the
+    forward kernel's streams: K=7 at the main shape (lane and sublane,
+    packed, unpacked, serial) and K=11 at TB_K11_FRAMES frames (lane
+    packed and unpacked, sublane packed). A mode whose block does not fit
+    shared memory is not timed. Every launch's bits equal the rule's.
+    Returns {case: {mode: ms}}."""
+    import torch
+    from repro_torch.core.trellis import STD_K7, make_trellis
+    from repro_torch.kernels import traceback_frames as tbf
+    from repro_torch.kernels import viterbi_fwd as vf
+    k11 = make_trellis(*CODES[6])
+    spec = main_config("1/2", "kernel_split").spec
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    frames11 = _frames(k11, spec, TB_K11_FRAMES, gen, torch.float32)
+    cases = [("K7 lane packed", STD_K7, frames, ft, "lane", True, 32, 45),
+             ("K7 sublane packed", STD_K7, frames, ft, "sublane", True, 32,
+              45),
+             ("K7 lane unpacked", STD_K7, frames, ft, "lane", False, 32, 45),
+             ("K7 lane packed serial", STD_K7, frames, ft, "lane", True,
+              256, 45),
+             ("K11 lane packed", k11, frames11, 1, "lane", True, 32, 45),
+             ("K11 lane unpacked", k11, frames11, 1, "lane", False, 32, 45),
+             ("K11 sublane packed", k11, frames11, 1, "sublane", True, 32,
+              45)]
+    out = {}
+    for label, tr, fr, tile, layout, pack, f0, v2s in cases:
+        sel, amax = vf.forward_frames_cuda(fr, trellis=tr,
+                                           frames_per_tile=tile,
+                                           pack_survivors=pack, radix=4,
+                                           layout=layout)
+        tkw = dict(trellis=tr, v1=20, f=256, f0=f0, v2s=v2s, packed=pack,
+                   layout=layout)
+        plan = tbf.chase_plan(tr, L=spec.frame_len, f=256, f0=f0, v2s=v2s,
+                              F=fr.shape[0], packed=pack, layout=layout)
+        want = tbf.traceback_frames_cuda(sel, amax, **tkw)
+        fns = {}
+        for chase in ("staged", "direct"):
+            try:
+                got = tbf.traceback_frames_cuda(sel, amax, chase=chase, **tkw)
+            except ValueError:               # the block does not fit
+                continue
+            _check_equal(got, want, f"traceback {chase} {label}")
+            fns[chase] = (lambda c=chase: tbf.traceback_frames_cuda(
+                sel, amax, chase=c, **tkw))
+        ms = _interleaved(fns, 10, rounds=4)
+        tb = bound("traceback_frames",
+                   dataclasses.replace(spec, f0=f0, v2s=v2s), fr.shape[0],
+                   trellis=tr, pack_survivors=pack)
+        pick = "staged" if plan.staged else "direct"
+        log("time", f"traceback {label} F={fr.shape[0]}: rule picks {pick} "
+            f"({plan.frames} frames, {plan.threads} threads, "
+            f"{plan.smem_bytes} B a block): "
+            + ", ".join(f"{m} {v * 1e3:.1f} us" for m, v in ms.items())
+            + f" (in turns, min of 4 rounds of 10); bound "
+            f"{tb[0] * 1e3:.1f} us ({tb[1]}, {tb[0] / ms[pick]:.1%})")
+        out[label] = {"rule": pick, **{m: round(v, 5) for m, v in ms.items()}}
+        del sel, amax
+    return out
+
+
+def time_large_codes(gen):
+    """B1 and B3 at the large codes (K=12, K=13, the Galileo K=15 code) on
+    the main path's frame, packed, radix 4: bits and streams equal the
+    plain versions; ms per launch beside the bound (CUDA events).
+    Returns {name: [{k, F, ms, bound_ms, bound_by}, ...]}."""
+    import torch
+    from repro_torch.core.trellis import make_trellis
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import viterbi_fwd as vf
+    from repro_torch.kernels import viterbi_unified as vu
+    spec = main_config("1/2", "kernel").spec
+    out = {"viterbi_unified": [], "viterbi_fwd": []}
+    for code in CODES:
+        if code[0] < LARGE_K:
+            continue
+        tr = make_trellis(*code)
+        F = LARGE_TIME_FRAMES[tr.k]
+        frames = _frames(tr, spec, F, gen, torch.float32)
+        kw = dict(trellis=tr, v1=20, f=256, v2=45, f0=32, v2s=45,
+                  frames_per_tile=1, pack_survivors=True, radix=4)
+        fkw = dict(trellis=tr, frames_per_tile=1, pack_survivors=True,
+                   radix=4)
+        _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
+                     vu.unified_decode_frames_plain(frames, **kw),
+                     f"unified k={tr.k} main frame")
+        _check_equal(vf.forward_frames_cuda(frames, **fkw),
+                     vf.forward_frames_plain(frames, **fkw),
+                     f"forward k={tr.k} main frame")
+        ms = _interleaved({
+            "viterbi_unified": lambda: vu.unified_decode_frames_cuda(
+                frames, **kw),
+            "viterbi_fwd": lambda: vf.forward_frames_cuda(frames, **fkw)},
+            3, rounds=2)
+        plan = autotune.plan_tiles(tr, spec, pack_survivors=True,
+                                   device="cuda")
+        for name in out:
+            b = bound(name, spec, F, trellis=tr)
+            out[name].append({"k": tr.k, "F": F, "ms": ms[name],
+                              "bound_ms": b[0], "bound_by": b[1]})
+        log("time", f"large code K={tr.k} beta={tr.beta} F={F} L="
+            f"{spec.frame_len} (one block of 1024 threads a frame; unified "
+            f"survivors {'on chip' if dict(plan.breakdown)['sel_survivors'] else 'in device scratch'}, "
+            f"{plan.smem_bytes} B smem, {plan.registers} registers): "
+            + "; ".join(f"{n} {ms[n]:.4f} ms, bound "
+                        f"{out[n][-1]['bound_ms']:.4f} ms "
+                        f"({out[n][-1]['bound_by']}, "
+                        f"{out[n][-1]['bound_ms'] / ms[n]:.1%})"
+                        for n in out))
+        del frames
+    return out
 
 
 def time_end_to_end(rx_half):
@@ -693,10 +894,13 @@ def time_planner(frames):
             f"by fingerprint {rows}; re-read from the DB with 0 measures")
 
 
-def phase_time(frames, rx_half, launches):
+def phase_time(frames, rx_half, launches, gen):
     """Returns the kernels' JSON entries and the whole calls' ms."""
     unified = time_unified(frames, launches)
     split = time_split(frames, launches)
+    large = time_large_codes(gen)
+    unified["large_codes"] = large["viterbi_unified"]
+    split["fwd"]["large_codes"] = large["viterbi_fwd"]
     calls = time_end_to_end(rx_half)
     time_planner(frames)
     return [unified, split["fwd"], split["tb"]], calls
@@ -1353,7 +1557,7 @@ def main() -> int:
     phase_build()
     phase_parity(gen)
     launches, frames, rx = phase_main(gen)
-    entries, call_ms = phase_time(frames, rx, launches)
+    entries, call_ms = phase_time(frames, rx, launches, gen)
     phase_profile(rx, call_ms)
     stream = phase_stream(gen)
     serve = phase_serve(gen)

@@ -34,6 +34,13 @@ butterfly's shuffles and the max's redux). If no tile fits, the smallest
 is returned (``fits`` is false): the unified kernel then keeps its
 survivors in device memory.
 
+Codes 12 <= k <= 15 (``smem_mapping``) run one frame on a block of
+``SMEM_THREADS`` = 1024 threads with the path metrics in shared memory, so
+their only tile is one frame and the block's shared memory counts the path
+metrics. A large code's unified block whose survivors do not fit beside
+them is planned as the kernel runs it, survivors in the device-memory
+scratch, so every such code has a plan that fits.
+
 ``plan_decode`` returns the whole plan the decode front end executes:
 kernel, layout, tile and chunk geometry (``chunk_frames`` = two tiles per
 device, as in the JAX package), optionally measured on the card
@@ -61,26 +68,50 @@ __all__ = ["TilePlan", "DecodePlan", "DeviceLimits", "H100_LIMITS",
            "unified_smem_bytes", "split_smem_bytes", "candidate_tiles",
            "plan_tiles", "plan_decode", "measure_plan", "AUTO_LAYOUT",
            "BLOCK_THREADS", "lanes_per_frame", "max_frames_per_block",
-           "block_threads"]
+           "block_threads", "SMEM_MIN_K", "SMEM_THREADS", "MAX_K",
+           "MAX_BETA", "smem_mapping"]
 
 #: Most threads one block of either kernel runs (csrc/acs.cuh
 #: VIT_BLOCK_THREADS): eight warps.
 BLOCK_THREADS = 256
+#: Codes from this k on take acs.cuh's large-code mapping: one block of
+#: SMEM_THREADS threads per frame, path metrics in shared memory
+#: (VIT_SMEM_MIN_K, VIT_SMEM_THREADS).
+SMEM_MIN_K = 12
+SMEM_THREADS = 1024
+#: The largest code and the lowest rate the CUDA kernels take.
+MAX_K = 15
+MAX_BETA = 8
+#: Bytes of the large-code mapping's branch-metric tables and warp
+#: partials (acs.cuh vit_smem_core_bytes, beside the path metrics).
+_SMEM_TABLES = 8 * 128 + 4 * 4 * 32
 _BM_DTYPES = ("float32", "bfloat16")
 
 
+def smem_mapping(trellis: Trellis) -> bool:
+    """Whether the kernels run ``trellis`` on the large-code mapping."""
+    return trellis.k >= SMEM_MIN_K
+
+
 def lanes_per_frame(trellis: Trellis) -> int:
-    """Lanes of a warp one frame's path metrics take: ``min(S, 32)``."""
+    """Lanes of a warp one frame's path metrics take: ``min(S, 32)`` (a
+    large code's frame takes a whole block of such warps)."""
     return min(trellis.num_states, 32)
 
 
 def max_frames_per_block(trellis: Trellis) -> int:
-    """The thread cap: eight warps of ``32 // lanes_per_frame`` frames."""
+    """The thread cap: eight warps of ``32 // lanes_per_frame`` frames;
+    one frame for a large code."""
+    if smem_mapping(trellis):
+        return 1
     return BLOCK_THREADS // 32 * (32 // lanes_per_frame(trellis))
 
 
 def block_threads(trellis: Trellis, frames_per_block: int) -> int:
-    """Threads of a block of that many frames: whole warps."""
+    """Threads of a block of that many frames: whole warps; a large
+    code's block is ``SMEM_THREADS``."""
+    if smem_mapping(trellis):
+        return SMEM_THREADS
     fpw = 32 // lanes_per_frame(trellis)
     return -(-int(frames_per_block) // fpw) * 32
 
@@ -106,8 +137,11 @@ H100_LIMITS = DeviceLimits(232448, 233472, 2048, 32, 1024, 65536)
 #: code (K=7, beta=2): ``numRegs`` as ``cudaFuncGetAttributes`` reported it
 #: on an NVIDIA H100 80GB HBM3 (chip_smoke.py's build phase prints every
 #: instantiation's). The CPU plans every code with it; on the card the
-#: planner asks the kernels, whose counts grow with R and beta.
-H100_REGISTERS = {"unified": 48, "split": 48}
+#: planner asks the kernels, whose counts grow with R and beta. The
+#: ``*_smem`` counts are the large-code mapping's at k=12 beta=2, with
+#: which the CPU plans the codes k >= 12.
+H100_REGISTERS = {"unified": 48, "split": 48, "unified_smem": 63,
+                  "split_smem": 58}
 
 _limits: dict = {}
 
@@ -142,11 +176,12 @@ def kernel_registers(trellis: Trellis, *, unified: bool = True,
     """Registers per thread of the kernel instantiation that runs
     ``trellis`` (``device=None`` = ``"cuda"``: asked of the built kernel
     through ``cudaFuncGetAttributes``; the CPU takes ``H100_REGISTERS``,
-    the main path's count, for every code)."""
+    the main path's count, for every code of its mapping)."""
     name = "unified" if unified else "split"
     dev = _resolve_device(device)
     if dev.type != "cuda":
-        return H100_REGISTERS[name]
+        return H100_REGISTERS[name + ("_smem" if smem_mapping(trellis)
+                                      else "")]
     key = (name, trellis.k, trellis.beta)
     if key not in _registers:
         if unified:
@@ -212,7 +247,7 @@ def _check_knobs(layout, bm_dtype):
 def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
                        frames_per_tile: int, *, pack_survivors: bool = False,
                        radix: int = 2, layout=Layout.LANE,
-                       bm_dtype: str = "float32"):
+                       bm_dtype: str = "float32", scratch: bool = False):
     """(total_bytes, breakdown) of one unified-kernel block: the carve-up of
     ``csrc/viterbi_unified.cu::smem_layout``. Each frame keeps its
     traceback starts (one int32 state per subframe, the block's padded to
@@ -221,7 +256,13 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     (``4 * ceil(S/32)`` bytes a stage) or one byte. Path metrics and branch
     metrics live in registers, so ``bm_dtype`` and ``radix`` change
     nothing, and the layout is not a shared-memory orientation on Hopper;
-    they are accepted so call sites can pass the whole configuration."""
+    they are accepted so call sites can pass the whole configuration.
+
+    A large code (``smem_mapping``: one frame a block) keeps its path
+    metrics in two shared buffers of S float32 beside two branch-metric
+    tables and the warps' partials (``smem_layout_smem``).
+    ``scratch=True`` is the kernel's device-memory survivor scratch:
+    survivors and traceback starts leave shared memory."""
     _check_knobs(layout, bm_dtype)
     del radix
     S = trellis.num_states
@@ -231,9 +272,12 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     nsub = spec.f // f0
     fixed = spec.parallel_tb and spec.start == "fixed"
     row = 4 * W if pack_survivors else S
-    breakdown = (("traceback_starts",
-                  0 if fixed else -(-fpb * nsub * 4 // 16) * 16),
-                 ("sel_survivors", fpb * spec.frame_len * row))
+    core = ((("path_metrics", 8 * S), ("tables_and_partials", _SMEM_TABLES))
+            if smem_mapping(trellis) else ())
+    breakdown = core + (
+        ("traceback_starts",
+         0 if fixed or scratch else -(-fpb * nsub * 4 // 16) * 16),
+        ("sel_survivors", 0 if scratch else fpb * spec.frame_len * row))
     return sum(b for _, b in breakdown), breakdown
 
 
@@ -245,9 +289,14 @@ def split_smem_bytes(trellis: Trellis, spec: FrameSpec,
     of ``csrc/viterbi_fwd.cu::fwd_smem``. Its path metrics live in
     registers and its survivors and argmax go to device memory; each warp
     stages one run of them (32 words and 32 argmax, 256 bytes) in shared
-    memory, whatever the knobs."""
+    memory, whatever the knobs. A large code's block keeps the mapping's
+    path metrics, tables and partials instead."""
     _check_knobs(layout, bm_dtype)
     del spec, pack_survivors, radix
+    if smem_mapping(trellis):
+        breakdown = (("path_metrics", 8 * trellis.num_states),
+                     ("tables_and_partials", _SMEM_TABLES))
+        return sum(b for _, b in breakdown), breakdown
     warps = block_threads(trellis, frames_per_tile) // 32
     breakdown = (("run_buffers", warps * 256),)
     return warps * 256, breakdown
@@ -281,10 +330,17 @@ def _tile_at(trellis: Trellis, spec: FrameSpec, ft: int, *, unified: bool,
              pack_survivors: bool, radix: int, layout, bm_dtype: str,
              budget: int, limits: DeviceLimits,
              registers: int) -> TilePlan:
-    """The TilePlan of one tile under the kernel's footprint model."""
+    """The TilePlan of one tile under the kernel's footprint model. A
+    large code's unified block whose survivors overflow the budget is
+    planned as the kernel runs it: survivors in the device-memory
+    scratch (its only tile is one frame)."""
     model = unified_smem_bytes if unified else split_smem_bytes
     total, breakdown = model(trellis, spec, ft, pack_survivors=pack_survivors,
                              radix=radix, layout=layout, bm_dtype=bm_dtype)
+    if unified and smem_mapping(trellis) and total > budget:
+        total, breakdown = unified_smem_bytes(
+            trellis, spec, ft, pack_survivors=pack_survivors, radix=radix,
+            layout=layout, bm_dtype=bm_dtype, scratch=True)
     threads = block_threads(trellis, ft)
     resident = (_resident_frames(total, threads, ft, registers, limits)
                 if total <= budget else 0)

@@ -45,11 +45,15 @@
 //   The first maximal state (JAX's argmax) is the least s with v[s] == max:
 //   a redux.sync min over the lanes' first hits.
 // Radix 4 is two exact radix-2 stages; here every stage runs the same code.
+//
+// Codes 12 <= k <= 15 take a second mapping, VitBlock (below): one block a
+// frame, path metrics in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
+#include <math.h>
 #include <stdint.h>
 
 #define VIT_MAX_BETA 8
@@ -57,6 +61,11 @@
 // Most threads one block of either kernel runs (eight warps): nothing in the
 // recursion is block-wide, so a block is only a unit of scheduling.
 #define VIT_BLOCK_THREADS 256
+// The large-code mapping (below): codes 12 <= k <= 15, one block of 1024
+// threads a frame.
+#define VIT_SMEM_THREADS 1024
+#define VIT_SMEM_MIN_K 12
+#define VIT_SMEM_MAX_K 15
 
 enum VitLlrDtype { VIT_F32 = 0, VIT_BF16 = 1, VIT_F16 = 2 };
 
@@ -81,8 +90,10 @@ __host__ __device__ inline int vit_lanes_per_frame(int k) {
   return S < 32 ? S : 32;
 }
 
-// Most frames one block takes: VIT_BLOCK_THREADS / 32 warps of 32 / P.
+// Most frames one block takes: VIT_BLOCK_THREADS / 32 warps of 32 / P;
+// one for a large code.
 __host__ __device__ inline int vit_max_frames_per_block(int k) {
+  if (k >= VIT_SMEM_MIN_K) return 1;
   return VIT_BLOCK_THREADS / 32 * (32 / vit_lanes_per_frame(k));
 }
 
@@ -362,6 +373,238 @@ int vit_dispatch(int k, int beta, A... a) {
     case 8: return vit_dispatch_beta<F, 8>(beta, a...);
     case 16: return vit_dispatch_beta<F, 16>(beta, a...);
     default: return vit_dispatch_beta<F, 32>(beta, a...);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Large codes (12 <= k <= 15): path metrics in shared memory.
+//
+// At k = 11 a lane already holds R = 32 path metrics; past it the register
+// mapping runs out of registers. Codes with 2^11 <= S <= 2^14 states take
+// a mapping of their own, which the two kernels instantiate beside (not
+// inside) the register one, so the k <= 11 instantiations do not change:
+//   * one block of VIT_SMEM_THREADS = 1024 threads per frame, R = S / 1024
+//     states a thread (R = 2, 4, 8, 16 at k = 12..15): thread t holds
+//     states s = t + 1024 r. __ballot_sync of register r in warp w is then
+//     packing.py's LANE word 32 r + w, so survivors pack as before;
+//   * the path metrics live in two shared buffers of S float32 (16 KB at
+//     k = 12, 128 KB at k = 15): stage t reads the predecessors 2s and
+//     2s + 1 of the butterfly (s, s + S/2) from the old buffer as one
+//     float2 and writes the new one; one __syncthreads per stage;
+//   * the buffer holds each stage's path metrics before the normalisation;
+//     the reader subtracts the stage's max (sigma = v - max, the same
+//     __fsub_rn as the register path, taken when it is read);
+//   * the stage max: fmaxf per thread, redux.sync per warp on vit_key's
+//     integer image, then the 32 warp maxima through shared memory, read
+//     after the stage's barrier by every warp and reduced once more;
+//   * the first maximal state: each thread keeps the first of its states
+//     that reached its own max, for the low half (r < R/2) and the high
+//     half of its states apart, so the least state is known without a
+//     second pass; a redux.sync min per warp and, after the next stage's
+//     barrier, the min over the warps (the argmax of stage t is known
+//     during stage t + 1);
+//   * branch metrics: 2^(beta-1) threads compute the compressed table
+//     bm_half[h] of stage t + 1 during stage t, into a second table
+//     (the stage's barrier publishes it); an edge reads bm_half[idx] and
+//     flips its sign bit for sgn = -1. Each state keeps its two edges'
+//     (idx, sgn) as two bytes: R / 2 registers a thread, not the 2 R beta
+//     sign registers of the register path, which would spill here.
+// The arithmetic is the register path's: bm_half[h] = sum_b
+// signs_half[h][b] * x[b] in b order (the first product, then one
+// rounded add per term: fma(+-1, x, acc) is that add), bf16 rounded once;
+// folding the edge's sign in after the sum and the rounding gives the same
+// value (both are odd-symmetric); ties >= to predecessor 1; normalise
+// every stage; the least maximal state.
+#define VIT_MAX_HALF 128
+
+// Bytes of the mapping's own shared memory: two path-metric buffers, two
+// branch-metric tables and the warp partials (maxima and first maxima of
+// two stages).
+__host__ __device__ inline long long vit_smem_core_bytes(int k) {
+  return 8LL * (1LL << (k - 1)) + 8 * VIT_MAX_HALF + 4 * 4 * 32;
+}
+
+// One compressed branch metric of the stage whose LLRs are x: terms in b
+// order, signs_half[h][b] = 1 - 2 * bit (beta - 1 - b) of h (tables.py).
+template <int BETA>
+__device__ __forceinline__ float vit_bm_half(int h, const float (&x)[BETA],
+                                             bool bf16) {
+  float acc = __int_as_float(__float_as_int(x[0]) ^
+                             (((h >> (BETA - 1)) & 1) << 31));
+#pragma unroll
+  for (int b = 1; b < BETA; ++b)
+    acc = __fadd_rn(acc, __int_as_float(__float_as_int(x[b]) ^
+                                        (((h >> (BETA - 1 - b)) & 1) << 31)));
+  if (bf16) acc = __bfloat162float(__float2bfloat16_rn(acc));
+  return acc;
+}
+
+// One frame on one block. Shared memory at `sm` (16-byte aligned):
+// pm [2][S] float, tbl [2][VIT_MAX_HALF] float, red [4][32] int.
+template <int R, int BETA>
+struct VitBlock {
+  static constexpr int T = VIT_SMEM_THREADS;
+  unsigned code[R / 2];  // bytes (idx | sign << 7) of edges p of states r
+                         // and r + R/2, byte 2 h + p of word r
+  int S, half;
+  float* pm;
+  float* tbl;
+  int* red;
+
+  __device__ __forceinline__ void init(int k, const int* idx,
+                                       const float* sgn, unsigned char* sm) {
+    S = 1 << (k - 1);
+    half = 1 << (BETA - 1);
+    pm = reinterpret_cast<float*>(sm);
+    tbl = pm + 2 * S;
+    red = reinterpret_cast<int*>(tbl + 2 * VIT_MAX_HALF);
+    const int tid = threadIdx.x;
+#pragma unroll
+    for (int q = 0; q < R / 2; ++q) {
+      unsigned c = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int s = tid + T * (q + h * (R / 2));
+          const unsigned e = (unsigned)idx[p * S + s] |
+                             (sgn[p * S + s] < 0.f ? 0x80u : 0u);
+          c |= e << (16 * h + 8 * p);
+        }
+      code[q] = c;
+    }
+  }
+
+  __device__ __forceinline__ float edge(const float* tb, unsigned e) const {
+    return __int_as_float(__float_as_int(tb[e & 0x7f]) ^ ((e & 0x80u) << 24));
+  }
+};
+
+// The recursion of one frame over L stages on the block. Calls, per state,
+// st.state(t, r, s, sel, word) (word: the warp's ballot of register r; s =
+// threadIdx.x + 1024 r) and, for each stage t with st.wants_argmax(t)
+// (block-uniform), st.argmax(t, a) in warp 0 once a, the stage's first
+// maximal state, is known (during stage t + 1, or after the loop).
+template <int R, int BETA, class Store>
+__device__ __forceinline__ void vit_block_recursion(VitBlock<R, BETA>& b,
+                                                    const void* llr,
+                                                    int dtype, bool bf16,
+                                                    long long frame_base,
+                                                    int L, Store& st) {
+  constexpr int T = VIT_SMEM_THREADS;
+  const int S = b.S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int s = tid; s < S; s += T) b.pm[S + s] = 0.f;    // stage -1: zeros
+  const bool tw = warp * 32 < b.half;      // warps that build the tables
+  float cur[BETA], nxt[BETA], x[BETA];
+  if (tw) {
+    vit_load_chunk<BETA>(llr, dtype, frame_base, 0, lane, L, true, cur);
+    vit_load_chunk<BETA>(llr, dtype, frame_base, 32, lane, L, true, nxt);
+#pragma unroll
+    for (int i = 0; i < BETA; ++i) x[i] = __shfl_sync(VIT_FULL, cur[i], 0);
+    if (tid < b.half) b.tbl[tid] = vit_bm_half<BETA>(tid, x, bf16);
+  }
+  __syncthreads();
+  float m = 0.f;              // the previous stage's max
+  int pend = -1;              // stage whose first maximum is pending
+  int c0 = 0;                 // first stage of the chunk in cur
+  for (int t = 0; t < L; ++t) {
+    const float2* old = reinterpret_cast<const float2*>(
+        b.pm + ((t + 1) & 1) * S);
+    float* nw = b.pm + (t & 1) * S;
+    const float* tb = b.tbl + (t & 1) * VIT_MAX_HALF;
+    float mlo = -INFINITY, mhi = -INFINITY;
+    int rlo = 0, rhi = 0;
+#pragma unroll
+    for (int q = 0; q < R / 2; ++q) {
+      const int s = tid + T * q;
+      const float2 pp = old[s];              // v of 2s and 2s + 1
+      const float p0 = __fsub_rn(pp.x, m);
+      const float p1 = __fsub_rn(pp.y, m);
+      const unsigned c = b.code[q];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = q + h * (R / 2);
+        const float c0v = __fadd_rn(p0, b.edge(tb, c >> (16 * h)));
+        const float c1v = __fadd_rn(p1, b.edge(tb, c >> (16 * h + 8)));
+        const bool sel = c1v >= c0v;
+        const float v = sel ? c1v : c0v;
+        nw[s + h * (S / 2)] = v;
+        st.state(t, r, s + h * (S / 2), sel, __ballot_sync(VIT_FULL, sel));
+        if (h == 0) {
+          if (v > mlo) { mlo = v; rlo = r; }
+        } else {
+          if (v > mhi) { mhi = v; rhi = r; }
+        }
+      }
+    }
+    const int key = __reduce_max_sync(
+        VIT_FULL, vit_key(__float_as_int(fmaxf(mlo, mhi))));
+    if (lane == 0) b.red[(t & 1) * 32 + warp] = key;
+    if (tw) {                                 // the next stage's table
+      const int u = t - c0;
+#pragma unroll
+      for (int i = 0; i < BETA; ++i)
+        x[i] = __shfl_sync(VIT_FULL, u < 31 ? cur[i] : nxt[i], (u + 1) & 31);
+      if (tid < b.half)
+        b.tbl[((t + 1) & 1) * VIT_MAX_HALF + tid] =
+            vit_bm_half<BETA>(tid, x, bf16);
+      if (u == 31) {
+#pragma unroll
+        for (int i = 0; i < BETA; ++i) cur[i] = nxt[i];
+        c0 += 32;
+        vit_load_chunk<BETA>(llr, dtype, frame_base, c0 + 32, lane, L, true,
+                             nxt);
+      }
+    }
+    __syncthreads();
+    if (pend >= 0 && warp == 0) {
+      const int a = __reduce_min_sync(
+          VIT_FULL, b.red[64 + (pend & 1) * 32 + lane]);
+      st.argmax(pend, a);
+    }
+    pend = -1;
+    m = __int_as_float(vit_key(
+        __reduce_max_sync(VIT_FULL, b.red[(t & 1) * 32 + lane])));
+    if (st.wants_argmax(t)) {
+      int a = 0x7fffffff;
+      if (mhi == m) a = tid + T * rhi;
+      if (mlo == m) a = tid + T * rlo;        // low states come first
+      a = __reduce_min_sync(VIT_FULL, a);
+      if (lane == 0) b.red[64 + (t & 1) * 32 + warp] = a;
+      pend = t;
+    }
+  }
+  __syncthreads();
+  if (pend >= 0 && warp == 0) {
+    const int a = __reduce_min_sync(VIT_FULL,
+                                    b.red[64 + (pend & 1) * 32 + lane]);
+    st.argmax(pend, a);
+  }
+}
+
+// Calls F::template run_smem<R, BETA>(a...) for the large-code
+// instantiation that serves (k, beta): R = 2^(k-1) / 1024, one per k.
+template <class F, int R, class... A>
+int vit_dispatch_smem_beta(int beta, A... a) {
+  switch (beta) {
+    case 2: return F::template run_smem<R, 2>(a...);
+    case 3: return F::template run_smem<R, 3>(a...);
+    case 4: return F::template run_smem<R, 4>(a...);
+    case 5: return F::template run_smem<R, 5>(a...);
+    case 6: return F::template run_smem<R, 6>(a...);
+    case 7: return F::template run_smem<R, 7>(a...);
+    default: return F::template run_smem<R, 8>(a...);
+  }
+}
+
+template <class F, class... A>
+int vit_dispatch_smem(int k, int beta, A... a) {
+  switch (k) {
+    case 12: return vit_dispatch_smem_beta<F, 2>(beta, a...);
+    case 13: return vit_dispatch_smem_beta<F, 4>(beta, a...);
+    case 14: return vit_dispatch_smem_beta<F, 8>(beta, a...);
+    default: return vit_dispatch_smem_beta<F, 16>(beta, a...);
   }
 }
 

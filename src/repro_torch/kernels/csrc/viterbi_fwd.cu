@@ -37,6 +37,13 @@
 // stage, 32 neighbouring bytes per warp in the lane stream. `radix` 4 and 2
 // run the same loop (the wrapper checks it; the card never sees it); the
 // kernel inlines one loop per bm_dtype.
+//
+// Codes 12 <= k <= 15 run acs.cuh's large-code mapping instead, in a
+// kernel of their own (viterbi_fwd_smem_kernel): one block of 1024 threads
+// a frame, path metrics in shared memory. Each warp's lane 0 stores its
+// ballot words (word 32 r + warp of a stage), every thread its states'
+// bytes unpacked, and warp 0 each stage's first maximal state, known
+// during the next stage.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -129,9 +136,61 @@ __global__ void __launch_bounds__(VIT_BLOCK_THREADS)
     vit_recursion(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid, st);
 }
 
+// ---- large codes (12 <= k <= 15): one frame a block, acs.cuh's VitBlock --
+
+// What the large-code kernel keeps of each stage: packed, lane 0 of each
+// warp stores its ballot word 32 r + warp (the warps' words of one stage
+// are one contiguous row of the lane stream); unpacked, every thread its
+// states' bytes (neighbouring threads, neighbouring bytes in the lane
+// stream); warp 0 the stage's first maximal state.
+struct FwdSmemStore {
+  uint32_t* sel32;
+  int8_t* sel8;
+  int* amax;                 // this frame's (L,) row
+  long long frame;
+  int F, L, S, W, pack, sublane;
+  __device__ __forceinline__ bool wants_argmax(int) const { return true; }
+  __device__ __forceinline__ void argmax(int t, int a) {
+    if ((threadIdx.x & 31) == 0) amax[t] = a;
+  }
+  __device__ __forceinline__ void state(int t, int r, int s, bool sel,
+                                        unsigned word) {
+    if (pack) {
+      if ((threadIdx.x & 31) == 0) {
+        const long long i = (long long)t * W + 32 * r + (threadIdx.x >> 5);
+        sel32[sublane ? i * F + frame : frame * L * W + i] = word;
+      }
+    } else {
+      const long long o = sublane ? ((long long)t * S + s) * F + frame
+                                  : (frame * L + t) * S + s;
+      sel8[o] = (int8_t)sel;
+    }
+  }
+};
+
+template <int R, int BETA>
+__global__ void __launch_bounds__(VIT_SMEM_THREADS)
+    viterbi_fwd_smem_kernel(const FwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long frame = blockIdx.x;
+  const int S = 1 << (p.k - 1);
+  VitBlock<R, BETA> b;
+  b.init(p.k, p.idx, p.sgn, smem);
+  FwdSmemStore st{static_cast<uint32_t*>(p.sel),
+                  static_cast<int8_t*>(p.sel), p.amax + frame * p.L, frame,
+                  p.F, p.L, S, S / 32, p.pack, p.sublane};
+  const long long base = frame * p.L * BETA;
+  if (p.bf16_bm)          // one inlined loop per bm_dtype
+    vit_block_recursion(b, p.llr, p.llr_dtype, true, base, p.L, st);
+  else
+    vit_block_recursion(b, p.llr, p.llr_dtype, false, base, p.L, st);
+}
+
 // Shared memory of one block of fpb frames: each warp's run buffers, 32
-// words and 32 argmax.
+// words and 32 argmax; for a large code, the mapping's path metrics,
+// tables and partials.
 inline long long fwd_smem(int k, int fpb) {
+  if (k >= VIT_SMEM_MIN_K) return vit_smem_core_bytes(k);
   const int fpw = 32 / vit_lanes_per_frame(k);
   return (long long)(fpb + fpw - 1) / fpw * 64 * 4;
 }
@@ -148,11 +207,32 @@ struct Launch {
   }
 };
 
+struct LaunchSmem {
+  template <int R, int BETA>
+  static int run_smem(const FwdParams* p, cudaStream_t stream) {
+    const long long smem = vit_smem_core_bytes(p->k);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          viterbi_fwd_smem_kernel<R, BETA>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    viterbi_fwd_smem_kernel<R, BETA>
+        <<<p->F, VIT_SMEM_THREADS, (size_t)smem, stream>>>(*p);
+    return (int)cudaGetLastError();
+  }
+};
+
 struct Attrs {
   template <int R, int BETA>
   static int run(int* out) {
     return vit_func_attrs(
         reinterpret_cast<const void*>(viterbi_fwd_kernel<R, BETA>), out);
+  }
+  template <int R, int BETA>
+  static int run_smem(int* out) {
+    return vit_func_attrs(
+        reinterpret_cast<const void*>(viterbi_fwd_smem_kernel<R, BETA>), out);
   }
 };
 
@@ -167,8 +247,9 @@ long long viterbi_fwd_smem_bytes(int k, int fpb) { return fwd_smem(k, fpb); }
 // out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the instantiation
 // that runs (k, beta). Returns 0 or the CUDA error.
 int viterbi_fwd_func_attrs(int k, int beta, int* out) {
-  if (k < 2 || k > 11 || beta < 2 || beta > VIT_MAX_BETA)
+  if (k < 2 || k > VIT_SMEM_MAX_K || beta < 2 || beta > VIT_MAX_BETA)
     return (int)cudaErrorInvalidValue;
+  if (k >= VIT_SMEM_MIN_K) return vit_dispatch_smem<Attrs>(k, beta, out);
   return vit_dispatch<Attrs>(k, beta, out);
 }
 
@@ -177,7 +258,8 @@ int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
                        const void* signs_half, void* sel, void* amax, int F,
                        int L, int beta, int k, int llr_dtype, int pack,
                        int sublane, int bf16_bm, int fpb, void* stream) {
-  if (k < 2 || k > 11 || beta < 2 || beta > VIT_MAX_BETA || fpb < 1 ||
+  if (k < 2 || k > VIT_SMEM_MAX_K || beta < 2 || beta > VIT_MAX_BETA ||
+      fpb < 1 ||
       fpb > vit_max_frames_per_block(k) || F < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
   FwdParams p;
@@ -195,6 +277,9 @@ int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
   p.sublane = sublane;
   p.bf16_bm = bf16_bm;
   p.fpb = fpb;
+  if (k >= VIT_SMEM_MIN_K)
+    return vit_dispatch_smem<LaunchSmem>(k, beta, &p,
+                                         static_cast<cudaStream_t>(stream));
   return vit_dispatch<Launch>(k, beta, &p, static_cast<cudaStream_t>(stream));
 }
 

@@ -29,6 +29,14 @@
 // eight warps; a block is only a unit of scheduling. The kernel inlines
 // one loop per bm_dtype, so the f32 loop carries no bf16 rounding.
 //
+// Codes 12 <= k <= 15 run acs.cuh's large-code mapping instead, in a
+// kernel of their own (viterbi_unified_smem_kernel): one block of 1024
+// threads a frame, path metrics in shared memory, one __syncthreads a
+// stage. The block keeps the frame's survivors in shared memory beside the
+// path metrics while they fit (packed at L=321: 82 KB at k=12, 164 KB at
+// k=13) and in the device-memory scratch below otherwise: the kernel picks
+// by shape. Phase 3 runs the frame's nsub cursors on the block's threads.
+//
 // When one frame's survivors exceed the shared memory a block can have
 // (unpacked K=7 survivors of one f=4096 frame need L*S ~ 266 KB), the same
 // kernel keeps survivors and traceback starts in a device-memory scratch
@@ -192,6 +200,110 @@ __global__ void __launch_bounds__(VIT_BLOCK_THREADS)
   }
 }
 
+// ---- large codes (12 <= k <= 15): one frame a block, acs.cuh's VitBlock --
+
+// Shared-memory carve-up of one large-code block: the mapping's path
+// metrics, tables and partials (vit_smem_core_bytes), the traceback starts
+// [nsub] int32 (none for start=fixed or with the scratch) padded to 16
+// bytes, then the survivors [L][row] (none with the scratch).
+__host__ __device__ inline SmemLayout smem_layout_smem(int k, int L,
+                                                       int nsub, int pack,
+                                                       int start_fixed,
+                                                       int global) {
+  const long long row = pack ? (1LL << (k - 1)) / 8 : 1LL << (k - 1);
+  SmemLayout s;
+  s.am = vit_smem_core_bytes(k);
+  s.sel = s.am + (global || start_fixed ? 0
+                                        : ((long long)nsub * 4 + 15) & ~15LL);
+  s.total = s.sel + (global ? 0 : (long long)L * row);
+  return s;
+}
+
+// What the large-code kernel keeps of each stage: the survivors (packed:
+// lane 0 of each warp stores its ballot word 32 r + warp; else every
+// thread its states' bytes), in shared memory or the scratch, and the
+// first maximal state of each traceback start stage.
+struct UnifiedSmemStore {
+  uint32_t ssel;            // the frame's [L][row] (shared address)
+  unsigned char* gsel;      // or its scratch
+  int* am;                  // its [nsub] starts
+  long long row;
+  int pack, global, f0, e_first, next_e;
+  __device__ __forceinline__ bool wants_argmax(int t) {
+    if (t != next_e) return false;
+    next_e += f0;
+    return true;
+  }
+  __device__ __forceinline__ void argmax(int t, int a) {
+    if ((threadIdx.x & 31) == 0) am[(t - e_first) / f0] = a;
+  }
+  __device__ __forceinline__ void state(int t, int r, int s, bool sel,
+                                        unsigned word) {
+    const bool lead = (threadIdx.x & 31) == 0;
+    if (pack) {
+      const int wi = 32 * r + (threadIdx.x >> 5);
+      if (global) {
+        if (lead) reinterpret_cast<uint32_t*>(gsel + t * row)[wi] = word;
+      } else {
+        vit_sts_u32_if(lead, ssel + (uint32_t)(t * row) + 4 * wi, word);
+      }
+    } else if (global) {
+      gsel[t * row + s] = (unsigned char)sel;
+    } else {
+      vit_sts_u8(ssel + (uint32_t)(t * row) + s, (unsigned)sel);
+    }
+  }
+};
+
+template <int R, int BETA>
+__global__ void __launch_bounds__(VIT_SMEM_THREADS)
+    viterbi_unified_smem_kernel(const UnifiedParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long frame = blockIdx.x;
+  const int S = 1 << (p.k - 1);
+  const int global = p.sel_global != nullptr;
+  const SmemLayout lay =
+      smem_layout_smem(p.k, p.L, p.nsub, p.pack, p.start_fixed, global);
+  const long long row = p.pack ? S / 8 : S;
+  unsigned char* sel =
+      global ? p.sel_global + frame * p.L * row : smem + lay.sel;
+  int* am = global ? p.amax_global + frame * p.nsub
+                   : reinterpret_cast<int*>(smem + lay.am);
+  VitBlock<R, BETA> b;
+  b.init(p.k, p.idx, p.sgn, smem);
+  const int e_first = p.v1 + p.f0 - 1 + p.v2s;
+  UnifiedSmemStore st{
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem + lay.sel)), sel,
+      am, row, p.pack, global, p.f0, e_first,
+      p.start_fixed ? 0x7fffffff : e_first};
+  const long long base = frame * p.L * BETA;
+  if (p.bf16_bm)          // one inlined loop per bm_dtype
+    vit_block_recursion(b, p.llr, p.llr_dtype, true, base, p.L, st);
+  else
+    vit_block_recursion(b, p.llr, p.llr_dtype, false, base, p.L, st);
+  __syncthreads();        // the survivors and the starts, visible
+
+  // ---- phase 3: the frame's nsub cursors, one per thread --------------------
+  const int kshift = p.k - 2;
+  const int T = p.f0 + p.v2s;
+  for (int q = threadIdx.x; q < p.nsub; q += blockDim.x) {
+    int state = p.start_fixed ? 0 : am[q];
+    const int e2 = p.v1 + (q + 1) * p.f0 - 1 + p.v2s;
+    int* o = p.out + frame * p.f + (long long)q * p.f0;
+    for (int r = 0; r < T; ++r) {
+      const long long ts = e2 - r;
+      if (r >= p.v2s) o[p.f0 - 1 - (r - p.v2s)] = state >> kshift;
+      int bit;
+      if (p.pack)
+        bit = (reinterpret_cast<const uint32_t*>(sel + ts * row)[state >> 5] >>
+               (state & 31)) & 1;
+      else
+        bit = sel[ts * row + state];
+      state = ((state << 1) & (S - 1)) | bit;
+    }
+  }
+}
+
 // Threads of a block of fpb frames: whole warps of 32 / P frames each.
 inline int block_threads(int k, int fpb) {
   const int fpw = 32 / vit_lanes_per_frame(k);
@@ -215,13 +327,43 @@ struct Launch {
   }
 };
 
+struct LaunchSmem {
+  template <int R, int BETA>
+  static int run_smem(const UnifiedParams* p, long long smem,
+                      cudaStream_t stream) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          viterbi_unified_smem_kernel<R, BETA>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    viterbi_unified_smem_kernel<R, BETA>
+        <<<p->F, VIT_SMEM_THREADS, (size_t)smem, stream>>>(*p);
+    return (int)cudaGetLastError();
+  }
+};
+
 struct Attrs {
   template <int R, int BETA>
   static int run(int* out) {
     return vit_func_attrs(
         reinterpret_cast<const void*>(viterbi_unified_kernel<R, BETA>), out);
   }
+  template <int R, int BETA>
+  static int run_smem(int* out) {
+    return vit_func_attrs(
+        reinterpret_cast<const void*>(viterbi_unified_smem_kernel<R, BETA>),
+        out);
+  }
 };
+
+// Shared memory of one block for either mapping.
+inline long long unified_smem(int k, int L, int nsub, int pack,
+                              int start_fixed, int fpb, int global) {
+  if (k >= VIT_SMEM_MIN_K)
+    return smem_layout_smem(k, L, nsub, pack, start_fixed, global).total;
+  return smem_layout(k, L, nsub, pack, start_fixed, fpb, global).total;
+}
 
 }  // namespace
 
@@ -232,15 +374,15 @@ extern "C" {
 long long viterbi_unified_smem_bytes(int k, int L, int nsub, int pack,
                                      int start_fixed, int fpb,
                                      int global_scratch) {
-  return smem_layout(k, L, nsub, pack, start_fixed, fpb, global_scratch)
-      .total;
+  return unified_smem(k, L, nsub, pack, start_fixed, fpb, global_scratch);
 }
 
 // out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the instantiation
 // that decodes (k, beta). Returns 0 or the CUDA error.
 int viterbi_unified_func_attrs(int k, int beta, int* out) {
-  if (k < 2 || k > 11 || beta < 2 || beta > VIT_MAX_BETA)
+  if (k < 2 || k > VIT_SMEM_MAX_K || beta < 2 || beta > VIT_MAX_BETA)
     return (int)cudaErrorInvalidValue;
+  if (k >= VIT_SMEM_MIN_K) return vit_dispatch_smem<Attrs>(k, beta, out);
   return vit_dispatch<Attrs>(k, beta, out);
 }
 
@@ -271,7 +413,8 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
                            int beta, int k, int v1, int f, int f0, int v2s,
                            int llr_dtype, int start_fixed, int pack,
                            int bf16_bm, int fpb, void* stream) {
-  if (k < 2 || k > 11 || beta < 2 || beta > VIT_MAX_BETA || fpb < 1 ||
+  if (k < 2 || k > VIT_SMEM_MAX_K || beta < 2 || beta > VIT_MAX_BETA ||
+      fpb < 1 ||
       fpb > vit_max_frames_per_block(k) || f0 < 1 || f % f0 != 0 ||
       F < 1 ||
       (sel_global == nullptr) != (amax_global == nullptr))
@@ -297,8 +440,11 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
   p.pack = pack;
   p.bf16_bm = bf16_bm;
   p.fpb = fpb;
-  const long long smem = smem_layout(k, L, p.nsub, pack, start_fixed, fpb,
-                                     sel_global != nullptr).total;
+  const long long smem = unified_smem(k, L, p.nsub, pack, start_fixed, fpb,
+                                      sel_global != nullptr);
+  if (k >= VIT_SMEM_MIN_K)
+    return vit_dispatch_smem<LaunchSmem>(k, beta, &p, smem,
+                                         static_cast<cudaStream_t>(stream));
   return vit_dispatch<Launch>(k, beta, &p, smem,
                               static_cast<cudaStream_t>(stream));
 }

@@ -34,7 +34,7 @@ import torch
 
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
-from .autotune import max_frames_per_block
+from .autotune import MAX_BETA, MAX_K, max_frames_per_block
 from .build import build
 from .packing import Layout, pack_bits, packed_width
 from .viterbi_unified import _LLR_DTYPES, device_tables
@@ -113,9 +113,9 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
     k, beta = trellis.k, trellis.beta
-    if not 2 <= k <= 11 or beta > 8:
-        raise ValueError(f"the CUDA kernel takes 2 <= k <= 11 and beta <= 8, "
-                         f"got k={k} beta={beta}")
+    if not 2 <= k <= MAX_K or not 2 <= beta <= MAX_BETA:
+        raise ValueError(f"the CUDA kernel takes 2 <= k <= {MAX_K} and "
+                         f"2 <= beta <= {MAX_BETA}, got k={k} beta={beta}")
     dev = frames.device
     F, L, _ = frames.shape
     S = trellis.num_states

@@ -25,8 +25,11 @@ frame count must be a multiple of it, as in the JAX kernel) and the most
 frames one thread block decodes. The kernel runs one warp per frame (a
 segment of S lanes for S < 32), at most eight warps a block, so a block
 holds at most ``autotune.max_frames_per_block`` frames, and fewer when
-their survivors would overflow shared memory. Bits never depend on the
-tile.
+their survivors would overflow shared memory. Codes 12 <= k <= 15 run one
+frame on a block of 1024 threads, path metrics in shared memory
+(``acs.cuh``'s large-code mapping). The card takes k <= 15 and beta <= 8
+(``autotune.MAX_K``, ``MAX_BETA``); past them the wrapper raises, naming
+the limit. Bits never depend on the tile.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import torch
 
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
-from .autotune import device_limits, max_frames_per_block
+from .autotune import MAX_BETA, MAX_K, device_limits, max_frames_per_block
 from .build import build
 from .packing import Layout, extract_bit, pack_bits, packed_width
 from .tables import kernel_tables
@@ -150,9 +153,9 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
     k, beta = trellis.k, trellis.beta
-    if not 2 <= k <= 11 or beta > 8:
-        raise ValueError(f"the CUDA kernel takes 2 <= k <= 11 and beta <= 8, "
-                         f"got k={k} beta={beta}")
+    if not 2 <= k <= MAX_K or not 2 <= beta <= MAX_BETA:
+        raise ValueError(f"the CUDA kernel takes 2 <= k <= {MAX_K} and "
+                         f"2 <= beta <= {MAX_BETA}, got k={k} beta={beta}")
     lib = kernel_library().lib
     dev = frames.device
     F, L, _ = frames.shape

@@ -624,3 +624,72 @@ def test_cuda_rows_belong_to_a_kernel_build(db_path, monkeypatch):
     assert db.get("cudafp0001", rebuilt) is None
     assert db.get("jaxfp00002", jpid)["mbps"] == 6.0
     assert db.stats()["hits"] == 1 and db.stats()["misses"] == 1
+
+
+# ---- codes 12 <= k <= 15: the large-code mapping ---------------------------
+
+LARGE = [make_trellis(12, (0o4335, 0o5723)), make_trellis(13, (0o10533,
+                                                                0o17661)),
+         make_trellis(14, (0o21645, 0o35661)),
+         make_trellis(15, (0o46321, 0o51271, 0o63667, 0o70535))]
+
+
+@pytest.mark.parametrize("tr", LARGE, ids=lambda t: f"k{t.k}")
+def test_large_code_block_is_one_frame(tr):
+    """A large code runs one frame on a block of SMEM_THREADS threads: the
+    thread cap, the candidate tiles and the block's threads say so, and
+    the CPU plans with the large mapping's registers."""
+    assert autotune.smem_mapping(tr) and not autotune.smem_mapping(K9)
+    assert autotune.max_frames_per_block(tr) == 1
+    assert candidate_tiles(tr) == [1]
+    assert autotune.block_threads(tr, 1) == autotune.SMEM_THREADS == 1024
+    for unified, name in ((True, "unified_smem"), (False, "split_smem")):
+        assert autotune.kernel_registers(tr, unified=unified,
+                                         **CPU) == H100_REGISTERS[name]
+    assert autotune.kernel_registers(K9, **CPU) == H100_REGISTERS["unified"]
+
+
+@pytest.mark.parametrize("tr", LARGE, ids=lambda t: f"k{t.k}")
+def test_large_code_smem_models(tr):
+    """The large mapping's shared memory, term for term: two path-metric
+    buffers of S float32, the tables and warp partials (1536 bytes), then
+    the unified block's starts and survivors; the forward block keeps
+    only the first two."""
+    S, L = tr.num_states, SPEC.frame_len
+    total, bd = unified_smem_bytes(tr, SPEC, 1, pack_survivors=True)
+    assert dict(bd) == {"path_metrics": 8 * S, "tables_and_partials": 1536,
+                        "traceback_starts": 32,
+                        "sel_survivors": L * S // 8}
+    assert total == 8 * S + 1536 + 32 + L * S // 8
+    scratch, bd = unified_smem_bytes(tr, SPEC, 1, pack_survivors=True,
+                                     scratch=True)
+    assert scratch == 8 * S + 1536 and dict(bd)["sel_survivors"] == 0
+    split, bd = split_smem_bytes(tr, SPEC, 1)
+    assert split == 8 * S + 1536 and [n for n, _ in bd] == [
+        "path_metrics", "tables_and_partials"]
+
+
+def test_large_code_plans_fit_one_frame_per_sm():
+    """plan_tiles gives every large code a plan that fits: one frame a
+    block, one block an SM (1024 threads at the registers the CPU plans
+    with). K=12 and K=13 keep their packed survivors on chip (100128 and
+    198688 bytes); K=14 and K=15 cannot, and are planned as the kernel runs
+    them, survivors in the device-memory scratch."""
+    want = {12: 100128, 13: 198688, 14: 65536 * 1 + 1536,
+            15: 131072 + 1536}
+    for tr in LARGE:
+        for unified in (True, False):
+            plan = plan_tiles(tr, SPEC, pack_survivors=True,
+                              unified=unified, **CPU)
+            assert plan.frames_per_tile == 1 and plan.fits
+            assert plan.frames_per_sm == 1
+            if unified:
+                assert plan.smem_bytes == want[tr.k]
+                assert (dict(plan.breakdown)["sel_survivors"] == 0) == (
+                    tr.k >= 14)
+            else:
+                assert plan.smem_bytes == 8 * tr.num_states + 1536
+    plan = plan_decode(LARGE[1], SPEC, **CPU)
+    assert plan.frames_per_tile == 1 and plan.chunk_frames == 2
+    assert plan.tile.fits and plan.tile.registers == H100_REGISTERS[
+        "unified_smem"]

@@ -31,6 +31,11 @@ CODES = [(3, (0o7, 0o5)), (4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)),
          (6, (0o65, 0o57)), (7, (0o171, 0o133)), (9, (0o753, 0o561)),
          (11, (0o3345, 0o3613))]
 K7 = CODES[4]
+#: The large-code mapping (one block of 1024 threads a frame, path metrics
+#: in shared memory): K=12 (R=2), K=13 (R=4) and the Galileo (15, 1/4)
+#: code (R=16).
+LARGE_CODES = [(12, (0o4335, 0o5723)), (13, (0o10533, 0o17661)),
+               (15, (0o46321, 0o51271, 0o63667, 0o70535))]
 
 
 @pytest.fixture
@@ -195,7 +200,7 @@ def test_split_path_goes_through_both_kernels(cuda):
     assert got.is_cuda and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("code", CODES)
+@pytest.mark.parametrize("code", CODES + LARGE_CODES)
 def test_smem_models_equal_kernel_carve_up(cuda, code):
     """autotune's shared-memory models are the kernels' own numbers."""
     tr = make_trellis(*code)
@@ -215,6 +220,9 @@ def test_smem_models_equal_kernel_carve_up(cuda, code):
                     tr.k, spec.frame_len, nsub, int(pack), fixed, fpb, 0)
             got, _ = autotune.split_smem_bytes(tr, spec, fpb)
             assert got == flib.viterbi_fwd_smem_bytes(tr.k, fpb)
+        got, _ = autotune.unified_smem_bytes(tr, spec, 1, scratch=True)
+        assert got == ulib.viterbi_unified_smem_bytes(
+            tr.k, spec.frame_len, nsub, 1, fixed, 1, 1)
 
 
 @pytest.mark.parametrize("unified", [True, False])
@@ -227,16 +235,22 @@ def test_register_model_is_the_kernels(cuda, unified):
              else lib.viterbi_fwd_func_attrs)
     name = "unified" if unified else "split"
     h100 = "H100" in torch.cuda.get_device_name(0)
-    for k in range(2, 12):
+    for k in range(2, autotune.MAX_K + 1):
         for beta in range(2, 9):
             out = (ctypes.c_int * 3)()
             assert attrs(k, beta, out) == 0
             tr = make_trellis(k, tuple([(1 << k) - 1] * beta))
             assert autotune.kernel_registers(tr, unified=unified,
                                              device="cuda") == out[0]
-            assert out[2] >= autotune.BLOCK_THREADS
+            assert out[2] >= (autotune.SMEM_THREADS
+                              if autotune.smem_mapping(tr)
+                              else autotune.BLOCK_THREADS)
             if h100 and (k, beta) == (7, 2):
                 assert autotune.H100_REGISTERS[name] == out[0]
+            if h100 and (k, beta) == (autotune.SMEM_MIN_K, 2):
+                assert autotune.H100_REGISTERS[name + "_smem"] == out[0]
+    out = (ctypes.c_int * 3)()
+    assert attrs(autotune.MAX_K + 1, 2, out) != 0
 
 
 def test_device_limits_query(cuda):
@@ -447,3 +461,228 @@ def test_planning_a_bucket_loads_its_kernels(cuda):
     srv.open_session(DecoderConfig(spec=_RATE_SPECS["1/2"],
                                    backend="kernel_split"), chunk_frames=8)
     assert {"viterbi_fwd.cu", "traceback_frames.cu"} <= set(build._built)
+
+
+# -- codes 12 <= k <= 15 (the large-code mapping) ---------------------------
+_SPECS = [FrameSpec(f=64, v1=20, v2=21),
+          FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21),
+          FrameSpec(f=96, v1=12, v2=24, f0=24, v2s=20, start="fixed")]
+
+
+@pytest.mark.parametrize("code", LARGE_CODES)
+@pytest.mark.parametrize("spec", _SPECS)
+def test_large_code_kernels_equal_plain(cuda, code, spec):
+    """B1, B3 and the traceback kernel at k = 12, 13, 15 against their
+    plain versions: packed and not, radix 2 and 4, f32 and bf16 branch
+    metrics, both layouts; serial, boundary and fixed starts."""
+    frames = _frames(code, spec, 5, 8, cuda)
+    kw = _kw(code, spec)
+    tr = kw["trellis"]
+    for pack in (False, True):
+        for radix, bm in ((2, "float32"), (4, "bfloat16"), (4, "float32")):
+            ukw = dict(kw, frames_per_tile=1, pack_survivors=pack,
+                       radix=radix, bm_dtype=bm)
+            before = vu.unified_decode_frames_cuda.launches
+            got = vu.unified_decode_frames(frames, **ukw)
+            assert vu.unified_decode_frames_cuda.launches == before + 1
+            assert torch.equal(got, vu.unified_decode_frames_plain(frames,
+                                                                   **ukw))
+            for layout in ("lane", "sublane"):
+                fkw = dict(trellis=tr, frames_per_tile=1,
+                           pack_survivors=pack, radix=radix, layout=layout,
+                           bm_dtype=bm)
+                sel, amax = vf.forward_frames(frames, **fkw)
+                psel, pamax = vf.forward_frames_plain(frames, **fkw)
+                assert sel.dtype == psel.dtype and torch.equal(sel, psel)
+                assert torch.equal(amax, pamax)
+                tkw = dict(trellis=tr, v1=spec.v1, f=spec.f, f0=kw["f0"],
+                           v2s=kw["v2s"], start=spec.start, packed=pack,
+                           layout=layout)
+                assert torch.equal(tbf.traceback_frames(sel, amax, **tkw),
+                                   tbf.traceback_frames_plain(psel, pamax,
+                                                              **tkw))
+
+
+@pytest.mark.parametrize("code,f,pack", [(LARGE_CODES[0], 256, False),
+                                         (LARGE_CODES[1], 512, True),
+                                         (LARGE_CODES[2], 64, True)])
+def test_large_code_survivor_scratch(cuda, code, f, pack):
+    """Survivors that do not fit beside the path metrics (unpacked K=12,
+    packed K=13 at f=512, every K=15 frame) go to the device-memory
+    scratch; the planner counts that mode and the bits stay exact."""
+    spec = FrameSpec(f=f, v1=30, v2=30, f0=f // 4, v2s=30)
+    frames = _frames(code, spec, 3, 9, cuda)
+    kw = _kw(code, spec, frames_per_tile=1, pack_survivors=pack, radix=4)
+    tr = kw["trellis"]
+    lib = vu.kernel_library().lib
+    on_chip = lib.viterbi_unified_smem_bytes(tr.k, spec.frame_len, 4,
+                                             int(pack), 0, 1, 0)
+    assert on_chip > autotune.device_limits("cuda").smem_per_block
+    plan = autotune.plan_tiles(tr, spec, pack_survivors=pack, device="cuda")
+    assert plan.fits and dict(plan.breakdown)["sel_survivors"] == 0
+    assert torch.equal(vu.unified_decode_frames_cuda(frames, **kw),
+                       vu.unified_decode_frames_plain(frames, **kw))
+
+
+def test_codes_past_the_limits_are_refused(cuda):
+    """k > 15 and beta > 8 name the limit, in every wrapper."""
+    spec = FrameSpec(f=16, v1=4, v2=4)
+    for k, beta in ((16, 2), (7, 9)):
+        tr = make_trellis(k, tuple([(1 << k) - 1] * beta))
+        frames = torch.zeros((1, spec.frame_len, beta), device=cuda)
+        with pytest.raises(ValueError, match=r"k <= 15 and 2 <= beta <= 8"):
+            vu.unified_decode_frames_cuda(frames, **_kw(
+                ((k, tr.polys)), spec, frames_per_tile=1))
+        with pytest.raises(ValueError, match=r"k <= 15 and 2 <= beta <= 8"):
+            vf.forward_frames_cuda(frames, trellis=tr, frames_per_tile=1)
+    tr = make_trellis(16, (0o177777, 0o177775))
+    sel = torch.zeros((1, 24, 1024), dtype=torch.int32, device=cuda)
+    amax = torch.zeros((1, 24), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=r"k <= 15"):
+        tbf.traceback_frames_cuda(sel, amax, trellis=tr, v1=4, f=16, f0=16,
+                                  v2s=4, packed=True)
+
+
+def test_large_code_through_every_entry(cuda):
+    """A K=13 rate-1/2 config through make_decoder (both kernel backends),
+    stream_decode and a DecodeServer on the card: bits equal the plain
+    decode."""
+    import dataclasses
+    from repro_torch.core.stream import stream_decode
+    from repro_torch.serve import DecodeServer, PlanCache
+    tr = make_trellis(*LARGE_CODES[1])
+    spec = FrameSpec(f=128, v1=40, v2=60, f0=32, v2s=60)
+    cfg = DecoderConfig(trellis=tr, spec=spec, backend="kernel")
+    n = 20 * 128 + 33
+    rng = np.random.default_rng(13)
+    coded = encode(torch.from_numpy(rng.integers(0, 2, n)), tr).numpy()
+    stream = (1.0 - 2.0 * coded + 0.5 * rng.standard_normal(coded.shape)
+              ).astype(np.float32)
+    want = make_decoder(cfg, "cpu")(stream, n).numpy()
+    for backend, kernel in (("kernel", vu.unified_decode_frames_cuda),
+                            ("kernel_split", tbf.traceback_frames_cuda)):
+        bcfg = dataclasses.replace(cfg, backend=backend)
+        before = kernel.launches
+        got = make_decoder(bcfg)(stream, n)
+        assert kernel.launches == before + 1
+        assert np.array_equal(got.cpu().numpy(), want)
+    before = vu.unified_decode_frames_cuda.launches
+    got = stream_decode(cfg, stream, n, chunk_frames=8, push_size=1000)
+    assert vu.unified_decode_frames_cuda.launches > before
+    assert np.array_equal(got, want)
+    srv = DecodeServer(slots=2, cache=PlanCache())
+    sid = srv.open_session(cfg, chunk_frames=8)
+    parts = []
+    for i in range(0, n, 700):
+        srv.push(sid, stream[i:i + 700])
+        srv.step()
+        parts.append(srv.poll(sid))
+    parts.append(srv.close_session(sid))
+    assert np.array_equal(np.concatenate(parts)[:n], want)
+
+
+# -- the split traceback kernel's two modes ---------------------------------
+@pytest.mark.parametrize("code", [CODES[2], K7, CODES[5], CODES[6],
+                                  LARGE_CODES[0]])
+@pytest.mark.parametrize("layout", ["lane", "sublane"])
+@pytest.mark.parametrize("pack", [False, True])
+def test_traceback_modes_equal_plain(cuda, code, layout, pack):
+    """The staged and the direct chase equal the plain chase, whichever
+    the rule would pick, for serial, boundary and fixed geometries, frame
+    groups of 1, 3 and 16 and a sublane stream sliced to fewer frames
+    than it holds (read at its stride); the rule picks staged for rows of
+    at most 128 bytes whose smallest group fits (K=7 lane, K=11 packed
+    lane) and direct otherwise (K=11 unpacked, K=12)."""
+    tr = make_trellis(*code)
+    for spec in _SPECS:
+        frames = _frames(code, spec, 37, 10, cuda)
+        kw = _kw(code, spec)
+        sel, amax = vf.forward_frames(frames, trellis=tr, frames_per_tile=1,
+                                      pack_survivors=pack, layout=layout)
+        F = 33
+        sel = sel[..., :F] if layout == "sublane" else sel[:F]
+        amax = amax[:F]
+        tkw = dict(trellis=tr, v1=spec.v1, f=spec.f, f0=kw["f0"],
+                   v2s=kw["v2s"], start=spec.start, packed=pack,
+                   layout=layout)
+        want = tbf.traceback_frames_plain(sel, amax, **tkw)
+        row = 4 * (-(-tr.num_states // 32)) if pack else tr.num_states
+        plan = tbf.chase_plan(tr, L=spec.frame_len, f=spec.f, f0=kw["f0"],
+                              v2s=kw["v2s"], F=F, packed=pack, layout=layout)
+        assert plan.smem_bytes == tbf.kernel_library().lib.\
+            traceback_frames_smem_bytes(tr.k, spec.f, kw["v2s"],
+                                        spec.frame_len, int(pack),
+                                        int(layout == "sublane"),
+                                        plan.frames, int(plan.staged))
+        least = tbf.SUBLANE_MIN_GROUP if layout == "sublane" else 1
+        assert plan.staged == (row <= tbf.STAGE_ROW_BYTES and tbf._smem_bytes(
+            tr.k, spec.f, kw["v2s"], spec.frame_len, pack,
+            layout == "sublane", least, True) <= tbf.STAGE_BYTES)
+        before = tbf.traceback_frames_cuda.launches
+        assert torch.equal(tbf.traceback_frames(sel, amax, **tkw), want)
+        assert tbf.traceback_frames_cuda.launches == before + 1
+        limit = autotune.device_limits("cuda").smem_per_block
+        for chase in ("staged", "direct"):
+            for fpb in (None, 1, 3, 16):
+                G = fpb or 1
+                need = tbf._smem_bytes(tr.k, spec.f, kw["v2s"],
+                                       spec.frame_len, pack,
+                                       layout == "sublane", G,
+                                       chase == "staged")
+                if need > limit:          # a block this large cannot run
+                    with pytest.raises(ValueError, match="shared memory"):
+                        tbf.traceback_frames_cuda(
+                            sel, amax, chase=chase, frames_per_block=fpb,
+                            **tkw)
+                    continue
+                got = tbf.traceback_frames_cuda(sel, amax, chase=chase,
+                                                frames_per_block=fpb, **tkw)
+                assert torch.equal(got, want), (chase, fpb, spec)
+
+
+def test_traceback_modes_at_the_main_shape(cuda):
+    """Lane packed at K=7 and K=11 (staged by the rule) and unpacked at
+    K=11 (direct; a staged K=11 unpacked frame does not fit a block), at
+    the main path's frame: each mode equals the plain chase."""
+    spec = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
+    for code, pack, staged, modes in (
+            (K7, True, True, ("auto", "staged", "direct")),
+            (CODES[6], True, True, ("auto", "staged", "direct")),
+            (CODES[6], False, False, ("auto", "direct"))):
+        tr = make_trellis(*code)
+        frames = _frames(code, spec, 2048 if code == K7 else 64, 11, cuda)
+        sel, amax = vf.forward_frames(frames, trellis=tr, frames_per_tile=1,
+                                      pack_survivors=pack)
+        tkw = dict(trellis=tr, v1=20, f=256, f0=32, v2s=45, packed=pack)
+        assert tbf.chase_plan(tr, L=spec.frame_len, f=256, f0=32, v2s=45,
+                              F=frames.shape[0],
+                              packed=pack).staged == staged
+        want = tbf.traceback_frames_plain(sel, amax, **tkw)
+        for chase in modes:
+            assert torch.equal(tbf.traceback_frames_cuda(
+                sel, amax, chase=chase, **tkw), want)
+
+
+# -- the block-parallel decode (ops.py: reframe_blocks / merge_blocks) -------
+@pytest.mark.parametrize("unified", [True, False])
+@pytest.mark.parametrize("layout", ["lane", "sublane"])
+def test_blocked_decode_on_the_card(cuda, unified, layout):
+    """block_frames > 1 on the card equals the blocked plain decode on the
+    CPU; with overlap >= full_overlap it equals the unblocked decode."""
+    from repro_torch.kernels import block
+    spec = FrameSpec(f=2048, v1=20, v2=45, f0=32, v2s=45)
+    frames = _frames(K7, spec, 3, 12, cuda)
+    tr = make_trellis(*K7)
+    kw = dict(unified=unified, layout=layout)
+    for bf, ov in ((8, 45), (16, 64)):
+        got = ops.viterbi_decode_frames(frames, tr, spec, device="cuda",
+                                        block_frames=bf, overlap=ov, **kw)
+        want = ops.viterbi_decode_frames(frames.cpu(), tr, spec,
+                                         device="cpu", block_frames=bf,
+                                         overlap=ov, **kw)
+        assert torch.equal(got.cpu(), want)
+    full = block.full_overlap(spec, 4)
+    got = ops.viterbi_decode_frames(frames, tr, spec, device="cuda",
+                                    block_frames=4, overlap=full, **kw)
+    assert torch.equal(got, ops.viterbi_decode_frames(frames, tr, spec,
+                                                      device="cuda", **kw))

@@ -146,6 +146,32 @@ def test_edge_codes_match_jax(code):
             np.testing.assert_array_equal(got, want)
 
 
+#: Codes past the register mapping, which the CUDA kernels run one block a
+#: frame with path metrics in shared memory (tests/test_torch_gpu.py holds
+#: them to these plain versions on the card): K=12, K=13 and the Galileo
+#: (15, 1/4) code.
+LARGE_CODES = [(12, (0o4335, 0o5723)), (13, (0o10533, 0o17661)),
+               (15, (0o46321, 0o51271, 0o63667, 0o70535))]
+
+
+@pytest.mark.parametrize("code", LARGE_CODES)
+@pytest.mark.parametrize("spec", [
+    FrameSpec(f=32, v1=12, v2=16, f0=8, v2s=16),            # parallel tb
+    FrameSpec(f=32, v1=12, v2=16),                           # serial tb
+    FrameSpec(f=48, v1=8, v2=20, f0=16, v2s=12, start="fixed"),
+])
+def test_large_codes_match_jax(code, spec):
+    """The unified kernel's plain version equals JAX at k = 12, 13, 15:
+    packed and not, radix 2 and 4, both layouts."""
+    tf, _ = _both(code, spec, 2 * spec.f, 9, snr=6.0)
+    want = _jax_ref(code, spec, 2 * spec.f, 9, snr=6.0)
+    for pack, radix, layout in [(True, 4, "sublane"), (False, 2, "lane"),
+                                (True, 2, "lane"), (False, 4, "sublane")]:
+        got = _port(tf, code, spec, pack_survivors=pack, radix=radix,
+                    layout=layout, frames_per_tile=1)
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("code", [(4, (0o13, 0o15, 0o17)), K7])
 @pytest.mark.parametrize("layout", ["lane", "sublane"])
 def test_bf16_branch_metrics_match_jax_kernel(code, layout):

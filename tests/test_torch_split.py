@@ -172,6 +172,163 @@ def test_forward_kernel_edge_codes_match_jax(code):
         _assert_same(amax, np.asarray(jamax))
 
 
+#: Codes past the register mapping (one block a frame on the card): K=12,
+#: K=13 and the Galileo (15, 1/4) code.
+LARGE_CODES = [(12, (0o4335, 0o5723)), (13, (0o10533, 0o17661)),
+               (15, (0o46321, 0o51271, 0o63667, 0o70535))]
+LARGE_SPEC = FrameSpec(f=32, v1=12, v2=17)          # L = 61, odd
+
+
+def _jax_ref_streams(code, jf, layout, pack):
+    """JAX's oracle stream (forward_frames_ref), packed and laid out as
+    the forward kernel writes it."""
+    from repro.kernels.packing import pack_bits as jpack_bits
+    jsel, jamax = jref.forward_frames_ref(jf, jmake_trellis(*code))
+    jsel = np.asarray(jsel)
+    if pack:
+        jsel = np.asarray(jpack_bits(jnp.asarray(jsel)))   # (F, L, W)
+    if layout == "sublane":
+        F = jsel.shape[0]
+        jsel = np.ascontiguousarray(jsel.transpose(1, 2, 0))
+        if pack:
+            jsel = jsel.reshape(-1, F)
+    return jsel, np.asarray(jamax)
+
+
+@pytest.mark.parametrize("code", LARGE_CODES)
+def test_forward_kernel_large_codes_match_jax(code):
+    """The forward kernel's plain version equals JAX's oracle at k = 12,
+    13, 15: sel unpacked and packed in both layouts, radix 2 and 4, and
+    the per-stage argmax."""
+    _, t, jf = _frames(code, LARGE_SPEC, 32 * 3, 13, snr=5.0)
+    tr = make_trellis(*code)
+    for layout in ("lane", "sublane"):
+        for pack, radix in ((False, 2), (True, 4)):
+            want_sel, want_amax = _jax_ref_streams(code, jf, layout, pack)
+            sel, amax = vf.forward_frames(t, trellis=tr, pack_survivors=pack,
+                                          radix=radix, layout=layout,
+                                          frames_per_tile=1)
+            _assert_same(sel, want_sel)
+            _assert_same(amax, want_amax)
+
+
+@pytest.mark.parametrize("code", LARGE_CODES)
+@pytest.mark.parametrize("chase", ["serial", "boundary", "fixed"])
+def test_traceback_frames_large_codes_match_jax(code, chase):
+    """serial/parallel_traceback_frames and the traceback kernel's plain
+    version equal JAX's at k = 12, 13, 15, over layout x pack."""
+    _, t, jf = _frames(code, LARGE_SPEC, 32 * 3, 14, snr=5.0)
+    jtr, tr = jmake_trellis(*code), make_trellis(*code)
+    v1, f = LARGE_SPEC.v1, LARGE_SPEC.f
+    f0, v2s, start = {"serial": (32, LARGE_SPEC.v2, "boundary"),
+                      "boundary": (8, 17, "boundary"),
+                      "fixed": (16, 9, "fixed")}[chase]
+    for layout in ("lane", "sublane"):
+        for pack in (False, True):
+            jsel, jamax = _jax_ref_streams(code, jf, layout, pack)
+            tsel, tamax = vf.forward_frames(t, trellis=tr,
+                                            pack_survivors=pack,
+                                            layout=layout, frames_per_tile=1)
+            if chase == "serial":
+                want = jtb.serial_traceback_frames(
+                    jnp.asarray(jsel), jnp.asarray(jamax), jtr, v1, f,
+                    packed=pack, layout=layout)
+            else:
+                want = jtb.parallel_traceback_frames(
+                    jnp.asarray(jsel), jnp.asarray(jamax), jtr, v1, f, f0,
+                    v2s, start, packed=pack, layout=layout)
+            want = np.asarray(want).astype(np.int32)
+            _assert_same(tbf.traceback_frames(
+                tsel, tamax, trellis=tr, v1=v1, f=f, f0=f0, v2s=v2s,
+                start=start, packed=pack, layout=layout), want)
+
+
+@pytest.mark.parametrize("code", LARGE_CODES)
+def test_split_large_codes_match_jax(code):
+    """The split path (plain forward kernel + plain chase) decodes k = 12,
+    13, 15 to JAX's oracle bits, packed and not, both layouts."""
+    spec = FrameSpec(f=32, v1=12, v2=16, f0=8, v2s=16)
+    _, t, _ = _frames(code, spec, 64, 15, snr=6.0)
+    want = _jax_ref_bits(code, spec, 64, 15, snr=6.0)
+    for pack, radix, layout in [(True, 4, "sublane"), (False, 2, "lane"),
+                                (True, 2, "lane"), (False, 4, "sublane")]:
+        _assert_same(_split(t, code, spec, pack_survivors=pack, radix=radix,
+                            layout=layout, frames_per_tile=1), want)
+
+
+@pytest.mark.parametrize("backend", ["kernel", "kernel_split"])
+def test_make_decoder_large_code_matches_jax(backend):
+    """make_decoder with a K=13 rate-1/2 code equals the JAX package's
+    make_decoder on the same stream (tests/_torch_parity.jax_decode)."""
+    from _torch_parity import jax_decode, rx
+    tr = make_trellis(*LARGE_CODES[1])
+    spec = FrameSpec(f=64, v1=24, v2=40, f0=16, v2s=40)
+    n = 3 * spec.f + 11
+    stream = rx(n, seed=16, snr=5.0, trellis=tr)
+    cfg = tpipe.DecoderConfig(trellis=tr, spec=spec, backend=backend)
+    got = tpipe.make_decoder(cfg, device="cpu")(stream, n)
+    _assert_same(got, jax_decode(cfg, stream, n).astype(np.int32))
+
+
+@pytest.mark.parametrize("code,packed,staged", [
+    ((3, (0o7, 0o5)), False, (True, True)),
+    ((7, (0o171, 0o133)), False, (True, False)),
+    ((8, (0o371, 0o247)), False, (True, False)),
+    ((9, (0o753, 0o561)), False, (False, False)),
+    ((7, (0o171, 0o133)), True, (True, True)),
+    ((10, (0o1671, 0o1233)), True, (True, False)),
+    ((11, (0o3345, 0o3613)), True, (True, False)),
+    ((12, (0o4335, 0o5723)), True, (False, False))])
+def test_traceback_chase_rule(code, packed, staged):
+    """The traceback kernel's mode rule at the main frame (L=321, 301
+    stages chased): staged in shared memory iff a stage row is at most
+    STAGE_ROW_BYTES (128) bytes and the smallest group (1 frame lane, 8
+    sublane) fits STAGE_BYTES (40 KB); staged blocks take the most frames
+    (a power of two, at most MAX_GROUP) within STAGE_BYTES; direct blocks
+    the fewest frames that put all blocks on the card at once (16384
+    frames over 132 SMs x 32 blocks: 4; 4096 frames: 1)."""
+    tr = make_trellis(*code)
+    kw = dict(L=321, f=256, f0=32, v2s=45, F=16384, packed=packed)
+    for layout, want in zip(("lane", "sublane"), staged):
+        plan = tbf.chase_plan(tr, layout=layout, **kw)
+        assert plan.staged == want
+        if want:
+            assert plan.smem_bytes <= tbf.STAGE_BYTES
+            assert plan.frames == tbf.MAX_GROUP or tbf.chase_plan(
+                tr, layout=layout, frames_per_block=2 * plan.frames,
+                **kw).smem_bytes > tbf.STAGE_BYTES
+        else:
+            assert plan.frames == 4
+            assert tbf.chase_plan(tr, layout=layout,
+                                  **dict(kw, F=4096)).frames == 1
+            assert tbf.chase_plan(tr, layout=layout, sms=66,
+                                  **dict(kw, F=4096)).frames == 2
+        assert plan.threads == max(32, -(-plan.frames * 8 // 32) * 32)
+
+
+def test_traceback_chase_plan_at_the_main_shape():
+    """K=7 packed lane at the main shape: 8 frames of 2568 bytes a block
+    (20 KB with the bits), 64 cursors; pinning a mode or a block works,
+    and a staged block too large for a block's shared memory raises."""
+    tr = make_trellis(*K7)
+    kw = dict(L=321, f=256, f0=32, v2s=45, F=16384, packed=True)
+    plan = tbf.chase_plan(tr, **kw)
+    assert plan == tbf.ChasePlan(True, 8, 64, 16 + 256 + 7 * 2568 +
+                                 301 * 8 + 16)
+    assert tbf.chase_plan(tr, chase="direct", **kw).staged is False
+    assert tbf.chase_plan(tr, frames_per_block=3, **kw).frames == 3
+    assert tbf.chase_plan(tr, **dict(kw, F=5)).frames == 8
+    assert tbf.chase_plan(tr, **dict(kw, F=3)).frames == 4
+    with pytest.raises(ValueError, match="shared memory"):
+        tbf.chase_plan(tr, chase="staged", frames_per_block=128, **kw)
+    with pytest.raises(ValueError, match="chase"):
+        tbf.chase_plan(tr, chase="tma", **kw)
+    serial = tbf.chase_plan(tr, **dict(kw, f0=256))
+    assert serial.staged and serial.frames == 8 and serial.threads == 32
+    sub = tbf.chase_plan(tr, layout="sublane", **kw)
+    assert sub.staged and sub.frames == 16 and sub.threads == 128
+
+
 def _streams(code, x, layout, pack):
     """(JAX sel, amax) and (port sel, amax) of the same frames."""
     knobs = dict(pack_survivors=pack, layout=layout, frames_per_tile=8)
