@@ -130,19 +130,24 @@ E2E_CALLS = 5
 #: K=3 (S=4: eight frames a warp), K=4 beta=3, K=5, K=6 (S=32: one
 #: register a lane), K=7, K=9 and K=11 (S=1024: 32 registers a lane);
 #: then the large-code mapping (one block of 1024 threads a frame, path
-#: metrics in shared memory): K=12, K=13 and the Galileo (15, 1/4) code.
+#: metrics in shared memory): K=12 (R=2), K=13 (R=4), the Galileo (15, 1/4)
+#: code (R=16), K=14 (R=8) and a K=12 rate-1/8 code (beta 8: four warps
+#: build the branch-metric table).
 CODES = [(3, (0o7, 0o5)), (4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)),
          (6, (0o65, 0o57)), (7, (0o171, 0o133)), (9, (0o753, 0o561)),
          (11, (0o3345, 0o3613)), (12, (0o4335, 0o5723)),
          (13, (0o10533, 0o17661)),
-         (15, (0o46321, 0o51271, 0o63667, 0o70535))]
+         (15, (0o46321, 0o51271, 0o63667, 0o70535)),
+         (14, (0o21645, 0o35661)),
+         (12, (0o4335, 0o5723, 0o6475, 0o7061, 0o4767, 0o5251, 0o6163,
+               0o7555))]
 LARGE_K = 12
 #: Frames per parity call: 12, and 4 (one tile) for a large code (its
 #: plain version is S = 2^14 states wide at K=15).
 PARITY_FRAMES = {False: 12, True: 4}
 #: Frames of the large codes' timing (one and two waves of one frame per
-#: SM at 132 SMs): K=12 and K=13 at 264, K=15 at 132.
-LARGE_TIME_FRAMES = {12: 264, 13: 264, 15: 132}
+#: SM at 132 SMs): K=12 and K=13 at 264, K=14 and K=15 at 132.
+LARGE_TIME_FRAMES = {12: 264, 13: 264, 14: 132, 15: 132}
 DECODE_KERNELS = ("viterbi_unified_kernel", "viterbi_fwd_kernel",
                   "traceback_frames_kernel", "viterbi_unified_smem_kernel",
                   "viterbi_fwd_smem_kernel")
@@ -414,11 +419,11 @@ def phase_parity(gen):
     blocked = phase_blocked(gen)
     log("parity", f"kernel calls equal to the plain version: {counts} "
         f"(codes K=3, K=4 beta=3, K=5, K=6, K=7, K=9, K=11, K=12, K=13, "
-        f"K=15 beta=4; pack x radix x layout x bm_dtype; serial, boundary, "
-        f"fixed; bf16/f16 LLRs; device-memory survivors at K=7, K=11, K=13 "
-        f"and K=15; the traceback's staged and direct chase at K=7 and "
-        f"K=11); split and unified ops with a ragged F equal to the CPU for "
-        f"every code; {blocked}")
+        f"K=15 beta=4, K=14, K=12 beta=8; pack x radix x layout x "
+        f"bm_dtype; serial, boundary, fixed; bf16/f16 LLRs; device-memory "
+        f"survivors at K=7, K=11, K=13 and K=15; the traceback's staged and "
+        f"direct chase at K=7 and K=11); split and unified ops with a "
+        f"ragged F equal to the CPU for every code; {blocked}")
 
 
 def phase_blocked(gen):
@@ -697,36 +702,39 @@ def time_split(frames, launches):
 #: Frames of the K=11 traceback timings (an unpacked K=11 stream is
 #: L * 1024 bytes a frame).
 TB_K11_FRAMES = 4096
+#: The traceback shapes timed in turns, here (the two chases against each
+#: other) and by tools/parent_turns.py (against another checkout): label,
+#: code, layout, packed, f0 (256 = the serial chase). K=7 runs on the main
+#: path's frames at the split plan's tile, K=11 on TB_K11_FRAMES frames at
+#: tile 1.
+TB_CASES = [("K7 lane packed", CODES[4], "lane", True, 32),
+            ("K7 sublane packed", CODES[4], "sublane", True, 32),
+            ("K7 lane unpacked", CODES[4], "lane", False, 32),
+            ("K7 lane packed serial", CODES[4], "lane", True, 256),
+            ("K11 lane packed", CODES[6], "lane", True, 32),
+            ("K11 lane unpacked", CODES[6], "lane", False, 32),
+            ("K11 sublane packed", CODES[6], "sublane", True, 32)]
 
 
 def time_traceback_modes(frames, ft):
     """The traceback kernel's two chases (staged in shared memory, direct
     from device memory) and the shape rule's pick, timed in turns on the
-    forward kernel's streams: K=7 at the main shape (lane and sublane,
-    packed, unpacked, serial) and K=11 at TB_K11_FRAMES frames (lane
-    packed and unpacked, sublane packed). A mode whose block does not fit
-    shared memory is not timed. Every launch's bits equal the rule's.
-    Returns {case: {mode: ms}}."""
+    forward kernel's streams at the TB_CASES shapes. A mode whose block
+    does not fit shared memory is not timed. Every launch's bits equal the
+    rule's. Returns {case: {mode: ms}}."""
     import torch
-    from repro_torch.core.trellis import STD_K7, make_trellis
+    from repro_torch.core.trellis import make_trellis
     from repro_torch.kernels import traceback_frames as tbf
     from repro_torch.kernels import viterbi_fwd as vf
-    k11 = make_trellis(*CODES[6])
     spec = main_config("1/2", "kernel_split").spec
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    frames11 = _frames(k11, spec, TB_K11_FRAMES, gen, torch.float32)
-    cases = [("K7 lane packed", STD_K7, frames, ft, "lane", True, 32, 45),
-             ("K7 sublane packed", STD_K7, frames, ft, "sublane", True, 32,
-              45),
-             ("K7 lane unpacked", STD_K7, frames, ft, "lane", False, 32, 45),
-             ("K7 lane packed serial", STD_K7, frames, ft, "lane", True,
-              256, 45),
-             ("K11 lane packed", k11, frames11, 1, "lane", True, 32, 45),
-             ("K11 lane unpacked", k11, frames11, 1, "lane", False, 32, 45),
-             ("K11 sublane packed", k11, frames11, 1, "sublane", True, 32,
-              45)]
+    frames11 = _frames(make_trellis(*CODES[6]), spec, TB_K11_FRAMES, gen,
+                       torch.float32)
+    v2s = 45
     out = {}
-    for label, tr, fr, tile, layout, pack, f0, v2s in cases:
+    for label, code, layout, pack, f0 in TB_CASES:
+        tr = make_trellis(*code)
+        fr, tile = (frames, ft) if code == CODES[4] else (frames11, 1)
         sel, amax = vf.forward_frames_cuda(fr, trellis=tr,
                                            frames_per_tile=tile,
                                            pack_survivors=pack, radix=4,
@@ -762,10 +770,11 @@ def time_traceback_modes(frames, ft):
 
 
 def time_large_codes(gen):
-    """B1 and B3 at the large codes (K=12, K=13, the Galileo K=15 code) on
-    the main path's frame, packed, radix 4: bits and streams equal the
-    plain versions; ms per launch beside the bound (CUDA events).
-    Returns {name: [{k, F, ms, bound_ms, bound_by}, ...]}."""
+    """B1 and B3 at the large codes (K=12, K=13, the Galileo K=15 code,
+    K=14, K=12 beta=8) on the main path's frame, packed, radix 4: bits and
+    streams equal the plain versions; ms per launch beside the bound (CUDA
+    events).
+    Returns {name: [{k, beta, F, ms, bound_ms, bound_by}, ...]}."""
     import torch
     from repro_torch.core.trellis import make_trellis
     from repro_torch.kernels import autotune
@@ -798,11 +807,14 @@ def time_large_codes(gen):
                                    device="cuda")
         for name in out:
             b = bound(name, spec, F, trellis=tr)
-            out[name].append({"k": tr.k, "F": F, "ms": ms[name],
-                              "bound_ms": b[0], "bound_by": b[1]})
+            out[name].append({"k": tr.k, "beta": tr.beta, "F": F,
+                              "ms": ms[name], "bound_ms": b[0],
+                              "bound_by": b[1]})
+        where = ("on chip" if dict(plan.breakdown)["sel_survivors"]
+                 else "in device scratch")
         log("time", f"large code K={tr.k} beta={tr.beta} F={F} L="
             f"{spec.frame_len} (one block of 1024 threads a frame; unified "
-            f"survivors {'on chip' if dict(plan.breakdown)['sel_survivors'] else 'in device scratch'}, "
+            f"survivors {where}, "
             f"{plan.smem_bytes} B smem, {plan.registers} registers): "
             + "; ".join(f"{n} {ms[n]:.4f} ms, bound "
                         f"{out[n][-1]['bound_ms']:.4f} ms "

@@ -94,7 +94,7 @@ def _smem_bytes(k, f, v2s, L, packed, sublane, G, staged) -> int:
 
 def chase_plan(trellis: Trellis, *, L: int, f: int, f0: int, v2s: int,
                F: int, packed: bool, layout: str = "lane",
-               chase: str = "auto", frames_per_block: int | None = None,
+               chase: str = "auto",
                smem_limit: int = H100_LIMITS.smem_per_block,
                sms: int = H100_SMS,
                blocks_per_sm: int = H100_LIMITS.blocks_per_sm) -> ChasePlan:
@@ -110,9 +110,8 @@ def chase_plan(trellis: Trellis, *, L: int, f: int, f0: int, v2s: int,
     (``blocks_per_sm`` on each of ``sms`` SMs): its chase waits on
     device memory at every step, so it wants all cursors in flight, and
     small blocks spread them evenly and write their bits out each on its
-    own. ``frames_per_block`` pins the frames; ``chase="staged"`` raises
-    where the block does not fit ``smem_limit`` (the card's per-block
-    shared memory)."""
+    own. ``chase="staged"`` raises where the block does not fit
+    ``smem_limit`` (the card's per-block shared memory)."""
     if chase not in ("auto", "staged", "direct"):
         raise ValueError(f"chase must be 'auto', 'staged' or 'direct', got "
                          f"{chase!r}")
@@ -130,16 +129,14 @@ def chase_plan(trellis: Trellis, *, L: int, f: int, f0: int, v2s: int,
     else:
         staged = chase == "staged"
     cover = 1 << max(0, int(F) - 1).bit_length()     # G need not exceed F
-    if frames_per_block is not None:
-        G = int(frames_per_block)
-    elif staged:
+    if staged:
         G = 1
         while 2 * G <= min(MAX_GROUP, cover) and smem(2 * G, True) <= \
                 STAGE_BYTES:
             G *= 2
     else:
         G = max(1, min(MAX_GROUP, -(-int(F) // (sms * blocks_per_sm))))
-    if G < 1 or smem(G, staged) > smem_limit:
+    if smem(G, staged) > smem_limit:
         raise ValueError(f"a {'staged' if staged else 'direct'} traceback "
                          f"block of {G} frames needs {smem(G, staged)} bytes "
                          f"of shared memory, over the {smem_limit} a block "
@@ -202,13 +199,10 @@ def traceback_frames_cuda(sel: torch.Tensor, amax: torch.Tensor, *,
                           trellis: Trellis, v1: int, f: int, f0: int,
                           v2s: int, start: str = "boundary",
                           packed: bool = False, layout: str = "lane",
-                          chase: str = "auto",
-                          frames_per_block: int | None = None
-                          ) -> torch.Tensor:
+                          chase: str = "auto") -> torch.Tensor:
     """Launch the CUDA kernel. ``sel`` may be a frame slice of a sublane
     stream (``sel[..., :F]``): its rows are read at their stride.
-    ``chase`` and ``frames_per_block`` go to ``chase_plan`` (the default
-    is its shape rule)."""
+    ``chase`` goes to ``chase_plan`` (the default is its shape rule)."""
     lay, F, L = _geometry(sel, amax, trellis, v1, f, f0, v2s, start, packed,
                           layout)
     if not (sel.is_cuda and amax.device == sel.device):
@@ -239,7 +233,7 @@ def traceback_frames_cuda(sel: torch.Tensor, amax: torch.Tensor, *,
     limits = device_limits(dev)
     plan = chase_plan(
         trellis, L=L, f=f, f0=f0, v2s=v2s, F=F, packed=packed,
-        layout=lay.value, chase=chase, frames_per_block=frames_per_block,
+        layout=lay.value, chase=chase,
         smem_limit=limits.smem_per_block,
         sms=torch.cuda.get_device_properties(dev).multi_processor_count,
         blocks_per_sm=limits.blocks_per_sm)

@@ -32,10 +32,14 @@ CODES = [(3, (0o7, 0o5)), (4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)),
          (11, (0o3345, 0o3613))]
 K7 = CODES[4]
 #: The large-code mapping (one block of 1024 threads a frame, path metrics
-#: in shared memory): K=12 (R=2), K=13 (R=4) and the Galileo (15, 1/4)
-#: code (R=16).
+#: in shared memory): K=12 (R=2), K=13 (R=4), the Galileo (15, 1/4) code
+#: (R=16), K=14 (R=8) and a K=12 rate-1/8 code (beta 8: four warps build
+#: the branch-metric table).
 LARGE_CODES = [(12, (0o4335, 0o5723)), (13, (0o10533, 0o17661)),
-               (15, (0o46321, 0o51271, 0o63667, 0o70535))]
+               (15, (0o46321, 0o51271, 0o63667, 0o70535)),
+               (14, (0o21645, 0o35661)),
+               (12, (0o4335, 0o5723, 0o6475, 0o7061, 0o4767, 0o5251, 0o6163,
+                     0o7555))]
 
 
 @pytest.fixture
@@ -472,9 +476,10 @@ _SPECS = [FrameSpec(f=64, v1=20, v2=21),
 @pytest.mark.parametrize("code", LARGE_CODES)
 @pytest.mark.parametrize("spec", _SPECS)
 def test_large_code_kernels_equal_plain(cuda, code, spec):
-    """B1, B3 and the traceback kernel at k = 12, 13, 15 against their
-    plain versions: packed and not, radix 2 and 4, f32 and bf16 branch
-    metrics, both layouts; serial, boundary and fixed starts."""
+    """B1, B3 and the traceback kernel at k = 12, 13, 14, 15 and k = 12
+    beta = 8 against their plain versions: packed and not, radix 2 and 4,
+    f32 and bf16 branch metrics, both layouts; serial, boundary and fixed
+    starts."""
     frames = _frames(code, spec, 5, 8, cuda)
     kw = _kw(code, spec)
     tr = kw["trellis"]
@@ -586,14 +591,17 @@ def test_large_code_through_every_entry(cuda):
                                   LARGE_CODES[0]])
 @pytest.mark.parametrize("layout", ["lane", "sublane"])
 @pytest.mark.parametrize("pack", [False, True])
-def test_traceback_modes_equal_plain(cuda, code, layout, pack):
+def test_traceback_modes_equal_plain(cuda, monkeypatch, code, layout, pack):
     """The staged and the direct chase equal the plain chase, whichever
     the rule would pick, for serial, boundary and fixed geometries, frame
-    groups of 1, 3 and 16 and a sublane stream sliced to fewer frames
-    than it holds (read at its stride); the rule picks staged for rows of
-    at most 128 bytes whose smallest group fits (K=7 lane, K=11 packed
-    lane) and direct otherwise (K=11 unpacked, K=12)."""
+    groups of 1 to 16 and a sublane stream sliced to fewer frames than it
+    holds (read at its stride); the rule picks staged for rows of at most
+    128 bytes whose smallest group fits (K=7 lane, K=11 packed lane) and
+    direct otherwise (K=11 unpacked, K=12). The groups come from the
+    plan's own inputs: a staged block takes at most MAX_GROUP frames, a
+    direct block the fewest that cover the SMs it is given."""
     tr = make_trellis(*code)
+    real_plan = tbf.chase_plan
     for spec in _SPECS:
         frames = _frames(code, spec, 37, 10, cuda)
         kw = _kw(code, spec)
@@ -607,8 +615,9 @@ def test_traceback_modes_equal_plain(cuda, code, layout, pack):
                    layout=layout)
         want = tbf.traceback_frames_plain(sel, amax, **tkw)
         row = 4 * (-(-tr.num_states // 32)) if pack else tr.num_states
-        plan = tbf.chase_plan(tr, L=spec.frame_len, f=spec.f, f0=kw["f0"],
-                              v2s=kw["v2s"], F=F, packed=pack, layout=layout)
+        pkw = dict(L=spec.frame_len, f=spec.f, f0=kw["f0"], v2s=kw["v2s"],
+                   F=F, packed=pack, layout=layout)
+        plan = tbf.chase_plan(tr, **pkw)
         assert plan.smem_bytes == tbf.kernel_library().lib.\
             traceback_frames_smem_bytes(tr.k, spec.f, kw["v2s"],
                                         spec.frame_len, int(pack),
@@ -623,21 +632,24 @@ def test_traceback_modes_equal_plain(cuda, code, layout, pack):
         assert tbf.traceback_frames_cuda.launches == before + 1
         limit = autotune.device_limits("cuda").smem_per_block
         for chase in ("staged", "direct"):
-            for fpb in (None, 1, 3, 16):
-                G = fpb or 1
-                need = tbf._smem_bytes(tr.k, spec.f, kw["v2s"],
-                                       spec.frame_len, pack,
-                                       layout == "sublane", G,
-                                       chase == "staged")
-                if need > limit:          # a block this large cannot run
+            for group in (1, 3, 16):
+                sms = -(-F // group)
+                monkeypatch.setattr(tbf, "MAX_GROUP", group)
+                monkeypatch.setattr(tbf, "chase_plan",
+                                    lambda t, **a: real_plan(
+                                        t, **dict(a, sms=sms,
+                                                  blocks_per_sm=1)))
+                try:
+                    tbf.chase_plan(tr, chase=chase, smem_limit=limit, **pkw)
+                except ValueError:        # a block this large cannot run
                     with pytest.raises(ValueError, match="shared memory"):
-                        tbf.traceback_frames_cuda(
-                            sel, amax, chase=chase, frames_per_block=fpb,
-                            **tkw)
+                        tbf.traceback_frames_cuda(sel, amax, chase=chase,
+                                                  **tkw)
                     continue
                 got = tbf.traceback_frames_cuda(sel, amax, chase=chase,
-                                                frames_per_block=fpb, **tkw)
-                assert torch.equal(got, want), (chase, fpb, spec)
+                                                **tkw)
+                assert torch.equal(got, want), (chase, group, spec)
+        monkeypatch.undo()
 
 
 def test_traceback_modes_at_the_main_shape(cuda):

@@ -294,9 +294,9 @@ def test_traceback_chase_rule(code, packed, staged):
         assert plan.staged == want
         if want:
             assert plan.smem_bytes <= tbf.STAGE_BYTES
-            assert plan.frames == tbf.MAX_GROUP or tbf.chase_plan(
-                tr, layout=layout, frames_per_block=2 * plan.frames,
-                **kw).smem_bytes > tbf.STAGE_BYTES
+            assert plan.frames == tbf.MAX_GROUP or tbf._smem_bytes(
+                tr.k, 256, 45, 321, packed, layout == "sublane",
+                2 * plan.frames, True) > tbf.STAGE_BYTES
         else:
             assert plan.frames == 4
             assert tbf.chase_plan(tr, layout=layout,
@@ -308,19 +308,22 @@ def test_traceback_chase_rule(code, packed, staged):
 
 def test_traceback_chase_plan_at_the_main_shape():
     """K=7 packed lane at the main shape: 8 frames of 2568 bytes a block
-    (20 KB with the bits), 64 cursors; pinning a mode or a block works,
-    and a staged block too large for a block's shared memory raises."""
+    (20 KB with the bits), 64 cursors; pinning a mode works, a direct
+    block's frames follow the SMs it must cover, and a staged block too
+    large for a block's shared memory (one K=12 unpacked frame) raises."""
     tr = make_trellis(*K7)
     kw = dict(L=321, f=256, f0=32, v2s=45, F=16384, packed=True)
     plan = tbf.chase_plan(tr, **kw)
     assert plan == tbf.ChasePlan(True, 8, 64, 16 + 256 + 7 * 2568 +
                                  301 * 8 + 16)
     assert tbf.chase_plan(tr, chase="direct", **kw).staged is False
-    assert tbf.chase_plan(tr, frames_per_block=3, **kw).frames == 3
+    assert tbf.chase_plan(tr, chase="direct", sms=11, blocks_per_sm=1,
+                          **dict(kw, F=33)).frames == 3
     assert tbf.chase_plan(tr, **dict(kw, F=5)).frames == 8
     assert tbf.chase_plan(tr, **dict(kw, F=3)).frames == 4
     with pytest.raises(ValueError, match="shared memory"):
-        tbf.chase_plan(tr, chase="staged", frames_per_block=128, **kw)
+        tbf.chase_plan(make_trellis(12, (0o4335, 0o5723)), chase="staged",
+                       **dict(kw, packed=False))
     with pytest.raises(ValueError, match="chase"):
         tbf.chase_plan(tr, chase="tma", **kw)
     serial = tbf.chase_plan(tr, **dict(kw, f0=256))

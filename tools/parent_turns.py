@@ -5,32 +5,30 @@ one card.
     python3 tools/parent_turns.py --parent DIR [--json PATH]
 
 DIR is an unpacked checkout of the commit to compare with (for example
-``git archive <parent> | tar -x -C DIR``). Both trees'
-``src/repro_torch/kernels/csrc`` sources are built with this tree's nvcc
-flags. Then, on the same inputs:
+``git archive <parent> | tar -x -C DIR``). Its ``src/repro_torch`` is
+imported under another name, so each side launches its kernels through
+its own wrappers and builds its own sources with its own flags (into its
+own ``build/kernels``); the two sides share only the inputs. Then:
 
-* B1 (``viterbi_unified``) and B3 (``viterbi_fwd``) at the main path's
-  shape (K=7, F=16384, L=321, packed, radix 4, the planner's tiles), each
-  side's library swapped in under this tree's wrappers (both trees' C
-  entry points take the same arguments);
-* the split traceback at the shapes chip_smoke.py times: K=7 at the main
-  shape (lane and sublane packed, lane unpacked, lane serial) and K=11 at
-  4096 frames (lane packed and unpacked, sublane packed), the other side
-  launched through its own C entry point.
+* B1 (``unified_decode_frames_cuda``) and B3 (``forward_frames_cuda``) at
+  the main path's shape (K=7, F=16384, L=321, packed, radix 4, this
+  tree's planned tiles);
+* the split traceback (``traceback_frames_cuda``) at chip_smoke.py's
+  ``TB_CASES``, on this tree's forward streams.
 
-Each pair runs in turns (other, tree, tree, other, ... over 4 rounds of
-``--reps`` launches; CUDA events; the minimum per side) and must give
-equal outputs. Prints one line per kernel and shape and writes the numbers
-as JSON to ``--json`` (default ``chiprun_out/parent_turns.json``). Needs a
-card, nvcc and the other checkout; imports nothing of JAX.
+Each pair runs in turns (other, tree, tree, other, ... over 4 rounds;
+CUDA events; the minimum per side) and must give equal outputs. Prints one
+line per kernel and shape and writes the numbers as JSON to ``--json``
+(default ``build/parent_turns.json``). Needs a card, nvcc and the
+other checkout; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import ctypes
+import importlib
+import importlib.util
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -39,63 +37,34 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 SOURCES = ("viterbi_unified.cu", "viterbi_fwd.cu", "traceback_frames.cu")
+OTHER = "other_repro_torch"
 
 
-def build_other(parent: Path, out_dir: Path) -> dict:
-    """The other checkout's sources built with this tree's flags, in
-    parallel: {source: build.Built}."""
-    import time
-    from repro_torch.kernels import build as B
-    out_dir.mkdir(parents=True, exist_ok=True)
-    csrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
-
-    def one(src):
-        so = out_dir / f"lib{Path(src).stem}.so"
-        t0 = time.perf_counter()
-        proc = subprocess.run([B.nvcc_path(), *B.NVCC_FLAGS, "-o", str(so),
-                               str(csrc / src)], capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {csrc / src}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        return B.Built(ctypes.CDLL(str(so)), so, time.perf_counter() - t0,
-                       proc.stdout + proc.stderr)
-
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        return dict(zip(SOURCES, pool.map(one, SOURCES)))
+def load_other(parent: Path) -> None:
+    """Import the other checkout's ``repro_torch`` as ``OTHER``: its
+    modules' relative imports stay inside that tree."""
+    pkg = parent / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        OTHER, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[OTHER] = mod
+    spec.loader.exec_module(mod)
 
 
-def other_traceback(lib, sel, amax, tr, f0, v2s, packed, layout):
-    """A launch of the other checkout's traceback kernel through its C
-    entry point (sel, amax, out, ld, F, L, k, v1, f, f0, v2s, pack,
-    sublane, start_fixed, threads, stream)."""
-    import torch
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.traceback_frames_launch
-    fn.argtypes = [vp] * 3 + [ctypes.c_longlong] + [i] * 11 + [vp]
-    fn.restype = i
-    F, L = amax.shape
-    out = torch.empty((F, 256), dtype=torch.int32, device=sel.device)
-    ld = sel.stride(-2) if layout == "sublane" else 0
-    err = fn(sel.data_ptr(), amax.data_ptr(), out.data_ptr(), ld, F, L, tr.k,
-             20, 256, f0, v2s, int(packed), int(layout == "sublane"), 0, 256,
-             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"the other traceback kernel: CUDA error {err}")
-    return out
-
-
-def turns(fns: dict, reps: int, rounds: int = 4) -> dict:
-    """Min ms per call of each of two fns, in turns a, b, b, a, ..."""
-    import chip_smoke as cs
-    return cs._interleaved(fns, reps, rounds=rounds)
+def side(top: str):
+    """The modules one side launches through."""
+    def m(name):
+        return importlib.import_module(f"{top}.{name}")
+    return dict(trellis=m("core.trellis"), build=m("kernels.build"),
+                vu=m("kernels.viterbi_unified"), vf=m("kernels.viterbi_fwd"),
+                tbf=m("kernels.traceback_frames"))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--json", type=Path,
-                    default=ROOT / "chiprun_out" / "parent_turns.json")
+                    default=ROOT / "build" / "parent_turns.json")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     import torch
@@ -103,88 +72,73 @@ def main(argv=None) -> int:
         print("FAIL: no CUDA card", flush=True)
         return 2
     import chip_smoke as cs
-    from repro_torch.core.trellis import STD_K7, make_trellis
-    from repro_torch.kernels import autotune, build
-    from repro_torch.kernels import traceback_frames as tbf
-    from repro_torch.kernels import viterbi_fwd as vf
-    from repro_torch.kernels import viterbi_unified as vu
+    from repro_torch.kernels import autotune
 
     cs.phase_device()
-    mine = {src: build.build(src) for src in SOURCES}
-    other = build_other(args.parent.resolve(),
-                        ROOT / "build" / "parent_turns")
+    load_other(args.parent.resolve())
+    sides = {"other": side(OTHER), "tree": side("repro_torch")}
+    with concurrent.futures.ThreadPoolExecutor(2 * len(SOURCES)) as pool:
+        list(pool.map(lambda a: a[0]["build"].build(a[1]),
+                      [(s, src) for s in sides.values() for src in SOURCES]))
+    mine = sides["tree"]
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     spec = cs.main_config("1/2", "kernel").spec
-    frames = cs._frames(STD_K7, spec, 16384, gen, torch.float32)
+    k7 = mine["trellis"].make_trellis(*cs.CODES[4])
+    frames = cs._frames(k7, spec, 16384, gen, torch.float32)
     rows = []
 
-    def record(kernel, shape, ms):
+    def record(kernel, shape, ms, reps):
         rows.append({"kernel": kernel, "shape": shape,
                      "other_ms": ms["other"], "tree_ms": ms["tree"],
                      "tree_over_other": ms["tree"] / ms["other"]})
         print(f"[turns] {kernel} {shape}: other {ms['other'] * 1e3:.1f} us, "
               f"tree {ms['tree'] * 1e3:.1f} us "
               f"({ms['tree'] / ms['other'] - 1:+.2%}; min of 4 rounds of "
-              f"{args.reps}, in turns)", flush=True)
+              f"{reps}, in turns)", flush=True)
 
-    def swapped(src, side, fn):
-        def call():
-            build._built[src] = (other if side == "other" else mine)[src]
-            return fn()
-        return call
-
-    # B1 and B3: each side's library under this tree's wrappers
-    ut = autotune.plan_tiles(STD_K7, spec, pack_survivors=True, radix=4,
-                             max_frames=16384, device="cuda").frames_per_tile
-    st = autotune.plan_tiles(STD_K7, spec, pack_survivors=True, radix=4,
-                             unified=False, max_frames=16384,
-                             device="cuda").frames_per_tile
-    ukw = dict(trellis=STD_K7, v1=20, f=256, v2=45, f0=32, v2s=45,
-               frames_per_tile=ut, pack_survivors=True, radix=4)
-    fkw = dict(trellis=STD_K7, frames_per_tile=st, pack_survivors=True,
-               radix=4)
-    for name, src, fn in (
-            ("viterbi_unified", "viterbi_unified.cu",
-             lambda: vu.unified_decode_frames_cuda(frames, **ukw)),
-            ("viterbi_fwd", "viterbi_fwd.cu",
-             lambda: vf.forward_frames_cuda(frames, **fkw))):
-        fns = {side: swapped(src, side, fn) for side in ("other", "tree")}
-        outs = {side: f() for side, f in fns.items()}
-        torch.cuda.synchronize()
+    def compare(kernel, shape, fns, reps):
+        outs = {s: fn() for s, fn in fns.items()}
         a, b = outs["other"], outs["tree"]
         same = (all(torch.equal(x, y) for x, y in zip(a, b))
                 if isinstance(a, tuple) else torch.equal(a, b))
         if not same:
-            raise AssertionError(f"{name}: the two trees disagree")
-        record(name, f"K=7 F=16384 tile {ut if src == SOURCES[0] else st}",
-               turns(fns, args.reps))
-        build._built[src] = mine[src]
+            raise AssertionError(f"{kernel} {shape}: the two trees disagree")
+        record(kernel, shape, cs._interleaved(fns, reps, rounds=4), reps)
+
+    # B1 and B3 at the main shape, each side through its own wrappers
+    ut, st = (autotune.plan_tiles(k7, spec, pack_survivors=True, radix=4,
+                                  unified=u, max_frames=16384,
+                                  device="cuda").frames_per_tile
+              for u in (True, False))
+    tr = {s: d["trellis"].make_trellis(*cs.CODES[4])
+          for s, d in sides.items()}
+    compare("viterbi_unified", f"K=7 F=16384 tile {ut}", {
+        s: (lambda s=s: sides[s]["vu"].unified_decode_frames_cuda(
+            frames, trellis=tr[s], v1=20, f=256, v2=45, f0=32, v2s=45,
+            frames_per_tile=ut, pack_survivors=True, radix=4))
+        for s in sides}, args.reps)
+    compare("viterbi_fwd", f"K=7 F=16384 tile {st}", {
+        s: (lambda s=s: sides[s]["vf"].forward_frames_cuda(
+            frames, trellis=tr[s], frames_per_tile=st, pack_survivors=True,
+            radix=4))
+        for s in sides}, args.reps)
 
     # the split traceback at chip_smoke.py's shapes
-    k11 = make_trellis(*cs.CODES[6])
-    frames11 = cs._frames(k11, spec, cs.TB_K11_FRAMES, gen, torch.float32)
-    cases = [("K7 lane packed", STD_K7, frames, st, "lane", True, 32),
-             ("K7 sublane packed", STD_K7, frames, st, "sublane", True, 32),
-             ("K7 lane unpacked", STD_K7, frames, st, "lane", False, 32),
-             ("K7 lane packed serial", STD_K7, frames, st, "lane", True, 256),
-             ("K11 lane packed", k11, frames11, 1, "lane", True, 32),
-             ("K11 lane unpacked", k11, frames11, 1, "lane", False, 32),
-             ("K11 sublane packed", k11, frames11, 1, "sublane", True, 32)]
-    for label, tr, fr, tile, layout, pack, f0 in cases:
-        sel, amax = vf.forward_frames_cuda(fr, trellis=tr,
-                                           frames_per_tile=tile,
-                                           pack_survivors=pack, radix=4,
-                                           layout=layout)
-        tkw = dict(trellis=tr, v1=20, f=256, f0=f0, v2s=45, packed=pack,
-                   layout=layout)
-        fns = {"other": lambda: other_traceback(
-                   other["traceback_frames.cu"].lib, sel, amax, tr, f0, 45,
-                   pack, layout),
-               "tree": lambda: tbf.traceback_frames_cuda(sel, amax, **tkw)}
-        if not torch.equal(fns["other"](), fns["tree"]()):
-            raise AssertionError(f"traceback {label}: the two trees disagree")
-        record("traceback_frames", f"{label} F={fr.shape[0]}",
-               turns(fns, max(1, args.reps // 2)))
+    k11 = cs.CODES[6]
+    frames11 = cs._frames(mine["trellis"].make_trellis(*k11), spec,
+                          cs.TB_K11_FRAMES, gen, torch.float32)
+    reps = max(1, args.reps // 2)
+    for label, code, layout, pack, f0 in cs.TB_CASES:
+        fr, tile = (frames, st) if code == cs.CODES[4] else (frames11, 1)
+        tr = {s: d["trellis"].make_trellis(*code) for s, d in sides.items()}
+        sel, amax = mine["vf"].forward_frames_cuda(
+            fr, trellis=tr["tree"], frames_per_tile=tile,
+            pack_survivors=pack, radix=4, layout=layout)
+        compare("traceback_frames", f"{label} F={fr.shape[0]}", {
+            s: (lambda s=s: sides[s]["tbf"].traceback_frames_cuda(
+                sel, amax, trellis=tr[s], v1=20, f=256, f0=f0, v2s=45,
+                packed=pack, layout=layout))
+            for s in sides}, reps)
         del sel, amax
     args.json.parent.mkdir(parents=True, exist_ok=True)
     args.json.write_text(json.dumps({
