@@ -94,6 +94,21 @@ non-zero:
              frame_mesh() (every card); with one, a line says so. Then the
              dry run (launch/viterbi_dryrun.py --run) at 10^8 bits on the
              local mesh: measured Gb/s against decode_roofline's bound.
+10. lm      — the LM scaffold's serve path (repro_torch.models,
+             launch/serve.py), float32 matmul precision "highest". Every
+             decoder-only architecture's reduced config in float32, the
+             same weights on the card and on the CPU: prefill and 4
+             decode steps, logits within 1e-4. Incremental decode against
+             the parallel forward on the card for five architectures, in
+             float32 (1e-4) and bfloat16 (5e-2). Then Qwen3-32B cut to 4
+             layers and Qwen3-235B-A22B cut to 2, every width as
+             published, bfloat16, random weights from the seed:
+             serve_requests with 6 requests, 4 slots, 12 tokens each,
+             max_seq 96; tokens in range, incremental == parallel over 4
+             positions within 2^-5 of the largest logit; prints tokens/s,
+             the median decode step against its bound (the weight bytes
+             over 3.35 TB/s), peak memory and the card's name and power
+             limit. No kernel of its own: its products are torch.matmul.
 
 The line before the last is a JSON `kernels` line (with each kernel's
 launches on the main path, and ``launches_stream``/``launches_serve``/
@@ -105,10 +120,12 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import io
 import json
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -189,15 +206,19 @@ def bound(kernel: str, spec, F: int, trellis=None, **knobs):
     return (*kernel_bound(nbytes, nops), nbytes)
 
 
-def phase_device():
-    import torch
+def card_name_power() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    import torch
+    print(card_name_power(), flush=True)
     log("device", f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
@@ -1549,6 +1570,221 @@ def phase_mesh(gen, frames):
     return total
 
 
+#: Phase 10 (lm): the serve loop at full width, as launch/serve.py's demo
+#: drives it (6 requests of 4-11 prompt tokens from default_rng(0)).
+LM_REQUESTS, LM_SLOTS, LM_GEN, LM_MAX_SEQ = 6, 4, 12, 96
+LM_STEPS = 4
+#: Card against the port on the CPU, float32 at matmul precision
+#: "highest": the bound that holds the port to JAX on the CPU (the two
+#: devices sum in other orders; a wrong operation moves logits >= 1e-2).
+LM_F32_TOL = 1e-4
+#: Incremental decode against the parallel forward on the card: float32
+#: as above; bfloat16 rounds intermediate results at other places on the
+#: two paths, so 5e-2, the bf16 parity tests' bound.
+LM_INC_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+#: The same at full width in bfloat16, relative to the largest |logit|:
+#: 2^-5, four times bf16's 2^-7 rounding step (8 significant bits), for
+#: errors that grow through 4 layers of d_model 5120 before the final norm.
+LM_FULL_REL_TOL = 2.0 ** -5
+LM_DECODE_CHECK = ("qwen3_32b", "mamba2_2p7b", "jamba15_large",
+                   "starcoder2_7b", "qwen3_moe_235b")
+
+
+
+def lm_full_width_configs():
+    """Qwen3-32B cut to 4 layers and Qwen3-235B-A22B cut to 2, every
+    width as published (configs/qwen3_32b.py, configs/qwen3_moe_235b.py),
+    in bfloat16."""
+    from repro_torch.configs import get_config
+    return [dataclasses.replace(get_config("qwen3_32b"), num_layers=4),
+            dataclasses.replace(get_config("qwen3_moe_235b"), num_layers=2)]
+
+
+def _lm_batch(cfg, B, S, device):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 1)
+    b = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
+    if cfg.vision_patches:
+        b["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.vision_patches, cfg.d_model)).astype(np.float32))
+    return {k: v.to(device) for k, v in b.items()}
+
+
+def _lm_prefill_decode(bundle, params, batch):
+    """prefill's last logits, then LM_STEPS decode steps' logits from an
+    empty cache, as one float32 tensor on the host."""
+    import torch
+    lg = [bundle.prefill(params, batch)]
+    cache = bundle.init_cache(params, batch["tokens"].shape[0], 16)
+    for t in range(LM_STEPS):
+        out, cache = bundle.decode(params, batch["tokens"][:, t:t + 1],
+                                   cache)
+        lg.append(out)
+    return torch.cat(lg, dim=1).float().cpu()
+
+
+def _lm_inc_vs_parallel(cfg, params, B, S, device):
+    """(max |incremental - parallel| over S positions, max |logit|) for
+    ``cfg`` on ``params``; MoE capacity is lifted so that no drop depends
+    on the batch shape (tests/test_decode_consistency.py)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_per_choice=float(cfg.moe.num_experts)))
+    m = build_model(cfg, remat="none", device=device)
+    toks = _lm_batch(cfg, B, S, device)["tokens"]
+    with torch.no_grad():
+        x, _ = T.forward(params, cfg, toks, remat="none")
+        full = L.logits(params["embed"], x).float()
+    cache = m.init_cache(params, B, S)
+    inc = []
+    for t in range(S):
+        lg, cache = m.decode(params, toks[:, t:t + 1], cache)
+        inc.append(lg[:, 0].float())
+    inc = torch.stack(inc, dim=1)
+    if not (bool(torch.isfinite(inc).all())
+            and bool(torch.isfinite(full).all())):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return float((inc - full).abs().max()), float(full.abs().max())
+
+
+def _lm_step_profile(bundle, params, steps: int = 3):
+    """torch.profiler over ``steps`` warm batched decode steps at
+    LM_SLOTS: (host ms per step under the profiler, device busy ms per
+    step, the share of device time in matrix-product kernels, the top
+    kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cache = bundle.init_cache(params, LM_SLOTS, LM_MAX_SEQ)
+    tok = torch.ones((LM_SLOTS, 1), dtype=torch.long, device="cuda")
+    _, cache = bundle.decode(params, tok, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, cache = bundle.decode(params, tok, cache)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3 / steps
+    if not busy:
+        raise AssertionError("torch.profiler saw no device time")
+    mm = sum(us for us, k, _ in rows if any(    # cuBLAS(Lt)'s kernels
+        w in k.lower() for w in ("nvjet", "gemm", "gemv", "xmma",
+                                 "cutlass", "splitk"))) / 1e3 / steps
+    return wall, busy, mm / busy, rows[:5]
+
+
+def lm_serve_full_width(cfg, smi: str) -> dict:
+    """Random weights from SEED on the card, served by serve_requests;
+    checks the tokens and incremental == parallel, prints the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import build_model
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_model(cfg, device="cuda")
+    params = bundle.init(torch.Generator("cuda").manual_seed(SEED))
+    nparams = sum(p.numel() for p in params.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, rng.integers(4, 12)).tolist()
+               for _ in range(LM_REQUESTS)]
+    done, stats = serve_requests(bundle, params, prompts, LM_SLOTS, LM_GEN,
+                                 LM_MAX_SEQ)
+    toks = [t for v in done.values() for t in v]
+    if sorted(done) != list(range(LM_REQUESTS)) or any(
+            len(v) != LM_GEN for v in done.values()):
+        raise AssertionError(f"{cfg.name}: requests served {sorted(done)}")
+    if not all(0 <= t < cfg.padded_vocab for t in toks):
+        raise AssertionError(f"{cfg.name}: token out of range")
+    err, scale = _lm_inc_vs_parallel(cfg, params, 2, LM_STEPS, "cuda")
+    if not err <= LM_FULL_REL_TOL * scale:
+        raise AssertionError(
+            f"{cfg.name}: incremental vs parallel {err} > "
+            f"{LM_FULL_REL_TOL} x {scale}")
+    from repro_torch.launch.mesh import HW
+    prof_wall, prof_busy, mm_share, top = _lm_step_profile(bundle, params)
+    step = statistics.median(stats["step_ms"])
+    row = {"name": cfg.name, "layers": cfg.num_layers, "params": nparams,
+           "weight_bytes": wbytes,
+           "tokens_per_s": len(toks) / stats["seconds"],
+           "decode_steps": stats["steps"], "step_ms_p50": step,
+           "step_bound_ms": wbytes / HW.HBM_BW * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "inc_vs_parallel": err, "max_logit": scale,
+           "profiled_step_ms": prof_wall, "device_busy_ms": prof_busy,
+           "matmul_share": mm_share, "card": smi}
+    log("lm", f"{cfg.name} ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {nparams / 1e9:.3f} B params, {wbytes / 1e9:.2f} "
+        f"GB bf16): {LM_REQUESTS} requests x {LM_GEN} tokens over "
+        f"{LM_SLOTS} slots, {row['tokens_per_s']:.1f} tokens/s, "
+        f"{stats['steps']} batched steps, decode step p50 {step:.3f} ms "
+        f"against the weight-bytes bound {row['step_bound_ms']:.3f} ms "
+        f"({row['step_bound_ms'] / step:.1%}), peak memory "
+        f"{row['peak_bytes'] / 1e9:.2f} GB; incremental vs parallel "
+        f"{err:.4g} (max |logit| {scale:.4g}); card {smi}")
+    log("lm", f"{cfg.name} profiled decode step: host {prof_wall:.3f} ms "
+        f"(profiler on), "
+        f"device busy {prof_busy:.3f} ms ({prof_busy / prof_wall:.1%}), "
+        f"matrix products {mm_share:.1%} of device time; top: "
+        + "; ".join(f"{k[:50]} x{c} {us / 1e3:.3f} ms" for us, k, c in top))
+    return row
+
+
+def phase_lm():
+    """The LM scaffold's serve path (repro_torch.models, launch/serve)."""
+    import gc
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import build_model
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmul precision is not 'highest'")
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  dtype="float32")
+        if cfg.family == "encdec":
+            continue                         # the serve path's archs
+        cpu = build_model(cfg, device="cpu")
+        card = build_model(cfg, device="cuda")
+        params = cpu.init(torch.Generator().manual_seed(SEED))
+        want = _lm_prefill_decode(cpu, params, _lm_batch(cfg, 2, 12, "cpu"))
+        got = _lm_prefill_decode(card, copy.deepcopy(params).to("cuda"),
+                                 _lm_batch(cfg, 2, 12, "cuda"))
+        err = float((got - want).abs().max())
+        log("lm", f"{arch} reduced f32: prefill + {LM_STEPS} decode steps, "
+            f"card vs CPU max |d logit| {err:.3g} (bound {LM_F32_TOL})")
+        if not err <= LM_F32_TOL:
+            raise AssertionError(f"{arch}: card vs CPU {err}")
+    for arch in LM_DECODE_CHECK:
+        for dtype, tol in LM_INC_TOL.items():
+            cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                      dtype=dtype)
+            params = build_model(cfg, device="cuda").init(
+                torch.Generator("cuda").manual_seed(SEED))
+            err, _ = _lm_inc_vs_parallel(cfg, params, 2, 12, "cuda")
+            log("lm", f"{arch} reduced {dtype}: incremental vs parallel "
+                f"on the card {err:.3g} (bound {tol})")
+            if not err < tol:
+                raise AssertionError(f"{arch} {dtype}: {err}")
+    smi = card_name_power()
+    rows = []
+    for cfg in lm_full_width_configs():
+        rows.append(lm_serve_full_width(cfg, smi))
+        gc.collect()                         # free one model before the next
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1574,6 +1810,7 @@ def main() -> int:
     stream = phase_stream(gen)
     serve = phase_serve(gen)
     mesh = phase_mesh(gen, frames)
+    phase_lm()
     for entry in entries:
         entry["launches_stream"] = stream[entry["name"]]
         entry["launches_serve"] = serve[entry["name"]]

@@ -31,6 +31,19 @@ after every round. ``--kill-at-step N`` injects a process 'death' at
 server step N and recovers live: the client restores a fresh server from
 the last checkpoint, rewinds its own stream positions to the matching
 marker and replays; every session still verifies at the end.
+``--resume`` restores the server (cumulative metrics and uptime, any
+carried-over sessions, which it closes) from DIR/serve.ckpt at start
+instead of building a fresh one.
+
+``--block-frames B`` (or ``auto``) switches to one long-frame (f=2048)
+tenant config decoded block-parallel: each frame is split into B
+overlapped blocks. ``--overlap OV`` sets each block's warm-up/truncation
+depth in trellis stages (default: the policy's, ~5 constraint lengths).
+``--block-frames 1`` is the sequential baseline of the same workload; the
+per-window launch latency is printed either way.
+
+  PYTHONPATH=src python examples/torch_serve_viterbi.py --sessions 2 \\
+      --chunks 2 --chunk-frames 2 --block-frames auto
 """
 import argparse
 import os
@@ -73,6 +86,9 @@ def main(argv=None):
     ap.add_argument("--checkpoint-dir", metavar="DIR",
                     help="snapshot the server to DIR/serve.ckpt after "
                          "every round")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the server from the checkpoint dir at "
+                         "startup (cumulative metrics carry over)")
     ap.add_argument("--kill-at-step", type=int, default=0, metavar="N",
                     help="inject a crash at server step N, then recover "
                          "from the last checkpoint and replay")
@@ -81,8 +97,20 @@ def main(argv=None):
     ap.add_argument("--metrics-out", metavar="PREFIX",
                     help="write the final metrics_snapshot as PREFIX.prom "
                          "and PREFIX.json")
+    ap.add_argument("--block-frames", default=None, metavar="B|auto",
+                    help="intra-frame block-parallel decode: split each "
+                         "frame into B overlapped blocks ('auto' lets the "
+                         "planner pick); any value switches to a long-frame "
+                         "(f=2048) workload, so '1' is the sequential "
+                         "baseline of the same workload")
+    ap.add_argument("--overlap", type=int, default=None, metavar="OV",
+                    help="per-block warm-up/truncation overlap in trellis "
+                         "stages (default: policy, ~5 constraint lengths)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
+    blk = args.block_frames
+    if blk is not None and blk != "auto":
+        blk = int(blk)
     if args.kill_at_step and not args.checkpoint_dir:
         args.checkpoint_dir = tempfile.mkdtemp(prefix="serve_ckpt_")
 
@@ -99,6 +127,13 @@ def main(argv=None):
                                       backend="kernel")),
             ("K5 r1/2", DecoderConfig(trellis=k5, spec=spec12,
                                       backend="kernel"))]
+    if blk is not None:
+        # short frames never block (policy threshold), so block mode runs
+        # one long-frame tenant config
+        spec_long = FrameSpec(f=2048, v1=32, v2=32, f0=32, v2s=32)
+        cfgs = [("K7 long", DecoderConfig(spec=spec_long, backend="kernel",
+                                          block_frames=blk,
+                                          overlap=args.overlap))]
 
     specs = []
     if args.chaos:
@@ -117,11 +152,22 @@ def main(argv=None):
     if args.checkpoint_dir:
         os.makedirs(args.checkpoint_dir, exist_ok=True)
         ck_path = os.path.join(args.checkpoint_dir, "serve.ckpt")
-    srv = DecodeServer(slots=args.slots, max_sessions=args.sessions,
-                       queue_depth=4, cache=cache, faults=faults,
-                       launch_timeout_s=0.03 if args.chaos else None,
-                       max_retries=1, backoff_s=0.0, quarantine_after=2,
-                       device=dev)
+    if args.resume and ck_path and os.path.exists(ck_path):
+        srv = DecodeServer.restore(ck_path, cache=cache, faults=faults,
+                                   device=dev)
+        for sid in list(srv._sessions):
+            tail = srv.close_session(sid)
+            print(f"resumed: closed carried-over session {sid} "
+                  f"({len(tail)} undelivered bits recovered)")
+        print(f"resumed from {ck_path}: cumulative uptime "
+              f"{srv.metrics_snapshot()['totals']['uptime_s']:.2f}s, "
+              f"restore #{srv.checkpoint_restores}")
+    else:
+        srv = DecodeServer(slots=args.slots, max_sessions=args.sessions,
+                           queue_depth=4, cache=cache, faults=faults,
+                           launch_timeout_s=0.03 if args.chaos else None,
+                           max_retries=1, backoff_s=0.0, quarantine_after=2,
+                           device=dev)
     tenants = []
     for i in range(args.sessions):
         name, cfg = cfgs[i % len(cfgs)]
@@ -215,6 +261,13 @@ def main(argv=None):
               f"{row['occupancy']:>7.2f}{row['p50_ms']:>8.1f}"
               f"{row['p99_ms']:>8.1f}{row['mbps']:>7.2f}  "
               f"{row['health']:<9}")
+    la = snap["stages"].get("launch_ms")
+    if la and la.get("count"):
+        blocked = blk not in (None, 1)
+        mode = (f"block-parallel ({args.block_frames} blocks/frame)"
+                if blocked else "sequential scan")
+        print(f"per-window launch latency [{mode}]: p50 {la['p50']:.2f} ms, "
+              f"p99 {la['p99']:.2f} ms over {la['count']} launches")
     print("plan cache:", snap["plan_cache"])
     if ck_path:
         print(f"checkpoints: {snap['checkpoint']['saves']} saved, "

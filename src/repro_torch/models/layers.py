@@ -1,0 +1,312 @@
+"""Dense building blocks: norms, RoPE, GQA attention (full / blockwise /
+decode-with-cache), gated MLP, embeddings, losses; port of
+``repro.models.layers`` (forward only: the backward passes come with the
+training path).
+
+Conventions:
+  * a layer's parameters are a ``Params``: an ``nn.Module`` that holds
+    tensors and sub-``Params`` under the JAX package's names and reads like
+    its dict (``p["wq"]``, ``"wqkv" in p``, ``p.get("bq")``), so a
+    state_dict is ``layers.<i>.mixer.wq`` where JAX has
+    ``blocks.b<j>.mixer.wq[r]``.
+  * activations follow cfg.dtype (bf16); norms/softmax/logsumexp in fp32,
+    rounded where the JAX package rounds (scores are a product in the
+    activation dtype, then cast to fp32; softmax weights cast back before
+    the PV product).
+  * attention is computed step by step, as the JAX package computes it:
+    blockwise (a loop over kv chunks, online softmax) whenever seq_len >
+    cfg.attn_chunk, so S x S never materializes. No fused library
+    attention.
+  * masked scores are filled with -1e30, not -inf.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+
+__all__ = ["Params", "init_normal", "ones", "zeros", "rms_norm", "rope",
+           "init_attention", "attention", "attention_decode", "init_mlp",
+           "mlp", "init_embed", "embed", "logits", "softmax_xent"]
+
+NEG = -1e30
+
+
+class Params(nn.Module):
+    """Named tensors and sub-``Params``, read like the JAX package's param
+    dicts. Tensors become parameters (state_dict, ``.to``)."""
+
+    def __init__(self, **items):
+        super().__init__()
+        for name, v in items.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(name, nn.Parameter(v))
+            else:
+                self.add_module(name, v)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def get(self, name: str, default=None):
+        return self[name] if name in self else default
+
+
+def init_normal(gen: torch.Generator, shape, dtype, stddev: float = 0.02):
+    """N(0, stddev) drawn in ``dtype`` on the generator's device (the JAX
+    package's ``normal(stddev=0.02)`` initializer)."""
+    return torch.empty(shape, dtype=dtype, device=gen.device).normal_(
+        0.0, stddev, generator=gen)
+
+
+def ones(shape, gen: torch.Generator, dtype=torch.float32):
+    """Ones on the generator's device (norm scales, SSM ``D``)."""
+    return torch.ones(shape, dtype=dtype, device=gen.device)
+
+
+def zeros(shape, gen: torch.Generator, dtype=torch.float32):
+    """Zeros on the generator's device (biases)."""
+    return torch.zeros(shape, dtype=dtype, device=gen.device)
+
+
+# ---------------------------------------------------------------- norms ----
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with fp32 statistics but activation-dtype tensors end to
+    end: ``inv`` is cast to x.dtype before both multiplies."""
+    var = x.float().square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * w.to(x.dtype)
+
+
+# ----------------------------------------------------------------- rope ----
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., S, H, hd), positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs           # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------ attention ----
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   fused: bool = False) -> Params:
+    """fused=True stores one wqkv matrix: a single projection product
+    instead of three (the JAX package's option, kept for parity)."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt = cfg.param_dtype
+    if fused:
+        p = {"wqkv": init_normal(gen, (d, (H + 2 * KV) * hd), dt),
+             "wo": init_normal(gen, (H * hd, d), dt)}
+        if cfg.qkv_bias:
+            p["bqkv"] = zeros(((H + 2 * KV) * hd,), gen, dt)
+    else:
+        p = {"wq": init_normal(gen, (d, H * hd), dt),
+             "wk": init_normal(gen, (d, KV * hd), dt),
+             "wv": init_normal(gen, (d, KV * hd), dt),
+             "wo": init_normal(gen, (H * hd, d), dt)}
+        if cfg.qkv_bias:
+            p["bq"] = zeros((H * hd,), gen, dt)
+            p["bk"] = zeros((KV * hd,), gen, dt)
+            p["bv"] = zeros((KV * hd,), gen, dt)
+    if cfg.qk_norm:
+        p["qn"] = ones((hd,), gen)
+        p["kn"] = ones((hd,), gen)
+    return Params(**p)
+
+
+def _proj(x, w, b):
+    return x @ w if b is None else x @ w + b
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+         positions: torch.Tensor, use_rope: bool = True):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    if "wqkv" in p:
+        qkv = _proj(x, p["wqkv"], p.get("bqkv"))
+        q, k, v = torch.split(qkv, [H * hd, KV * hd, KV * hd], dim=-1)
+        q = q.reshape(B, S, H, hd)
+        k = k.reshape(B, S, KV, hd)
+        v = v.reshape(B, S, KV, hd)
+    else:
+        q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
+        k = _proj(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
+        v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["qn"], cfg.norm_eps)
+        k = rms_norm(k, p["kn"], cfg.norm_eps)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa_full(q, k, v, causal: bool, q_pos=None, k_pos=None):
+    """Materializing attention (small S): q (B,Sq,H,hd), k/v (B,Sk,KV,hd)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qh = q.reshape(B, Sq, KV, H // KV, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qh, k).float()
+    scores = scores * hd ** -0.5
+    if causal:
+        qp = (torch.arange(Sq, device=q.device) if q_pos is None
+              else q_pos)
+        kp = (torch.arange(k.shape[1], device=q.device) if k_pos is None
+              else k_pos)
+        mask = qp[:, None] >= kp[None, :]
+        scores = torch.where(mask, scores, NEG)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def _flash_fwd_impl(q, k, v, chunk: int):
+    """Blockwise attention forward: per q block, the diagonal kv block
+    (masked) then the strictly lower kv blocks in order (unmasked), merged
+    by online softmax. Returns (out, lse)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    nq = S // chunk
+    qb = q.reshape(B, nq, chunk, KV, G, hd)
+    kb = k.reshape(B, nq, chunk, KV, hd)
+    vb = v.reshape(B, nq, chunk, KV, hd)
+    scale = hd ** -0.5
+    pos = torch.arange(chunk, device=q.device)
+    diag_mask = pos[:, None] >= pos[None, :]                       # (c, c)
+
+    def partial_softmax(qc, kc, vc, masked):
+        s = torch.einsum("bqkgh,bskh->bkgqs", qc, kc).float() * scale
+        if masked:
+            s = torch.where(diag_mask, s, NEG)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        l = p.sum(-1)
+        acc = torch.einsum("bkgqs,bskh->bkgqh", p.to(qc.dtype), vc).float()
+        return m, l, acc
+
+    def merge(a, b):
+        (ma, la, xa), (mb, lb, xb) = a, b
+        m = torch.maximum(ma, mb)
+        ca, cb = torch.exp(ma - m), torch.exp(mb - m)
+        return m, la * ca + lb * cb, xa * ca[..., None] + xb * cb[..., None]
+
+    outs, lses = [], []
+    for qi in range(nq):
+        qc = qb[:, qi]
+        st = partial_softmax(qc, kb[:, qi], vb[:, qi], masked=True)
+        for kj in range(qi):
+            st = merge(st, partial_softmax(qc, kb[:, kj], vb[:, kj], False))
+        m, l, acc = st
+        outs.append(torch.einsum("bkgqh->bqkgh",
+                                 acc / l[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l))           # (B,KV,G,c) fp32
+    out = torch.stack(outs, dim=1).reshape(B, S, H, hd)
+    return out, torch.stack(lses, dim=0)        # lse: (nq,B,KV,G,c)
+
+
+def _sdpa_blockwise(q, k, v, chunk: int):
+    """Flash-style attention forward, O(S) memory."""
+    return _flash_fwd_impl(q, k, v, chunk)[0]
+
+
+def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor, causal: bool = True,
+              kv_override=None) -> torch.Tensor:
+    """Self (or cross, via kv_override=(k,v)) attention over full
+    sequences."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions, use_rope=kv_override is None)
+    if kv_override is not None:
+        k, v = kv_override
+        out = _sdpa_full(q, k, v, causal=False)
+    elif causal and S > cfg.attn_chunk and S % cfg.attn_chunk == 0:
+        out = _sdpa_blockwise(q, k, v, cfg.attn_chunk)
+    else:
+        out = _sdpa_full(q, k, v, causal=causal)
+    return out.reshape(B, S, cfg.num_heads * cfg.hd) @ p["wo"]
+
+
+def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                     cache: dict):
+    """One-token decode: x (B,1,d); cache {'k','v': (B,Smax,KV,hd),
+    'idx': int}. Every batch row writes position ``idx`` (one index for
+    the whole batch, as in the JAX package). The cache tensors are updated
+    in place; the write position is clamped to Smax-1 as
+    ``dynamic_update_slice`` clamps it."""
+    B = x.shape[0]
+    idx = cache["idx"]
+    q, k, v = _qkv(p, x, cfg, positions=torch.full(
+        (B, 1), idx, dtype=torch.int32, device=x.device))
+    ck, cv = cache["k"], cache["v"]
+    Smax = ck.shape[1]
+    at = min(max(idx, 0), Smax - 1)
+    ck[:, at] = k[:, 0].to(ck.dtype)
+    cv[:, at] = v[:, 0].to(cv.dtype)
+    valid = torch.arange(Smax, device=x.device) <= idx
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    qh = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qh, ck).float() * hd ** -0.5
+    s = torch.where(valid, s, NEG)
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", w, cv).reshape(B, 1, H * hd)
+    return out @ p["wo"], {"k": ck, "v": cv, "idx": idx + 1}
+
+
+# ------------------------------------------------------------------ mlp ----
+def init_mlp(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: int | None = None) -> Params:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    dt = cfg.param_dtype
+    return Params(wg=init_normal(gen, (d, ff), dt),
+                  wu=init_normal(gen, (d, ff), dt),
+                  wd=init_normal(gen, (ff, d), dt))
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ----------------------------------------------------------- embeddings ----
+def init_embed(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    V = cfg.padded_vocab
+    p = {"tok": init_normal(gen, (V, cfg.d_model), cfg.param_dtype)}
+    if not cfg.tie_embeddings:
+        p["head"] = init_normal(gen, (cfg.d_model, V), cfg.param_dtype)
+    return Params(**p)
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def logits(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Over the whole padded vocabulary (padding columns included)."""
+    w = p["tok"].T if "head" not in p else p["head"]
+    return x @ w
+
+
+# --------------------------------------------------------------- losses ----
+def softmax_xent(lg: torch.Tensor, labels: torch.Tensor,
+                 z_coef: float = 1e-4) -> torch.Tensor:
+    """lg: (..., V) logits, labels: (...,) int; -1 is ignored. Mean NLL
+    over the kept labels plus a z-loss on the log-partition."""
+    lg = lg.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    oh = F.one_hot(labels.clamp(min=0).long(), lg.shape[-1]).to(lg.dtype)
+    oh = oh * (labels >= 0)[..., None]
+    gold = torch.einsum("...v,...v->...", lg, oh)
+    mask = (labels >= 0).float()
+    nll = (lse - gold) * mask
+    z = z_coef * (lse * mask) ** 2
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return (nll.sum() + z.sum()) / denom

@@ -55,3 +55,67 @@ def test_serve_viterbi(chaos, tmp_path, capsys):
     assert json.loads((tmp_path / "t.json").read_text())["traceEvents"]
     assert "repro_serve_bits " in (tmp_path / "m.prom").read_text()
     assert json.loads((tmp_path / "m.json").read_text())["totals"]
+
+
+def _recorded(mod):
+    """Wraps the example's ``stream_decode`` (its verification baseline,
+    which every served session must equal) to keep each session's bits."""
+    bits, real = [], mod.stream_decode
+
+    def stream_decode(*args, **kwargs):
+        out = np.asarray(real(*args, **kwargs))
+        bits.append(out)
+        return out
+
+    mod.stream_decode = stream_decode
+    return bits
+
+
+def _serve_both(argv_jax, argv_port):
+    """The JAX example and the port's on the same received streams (the
+    JAX example's ``make_rx``, seeded by session): each one's verified
+    bits in session order."""
+    from repro.core.trellis import make_trellis as jmake_trellis
+    jex = _example("serve_viterbi")
+    tex = _example("torch_serve_viterbi")
+    tex.make_rx = lambda tr, n, rate, seed, snr=4.0: np.asarray(jex.make_rx(
+        jmake_trellis(tr.k, tr.polys), n, rate, seed, snr))
+    want, got = _recorded(jex), _recorded(tex)
+    jex.main(argv_jax)
+    tex.main(["--device", "cpu"] + argv_port)
+    return want, got
+
+
+SMALL = ["--sessions", "2", "--chunks", "2", "--chunk-frames", "2"]
+
+
+@pytest.mark.parametrize("block", [["--block-frames", "auto"],
+                                   ["--block-frames", "4", "--overlap",
+                                    "40"],
+                                   ["--block-frames", "1"]])
+def test_serve_viterbi_block_frames_bits_equal_jax(block, capsys):
+    want, got = _serve_both(SMALL + block, SMALL + block)
+    assert len(got) == len(want) == 2
+    for w, g in zip(want, got):
+        assert w.shape == (2 * 2 * 2048,) and np.array_equal(g, w)
+    text = capsys.readouterr().out
+    mode = "sequential scan" if block[1] == "1" else "block-parallel"
+    assert text.count(f"per-window launch latency [{mode}") == 2
+
+
+def test_serve_viterbi_resume_bits_equal_jax(tmp_path, capsys):
+    """A first run leaves its last checkpoint with every session still
+    open; ``--resume`` restores it, closes the carried-over sessions (the
+    same undelivered bits in both packages), then serves anew."""
+    def argv(pkg):
+        return ["--sessions", "3", "--chunks", "2", "--chunk-frames", "2",
+                "--checkpoint-dir", str(tmp_path / pkg)]
+    _serve_both(argv("jax"), argv("port"))
+    capsys.readouterr()
+    want, got = _serve_both(argv("jax") + ["--resume"],
+                            argv("port") + ["--resume"])
+    assert len(got) == len(want) == 3
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("resumed: closed")]
+    assert len(lines) == 6 and lines[:3] == lines[3:]

@@ -372,3 +372,43 @@ def test_new_modules_import_no_jax_and_no_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_serve_low_latency_session():
+    """Mirrors tests/test_block.py's test of the same name:
+    open_session(low_latency=True) engages the auto block policy, lands in
+    its own bucket with the plan the JAX server picks, and returns the
+    bits of the blocked stream_decode; the sequential session those of the
+    plain one; both equal the JAX package's decode (K=7, f=2048, 2 frames,
+    chunk_frames=1)."""
+    import dataclasses
+    spec = FrameSpec(f=2048, v1=32, v2=32)
+    cfg = DecoderConfig(spec=spec, backend="kernel")
+    n = 2 * spec.f
+    llr = rx(n, seed=5, snr=3.0)
+
+    srv = DecodeServer(cache=PlanCache(), device="cpu")
+    sid_ll = srv.open_session(cfg, chunk_frames=1, low_latency=True)
+    sid_seq = srv.open_session(cfg, chunk_frames=1)
+    assert len({s.bucket.id for s in srv._sessions.values()}) == 2
+    ll_bucket = srv._sessions[sid_ll].bucket
+    assert ll_bucket.decode_cfg.block_frames == "auto"
+    jsrv = JDecodeServer(cache=JPlanCache())
+    jsid = jsrv.open_session(jcfg(cfg), chunk_frames=1, low_latency=True)
+    jplan = jsrv._sessions[jsid].bucket.plan
+    assert ll_bucket.plan.block_frames == jplan.block_frames > 1
+    assert ll_bucket.plan.overlap == jplan.overlap
+    for sid in (sid_ll, sid_seq):
+        srv.push(sid, llr)
+        while srv.step():
+            pass
+    got_ll = np.concatenate([srv.poll(sid_ll),
+                             srv.close_session(sid_ll)])[:n]
+    got_seq = np.concatenate([srv.poll(sid_seq),
+                              srv.close_session(sid_seq)])[:n]
+    blk_cfg = dataclasses.replace(cfg, block_frames="auto")
+    assert np.array_equal(got_ll, jax_decode(blk_cfg, llr, n))
+    assert np.array_equal(got_ll, stream_decode(blk_cfg, llr, n,
+                                                chunk_frames=1,
+                                                device="cpu"))
+    assert np.array_equal(got_seq, jax_decode(cfg, llr, n))

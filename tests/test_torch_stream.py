@@ -314,3 +314,19 @@ def test_mesh_and_missing_card_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stream_decode(cfg, rx(64), 64, chunk_frames=2)
     assert StreamContext(SPEC, 2, 2).chunk_frames == 2   # host-only: fine
+
+
+@pytest.mark.parametrize("frames,chunk", [(3, 2), (2, 1)])
+def test_stream_decode_blocked_matches_single_shot(frames, chunk):
+    """Mirrors tests/test_block.py's test of the same name (3 frames,
+    chunk 2), and the low-latency serve test's workload (2 frames, chunk
+    1): K=7, f=2048, block_frames="auto"; the streamed bits equal the
+    port's one-shot decode and the JAX package's."""
+    spec = FrameSpec(f=2048, v1=32, v2=32)
+    cfg = DecoderConfig(spec=spec, backend="kernel", block_frames="auto")
+    n = frames * spec.f
+    llr = rx(n, seed=frames, snr=3.0)
+    want = jax_decode(cfg, llr, n)
+    one = make_decoder(cfg, "cpu")(llr, n).numpy()
+    st = stream_decode(cfg, llr, n, chunk_frames=chunk, device="cpu")
+    assert np.array_equal(one, want) and np.array_equal(st, want)
