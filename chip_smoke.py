@@ -109,6 +109,29 @@ non-zero:
              the median decode step against its bound (the weight bytes
              over 3.35 TB/s), peak memory and the card's name and power
              limit. No kernel of its own: its products are torch.matmul.
+11. train   — the LM scaffold's training path (repro_torch.optim, data,
+             train; models/layers.py's autograd Functions), float32 matmul
+             precision "highest". (a) Every reduced architecture in
+             float32, the same weights and batch on the card and the CPU:
+             loss (1e-5 relative), every gradient leaf (1e-4 of its
+             largest magnitude), the params after 2 AdamW steps (1e-4).
+             (b) The flash backward and rms_norm's Function against
+             autograd through _sdpa_full and the fp32 RMSNorm, at
+             Qwen3-32B's attention shape (H=64, KV=8, hd=128, S=2048,
+             chunk 1024) and d_model 5120, float32 (1e-4) and bfloat16
+             (2^-5). (c) train_loop on the card with a failure injected
+             at step 7: one restore, replayed losses equal the first run
+             and an uninterrupted run's, a fresh loop resumes. (d)
+             Qwen3-32B cut to 4 layers, every width as published, bf16
+             params and fp32 moments, remat "full", batch 2 x 2048 of
+             learnable data, 5 steps of make_train_step, then a profiled
+             big-batch step and make_accum_train_step(accum=2) from the
+             same state (losses within 5e-2), and one step timed in two
+             parts (loss and gradients, AdamW update); prints losses,
+             the median step ms and tokens/s against the step's bound
+             (6 N T over 989 TFLOP/s, 22 B a param over 3.35 TB/s),
+             device busy and matrix-product shares, peak memory, the
+             card's name and power limit. No kernel of its own.
 
 The line before the last is a JSON `kernels` line (with each kernel's
 launches on the main path, and ``launches_stream``/``launches_serve``/
@@ -124,6 +147,7 @@ import copy
 import dataclasses
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1658,7 +1682,6 @@ def _lm_step_profile(bundle, params, steps: int = 3):
     step, the share of device time in matrix-product kernels, the top
     kernels)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cache = bundle.init_cache(params, LM_SLOTS, LM_MAX_SEQ)
     tok = torch.ones((LM_SLOTS, 1), dtype=torch.long, device="cuda")
@@ -1671,6 +1694,14 @@ def _lm_step_profile(bundle, params, steps: int = 3):
             _, cache = bundle.decode(params, tok, cache)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
+    busy, mm_share, top = _device_rows(prof, steps)
+    return wall, busy, mm_share, top[:5]
+
+
+def _device_rows(prof, steps: int = 1):
+    """(device busy ms per step, the share of it in matrix-product
+    kernels, kernels by device time) from a torch.profiler run."""
+    from torch.autograd import DeviceType
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA
@@ -1681,7 +1712,7 @@ def _lm_step_profile(bundle, params, steps: int = 3):
     mm = sum(us for us, k, _ in rows if any(    # cuBLAS(Lt)'s kernels
         w in k.lower() for w in ("nvjet", "gemm", "gemv", "xmma",
                                  "cutlass", "splitk"))) / 1e3 / steps
-    return wall, busy, mm / busy, rows[:5]
+    return busy, mm / busy, rows
 
 
 def lm_serve_full_width(cfg, smi: str) -> dict:
@@ -1785,6 +1816,378 @@ def phase_lm():
     return rows
 
 
+#: Phase 11 (train): card against CPU on the reduced configs in float32,
+#: the bounds that hold the port to JAX on the CPU (tests/_torch_train_
+#: parity.py): the loss within 1e-5 relative, each gradient leaf within
+#: 1e-4 of its own largest magnitude.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+#: Params after TRAIN_ADAM_STEPS AdamW steps at lr TRAIN_ADAM_LR: a wrong
+#: update moves a param by about lr; Adam's normalisation amplifies the
+#: devices' few-ulp gradient differences only where a gradient is near
+#: eps, so lr / 10.
+TRAIN_ADAM_LR, TRAIN_ADAM_STEPS = 1e-3, 2
+TRAIN_PARAM_TOL = 1e-4
+#: The autograd Functions against autograd through the plain formulations
+#: on the card, relative to the largest magnitude: float32 1e-4; bfloat16
+#: 2^-5, as phase 10 (the two round at other places; on the CPU at a
+#: smaller shape they differed by <= 1.2e-2).
+TRAIN_FN_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+#: The loop on the card: losses of replayed steps against their first
+#: run, and against an uninterrupted run (float32; the embedding's
+#: gradient is an atomic scatter-add, not bit-deterministic).
+TRAIN_LOOP_TOL = 1e-4
+#: The full-width cell: Qwen3-32B cut to 4 layers, global batch 2 x seq
+#: 2048 (> attn_chunk 1024: the blockwise forward and flash backward),
+#: adamw(warmup_cosine(1e-3, 2, 6)), 5 steps, then accumulation over 2
+#: microbatches against one big-batch step from the same state (JAX's
+#: tests/test_train_infra.py bound: losses within 5e-2, params 3e-2).
+TRAIN_B, TRAIN_S, TRAIN_FULL_STEPS = 2, 2048, 5
+TRAIN_ACCUM_TOL, TRAIN_ACCUM_PARAM_TOL = 5e-2, 3e-2
+#: Bytes a param the optimizer moves: bf16 param read and write, bf16 grad
+#: read, fp32 m and v read and write.
+TRAIN_OPT_BYTES = 2 + 2 + 2 + 4 * 4
+
+
+def _train_batch(cfg, B, S, device):
+    import torch
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.train.step import to_device
+    batch = make_batch(cfg, DataConfig(B, S, seed=SEED), 0)
+    return to_device(batch, torch.device(device))
+
+
+def _loss_and_grads(bundle, params, batch):
+    import torch
+    loss = bundle.loss(params, batch)
+    return float(loss.detach()), torch.autograd.grad(
+        loss, list(params.parameters()))
+
+
+def train_card_vs_cpu():
+    """(a): every reduced architecture in float32, the same weights and
+    batch on the card and on the CPU: loss, every gradient leaf, and the
+    params after TRAIN_ADAM_STEPS AdamW steps."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train import make_train_step
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  dtype="float32")
+        cpu = build_model(cfg, device="cpu")
+        card = build_model(cfg, device="cuda")
+        p_cpu = cpu.init(torch.Generator().manual_seed(SEED))
+        p_card = copy.deepcopy(p_cpu).to("cuda")
+        loss_c, g_c = _loss_and_grads(cpu, p_cpu,
+                                      _train_batch(cfg, 2, 16, "cpu"))
+        loss_g, g_g = _loss_and_grads(card, p_card,
+                                      _train_batch(cfg, 2, 16, "cuda"))
+        dloss = abs(loss_g - loss_c) / abs(loss_c)
+        dgrad = max(float((b.cpu() - a).abs().max())
+                    / max(float(a.abs().max()), 1e-30)
+                    for a, b in zip(g_c, g_g))
+        opt = adamw(constant(TRAIN_ADAM_LR))
+        for bundle, p in ((cpu, p_cpu), (card, p_card)):
+            step, o = make_train_step(bundle, opt), opt.init(p)
+            for i in range(TRAIN_ADAM_STEPS):
+                p, o, _ = step(p, o, make_batch(
+                    cfg, DataConfig(2, 16, seed=SEED), i))
+        dparam = max(float((b.detach().cpu() - a.detach()).abs().max())
+                     for a, b in zip(p_cpu.parameters(), p_card.parameters()))
+        log("train", f"{arch} reduced f32, card vs CPU: loss {dloss:.3g} "
+            f"relative (bound {TRAIN_LOSS_RTOL}), grads {dgrad:.3g} of each "
+            f"leaf's max (bound {TRAIN_GRAD_TOL}), params after "
+            f"{TRAIN_ADAM_STEPS} AdamW steps {dparam:.3g} (bound "
+            f"{TRAIN_PARAM_TOL})")
+        if not (dloss <= TRAIN_LOSS_RTOL and dgrad <= TRAIN_GRAD_TOL
+                and dparam <= TRAIN_PARAM_TOL):
+            raise AssertionError(f"{arch}: card vs CPU {dloss} {dgrad} "
+                                 f"{dparam}")
+
+
+def _vjp_rel(fn, ref, inputs, cot):
+    """max over outputs and input cotangents of |fn - ref| / max |ref|."""
+    import torch
+    out = []
+    for f in (fn, ref):
+        xs = [x.detach().clone().requires_grad_() for x in inputs]
+        y = f(*xs)
+        out.append([y.detach(), *torch.autograd.grad(y, xs, cot)])
+    return max(float((a.float() - b.float()).abs().max())
+               / float(b.float().abs().max()) for a, b in zip(*out))
+
+
+def train_functions():
+    """(b): the two autograd Functions on the card at Qwen3-32B's
+    attention shape (H=64, KV=8, hd=128, chunk 1024, S=2048, B=1) and
+    d_model (rms_norm at 5120), against autograd through the plain
+    formulations on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("qwen3_32b")
+    H, KV, hd, c = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.attn_chunk
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    for dtype, tol in TRAIN_FN_TOL.items():
+        dt = getattr(torch, dtype)
+        rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                         device="cuda").to(dt)
+        q, k, v = rnd(1, TRAIN_S, H, hd), rnd(1, TRAIN_S, KV, hd), rnd(
+            1, TRAIN_S, KV, hd)
+        attn = _vjp_rel(lambda q, k, v: L._sdpa_blockwise(q, k, v, c),
+                        lambda q, k, v: L._sdpa_full(q, k, v, causal=True),
+                        (q, k, v), rnd(1, TRAIN_S, H, hd))
+        x, dy = rnd(1, TRAIN_S, cfg.d_model), rnd(1, TRAIN_S, cfg.d_model)
+        w = 1.0 + 0.1 * torch.randn(cfg.d_model, generator=gen,
+                                    device="cuda")
+        rms = _vjp_rel(lambda x, w: L.rms_norm(x, w, cfg.norm_eps),
+                       lambda x, w: L.rms_norm_fp32(x, w, cfg.norm_eps),
+                       (x, w), dy)
+        log("train", f"{dtype}: flash backward vs autograd through "
+            f"_sdpa_full at H={H} KV={KV} hd={hd} S={TRAIN_S} chunk {c}: "
+            f"{attn:.3g} of the largest magnitude; rms_norm vs the fp32 "
+            f"formulation at d={cfg.d_model}: {rms:.3g} (bound {tol})")
+        if not (attn <= tol and rms <= tol):
+            raise AssertionError(f"{dtype}: Functions vs plain {attn} {rms}")
+        del q, k, v, x, dy
+        torch.cuda.empty_cache()
+
+
+def train_loop_card():
+    """(c): train_loop on the card (reduced qwen3, float32) with a failure
+    injected at step 7 and a checkpoint every 4 steps: one restore, the
+    replayed steps' losses equal their first run and an uninterrupted
+    run's, and a fresh loop resumes after the latest checkpoint."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import LoopConfig, make_train_step, train_loop
+    from repro_torch.train import checkpoint as ckpt
+    cfg = dataclasses.replace(get_config("qwen3_32b", reduced=True),
+                              dtype="float32")
+    bundle = build_model(cfg, device="cuda")
+    opt = adamw(warmup_cosine(3e-3, 10, 100))
+    step = make_train_step(bundle, opt)
+
+    def run(ckpt_dir, total, fail_at=None):
+        params = bundle.init(torch.Generator("cuda").manual_seed(SEED))
+        losses, fails = [], {fail_at}
+
+        def step_fn(p, o, b):
+            out = step(p, o, b)
+            losses.append(float(out[2]["loss"]))
+            return out
+
+        def inj(s):
+            if s in fails:
+                fails.discard(s)
+                raise RuntimeError("simulated node failure")
+
+        stats = train_loop(step_fn, {"params": params,
+                                     "opt": opt.init(params)},
+                           SyntheticLM(cfg, DataConfig(4, 32,
+                                                       mode="learnable")),
+                           LoopConfig(total_steps=total, ckpt_dir=ckpt_dir,
+                                      ckpt_every=4), fail_injector=inj)
+        return stats, losses
+
+    with tempfile.TemporaryDirectory() as a, \
+            tempfile.TemporaryDirectory() as b:
+        stats, losses = run(a, 10, fail_at=7)
+        clean, want = run(b, 10)
+        resumed, _ = run(a, 14)
+        latest = ckpt.latest_step(a)
+    replay = max(abs(x - y) for x, y in zip(losses[7:10], losses[4:7]))
+    vs_clean = max(abs(x - y) for x, y in zip(losses[7:], want[4:]))
+    log("train", f"train_loop on the card: {stats.steps_run} steps, "
+        f"{stats.restores} restore; replayed losses vs first run "
+        f"{replay:.3g}, after the restore vs an uninterrupted run "
+        f"{vs_clean:.3g} (bound {TRAIN_LOOP_TOL}); a fresh loop resumed "
+        f"for {resumed.steps_run} steps, latest checkpoint {latest}; "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not (stats.restores == 1 and stats.steps_run == 13
+            and clean.steps_run == 10 and replay <= TRAIN_LOOP_TOL
+            and vs_clean <= TRAIN_LOOP_TOL and resumed.steps_run == 4
+            and latest == 13):
+        raise AssertionError(f"train_loop on the card: {stats} {resumed} "
+                             f"{latest} {replay} {vs_clean}")
+
+
+def _train_step_profile(step, params, state, batch):
+    """torch.profiler over one step: (wall ms with the profiler on, device
+    busy ms, matrix-product share of device time, top kernels, the step's
+    outputs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step(params, state, batch)
+        float(out[2]["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, mm_share, top = _device_rows(prof)
+    return wall, busy, mm_share, top[:6], out
+
+
+def _train_step_split(bundle, opt, params, state, batch):
+    """One train step timed in its two parts on the host clock, each
+    ending in a synchronise: (loss and gradients ms, AdamW update ms)."""
+    import torch
+    from repro_torch.train.step import to_device
+    batch = to_device(batch, bundle.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = bundle.loss(params, batch)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt.update({n: g for (n, _), g in zip(params.named_parameters(), grads)},
+               state, params)
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+def train_full_width(smi: str) -> dict:
+    """(d): Qwen3-32B at every published width, 4 of 64 layers, bf16
+    params, fp32 moments, remat "full", global batch 2 x 2048 on
+    learnable data; 5 steps of make_train_step, then one profiled
+    big-batch step and one make_accum_train_step(accum=2) step from the
+    same state."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import HW
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_accum_train_step, make_train_step
+    cfg = dataclasses.replace(get_config("qwen3_32b"), num_layers=4)
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_model(cfg, remat="full", device="cuda")
+    params = bundle.init(torch.Generator("cuda").manual_seed(SEED))
+    opt = adamw(warmup_cosine(1e-3, 2, TRAIN_FULL_STEPS + 1))
+    state = opt.init(params)
+    step = make_train_step(bundle, opt)
+    nparams = sum(p.numel() for p in params.parameters())
+    n_flop = nparams - params["embed"]["tok"].numel()   # head included
+    tokens = TRAIN_B * TRAIN_S
+    flop_ms = 6 * n_flop * tokens / HW.PEAK_FLOPS_BF16 * 1e3
+    opt_ms = TRAIN_OPT_BYTES * nparams / HW.HBM_BW * 1e3
+    first = [p.detach().flatten()[:4096].clone() for p in params.parameters()]
+    data = SyntheticLM(cfg, DataConfig(TRAIN_B, TRAIN_S, seed=SEED,
+                                       mode="learnable"))
+    losses, gnorms, ms = [], [], []
+    for _ in range(TRAIN_FULL_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(met["grad_norm"]))
+    moved = sum(not torch.equal(a, p.detach().flatten()[:4096])
+                for a, p in zip(first, params.parameters()))
+    nleaves = len(first)
+    del first
+    step_ms = statistics.median(ms[1:])
+    # the same state twice: a host copy of params and moments
+    host = {"p": [p.detach().cpu() for p in params.parameters()],
+            "m": {n: t.cpu() for n, t in state["m"].items()},
+            "v": {n: t.cpu() for n, t in state["v"].items()},
+            "step": state["step"].clone()}
+    batch = next(data)
+    wall, busy, mm_share, top, (params, state, big) = _train_step_profile(
+        step, params, state, batch)
+    big_params = [p.detach().cpu() for p in params.parameters()]
+    with torch.no_grad():
+        for p, h in zip(params.parameters(), host["p"]):
+            p.copy_(h)
+        for key in ("m", "v"):
+            for n, t in state[key].items():
+                t.copy_(host[key][n])
+    state["step"] = host["step"]
+    del host
+    micro = {k: v.reshape(2, v.shape[0] // 2, *v.shape[1:])
+             for k, v in batch.items()}
+    params, state, acc = make_accum_train_step(bundle, opt, 2)(
+        params, state, micro)
+    dloss = abs(float(big["loss"]) - float(acc["loss"]))
+    dparam = max(float((p.detach().float() - h.to("cuda").float())
+                       .abs().max())
+                 for p, h in zip(params.parameters(), big_params))
+    fwd_bwd_ms, update_ms = _train_step_split(bundle, opt, params, state,
+                                              next(data))
+    peak = torch.cuda.max_memory_allocated()
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    finite = all(map(math.isfinite, losses + gnorms + [
+        float(big["loss"]), float(acc["loss"]),
+        float(big["grad_norm"]), float(acc["grad_norm"])]))
+    bound_ms = max(flop_ms, opt_ms)
+    row = {"name": cfg.name, "layers": cfg.num_layers, "params": nparams,
+           "flop_params": n_flop, "tokens": tokens, "losses": losses,
+           "grad_norms": gnorms, "step_ms": ms, "step_ms_p50": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "bound_ms": bound_ms,
+           "flop_ms": flop_ms, "opt_ms": opt_ms, "peak_bytes": peak,
+           "profiled_step_ms": wall, "device_busy_ms": busy,
+           "matmul_share": mm_share, "accum_dloss": dloss,
+           "accum_dparam": dparam, "leaves_moved": moved,
+           "fwd_bwd_ms": fwd_bwd_ms, "update_ms": update_ms, "card": smi}
+    log("train", f"{cfg.name} ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {nparams / 1e9:.3f} B params, bf16, fp32 moments, "
+        f"remat full): batch {TRAIN_B} x {TRAIN_S}, losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + ", grad norms "
+        + ", ".join(f"{x:.3f}" for x in gnorms)
+        + f"; step ms " + ", ".join(f"{x:.1f}" for x in ms)
+        + f"; median of steps 2-{TRAIN_FULL_STEPS} {step_ms:.3f} ms, "
+        f"{row['tokens_per_s']:.1f} tokens/s; bound {bound_ms:.3f} ms "
+        f"({bound_ms / step_ms:.1%}) = max(6 N T / 989 TFLOP/s = "
+        f"{flop_ms:.3f} ms with N = {n_flop / 1e9:.3f} B, T = {tokens}; "
+        f"{TRAIN_OPT_BYTES} B x {nparams / 1e9:.3f} B params / 3.35 TB/s "
+        f"= {opt_ms:.3f} ms); peak memory {peak / 1e9:.2f} GB of "
+        f"{total_mem / 1e9:.2f}; {moved} of {nleaves} leaves moved; card {smi}")
+    log("train", f"{cfg.name} profiled step: {wall:.3f} ms (profiler on), "
+        f"device busy {busy:.3f} ms ({busy / wall:.1%}), matrix products "
+        f"{mm_share:.1%} of device time; top: "
+        + "; ".join(f"{k[:50]} x{c} {us / 1e3:.3f} ms" for us, k, c in top))
+    log("train", f"{cfg.name} one more step in two timed parts: loss and "
+        f"gradients {fwd_bwd_ms:.3f} ms, AdamW update {update_ms:.3f} ms "
+        f"({update_ms / (fwd_bwd_ms + update_ms):.1%}; its bytes bound "
+        f"{opt_ms:.3f} ms)")
+    log("train", f"{cfg.name} accumulation over 2 microbatches vs one "
+        f"big-batch step from the same state: loss {float(acc['loss']):.5f}"
+        f" vs {float(big['loss']):.5f} (|d| {dloss:.3g}, bound "
+        f"{TRAIN_ACCUM_TOL}), params max |d| {dparam:.3g} (bound "
+        f"{TRAIN_ACCUM_PARAM_TOL})")
+    if not (finite and moved and peak < total_mem
+            and dloss < TRAIN_ACCUM_TOL
+            and dparam < TRAIN_ACCUM_PARAM_TOL):
+        raise AssertionError(f"{cfg.name} training: finite {finite}, "
+                             f"moved {moved}, peak {peak}, accum {dloss} "
+                             f"{dparam}")
+    return row
+
+
+def phase_train():
+    """The LM scaffold's training path (repro_torch.optim, data, train,
+    the autograd Functions in models/layers.py)."""
+    import gc
+    import torch
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmul precision is not 'highest'")
+    train_card_vs_cpu()
+    train_functions()
+    train_loop_card()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train_full_width(card_name_power())
+
+
 def main() -> int:
     try:
         import torch
@@ -1811,6 +2214,7 @@ def main() -> int:
     serve = phase_serve(gen)
     mesh = phase_mesh(gen, frames)
     phase_lm()
+    phase_train()
     for entry in entries:
         entry["launches_stream"] = stream[entry["name"]]
         entry["launches_serve"] = serve[entry["name"]]

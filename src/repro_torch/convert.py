@@ -9,9 +9,10 @@ returns the port's ``DecoderConfig``; the trellis is rebuilt from its
 The LM scaffold has weights. ``lm_params_from_jax`` takes the pytree that
 the JAX package's ``build_model(cfg).init`` returns, as numpy arrays, and
 returns the port's ``Params``; ``lm_cache_from_jax`` does the same for a
-decode cache. The JAX package stacks each superblock position ``b<i>``'s
-layers along a leading repeat axis R; the port keeps one entry per layer,
-in layer order, so layer ``r*SB + i`` gets ``b<i>``'s slice ``r``.
+decode cache, ``lm_opt_state_from_jax`` for AdamW's state. The JAX
+package stacks each superblock position ``b<i>``'s layers along a
+leading repeat axis R; the port keeps one entry per layer, in layer
+order, so layer ``r*SB + i`` gets ``b<i>``'s slice ``r``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from .models.layers import Params
 from .models.transformer import superblock_kinds
 
 __all__ = ["config_from_dict", "CFG_FIELDS", "lm_params_from_jax",
-           "lm_cache_from_jax"]
+           "lm_opt_state_from_jax", "lm_cache_from_jax"]
 
 #: DecoderConfig's plain (JSON-native) fields; trellis and spec are
 #: handled structurally (the JAX package's serve/checkpoint._CFG_FIELDS).
@@ -83,6 +84,19 @@ def lm_params_from_jax(params: dict, cfg: ModelConfig,
         layers=nn.ModuleList([_params(blocks[f"b{l % sb}"], device, l // sb)
                               for l in range(cfg.num_layers)]),
         ln_f=_tensor(params["ln_f"], device))
+
+
+def lm_opt_state_from_jax(opt_state: dict, cfg: ModelConfig,
+                          device="cpu") -> dict:
+    """The JAX package's AdamW state (numpy leaves; ``m`` and ``v`` shaped
+    like the param tree) -> the port's: ``m`` and ``v`` keyed by the
+    port's parameter names, unstacked as ``lm_params_from_jax`` unstacks,
+    and ``step`` a tensor."""
+    def moments(tree):
+        return {n: t.detach() for n, t in lm_params_from_jax(
+            tree, cfg, device).named_parameters()}
+    return {"m": moments(opt_state["m"]), "v": moments(opt_state["v"]),
+            "step": _tensor(opt_state["step"], device)}
 
 
 def _cache_entry(tree: dict, r: int, device) -> dict:

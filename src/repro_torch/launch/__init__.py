@@ -1,3 +1,4 @@
 """Launch tooling for the H100: hardware constants (``mesh``), the decode
-roofline (``roofline``) and the pod-scale Viterbi dry run
-(``viterbi_dryrun``); port of the Viterbi part of ``repro.launch``."""
+roofline (``roofline``), the pod-scale Viterbi dry run
+(``viterbi_dryrun``), and the LM scaffold's drivers (``serve``,
+``train``); port of ``repro.launch`` but its HLO-based tools."""

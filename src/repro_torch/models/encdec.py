@@ -2,7 +2,8 @@
 a bidirectional encoder over precomputed frame embeddings (the audio
 frontend is a stub) and a causal decoder with cross-attention. The
 layers of each stack sit in an ``nn.ModuleList`` in order; the decode
-cache is a list of one dict per decoder layer."""
+cache is a list of one dict per decoder layer. Under any ``remat`` but
+"none", each layer is rematerialized whole in the backward."""
 from __future__ import annotations
 
 import torch
@@ -43,17 +44,28 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
         ln_f=L.ones((cfg.d_model,), gen))
 
 
+def _layer_remat(remat: str) -> str:
+    """The JAX package checkpoints each encoder and decoder layer whole
+    for any policy but "none"."""
+    return "none" if remat == "none" else "full"
+
+
 def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
            remat: str = "full") -> torch.Tensor:
     """frames: (B, S_enc, d_model) precomputed embeddings -> memory."""
     B, S, _ = frames.shape
     positions = torch.arange(S, device=frames.device).expand(B, S)
     x = frames.to(cfg.param_dtype)
-    for p in params["enc"]:
+
+    def body(x, p):
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention(p["attn"], h, cfg, positions, causal=False)
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp(p["ff"], h)
+        return x + L.mlp(p["ff"], h)
+
+    body = L.rematerialized(body, _layer_remat(remat))
+    for p in params["enc"]:
+        x = body(x, p)
     return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -71,14 +83,19 @@ def decode_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = L.embed(params["embed"], tokens)
-    for p in params["dec"]:
+
+    def body(x, p):
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention(p["attn"], h, cfg, positions, causal=True)
         h = L.rms_norm(x, p["lnx"], cfg.norm_eps)
         kv = _cross_kv(p["xattn"], memory, cfg)
         x = x + L.attention(p["xattn"], h, cfg, positions, kv_override=kv)
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp(p["ff"], h)
+        return x + L.mlp(p["ff"], h)
+
+    body = L.rematerialized(body, _layer_remat(remat))
+    for p in params["dec"]:
+        x = body(x, p)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 

@@ -1,7 +1,8 @@
 """Dense building blocks: norms, RoPE, GQA attention (full / blockwise /
 decode-with-cache), gated MLP, embeddings, losses; port of
-``repro.models.layers`` (forward only: the backward passes come with the
-training path).
+``repro.models.layers``. ``rms_norm`` and the blockwise attention are
+``torch.autograd.Function``s with the JAX package's ``custom_vjp``
+backwards; everything else differentiates through autograd.
 
 Conventions:
   * a layer's parameters are a ``Params``: an ``nn.Module`` that holds
@@ -21,13 +22,18 @@ Conventions:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 
-__all__ = ["Params", "init_normal", "ones", "zeros", "rms_norm", "rope",
+__all__ = ["Params", "init_normal", "ones", "zeros", "rms_norm",
+           "rms_norm_fp32", "rematerialized", "rope",
            "init_attention", "attention", "attention_decode", "init_mlp",
            "mlp", "init_embed", "embed", "logits", "softmax_xent"]
 
@@ -56,6 +62,33 @@ class Params(nn.Module):
         return self[name] if name in self else default
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def rematerialized(fn, remat: str):
+    """``fn`` under one of the JAX package's remat policies, for the
+    backward of the loss: ``"full"`` keeps only ``fn``'s inputs and runs
+    it again in the backward (``jax.checkpoint``); ``"dots"`` keeps the
+    outputs of its matrix products too (``checkpoint_dots``); ``"none"``
+    keeps everything autograd saves. Without grad mode ``fn`` runs as
+    is."""
+    if remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat must be full, dots or none, not {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def init_normal(gen: torch.Generator, shape, dtype, stddev: float = 0.02):
     """N(0, stddev) drawn in ``dtype`` on the generator's device (the JAX
     package's ``normal(stddev=0.02)`` initializer)."""
@@ -74,12 +107,44 @@ def zeros(shape, gen: torch.Generator, dtype=torch.float32):
 
 
 # ---------------------------------------------------------------- norms ----
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+class _RMSNorm(torch.autograd.Function):
     """RMSNorm with fp32 statistics but activation-dtype tensors end to
-    end: ``inv`` is cast to x.dtype before both multiplies."""
-    var = x.float().square().mean(-1, keepdim=True)
-    inv = torch.rsqrt(var + eps).to(x.dtype)
-    return x * inv * w.to(x.dtype)
+    end, forward and backward (the JAX package's ``_rms_fwd``/``_rms_bwd``):
+    only the variance and the two backward reductions run in fp32, so the
+    cotangents stay in x.dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        var = x.float().square().mean(-1, keepdim=True)
+        inv32 = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, w, inv32)
+        return x * inv32.to(x.dtype) * w.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, inv32 = ctx.saved_tensors
+        inv = inv32.to(x.dtype)
+        t = dy * w.to(x.dtype)
+        # d/dx of x*inv: inv*t - x * inv^3 * mean(t*x) (fp32 reduction only)
+        s = (t * x).float().mean(-1, keepdim=True)
+        dx = t * inv - x * ((inv32 ** 3) * s).to(x.dtype)
+        dw = (dy * x * inv).float().sum(
+            dim=tuple(range(dy.ndim - 1))).to(w.dtype)
+        return dx, dw, None
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm: ``inv`` is cast to x.dtype before both multiplies; the
+    backward stays in x.dtype (``_RMSNorm``)."""
+    return _RMSNorm.apply(x, w, eps)
+
+
+def rms_norm_fp32(x: torch.Tensor, w: torch.Tensor, eps: float):
+    """The plain formulation (everything in fp32, cast once at the end),
+    differentiated by autograd: the tests' reference for ``rms_norm``."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * w).to(x.dtype)
 
 
 # ----------------------------------------------------------------- rope ----
@@ -214,9 +279,85 @@ def _flash_fwd_impl(q, k, v, chunk: int):
     return out, torch.stack(lses, dim=0)        # lse: (nq,B,KV,G,c)
 
 
+def _flash_bwd_impl(q, k, v, out, lse, dout, chunk: int):
+    """The flash backward (the JAX package's ``_sdpa_bwd``): per q block,
+    the probability blocks are recomputed from (q, k, lse), the diagonal
+    kv block (masked) first, then the strictly lower ones in order; dq,
+    dk and dv accumulate in fp32 and are cast back at the end."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    nq = S // chunk
+    scale = hd ** -0.5
+    qb = q.reshape(B, nq, chunk, KV, G, hd)
+    dob = dout.reshape(B, nq, chunk, KV, G, hd)
+    kb = k.reshape(B, nq, chunk, KV, hd)
+    vb = v.reshape(B, nq, chunk, KV, hd)
+    # D_i = rowsum(dO * O) per (query, head) in fp32 -> (nq,B,KV,G,c)
+    Dfull = torch.einsum("bshd,bshd->bsh", dout.float(), out.float())
+    Db = Dfull.reshape(B, nq, chunk, KV, G).permute(1, 0, 3, 4, 2)
+    pos = torch.arange(chunk, device=q.device)
+    diag_mask = pos[:, None] >= pos[None, :]
+
+    def block_grads(qc, doc, Lc, Dc, kc, vc, masked):
+        """One (q block, kv block) pair -> (dq_c, dk_c, dv_c), fp32."""
+        s = torch.einsum("bqkgh,bskh->bkgqs", qc, kc).float() * scale
+        p = torch.exp(s - Lc[..., None])                 # (B,KV,G,c,c)
+        if masked:
+            p = torch.where(diag_mask, p, 0.0)
+        dp = torch.einsum("bqkgh,bskh->bkgqs", doc, vc).float()
+        ds = p * (dp - Dc[..., None]) * scale
+        dsl = ds.to(qc.dtype)
+        pl = p.to(qc.dtype)
+        dq_c = torch.einsum("bkgqs,bskh->bqkgh", dsl, kc).float()
+        dk_c = torch.einsum("bkgqs,bqkgh->bskh", dsl, qc).float()
+        dv_c = torch.einsum("bkgqs,bqkgh->bskh", pl, doc).float()
+        return dq_c, dk_c, dv_c
+
+    dq = torch.zeros((B, nq, chunk, KV, G, hd), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((B, nq, chunk, KV, hd), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.zeros_like(dk)
+    for qi in range(nq):
+        qc, doc, Lc, Dc = qb[:, qi], dob[:, qi], lse[qi], Db[qi]
+        dq_c, dk_c, dv_c = block_grads(qc, doc, Lc, Dc, kb[:, qi],
+                                       vb[:, qi], True)
+        dk[:, qi] += dk_c
+        dv[:, qi] += dv_c
+        for kj in range(qi):
+            a, b, c = block_grads(qc, doc, Lc, Dc, kb[:, kj], vb[:, kj],
+                                  False)
+            dq_c = dq_c + a
+            dk[:, kj] += b
+            dv[:, kj] += c
+        dq[:, qi] = dq_c
+    return (dq.reshape(B, S, H, hd).to(q.dtype),
+            dk.reshape(B, S, KV, hd).to(k.dtype),
+            dv.reshape(B, S, KV, hd).to(v.dtype))
+
+
+class _SdpaBlockwise(torch.autograd.Function):
+    """Flash attention with a flash backward: the forward saves (q, k, v,
+    out, lse) and the backward recomputes the probability blocks from
+    them, instead of autograd stashing every fp32 probability block."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk):
+        out, lse = _flash_fwd_impl(q, k, v, chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_bwd_impl(q, k, v, out, lse, dout, ctx.chunk), None)
+
+
 def _sdpa_blockwise(q, k, v, chunk: int):
-    """Flash-style attention forward, O(S) memory."""
-    return _flash_fwd_impl(q, k, v, chunk)[0]
+    """Flash-style causal attention, O(S) memory forward and backward."""
+    return _SdpaBlockwise.apply(q, k, v, chunk)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -302,8 +443,9 @@ def softmax_xent(lg: torch.Tensor, labels: torch.Tensor,
     over the kept labels plus a z-loss on the log-partition."""
     lg = lg.float()
     lse = torch.logsumexp(lg, dim=-1)
-    oh = F.one_hot(labels.clamp(min=0).long(), lg.shape[-1]).to(lg.dtype)
-    oh = oh * (labels >= 0)[..., None]
+    # jax.nn.one_hot: a label of -1 one-hots to zeros
+    oh = (labels[..., None] == torch.arange(
+        lg.shape[-1], device=lg.device)).to(lg.dtype)
     gold = torch.einsum("...v,...v->...", lg, oh)
     mask = (labels >= 0).float()
     nll = (lse - gold) * mask

@@ -12,9 +12,10 @@ and the tests consume:
 
 ``device`` is where the bundle makes its weights and caches: ``None``
 means ``"cuda"``, and without a card that raises unless ``"cpu"`` is
-asked for. ``remat`` is accepted for the JAX signature; it means nothing
-until there is a backward pass. ``prefill``, ``decode`` and
-``init_cache`` run without autograd.
+asked for. ``remat`` ("full", "dots" or "none") is what ``loss``'s
+backward keeps and what it computes again, as in the JAX package
+(``layers.rematerialized``); gradients do not depend on it. ``prefill``,
+``decode`` and ``init_cache`` run without autograd.
 """
 from __future__ import annotations
 

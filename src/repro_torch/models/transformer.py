@@ -91,8 +91,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             vision_embeds: Optional[torch.Tensor] = None,
             remat: str = "full"):
     """tokens (B, S) -> (hidden (B, S, d), moe_aux). Train/prefill path.
-    ``remat`` is accepted for the JAX signature; it means nothing without
-    a backward pass."""
+    ``remat`` applies to each superblock's layers as one unit, as the JAX
+    package's scan body (``layers.rematerialized``)."""
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens)
     if cfg.vision_patches and vision_embeds is not None:
@@ -100,17 +100,23 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         Pv = cfg.vision_patches
         x = torch.cat([vision_embeds.to(x.dtype), x[:, Pv:]], dim=1)
     positions = torch.arange(S, device=x.device).expand(B, S)
-    kinds = layer_kinds(cfg)
-    sb = len(superblock_kinds(cfg))
-    auxs, aux = [], 0
-    for i, (p, kind) in enumerate(zip(params["layers"], kinds)):
-        x, a = _apply_block(p, x, cfg, kind, positions)
-        aux = aux + a                       # summed per superblock ...
-        if i % sb == sb - 1:
-            auxs.append(aux)
-            aux = 0
+    kinds = superblock_kinds(cfg)
+    layers = params["layers"]
+
+    def sb_body(x, first):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, kind in enumerate(kinds):
+            x, a = _apply_block(layers[first + i], x, cfg, kind, positions)
+            aux = aux + a
+        return x, aux
+
+    body = L.rematerialized(sb_body, remat)
+    auxs = []
+    for first in range(0, cfg.num_layers, len(kinds)):
+        x, aux = body(x, first)
+        auxs.append(aux)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return x, torch.stack(auxs).sum()       # ... then over superblocks
+    return x, torch.stack(auxs).sum()
 
 
 # ------------------------------------------------------------- decoding ----

@@ -119,3 +119,14 @@ def test_serve_viterbi_resume_bits_equal_jax(tmp_path, capsys):
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("resumed: closed")]
     assert len(lines) == 6 and lines[:3] == lines[3:]
+
+
+def test_train_lm_tiny(tmp_path, capsys):
+    """examples/torch_train_lm.py --tiny: launch/train.py's loop on the
+    reduced qwen3, 12 steps with a checkpoint at the last."""
+    stats = _example("torch_train_lm").main(
+        ["--tiny", "--steps", "12", "--device", "cpu", "--ckpt-dir",
+         str(tmp_path)])
+    assert stats.steps_run == 12 and np.isfinite(stats.last_loss)
+    assert "done: steps=12" in capsys.readouterr().out
+    assert (tmp_path / "step_00000011" / "manifest.json").is_file()

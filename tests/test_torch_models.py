@@ -1,8 +1,8 @@
 """The port's LM models (repro_torch.models) on the CPU.
 
 Mirrors tests/test_models_smoke.py's forward, decode and prefill cases
-over every architecture (the train step waits for the port's training
-path), and holds each architecture's port against the JAX package on the
+over every architecture (the train step is in tests/test_torch_train.py),
+and holds each architecture's port against the JAX package on the
 same weights: the JAX ``init(PRNGKey(0))`` pytree, carried over by
 ``convert.lm_params_from_jax``, and the same seeded numpy tokens (and
 frames / patch embeddings). Compared: ``loss``, ``prefill``'s logits on
