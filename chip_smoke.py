@@ -132,6 +132,32 @@ non-zero:
              (6 N T over 989 TFLOP/s, 22 B a param over 3.35 TB/s),
              device busy and matrix-product shares, peak memory, the
              card's name and power limit. No kernel of its own.
+12. sharded — the training path on DTensors over a ('data', 'model')
+             DeviceMesh (repro_torch.distributed). On card 0, an nccl
+             group of world 1 (a FileStore in a temporary directory) and
+             a (1, 1) mesh: every reduced config in float32 against the
+             plain step (loss and grad norm 1e-5 relative, the first
+             step's grads 1e-4 of each leaf's max, params after 2 AdamW
+             steps 2e-4); Qwen3-32B cut to 4 layers, every width as
+             published, phase 11 (d)'s setup, 4 sharded steps against 4
+             plain ones from the same init (losses 1e-5 relative, params
+             within 2e-4 plus one bf16 rounding) and the two medians
+             (DTensor's overhead); make_compressed_train_step at world 1
+             (finite loss, g_hat == q * scale, feedback nonzero). With 2
+             or more cards, one process a card (mp.spawn, nccl,
+             FileStore): the reduced configs on (2, 2), (1, 4), (4, 1)
+             against the plain step on card 0; with 4, Qwen3-32B/4L on
+             (2, 2) against the one-card step (bf16: losses 5e-2, params
+             3e-2), Qwen3-235B-A22B cut to 2 of 94 layers at full width
+             on (1, 4) (EP: 32 experts a card) and (2, 2), batch 4 x
+             2048, the first 3 steps of a 1000-step warmup (losses
+             within 5e-2 across the meshes; step ms, tokens/s against
+             6 N_active T over 4 x 989 TFLOP/s, peak memory per card),
+             and the elastic rescale (2
+             steps on (2, 2), a checkpoint, elastic_rescale onto (2, 1)
+             over cards 0-1: the next loss within 1e-5). A check the
+             machine has too few cards for prints a line saying so.
+             `python3 chip_smoke.py --sharded` runs this phase alone.
 
 The line before the last is a JSON `kernels` line (with each kernel's
 launches on the main path, and ``launches_stream``/``launches_serve``/
@@ -2188,7 +2214,428 @@ def phase_train():
     return train_full_width(card_name_power())
 
 
-def main() -> int:
+#: Phase 12 (sharded train): the sharded step (DTensor params on a
+#: ('data', 'model') DeviceMesh) against the plain step. Reduced configs
+#: in float32: the loss and grad norm within 1e-5 relative, each leaf of
+#: the first step's gradients within 1e-4 of its largest magnitude (the
+#: card's bound in phase 11), the params after 2 AdamW steps at lr 1e-3
+#: within 2e-4 (lr / 5: Adam turns the few-ulp gradient differences of
+#: another summation order into a fraction of lr where a gradient is
+#: near eps; seamless_m4t_v2 moved by 9.9e-5 on four H100s). The full-width cells in bfloat16: on a (1, 1)
+#: mesh the losses within 1e-5 relative and each param within 1e-4 plus
+#: one bf16 rounding (2^-8 of its magnitude: the grad norm sums its
+#: leaves in another order); across cards, where the products are split,
+#: phase 11's bf16 bounds (losses 5e-2, params 3e-2).
+SHARD_LOSS_RTOL, SHARD_GRAD_TOL, SHARD_PARAM_TOL = 1e-5, 1e-4, 2e-4
+SHARD_BF16_ULP = 2.0 ** -8
+SHARD_BF16_LOSS, SHARD_BF16_PARAM = 5e-2, 3e-2
+#: Multi-card meshes of the reduced configs, and the full-width MoE cell:
+#: Qwen3-235B-A22B cut to 2 of 94 layers, global batch 4 x 2048, 3 steps.
+SHARD_MESHES = ((2, 2), (1, 4), (4, 1))
+MOE_B, MOE_S, MOE_STEPS = 4, 2048, 3
+#: The MoE cell's lr: the first 3 steps of a 1000-step warmup to 1e-3
+#: (1e-6, 2e-6, 3e-6), as a run of this size would start. The meshes'
+#: first losses differ by bf16 rounding of the split products and the
+#: routing flips it causes (5.1e-3 measured); with lr far above a
+#: warmup's first steps those flips and Adam's sign-like first updates
+#: part the trajectories (measured on four H100s: step-3 losses 0.146
+#: apart at phase 11's warmup to 1e-3, 0.552 at a constant 1e-4).
+MOE_WARMUP = 1000
+#: Steps of Qwen3-32B/4L on (1, 1) and of its plain step, from one init.
+SHARD_FULL_STEPS = 4
+
+
+def _mesh(shape, ranks=None):
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    if ranks is None:
+        return init_device_mesh("cuda", shape,
+                                mesh_dim_names=("data", "model"))
+    return DeviceMesh("cuda", torch.tensor(ranks).reshape(shape),
+                      mesh_dim_names=("data", "model"))
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+
+def _reduced_steps(arch, device, mesh=None, steps=TRAIN_ADAM_STEPS):
+    """(first-step grads, [(loss, grad norm)], params) of the reduced
+    config in float32, from the seed's weights, whole tensors."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, constant
+    from repro_torch.optim.adamw import like_param
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import _value_and_grad, to_device
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    bundle = build_model(cfg, device=device)
+    params = bundle.init(torch.Generator(device).manual_seed(SEED))
+    if mesh is not None:
+        param_shardings(mesh, params)
+    batches = [make_batch(cfg, DataConfig(4, 16, seed=SEED), i)
+               for i in range(steps)]
+    named = dict(params.named_parameters())
+    _, g = _value_and_grad(bundle, params, to_device(batches[0], device),
+                           mesh)
+    grads = {n: _whole(like_param(t, named[n])) for n, t in g.items()}
+    del g
+    opt = adamw(constant(TRAIN_ADAM_LR))
+    step, st, mets = make_train_step(bundle, opt, mesh=mesh), None, []
+    st = opt.init(params)
+    for b in batches:
+        params, st, met = step(params, st, b)
+        mets.append((float(met["loss"]), float(met["grad_norm"])))
+    return grads, mets, {n: _whole(p) for n, p in params.named_parameters()}
+
+
+def _compare_reduced(arch, label, got, want):
+    (g, m, p), (wg, wm, wp) = got, want
+    dloss = max(max(abs(a[0] - b[0]) / abs(b[0]), abs(a[1] - b[1]) / abs(b[1]))
+                for a, b in zip(m, wm))
+    dgrad = max(float((g[n] - w).abs().max())
+                / max(float(w.abs().max()), 1e-30) for n, w in wg.items())
+    dparam = max(float((p[n] - w).abs().max()) for n, w in wp.items())
+    log("sharded", f"{arch} reduced f32 on {label} vs the plain step: loss "
+        f"and grad norm {dloss:.3g} relative (bound {SHARD_LOSS_RTOL}), "
+        f"grads {dgrad:.3g} of each leaf's max (bound {SHARD_GRAD_TOL}), "
+        f"params after {len(m)} AdamW steps {dparam:.3g} (bound "
+        f"{SHARD_PARAM_TOL})")
+    if not (dloss <= SHARD_LOSS_RTOL and dgrad <= SHARD_GRAD_TOL
+            and dparam <= SHARD_PARAM_TOL):
+        raise AssertionError(f"{arch} on {label}: {dloss} {dgrad} {dparam}")
+
+
+def _full_width_steps(cfg, B, S, steps, mesh=None, device="cuda",
+                      keep=True, lr=None):
+    """``steps`` steps of phase 11 (d)'s setup (bf16 params, fp32
+    moments, remat full, learnable data; lr ``warmup_cosine(1e-3, 2,
+    steps + 1)`` unless ``lr`` is given) from the seed's weights:
+    (losses, grad norms, step ms, the params whole on the host (None
+    unless ``keep``), peak bytes)."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_model(cfg, remat="full", device=device)
+    params = bundle.init(torch.Generator(device).manual_seed(SEED))
+    if mesh is not None:
+        param_shardings(mesh, params)
+    opt = adamw(lr or warmup_cosine(1e-3, 2, steps + 1))
+    state = opt.init(params)
+    step = make_train_step(bundle, opt, mesh=mesh)
+    data = SyntheticLM(cfg, DataConfig(B, S, seed=SEED, mode="learnable"))
+    losses, gnorms, ms = [], [], []
+    for _ in range(steps):
+        batch = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(met["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    host = ({n: _whole(p).cpu() for n, p in params.named_parameters()}
+            if keep else None)
+    del params, state, step, bundle
+    torch.cuda.empty_cache()
+    return losses, gnorms, ms, host, peak
+
+
+def _param_gap(got, want):
+    """(max |d|, max |d| - 2^-8 |want|) over every leaf (on the card)."""
+    import torch
+    gap = ulp = 0.0
+    for n, w in want.items():
+        w = w.to("cuda").float()
+        d = (got[n].to("cuda").float() - w).abs()
+        gap = max(gap, float(d.max()))
+        ulp = max(ulp, float((d - SHARD_BF16_ULP * w.abs()).max()))
+    return gap, ulp
+
+
+def sharded_world1():
+    """The one-card checks on an in-process nccl group of world 1 (a
+    FileStore in a temporary directory) and a (1, 1) mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ARCH_IDS, get_config
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{d}/store", 1), rank=0,
+            world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            mesh = _mesh((1, 1))
+            for arch in ARCH_IDS:
+                _compare_reduced(arch, "(1, 1)",
+                                 _reduced_steps(arch, "cuda", mesh),
+                                 _reduced_steps(arch, "cuda"))
+            cfg = dataclasses.replace(get_config("qwen3_32b"), num_layers=4)
+            n = SHARD_FULL_STEPS
+            sl, sg, sms, sp, speak = _full_width_steps(
+                cfg, TRAIN_B, TRAIN_S, n, mesh)
+            pl, pg, pms, pp, ppeak = _full_width_steps(
+                cfg, TRAIN_B, TRAIN_S, n)
+            dloss = max(abs(a - b) / abs(b) for a, b in zip(sl, pl))
+            gap, ulp = _param_gap(sp, pp)
+            del sp, pp
+            s_med, p_med = statistics.median(sms[1:]), statistics.median(
+                pms[1:])
+            log("sharded", f"{cfg.name} ({cfg.num_layers} layers, full "
+                f"width, bf16, remat full, batch {TRAIN_B} x {TRAIN_S}) on "
+                f"(1, 1) vs the plain step from the same init: losses "
+                + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(sl, pl))
+                + f" within {dloss:.3g} relative (bound {SHARD_LOSS_RTOL}); "
+                f"params after {n} steps max |d| {gap:.3g} (bound "
+                f"{SHARD_PARAM_TOL} + 2^-8 |p|: excess {ulp:.3g}); step ms "
+                f"sharded " + ", ".join(f"{x:.1f}" for x in sms)
+                + ", plain " + ", ".join(f"{x:.1f}" for x in pms)
+                + f"; median of steps 2-{n}: sharded {s_med:.1f}, plain "
+                f"{p_med:.1f} (DTensor's overhead {s_med - p_med:.1f} ms, "
+                f"{s_med / p_med - 1:.1%}); peak {speak / 1e9:.2f} / "
+                f"{ppeak / 1e9:.2f} GB; card {card_name_power()}")
+            if not (dloss <= SHARD_LOSS_RTOL and ulp <= SHARD_PARAM_TOL
+                    and all(map(math.isfinite, sl + sg))):
+                raise AssertionError(f"{cfg.name} on (1, 1): {dloss} {ulp}")
+            compressed_world1(mesh)
+        finally:
+            dist.destroy_process_group()
+
+
+def compressed_world1(mesh):
+    """make_compressed_train_step at world 1 on the reduced qwen3: a
+    finite loss; compressed_grads' g_hat equals q * scale; the error
+    feedback is nonzero."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.distributed.compress import (compressed_grads, init_ef,
+                                                  make_compressed_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, constant
+    cfg = dataclasses.replace(get_config("qwen3_32b", reduced=True),
+                              dtype="float32")
+    bundle = build_model(cfg, device="cuda")
+    params = bundle.init(torch.Generator("cuda").manual_seed(SEED))
+    dp = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    opt = adamw(constant(TRAIN_ADAM_LR))
+    step = make_compressed_train_step(bundle.loss, opt, dp)
+    _, _, ef, met = step(params, opt.init(params), init_ef(params),
+                         make_batch(cfg, DataConfig(4, 16, seed=SEED), 0))
+    g = {"w": torch.randn(4096, generator=torch.Generator("cuda")
+                          .manual_seed(SEED), device="cuda") * 1e-3}
+    gh, ef1 = compressed_grads(g, {"w": torch.zeros_like(g["w"])})
+    scale = torch.clamp(g["w"].abs().max() / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(g["w"] / scale), -127, 127).to(torch.int8)
+    exact = torch.equal(gh["w"], q.float() * scale)
+    nonzero = all(bool(e.abs().max() > 0) for e in ef.values())
+    loss = float(met["loss"])
+    log("sharded", f"compressed DP step at world 1 (reduced qwen3 f32): "
+        f"loss {loss:.5f}; g_hat == q * scale: {exact}; error feedback "
+        f"nonzero on every leaf: {nonzero} (max |ef| "
+        f"{float(ef1['w'].abs().max()):.3g} on a 4096-vector)")
+    if not (math.isfinite(loss) and exact and nonzero):
+        raise AssertionError(f"compressed step: {loss} {exact} {nonzero}")
+
+
+def _gather_peaks(peak):
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, peak)
+    return out
+
+
+def _moe_cell(rank, shape, cfg):
+    """MOE_STEPS steps of the full-width MoE cell on ``shape`` at the
+    start of a MOE_WARMUP-step warmup: losses, grad norms, step ms, peak
+    bytes per card."""
+    mesh = _mesh(shape)
+    from repro_torch.optim import warmup_cosine
+    losses, gnorms, ms, _, peak = _full_width_steps(
+        cfg, MOE_B, MOE_S, MOE_STEPS, mesh, f"cuda:{rank}", keep=False,
+        lr=warmup_cosine(1e-3, MOE_WARMUP, 10 * MOE_WARMUP))
+    return losses, gnorms, ms, _gather_peaks(peak)
+
+
+def _elastic_card(rank, ckpt_dir):
+    """Two steps of the reduced qwen3 (float32) on (2, 2), a checkpoint,
+    the next step there; then elastic_rescale onto (2, 1) over cards 0-1
+    and the same next step there: (loss on (2, 2), loss on (2, 1))."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.distributed.sharding import (param_shardings,
+                                                  state_shardings)
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import make_train_step
+    from repro_torch.train.loop import elastic_rescale
+    cfg = dataclasses.replace(get_config("qwen3_32b", reduced=True),
+                              dtype="float32")
+    mesh, sub = _mesh((2, 2)), _mesh((2, 1), [[0], [1]])
+    bundle = build_model(cfg, device="cuda")
+    params = param_shardings(mesh, bundle.init(
+        torch.Generator("cuda").manual_seed(SEED)))
+    opt = adamw(constant(TRAIN_ADAM_LR))
+    p, o = params, opt.init(params)
+    step = make_train_step(bundle, opt, mesh=mesh)
+    b = [make_batch(cfg, DataConfig(4, 16, seed=SEED), i) for i in range(3)]
+    for i in range(2):
+        p, o, _ = step(p, o, b[i])
+    state = {"params": p, "opt": o}
+    ckpt.save(ckpt_dir, 1, state)
+    _, _, met = step(p, o, b[2])
+    ref = float(met["loss"])
+    state = ckpt.restore(ckpt_dir, 1, state)
+    got = elastic_rescale(state, sub, state_shardings)
+    if got is None:
+        return ref, None
+    _, _, met = make_train_step(bundle, opt, mesh=sub)(
+        got["params"], got["opt"], b[2])
+    return ref, float(met["loss"])
+
+
+def _sharded_worker(rank, world, store, ckpt_dir):
+    """One card a rank: the multi-card checks; rank 0 logs them."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank))
+    say = (lambda m: log("sharded", m)) if rank == 0 else (lambda m: None)
+    try:
+        from repro_torch.configs import ARCH_IDS, get_config
+        from repro_torch.launch.dryrun import active_params, meta_params
+        from repro_torch.launch.mesh import HW
+        want = {}
+        for shape in SHARD_MESHES:
+            if world < shape[0] * shape[1]:
+                say(f"reduced configs on {shape} skipped: needs "
+                    f"{shape[0] * shape[1]} cards, {world} present")
+                continue
+            mesh = _mesh(shape)
+            for arch in ARCH_IDS:
+                got = _reduced_steps(arch, f"cuda:{rank}", mesh)
+                if rank == 0:
+                    if arch not in want:
+                        want[arch] = _reduced_steps(arch, "cuda:0")
+                    _compare_reduced(arch, str(shape), got, want[arch])
+            dist.barrier()
+        if world < 4:
+            say(f"Qwen3-32B/4L on (2, 2), Qwen3-235B-A22B on (1, 4) and "
+                f"(2, 2) and the elastic rescale skipped: need 4 cards, "
+                f"{world} present")
+            return
+        cfg = dataclasses.replace(get_config("qwen3_32b"), num_layers=4)
+        n = TRAIN_ADAM_STEPS
+        sl, _, sms, sp, speak = _full_width_steps(
+            cfg, TRAIN_B, TRAIN_S, n, _mesh((2, 2)), f"cuda:{rank}")
+        peaks = _gather_peaks(speak)
+        if rank == 0:
+            pl, _, pms, pp, _ = _full_width_steps(cfg, TRAIN_B, TRAIN_S, n)
+            dloss = max(abs(a - b) for a, b in zip(sl, pl))
+            gap, _ = _param_gap(sp, pp)
+            say(f"{cfg.name} (4 layers, full width, bf16) on (2, 2) vs the "
+                f"plain step on one card: losses "
+                + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(sl, pl))
+                + f" (max |d| {dloss:.3g}, bound {SHARD_BF16_LOSS}); params "
+                f"after {n} steps max |d| {gap:.3g} (bound "
+                f"{SHARD_BF16_PARAM}); step ms " + ", ".join(f"{x:.1f}" for x in sms)
+                + " vs " + ", ".join(f"{x:.1f}" for x in pms) + "; peak per "
+                f"card {[round(x / 1e9, 2) for x in peaks]} GB")
+            if not (dloss <= SHARD_BF16_LOSS and gap <= SHARD_BF16_PARAM):
+                raise AssertionError(f"{cfg.name} on (2, 2): {dloss} {gap}")
+        del sp
+        dist.barrier()
+        torch.cuda.empty_cache()
+        moe = dataclasses.replace(get_config("qwen3_moe_235b"), num_layers=2)
+        meta = meta_params(moe)
+        active = active_params(meta, moe)
+        nparams = sum(p.numel() for p in meta.parameters())
+        tokens = MOE_B * MOE_S
+        bound_ms = 6 * active * tokens / (4 * HW.PEAK_FLOPS_BF16) * 1e3
+        cells = {}
+        for shape in ((1, 4), (2, 2)):
+            losses, gnorms, ms, peaks = _moe_cell(rank, shape, moe)
+            cells[shape] = losses
+            med = statistics.median(ms[1:])
+            say(f"{moe.name} (2 of 94 layers, full width: d_model "
+                f"{moe.d_model}, {moe.moe.num_experts} experts top-"
+                f"{moe.moe.top_k}, d_ff_expert {moe.moe.d_ff_expert}, vocab "
+                f"{moe.vocab}; {nparams / 1e9:.3f} B params, state "
+                f"{12 * nparams / 1e9:.1f} GB, {12 * nparams / 4e9:.1f} GB "
+                f"a card) bf16 on {shape}, batch {MOE_B} x {MOE_S}: losses "
+                + ", ".join(f"{x:.5f}" for x in losses) + ", grad norms "
+                + ", ".join(f"{x:.3f}" for x in gnorms) + f"; step ms "
+                + ", ".join(f"{x:.1f}" for x in ms) + f"; median of steps "
+                f"2-{MOE_STEPS} {med:.1f} ms, {tokens / med * 1e3:.1f} "
+                f"tokens/s; bound 6 x {active / 1e9:.3f} B active x {tokens}"
+                f" / (4 x 989 TFLOP/s) = {bound_ms:.2f} ms "
+                f"({bound_ms / med:.1%}); peak per card "
+                f"{[round(x / 1e9, 2) for x in peaks]} GB; card "
+                f"{card_name_power()}")
+            if not (all(map(math.isfinite, losses + gnorms))
+                    and max(peaks) < HW.HBM_BYTES):
+                raise AssertionError(f"{moe.name} on {shape}: {losses} "
+                                     f"{peaks}")
+            dist.barrier()
+            torch.cuda.empty_cache()
+        d = max(abs(a - b) for a, b in zip(cells[(1, 4)], cells[(2, 2)]))
+        say(f"{moe.name}: losses on (1, 4) and (2, 2) within {d:.3g} (bound "
+            f"{SHARD_BF16_LOSS})")
+        if d > SHARD_BF16_LOSS:
+            raise AssertionError(f"{moe.name}: meshes disagree by {d}")
+        ref, got = _elastic_card(rank, ckpt_dir)
+        if rank == 0:
+            rel = abs(got - ref) / abs(ref)
+            say(f"elastic rescale (reduced qwen3 f32): 2 steps on (2, 2), "
+                f"checkpoint, next loss {ref:.6f}; elastic_rescale onto "
+                f"(2, 1) over cards 0-1, the same step: {got:.6f} "
+                f"({rel:.3g} relative, bound {SHARD_LOSS_RTOL})")
+            if rel > SHARD_LOSS_RTOL:
+                raise AssertionError(f"elastic rescale: {ref} vs {got}")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded():
+    """12. sharded train: the one-card checks in this process, then one
+    process a card for the multi-card checks (each skipped, with a line,
+    when the machine has too few cards)."""
+    import gc
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_world1()
+    world = torch.cuda.device_count()
+    if world < 2:
+        log("sharded", f"multi-card checks skipped: the reduced configs on "
+            f"{', '.join(map(str, SHARD_MESHES))}, Qwen3-32B/4L on (2, 2), "
+            f"Qwen3-235B-A22B/2L on (1, 4) and (2, 2) and the elastic "
+            f"rescale need 2 or 4 cards, {world} present")
+        return
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_sharded_worker, args=(world, f"{d}/store", f"{d}/ckpt"),
+                 nprocs=world)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     try:
         import torch
     except ImportError:
@@ -2205,6 +2652,12 @@ def main() -> int:
     torch.manual_seed(SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase_device()
+    if argv == ["--sharded"]:              # phase 12 alone, on every card
+        phase_sharded()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     phase_build()
     phase_parity(gen)
     launches, frames, rx = phase_main(gen)
@@ -2215,6 +2668,7 @@ def main() -> int:
     mesh = phase_mesh(gen, frames)
     phase_lm()
     phase_train()
+    phase_sharded()
     for entry in entries:
         entry["launches_stream"] = stream[entry["name"]]
         entry["launches_serve"] = serve[entry["name"]]

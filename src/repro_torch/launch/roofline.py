@@ -22,7 +22,7 @@ from ..kernels.packing import packed_width
 from .mesh import HW
 
 __all__ = ["ACS_OPS", "TB_OPS", "KERNELS", "Roofline", "kernel_work",
-           "kernel_bound", "decode_roofline"]
+           "kernel_bound", "decode_roofline", "count_params"]
 
 #: ACS operations per state and stage: two candidate adds, compare, select,
 #: the max reduction's compare and the normalising subtract.
@@ -174,3 +174,11 @@ def decode_roofline(trellis: Trellis, spec: FrameSpec, nbits: int,
                     bytes_per_chip=float(nbytes),
                     coll_bytes_per_chip=float(max(coll.values())),
                     coll_breakdown=coll, peak_memory_per_chip=float(home))
+
+
+def count_params(params) -> int:
+    """Elements of every parameter of a ``Params`` tree (or a dict of
+    tensors); meta tensors count alike."""
+    items = (params.parameters() if hasattr(params, "parameters")
+             else params.values())
+    return sum(int(p.numel()) for p in items)

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed import ctx
 from . import layers as L
 from .layers import Params
 
@@ -58,6 +59,7 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     x = frames.to(cfg.param_dtype)
 
     def body(x, p):
+        x = ctx.constrain_batch(x)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention(p["attn"], h, cfg, positions, causal=False)
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -72,8 +74,8 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
 def _cross_kv(p, memory, cfg):
     B, Sm, _ = memory.shape
     KV, hd = cfg.num_kv_heads, cfg.hd
-    k = L._proj(memory, p["wk"], p.get("bk")).reshape(B, Sm, KV, hd)
-    v = L._proj(memory, p["wv"], p.get("bv")).reshape(B, Sm, KV, hd)
+    k = ctx.unflatten(L._proj(memory, p["wk"], p.get("bk")), -1, (KV, hd))
+    v = ctx.unflatten(L._proj(memory, p["wv"], p.get("bv")), -1, (KV, hd))
     return k, v
 
 
@@ -85,6 +87,7 @@ def decode_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = L.embed(params["embed"], tokens)
 
     def body(x, p):
+        x = ctx.constrain_batch(x)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         x = x + L.attention(p["attn"], h, cfg, positions, causal=True)
         h = L.rms_norm(x, p["lnx"], cfg.norm_eps)

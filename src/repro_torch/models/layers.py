@@ -31,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..distributed import ctx as dctx
 
 __all__ = ["Params", "init_normal", "ones", "zeros", "rms_norm",
            "rms_norm_fp32", "rematerialized", "rope",
@@ -135,7 +136,8 @@ class _RMSNorm(torch.autograd.Function):
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm: ``inv`` is cast to x.dtype before both multiplies; the
-    backward stays in x.dtype (``_RMSNorm``)."""
+    backward stays in x.dtype (``_RMSNorm``). On DTensors the Function's
+    ops run by their sharding rules (each has one)."""
     return _RMSNorm.apply(x, w, eps)
 
 
@@ -199,13 +201,12 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if "wqkv" in p:
         qkv = _proj(x, p["wqkv"], p.get("bqkv"))
         q, k, v = torch.split(qkv, [H * hd, KV * hd, KV * hd], dim=-1)
-        q = q.reshape(B, S, H, hd)
-        k = k.reshape(B, S, KV, hd)
-        v = v.reshape(B, S, KV, hd)
+        q, k, v = (dctx.unflatten(t, -1, (n, hd))
+                   for t, n in ((q, H), (k, KV), (v, KV)))
     else:
-        q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
-        k = _proj(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
-        v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
+        q = dctx.unflatten(_proj(x, p["wq"], p.get("bq")), -1, (H, hd))
+        k = dctx.unflatten(_proj(x, p["wk"], p.get("bk")), -1, (KV, hd))
+        v = dctx.unflatten(_proj(x, p["wv"], p.get("bv")), -1, (KV, hd))
     if cfg.qk_norm:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
         k = rms_norm(k, p["kn"], cfg.norm_eps)
@@ -369,12 +370,17 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _qkv(p, x, cfg, positions, use_rope=kv_override is None)
     if kv_override is not None:
         k, v = kv_override
-        out = _sdpa_full(q, k, v, causal=False)
+        fn = functools.partial(_sdpa_full, causal=False)
     elif causal and S > cfg.attn_chunk and S % cfg.attn_chunk == 0:
-        out = _sdpa_blockwise(q, k, v, cfg.attn_chunk)
+        fn = functools.partial(_sdpa_blockwise, chunk=cfg.attn_chunk)
     else:
-        out = _sdpa_full(q, k, v, causal=causal)
-    return out.reshape(B, S, cfg.num_heads * cfg.hd) @ p["wo"]
+        fn = functools.partial(_sdpa_full, causal=causal)
+    # local to a (batch row, head): on a mesh it runs on each rank's rows
+    # and heads (heads over 'model' when the kv heads divide it)
+    lay = {0: dctx.get_batch_axes(), 2: dctx.model_axes(k.shape[2])}
+    out = dctx.local(fn, [(q, lay, None), (k, lay, None), (v, lay, None)],
+                    [(lay, None)])
+    return dctx.flatten(out, 2) @ p["wo"]
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -427,7 +433,13 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    """The rows of the table. On a mesh the lookup runs on each rank's
+    ids in the whole table (all-gathered), and the table's gradient comes
+    back as a partial sum over the batch axes."""
+    b = dctx.get_batch_axes()
+    return dctx.local(lambda t, i: t[i], [(p["tok"], {}, b),
+                                         (tokens, {0: b}, None)],
+                     [({0: b}, None)])
 
 
 def logits(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,9 @@ chosen expert is zeroed by ``remaining * (1 - one_hot)``, capacity
 positions come from a cumsum in token order, and a dropped choice adds no
 weight to the renormalization. Large token counts (T >= 4 * group_size)
 run the k dispatches fused along the capacity axis; smaller ones run them
-one by one and sum. Without a mesh there is no expert sharding to pin.
+one by one and sum. On a mesh the expert buffers (E, G, C, ...) have
+experts over 'model' (EP) and groups over the batch axes, as the JAX
+package's ``_constrain_expert`` pins them (``moe_ff``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed import ctx
 from .layers import Params, init_normal
 
 __all__ = ["init_moe", "moe_ff"]
@@ -42,8 +45,58 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return F.one_hot(idx.long(), n).float()
 
 
+def _route(xt, router, k: int, C1: int, n: int):
+    """Top-k routing of the groups ``xt`` (G, g, d): the k dispatch
+    one-hots (G, g, E, C1), their combine weights, the kept weight per
+    token (G, g), and the load-balance statistics (E,) — the share of
+    tokens whose top-1 is each expert and the mean router probability —
+    each divided by ``n``, the number of group shards they are summed
+    over."""
+    E = router.shape[1]
+    G, g, _ = xt.shape
+    rl = xt.float() @ router                             # (G, g, E)
+    probs = torch.softmax(rl, dim=-1)
+    top1 = probs.argmax(-1)
+    frac = _one_hot(top1, E).mean(dim=(0, 1)) / n
+    mprob = probs.mean(dim=(0, 1)) / n
+
+    remaining = probs
+    disp_k, comb_k = [], []
+    wsum = torch.zeros((G, g), dtype=torch.float32, device=xt.device)
+    for _ in range(k):                                   # top-k loop
+        w_j, e_j = remaining.max(-1)                     # first maximum
+        oh_e = _one_hot(e_j, E)                          # (G, g, E)
+        remaining = remaining * (1.0 - oh_e)
+        pos = torch.cumsum(oh_e, dim=1) - 1.0            # (G, g, E)
+        pos_tok = torch.einsum("gte,gte->gt", pos, oh_e)
+        keep = pos_tok < C1
+        # a position past capacity one-hots to nothing (jax.nn.one_hot)
+        oh_c = _one_hot(pos_tok.clamp(max=C1 - 1), C1) * keep[..., None]
+        disp = torch.einsum("gte,gtc->gtec", oh_e, oh_c).to(xt.dtype)
+        disp_k.append(disp)                              # (G, g, E, C1)
+        comb_k.append(disp * w_j[..., None, None].to(xt.dtype))
+        wsum = wsum + w_j * keep                         # dropped -> no w
+    return (*disp_k, *comb_k, wsum, frac, mprob)
+
+
+def _experts(disp, comb, xt, ewg, ewu, ewd):
+    """Dispatch the groups' tokens to the experts, the gated FF of each,
+    and combine: (G, g, d)."""
+    xin = torch.einsum("gtec,gtd->egcd", disp, xt)       # (E, G, C, d)
+    h = F.silu(torch.einsum("egcd,edf->egcf", xin, ewg))
+    h = h * torch.einsum("egcd,edf->egcf", xin, ewu)
+    yo = torch.einsum("egcf,efd->egcd", h, ewd)
+    return torch.einsum("gtec,egcd->gtd", comb, yo)      # (G, g, d)
+
+
 def moe_ff(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar)."""
+    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar).
+
+    On a mesh the routing runs on each rank's groups (groups over the
+    batch axes when they divide; the router whole), and the experts with
+    experts over 'model' when they divide (EP) on their own tokens: each
+    rank's partial sum of the combine is reduced over 'model'. The expert
+    weights' gradients come back as partial sums over the group axes."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.num_experts, m.top_k
@@ -55,37 +108,26 @@ def moe_ff(p: Params, x: torch.Tensor, cfg: ModelConfig):
     C1 = max(1, int(-(-g * m.capacity_per_choice // E)))
 
     xt = x.reshape(G, g, d)
-    rl = xt.float() @ p["router"]                        # (G, g, E)
-    probs = torch.softmax(rl, dim=-1)
-
+    axes = ctx.get_batch_axes()
+    gax = tuple(a for a in (axes if isinstance(axes, tuple) else (axes,))
+                if a not in (None, "model")) or None
+    gax = ctx.even_axes(gax, G)
+    eax = ctx.model_axes(E)
+    grp = ({0: gax}, None)
+    out = ctx.local(lambda xt, r: _route(xt, r, k, C1, ctx.shards(gax)),
+                    [(xt, {0: gax}, None), (p["router"], {}, gax)],
+                    [grp] * (2 * k + 1) + [({}, gax)] * 2)
+    disp_k, comb_k = out[:k], out[k:2 * k]
+    wsum, frac, mprob = out[2 * k:]
     # load-balance aux (Switch/GShard): E * mean_e(frac_tokens * mean_prob)
-    top1 = probs.argmax(-1)
-    frac = _one_hot(top1, E).mean(dim=(0, 1))
-    aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
-
-    remaining = probs
-    disp_k, comb_k = [], []
-    wsum = torch.zeros((G, g), dtype=torch.float32, device=x.device)
-    for _ in range(k):                                   # top-k loop
-        w_j, e_j = remaining.max(-1)                     # first maximum
-        oh_e = _one_hot(e_j, E)                          # (G, g, E)
-        remaining = remaining * (1.0 - oh_e)
-        pos = torch.cumsum(oh_e, dim=1) - 1.0            # (G, g, E)
-        pos_tok = torch.einsum("gte,gte->gt", pos, oh_e)
-        keep = pos_tok < C1
-        # a position past capacity one-hots to nothing (jax.nn.one_hot)
-        oh_c = _one_hot(pos_tok.clamp(max=C1 - 1), C1) * keep[..., None]
-        disp = torch.einsum("gte,gtc->gtec", oh_e, oh_c).to(x.dtype)
-        disp_k.append(disp)                              # (G, g, E, C1)
-        comb_k.append(disp * w_j[..., None, None].to(x.dtype))
-        wsum = wsum + w_j * keep                         # dropped -> no w
+    aux = E * torch.sum(frac * mprob)
 
     def expert_ff(disp, comb):
-        xin = torch.einsum("gtec,gtd->egcd", disp, xt)   # (E, G, C, d)
-        h = F.silu(torch.einsum("egcd,edf->egcf", xin, p["ewg"]))
-        h = h * torch.einsum("egcd,edf->egcf", xin, p["ewu"])
-        yo = torch.einsum("egcf,efd->egcd", h, p["ewd"])
-        return torch.einsum("gtec,egcd->gtd", comb, yo)  # (G, g, d)
+        tok = {0: gax, 2: eax}
+        return ctx.local(_experts, [
+            (disp, tok, None), (comb, tok, None), (xt, {0: gax}, eax),
+            (p["ewg"], {0: eax}, gax), (p["ewu"], {0: eax}, gax),
+            (p["ewd"], {0: eax}, gax)], [({0: gax}, eax)])
 
     if T >= 4 * m.group_size:
         y = expert_ff(torch.cat(disp_k, dim=-1), torch.cat(comb_k, dim=-1))

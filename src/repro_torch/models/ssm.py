@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed import ctx
 from .layers import Params, init_normal, ones, rms_norm, zeros
 
 __all__ = ["init_mamba", "mamba_forward", "mamba_decode", "init_mamba_state"]
@@ -62,43 +63,30 @@ def _causal_conv(xBC, w, b):
 def _split_xbc(xBC, cfg):
     s, d_in, H, G, N = _dims(cfg)
     x, Bm, Cm = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
-    B_, S_ = x.shape[0], x.shape[1]
-    x = x.reshape(B_, S_, H, s.headdim)
+    x = ctx.unflatten(x, -1, (H, s.headdim))
     # broadcast groups to heads
     rep = H // G
-    Bm = Bm.reshape(B_, S_, G, N).repeat_interleave(rep, dim=2)
-    Cm = Cm.reshape(B_, S_, G, N).repeat_interleave(rep, dim=2)
+    Bm = ctx.unflatten(Bm, -1, (G, N)).repeat_interleave(rep, dim=2)
+    Cm = ctx.unflatten(Cm, -1, (G, N)).repeat_interleave(rep, dim=2)
     return x, Bm, Cm
 
 
-def mamba_forward(p: Params, u: torch.Tensor, cfg: ModelConfig):
-    """Full-sequence forward: u (B, S, d_model) -> (B, S, d_model)."""
-    s, d_in, H, G, N = _dims(cfg)
-    B, S0, _ = u.shape
-    Q = min(s.chunk, S0)
-    if S0 % Q:                        # causal => tail padding is harmless
-        u = F.pad(u, (0, 0, 0, Q - S0 % Q))
-    S = u.shape[1]
+def _ssd_scan(x, Bm, Cm, a, dt, Q: int):
+    """The chunked dual form over whole chunks of length Q: x (B,S,H,P),
+    Bm/Cm (B,S,H,N), a/dt (B,S,H) -> y (B,S,H,P) in fp32, without the D
+    skip. Each batch row and head is computed alone."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
     nc = S // Q
-
-    proj = u @ p["in_proj"]
-    z, xBC, dt_raw = _split_proj(proj, cfg)
-    xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
-    x, Bm, Cm = _split_xbc(xBC, cfg)                    # (B,S,H,P),(B,S,H,N)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])       # (B,S,H)
-    A = -torch.exp(p["A_log"])                          # (H,) negative
-    a = dt * A                                          # (B,S,H) log-decay
-
-    P = s.headdim
     xc = x.reshape(B, nc, Q, H, P).float()
     Bc = Bm.reshape(B, nc, Q, H, N).float()
     Cc = Cm.reshape(B, nc, Q, H, N).float()
     ac = a.reshape(B, nc, Q, H)
     dtc = dt.reshape(B, nc, Q, H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.float32,
-                                device=u.device))
+                                device=x.device))
 
-    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=u.device)
+    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
     ys = []
     for c in range(nc):
         xq, bq, cq, aq, dq = (xc[:, c], Bc[:, c], Cc[:, c], ac[:, c],
@@ -118,9 +106,38 @@ def mamba_forward(p: Params, u: torch.Tensor, cfg: ModelConfig):
         ns = torch.einsum("bjhn,bjhp->bhnp", bq * w[..., None], xq)
         state = state * torch.exp(cs[:, -1])[:, :, None, None] + ns
         ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(B, S, H, P)
+    return torch.stack(ys, dim=1).reshape(B, S, H, P)
+
+
+def mamba_forward(p: Params, u: torch.Tensor, cfg: ModelConfig):
+    """Full-sequence forward: u (B, S, d_model) -> (B, S, d_model)."""
+    s, _, H, _, _ = _dims(cfg)
+    S0 = u.shape[1]
+    Q = min(s.chunk, S0)
+    if S0 % Q:                        # causal => tail padding is harmless
+        u = F.pad(u, (0, 0, 0, Q - S0 % Q))
+
+    proj = u @ p["in_proj"]
+    z, xBC, dt_raw = _split_proj(proj, cfg)
+    b = ctx.get_batch_axes()
+    ch = ctx.model_axes(xBC.shape[-1])
+    xBC = ctx.local(_causal_conv, [(xBC, {0: b, 2: ch}, None),
+                                   (p["conv_w"], {1: ch}, b),
+                                   (p["conv_b"], {0: ch}, b)],
+                    [({0: b, 2: ch}, None)])
+    x, Bm, Cm = _split_xbc(xBC, cfg)                    # (B,S,H,P),(B,S,H,N)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])       # (B,S,H)
+    A = -torch.exp(p["A_log"])                          # (H,) negative
+    a = dt * A                                          # (B,S,H) log-decay
+
+    # local to a (batch row, head): on a mesh it runs on each rank's rows
+    # and heads
+    lay = {0: b, 2: ctx.model_axes(H)}
+    y = ctx.local(lambda *t: _ssd_scan(*t, Q=Q),
+                  [(t, lay, None) for t in (x, Bm, Cm, a, dt)],
+                  [(lay, None)])                        # (B,S,H,P) fp32
     y = y + x.float() * p["D"][:, None]
-    y = y.reshape(B, S, d_in).to(u.dtype)
+    y = ctx.flatten(y, 2).to(u.dtype)
 
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
     return (y @ p["out_proj"])[:, :S0]

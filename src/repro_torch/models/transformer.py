@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed import ctx
 from . import layers as L
 from .layers import Params
 from .moe import init_moe, moe_ff
@@ -104,6 +105,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     layers = params["layers"]
 
     def sb_body(x, first):
+        x = ctx.constrain_batch(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(kinds):
             x, a = _apply_block(layers[first + i], x, cfg, kind, positions)
@@ -115,7 +117,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for first in range(0, cfg.num_layers, len(kinds)):
         x, aux = body(x, first)
         auxs.append(aux)
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    x = ctx.constrain_batch(L.rms_norm(x, params["ln_f"], cfg.norm_eps))
     return x, torch.stack(auxs).sum()
 
 

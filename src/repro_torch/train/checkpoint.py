@@ -9,6 +9,16 @@ bf16 is widened to f32 in the npz. ``restore`` loads into the tensors of
 the ``state_like`` it is given, in place and on their devices and dtypes
 (as ``load_state_dict`` does). Async saves copy to the host on the
 caller's thread and write on a daemon thread.
+
+Under a mesh (``torch.distributed`` initialized, DTensor leaves) every
+rank calls ``save``: each DTensor is made whole with ``full_tensor``, a
+collective, so the file holds the same whole arrays as a single-device
+checkpoint; rank 0 writes, and every rank waits at a barrier. The files
+are therefore mesh-agnostic: ``restore`` loads a DTensor leaf by copying
+its own piece of the whole array into its local shard, and with
+``shardings`` ({key: ``Sharding``}) it places the loaded state on
+another mesh (``distributed.sharding.place_state``) — the elastic
+restore.
 """
 from __future__ import annotations
 
@@ -20,7 +30,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import distribute, place_state
 
 __all__ = ["save", "restore", "latest_step", "Checkpointer"]
 
@@ -41,11 +55,18 @@ def _items(tree):
     return None
 
 
+def _dist() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def _host(leaf) -> np.ndarray:
-    """A copy on the host: the training step mutates its state in place."""
+    """A copy on the host: the training step mutates its state in place.
+    A DTensor is made whole first (a collective)."""
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
     t = leaf.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.is_floating_point() and t.dtype not in _NUMPY_FLOATS:
         t = t.float()                  # bf16 etc.: widen for npz
     return t.to("cpu", copy=True).numpy()
@@ -73,7 +94,12 @@ def _restore_into(tree, flat: dict, prefix: str = ""):
             raise ValueError(f"{prefix}: checkpoint shape {arr.shape} != "
                              f"{tuple(tree.shape)}")
         with torch.no_grad():
-            tree.copy_(torch.from_numpy(arr))
+            if isinstance(tree, DTensor):          # this rank's piece
+                piece = distribute(torch.from_numpy(arr), tree.device_mesh,
+                                   tree.placements)
+                tree.to_local().copy_(piece.to_local())
+            else:
+                tree.copy_(torch.from_numpy(arr))
         return tree
     return arr.astype(tree.dtype) if hasattr(tree, "dtype") else arr
 
@@ -98,7 +124,14 @@ def _write(ckpt_dir: str, step: int, flat: dict, meta: Optional[dict],
 
 def save(ckpt_dir: str, step: int, state: Any, meta: Optional[dict] = None,
          keep: int = 3) -> str:
-    return _write(ckpt_dir, step, _flatten(state), meta, keep)
+    """Every rank calls this under a mesh; rank 0 writes."""
+    flat = _flatten(state)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not _dist() or dist.get_rank() == 0:
+        final = _write(ckpt_dir, step, flat, meta, keep)
+    if _dist():
+        dist.barrier()
+    return final
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -129,14 +162,20 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, state_like: Any) -> Any:
+def restore(ckpt_dir: str, step: int, state_like: Any,
+            shardings: Any = None) -> Any:
     """Load a checkpoint into ``state_like`` (same structure): its tensors
-    are overwritten in place, on their devices and in their dtypes; the
-    state is returned."""
+    are overwritten in place, on their devices and in their dtypes (a
+    DTensor's local shard by its placements); the state is returned.
+    With ``shardings`` ({key: Sharding}, any mesh) ``state_like`` holds
+    whole tensors and the loaded state is then placed by them."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with np.load(os.path.join(path, "arrays.npz")) as z:
         flat = {k: z[k] for k in z.files}
-    return _restore_into(state_like, flat)
+    state = _restore_into(state_like, flat)
+    if shardings is not None:
+        state = place_state(state, shardings)
+    return state
 
 
 class Checkpointer:
@@ -147,8 +186,12 @@ class Checkpointer:
         self._thread: Optional[threading.Thread] = None
 
     def save_async(self, step: int, state: Any, meta: Optional[dict] = None):
+        """Every rank calls this under a mesh: the gather to the host runs
+        now, on every rank; rank 0 then writes on its thread."""
         flat = _flatten(state)         # host copy before the step mutates
         self.wait()
+        if _dist() and dist.get_rank() != 0:
+            return
         self._thread = threading.Thread(
             target=_write, args=(self.dir, step, flat, meta, self.keep),
             daemon=True)

@@ -11,8 +11,13 @@ recovery; port of ``repro.train.loop``.
 A step's time runs from before the step to the host's read of its
 metrics (``float()``, which waits for the device), so it is the step's
 device time and not only its dispatch. The step updates the state in
-place; a restore loads the checkpoint into it. Elastic rescaling across
-meshes comes with the sharded training path.
+place; a restore loads the checkpoint into it, also when its tensors are
+DTensors on a mesh (each rank loads its own shards; the checkpoint is
+mesh-agnostic, ``checkpoint.py``).
+
+Elasticity: ``elastic_rescale`` re-places a state on a different mesh,
+leaf by leaf through whole tensors; the caller builds the step for the
+new mesh.
 """
 from __future__ import annotations
 
@@ -20,9 +25,10 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+from ..distributed.sharding import place_state
 from . import checkpoint as ckpt
 
-__all__ = ["LoopConfig", "train_loop", "StepStats"]
+__all__ = ["LoopConfig", "train_loop", "StepStats", "elastic_rescale"]
 
 
 @dataclasses.dataclass
@@ -94,3 +100,15 @@ def train_loop(step_fn: Callable, state: dict, data_iter, lc: LoopConfig,
             ckpt.save(lc.ckpt_dir, step, state, keep=lc.keep)
         step += 1
     return stats
+
+
+def elastic_rescale(state: dict, new_mesh, sharding_fn):
+    """Re-place a training state onto a different mesh, in place.
+
+    ``sharding_fn(mesh, state) -> {checkpoint key: Sharding}`` (e.g.
+    ``distributed.sharding.state_shardings``). Every rank of the state's
+    current mesh calls this: making a leaf whole is a collective. A rank
+    outside ``new_mesh`` gets None back and takes no further part.
+    """
+    state = place_state(state, sharding_fn(new_mesh, state))
+    return state if new_mesh.get_coordinate() is not None else None

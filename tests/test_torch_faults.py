@@ -229,8 +229,11 @@ def _faulted(srv_cls, cache, cfg, faults, n_chunks=3, **kw):
 @pytest.mark.parametrize("spec,kw", [
     (dict(kind="launch_error", every=1), dict(max_retries=1)),
     (dict(kind="launch_error", p=0.5), dict(max_retries=2)),
-    (dict(kind="launch_slow", every=1, delay_s=0.05),
-     dict(max_retries=0, launch_timeout_s=0.01)),
+    # the deadline far above any unfaulted launch or read-back on a loaded
+    # CPU, the injected hang far above the deadline: the timeouts counted
+    # are the injected ones on both sides, whatever the machine's load
+    (dict(kind="launch_slow", every=1, delay_s=1.0),
+     dict(max_retries=0, launch_timeout_s=0.5)),
     (dict(kind="plan_cache_miss", every=2), {}),
 ])
 def test_faulted_server_equals_jax(spec, kw):

@@ -362,7 +362,9 @@ def test_launch_train_needs_a_card_or_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="sharded training"):
+    # one process without torchrun is a world of 1: no model axis of 2
+    # (test_torch_sharded_train.py runs --model-axis 2 under torchrun)
+    with pytest.raises(ValueError, match="one process a device"):
         main(["--reduced", "--model-axis", "2", "--device", "cpu"])
 
 
