@@ -142,7 +142,11 @@ non-zero:
              published, phase 11 (d)'s setup, 4 sharded steps against 4
              plain ones from the same init (losses 1e-5 relative, params
              within 2e-4 plus one bf16 rounding) and the two medians
-             (DTensor's overhead); make_compressed_train_step at world 1
+             (DTensor's overhead); launch.dryrun's trace of the same step
+             on a fake process group (traced before the group starts):
+             its peak within 10 % of max_memory_allocated over the steps
+             from the placed state, t_bound beside the step ms;
+             make_compressed_train_step at world 1
              (finite loss, g_hat == q * scale, feedback nonzero). With 2
              or more cards, one process a card (mp.spawn, nccl,
              FileStore): the reduced configs on (2, 2), (1, 4), (4, 1)
@@ -152,7 +156,11 @@ non-zero:
              on (1, 4) (EP: 32 experts a card) and (2, 2), batch 4 x
              2048, the first 3 steps of a 1000-step warmup (losses
              within 5e-2 across the meshes; step ms, tokens/s against
-             6 N_active T over 4 x 989 TFLOP/s, peak memory per card),
+             6 N_active T over 4 x 989 TFLOP/s, peak memory per card;
+             on card 0 the dry run's trace, made in the parent before
+             the spawn: peak within 10 %, t_bound, and its collectives
+             equal by kind to op_cost.CollectiveCounter's over the first
+             real nccl step),
              and the elastic rescale (2
              steps on (2, 2), a checkpoint, elastic_rescale onto (2, 1)
              over cards 0-1: the next loss within 1e-5). A check the
@@ -2243,6 +2251,10 @@ MOE_B, MOE_S, MOE_STEPS = 4, 2048, 3
 MOE_WARMUP = 1000
 #: Steps of Qwen3-32B/4L on (1, 1) and of its plain step, from one init.
 SHARD_FULL_STEPS = 4
+#: launch.dryrun's estimate of a step's peak (its trace on a fake process
+#: group of the same mesh) against max_memory_allocated over the real
+#: steps from the placed state: within 10 %.
+DRY_PEAK_RTOL = 0.10
 
 
 def _mesh(shape, ranks=None):
@@ -2312,19 +2324,22 @@ def _compare_reduced(arch, label, got, want):
 
 
 def _full_width_steps(cfg, B, S, steps, mesh=None, device="cuda",
-                      keep=True, lr=None):
+                      keep=True, lr=None, counted=None):
     """``steps`` steps of phase 11 (d)'s setup (bf16 params, fp32
     moments, remat full, learnable data; lr ``warmup_cosine(1e-3, 2,
     steps + 1)`` unless ``lr`` is given) from the seed's weights:
     (losses, grad norms, step ms, the params whole on the host (None
-    unless ``keep``), peak bytes)."""
+    unless ``keep``), peak bytes over the steps from the placed state).
+    With a dict ``counted``, the first step runs under
+    ``op_cost.CollectiveCounter`` and its counts and result bytes by kind
+    go there (``counts``, ``raw``)."""
     import torch
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.launch.op_cost import CollectiveCounter
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import make_train_step
-    torch.cuda.reset_peak_memory_stats()
     bundle = build_model(cfg, remat="full", device=device)
     params = bundle.init(torch.Generator(device).manual_seed(SEED))
     if mesh is not None:
@@ -2334,11 +2349,18 @@ def _full_width_steps(cfg, B, S, steps, mesh=None, device="cuda",
     step = make_train_step(bundle, opt, mesh=mesh)
     data = SyntheticLM(cfg, DataConfig(B, S, seed=SEED, mode="learnable"))
     losses, gnorms, ms = [], [], []
-    for _ in range(steps):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
         batch = next(data)
+        count = (CollectiveCounter(mesh) if counted is not None and i == 0
+                 else contextlib.nullcontext())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, state, met = step(params, state, batch)
+        with count:
+            params, state, met = step(params, state, batch)
+        if isinstance(count, CollectiveCounter):
+            counted.update(counts=count.counts, raw=count.raw)
         losses.append(float(met["loss"]))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
@@ -2363,12 +2385,60 @@ def _param_gap(got, want):
     return gap, ulp
 
 
+def dryrun_estimate(cfg, B, S, shape):
+    """launch.dryrun's trace of the train step of ``cfg`` at batch B x S
+    on a fake process group of the (data, model) mesh ``shape`` (this
+    process must hold no process group): the peak bytes a card, t_bound
+    (the cards of one node: every axis on NVLink), collectives by kind,
+    the trace's seconds."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.dryrun import meta_params, model_flops, trace_step
+    spec = ShapeSpec("chip", S, B, "train")
+    cost, peak, secs = trace_step(cfg, spec, {"data": shape[0],
+                                              "model": shape[1]})
+    rl = RL.analyze(cost, peak, shape[0] * shape[1],
+                    model_flops(cfg, meta_params(cfg), spec),
+                    node_axes=("data", "model"))
+    return {"peak": peak, "t_bound_ms": rl.t_bound * 1e3,
+            "bottleneck": rl.bottleneck, "counts": cost.coll_count,
+            "raw": cost.coll_raw, "secs": secs}
+
+
+def _check_estimate(what, est, peak, step_ms, counted=None):
+    """The estimate's peak within DRY_PEAK_RTOL of the measured one, and
+    with ``counted`` (the real step's CollectiveCounter) the collective
+    counts equal by kind."""
+    rel = est["peak"] / peak - 1
+    line = (f"{what}: dry-run trace ({est['secs']:.1f} s on the host) peak "
+            f"{est['peak'] / 1e9:.2f} GB a card vs max_memory_allocated "
+            f"{peak / 1e9:.2f} GB ({rel:+.1%}, bound {DRY_PEAK_RTOL:.0%}); "
+            f"t_bound {est['t_bound_ms']:.1f} ms ({est['bottleneck']}) vs "
+            f"the measured step {step_ms:.1f} ms")
+    same = True
+    if counted is not None:
+        kinds = [k for k in est["counts"] if est["counts"][k]
+                 or counted["counts"][k]]
+        same = all(est["counts"][k] == counted["counts"][k] for k in kinds)
+        line += "; collectives (trace / CommDebugMode-with-bytes on nccl): " \
+            + ", ".join(f"{k} {est['counts'][k]:.0f}/"
+                        f"{counted['counts'][k]:.0f} ("
+                        f"{est['raw'][k] / 1e9:.3f}/"
+                        f"{counted['raw'][k] / 1e9:.3f} GB)" for k in kinds)
+    log("sharded", f"{line}; card {card_name_power()}")
+    if abs(rel) > DRY_PEAK_RTOL or not same:
+        raise AssertionError(f"{what}: the dry run's estimate misses: "
+                             f"{est} vs peak {peak}, {counted}")
+
+
 def sharded_world1():
     """The one-card checks on an in-process nccl group of world 1 (a
     FileStore in a temporary directory) and a (1, 1) mesh."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import ARCH_IDS, get_config
+    cfg = dataclasses.replace(get_config("qwen3_32b"), num_layers=4)
+    est = dryrun_estimate(cfg, TRAIN_B, TRAIN_S, (1, 1))
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group(
             "nccl", store=dist.FileStore(f"{d}/store", 1), rank=0,
@@ -2379,7 +2449,6 @@ def sharded_world1():
                 _compare_reduced(arch, "(1, 1)",
                                  _reduced_steps(arch, "cuda", mesh),
                                  _reduced_steps(arch, "cuda"))
-            cfg = dataclasses.replace(get_config("qwen3_32b"), num_layers=4)
             n = SHARD_FULL_STEPS
             sl, sg, sms, sp, speak = _full_width_steps(
                 cfg, TRAIN_B, TRAIN_S, n, mesh)
@@ -2406,6 +2475,8 @@ def sharded_world1():
             if not (dloss <= SHARD_LOSS_RTOL and ulp <= SHARD_PARAM_TOL
                     and all(map(math.isfinite, sl + sg))):
                 raise AssertionError(f"{cfg.name} on (1, 1): {dloss} {ulp}")
+            _check_estimate(f"{cfg.name}/4L on (1, 1), batch {TRAIN_B} x "
+                            f"{TRAIN_S}", est, speak, s_med)
             compressed_world1(mesh)
         finally:
             dist.destroy_process_group()
@@ -2458,13 +2529,15 @@ def _gather_peaks(peak):
 def _moe_cell(rank, shape, cfg):
     """MOE_STEPS steps of the full-width MoE cell on ``shape`` at the
     start of a MOE_WARMUP-step warmup: losses, grad norms, step ms, peak
-    bytes per card."""
+    bytes per card, and the first step's collectives on this rank."""
     mesh = _mesh(shape)
     from repro_torch.optim import warmup_cosine
+    counted = {}
     losses, gnorms, ms, _, peak = _full_width_steps(
         cfg, MOE_B, MOE_S, MOE_STEPS, mesh, f"cuda:{rank}", keep=False,
-        lr=warmup_cosine(1e-3, MOE_WARMUP, 10 * MOE_WARMUP))
-    return losses, gnorms, ms, _gather_peaks(peak)
+        lr=warmup_cosine(1e-3, MOE_WARMUP, 10 * MOE_WARMUP),
+        counted=counted)
+    return losses, gnorms, ms, _gather_peaks(peak), counted
 
 
 def _elastic_card(rank, ckpt_dir):
@@ -2506,7 +2579,7 @@ def _elastic_card(rank, ckpt_dir):
     return ref, float(met["loss"])
 
 
-def _sharded_worker(rank, world, store, ckpt_dir):
+def _sharded_worker(rank, world, store, ckpt_dir, estimates):
     """One card a rank: the multi-card checks; rank 0 logs them."""
     import torch
     import torch.distributed as dist
@@ -2569,7 +2642,7 @@ def _sharded_worker(rank, world, store, ckpt_dir):
         bound_ms = 6 * active * tokens / (4 * HW.PEAK_FLOPS_BF16) * 1e3
         cells = {}
         for shape in ((1, 4), (2, 2)):
-            losses, gnorms, ms, peaks = _moe_cell(rank, shape, moe)
+            losses, gnorms, ms, peaks, counted = _moe_cell(rank, shape, moe)
             cells[shape] = losses
             med = statistics.median(ms[1:])
             say(f"{moe.name} (2 of 94 layers, full width: d_model "
@@ -2591,6 +2664,10 @@ def _sharded_worker(rank, world, store, ckpt_dir):
                     and max(peaks) < HW.HBM_BYTES):
                 raise AssertionError(f"{moe.name} on {shape}: {losses} "
                                      f"{peaks}")
+            if rank == 0:
+                _check_estimate(f"{moe.name}/2L on {shape}, batch {MOE_B} x "
+                                f"{MOE_S}, card 0", estimates[shape],
+                                peaks[0], med, counted)
             dist.barrier()
             torch.cuda.empty_cache()
         d = max(abs(a - b) for a, b in zip(cells[(1, 4)], cells[(2, 2)]))
@@ -2623,6 +2700,12 @@ def phase_sharded():
     torch.cuda.empty_cache()
     sharded_world1()
     world = torch.cuda.device_count()
+    estimates = {}
+    if world >= 4:                     # traced here: no process group yet
+        from repro_torch.configs import get_config
+        moe = dataclasses.replace(get_config("qwen3_moe_235b"), num_layers=2)
+        estimates = {shape: dryrun_estimate(moe, MOE_B, MOE_S, shape)
+                     for shape in ((1, 4), (2, 2))}
     if world < 2:
         log("sharded", f"multi-card checks skipped: the reduced configs on "
             f"{', '.join(map(str, SHARD_MESHES))}, Qwen3-32B/4L on (2, 2), "
@@ -2630,8 +2713,8 @@ def phase_sharded():
             f"rescale need 2 or 4 cards, {world} present")
         return
     with tempfile.TemporaryDirectory() as d:
-        mp.spawn(_sharded_worker, args=(world, f"{d}/store", f"{d}/ckpt"),
-                 nprocs=world)
+        mp.spawn(_sharded_worker, args=(world, f"{d}/store", f"{d}/ckpt",
+                                        estimates), nprocs=world)
 
 
 def main(argv=None) -> int:

@@ -62,6 +62,10 @@ def get_batch_axes():
     return _BATCH_AXES
 
 
+def get_seq_axes():
+    return _SEQ_AXES
+
+
 def get_mesh():
     return _MESH
 
@@ -81,20 +85,59 @@ def _axes(axes) -> tuple:
                                     else (axes,))
 
 
+class _Pin(torch.autograd.Function):
+    """``x`` laid out as ``want``, and its gradient as ``grad_want``: the
+    backward lays the gradient out as stated instead of handing it back
+    in whatever layout it arrives (a partial sum over 'model' from the
+    vocabulary-sharded logits would otherwise flow down the residual
+    stream, and every 'model' rank would compute each backward product
+    whole on its partial gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, want, grad_want):
+        ctx.grad_want = grad_want
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.grad_want:
+            g = g.redistribute(g.device_mesh, ctx.grad_want)
+        return g, None, None
+
+
 def constrain_batch(x: torch.Tensor) -> torch.Tensor:
-    """Pin dim 0 of ``x`` to the batch axes (+ dim 1 to the seq axes when
-    sequence parallelism is on), rest replicated."""
-    if (_BATCH_AXES is None and _SEQ_AXES is None) or x.ndim == 0:
-        return x
+    """Pin dim 0 of ``x`` (and of its gradient) to the batch axes (+ dim 1
+    to the seq axes when sequence parallelism is on), rest replicated:
+    a DTensor on a mesh whose batch is not split is pinned whole."""
     from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
+    if x.ndim == 0 or not isinstance(x, DTensor):
         return x
     dims = {0: _BATCH_AXES}
     if _SEQ_AXES is not None and x.ndim >= 3:
         dims[1] = _SEQ_AXES
     want = _layout(x.device_mesh, dims)
-    return x if tuple(x.placements) == want else x.redistribute(
-        x.device_mesh, want)
+    if not x.requires_grad:
+        return x if tuple(x.placements) == want else x.redistribute(
+            x.device_mesh, want)
+    return _Pin.apply(x, want, want)
+
+
+def pin_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, with its gradient laid out as ``x`` is (replicated
+    where ``x`` is a partial sum). Where the consumers of a sharded
+    product take it whole (a split across the sharded dim), its gradient
+    comes back whole, and DTensor, which weighs only communication, may
+    then compute the product's weight gradient whole on every rank;
+    pinned, it slices the gradient (no communication) and computes its
+    own shard."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    pls = tuple(x.placements)
+    return _Pin.apply(x, pls, tuple(Replicate() if p.is_partial() else p
+                                    for p in pls))
 
 
 def unflatten(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:

@@ -26,7 +26,7 @@ from torch import nn
 
 __all__ = ["param_specs", "param_shardings", "batch_specs", "cache_specs",
            "moment_specs", "placements", "place", "distribute", "axis_size",
-           "Sharding", "state_shardings", "place_state"]
+           "Sharding", "state_shardings", "place_state", "place_cache"]
 
 # (regex on the leaf's dotted path, spec for the TRAILING dims)
 _RULES = [
@@ -275,3 +275,25 @@ def cache_specs(cache, mesh):
             return [walk(v, name) for v in node]
         return one(name, node)
     return walk(cache)
+
+
+def place_cache(cache, mesh):
+    """A decode cache (``init_cache``'s nest of dicts and lists) laid out
+    on ``mesh`` by ``cache_specs``: a plain leaf is taken as whole and the
+    same on every rank; a leaf computed from the params (an
+    encoder-decoder's cross K/V) is already a DTensor and is
+    redistributed. Leaves that are not tensors (``idx``) stay."""
+    from torch.distributed.tensor import DTensor
+    specs = cache_specs(cache, mesh)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, s) for v, s in zip(node, spec)]
+        if isinstance(node, DTensor):
+            return node.redistribute(mesh, placements(spec, mesh))
+        if isinstance(node, torch.Tensor):
+            return place(node, mesh, spec)
+        return node
+    return walk(cache, specs)

@@ -1,56 +1,75 @@
-"""Pod-scale dry run of the LM scaffold by counting shapes; port of
-``repro.launch.dryrun``.
+"""Pod-scale dry run of the LM scaffold; port of ``repro.launch.dryrun``.
 
-The JAX package compiles every (arch x shape x mesh) cell ahead of time
-and reads XLA's memory and cost analyses and the partitioned HLO. The
-port has no HLO. It builds each model on the meta device (shapes only,
-nothing allocated) and counts, per cell:
+The JAX package lowers and compiles every (arch x shape x mesh) cell
+ahead of time and reads XLA's memory analysis and the partitioned HLO. The
+port has no compiler. It runs each cell's step once on fake tensors (no
+storage) under a fake process group of the production world size, as rank
+0, and counts what that card executes (``op_cost``): FLOPs, HBM bytes,
+collective bytes by kind and by the mesh axes they cross, and the peak of
+the live bytes. ``roofline.analyze`` turns them into JAX's row. Per cell:
 
-  * ``params``: every parameter's elements (``roofline.count_params``);
-  * ``active_params`` and ``model_flops``: the non-embedding params with
-    a MoE layer's experts scaled to top-k of E, and 6 (train) or 2
-    (prefill, decode) x active params x tokens — the JAX package's
-    functions, giving its numbers;
-  * the bytes each card holds of the params, and for a train cell of the
-    gradients (the params' dtype) and the two fp32 AdamW moments, laid
-    out by ``param_specs`` on the mesh (a dim split over n shards holds
-    ceil(dim / n) on the fullest card), and whether they fit the card's
-    ``HW.HBM_BYTES``;
-  * the compute bound ``t_compute_s`` = model_flops / (cards x the bf16
-    tensor-core peak).
+  * the model is built with ``remat``, its params placed by
+    ``param_shardings`` (``strategy``), and for a train cell AdamW's fp32
+    moments beside them; the train step (``train.step.make_train_step``),
+    the prefill (``make_prefill_step``) or one decode step
+    (``make_decode_step``, the cache placed by ``cache_specs``) runs on a
+    batch of ``models.batch_spec``'s shapes, under JAX's choice of batch
+    axes and data size (``activation_axes``; the steps place the batch
+    by ``batch_specs(strategy=)``, so under ``fsdp`` a batch that does
+    not cover every axis is whole on each card, where JAX splits it over
+    the data axes and the sequence over 'model');
+  * ``params``, ``active_params`` and ``model_flops`` are counted as the
+    JAX package counts them (6 or 2 x active params x tokens);
+  * the bytes of the params, grads and fp32 moments each card holds under
+    ``param_specs`` (``bytes_per_card``; a dim split over n shards holds
+    ceil(dim / n) on the fullest card), and whether the traced peak fits
+    the card's ``HW.HBM_BYTES``.
 
-It does not count activations (nor decode caches) or collective bytes:
-those need the compiled program, which only a run shows. Their fields
-are null and ``not_counted`` says why.
+A full-size cell's trace takes from seconds (a decode step) to about 15
+minutes (a MoE prefill of 32768 tokens), ``--all`` 80-85 minutes a mesh on
+one core; no card is needed. Meshes: 256 cards as (data 32, model 8), 512 as (pod 2, data 32,
+model 8). The model axis is one NVLink node of 8 H100s; the data and pod
+axes cross nodes. The TPU pod the JAX package targets had (16, 16).
 
-Meshes: 256 cards as (data 32, model 8), 512 as (pod 2, data 32,
-model 8). The model axis is one NVLink node of 8 H100s (TP within a
-node); the TPU pod the JAX package targets had (16, 16).
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_32b \\
+      --shape train_4k [--multi-pod] [--strategy tp|fsdp] \\
+      [--remat full|dots|none] [--moe-cap C] [--attn-chunk N] [--out DIR]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--skip-existing]
 
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_32b \
-      --shape train_4k [--multi-pod] [--strategy tp|fsdp] [--out DIR]
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
-
-Each row is printed as JSON and written to
-``DIR/<arch>_<shape>_<mesh><tag>.json``, as the JAX package names it.
+Each row is printed as JSON on stdout (a one-line summary on stderr) and
+written to ``DIR/<arch>_<shape>_<mesh><tag>.json``, as the JAX package
+names it. A cell that fails is listed, and the command exits non-zero
+after the rest have run.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
+import sys
+import time
+import traceback
 
 import torch
 
 from ..configs.base import ARCH_IDS, SHAPES, ModelConfig, ShapeSpec, get_config
-from ..distributed.sharding import param_specs
+from ..distributed import ctx
+from ..distributed.sharding import (param_shardings, param_specs,
+                                    place_cache)
 from ..models import build_model
+from ..models.model import batch_spec
+from ..optim import adamw, constant
+from ..train.step import (make_decode_step, make_prefill_step,
+                          make_train_step)
 from . import roofline as RL
 from .mesh import HW
+from .op_cost import fake_mesh, step_cost
 
 __all__ = ["SKIPS", "MESHES", "cells", "meta_params", "active_params",
-           "model_flops", "bytes_per_card", "run_cell", "main"]
+           "model_flops", "bytes_per_card", "activation_axes", "trace_step",
+           "build_traced", "run_cell", "fmt_row", "main"]
 
 # long_500k runs only for sub-quadratic archs
 SKIPS = {(a, "long_500k") for a in ARCH_IDS} - {
@@ -59,15 +78,6 @@ SKIPS = {(a, "long_500k") for a in ARCH_IDS} - {
 #: mesh tag -> {axis: size}
 MESHES = {"32x8": {"data": 32, "model": 8},
           "2x32x8": {"pod": 2, "data": 32, "model": 8}}
-
-NOT_COUNTED = {
-    "activations": "activations and decode caches depend on the compiled "
-                   "program (remat, fusion, buffers); shapes alone do not "
-                   "give them",
-    "collective_bytes": "the collectives are chosen by DTensor's sharding "
-                        "propagation at run time; there is no partitioned "
-                        "program to read them from",
-}
 
 
 def cells(include_skipped: bool = False):
@@ -129,38 +139,123 @@ def bytes_per_card(params, axes: dict, strategy: str = "tp") -> dict:
     return out
 
 
-def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
-             outdir: str = "", tag: str = "", strategy: str = "tp") -> dict:
+def activation_axes(axes: dict, global_batch: int, strategy: str = "tp"):
+    """JAX's choice of (batch axes, sequence axes, data size) for a cell
+    on a mesh of ``axes``: the batch over the data-like axes when it
+    divides them ('model' too under fsdp), else under fsdp over the data
+    axes with the sequence over 'model', else replicated."""
+    data = tuple(a for a in ("pod", "data") if a in axes)
+    dsize = math.prod(axes[a] for a in data)
+    one = lambda t: t if len(t) > 1 else (t[0] if t else None)  # noqa: E731
+    if strategy == "fsdp":
+        full = data + ("model",)
+        if global_batch % (dsize * axes.get("model", 1)) == 0:
+            return one(full), None, dsize
+        if global_batch % dsize == 0:
+            return one(data), "model", dsize
+        return None, None, dsize
+    return (one(data) if global_batch % dsize == 0 else None), None, dsize
+
+
+def _fake_batch(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    return {k: torch.zeros(s, dtype=d) for k, (s, d) in
+            batch_spec(cfg, shape.seq_len, shape.global_batch,
+                       shape.kind).items()}
+
+
+def trace_step(cfg: ModelConfig, shape: ShapeSpec, axes: dict,
+               remat: str = "full", strategy: str = "tp"):
+    """Trace one step of ``cfg`` at ``shape`` on a fake mesh of ``axes``
+    ({axis: size}) and count rank 0: ``(op_cost.Cost, peak live bytes,
+    seconds)``. The state (params, moments or cache, batch) is placed
+    before the count starts; the peak counts it."""
+    baxes, saxes, dsize = activation_axes(axes, shape.global_batch, strategy)
+    prev = (ctx.get_batch_axes(), ctx.get_seq_axes(), ctx.get_data_size())
+    ctx.set_batch_axes(baxes)
+    ctx.set_seq_axes(saxes)
+    ctx.set_data_size(dsize)
+    t0 = time.time()
+    try:
+        with fake_mesh(axes) as mesh:
+            bundle = build_model(cfg, remat=remat, device="cpu")
+            params = param_shardings(
+                mesh, bundle.init(torch.Generator("cpu").manual_seed(0)),
+                strategy=strategy)
+            batch = _fake_batch(cfg, shape)
+            if shape.kind == "train":
+                opt = adamw(constant(1e-4))
+                state = opt.init(params)
+                step = make_train_step(bundle, opt, mesh=mesh,
+                                       strategy=strategy)
+                args = (params, state, batch)
+            elif shape.kind == "prefill":
+                step = make_prefill_step(bundle, mesh=mesh,
+                                         strategy=strategy)
+                args = (params, batch)
+            else:
+                from torch.distributed.tensor.experimental import (
+                    implicit_replication)
+                with implicit_replication():
+                    cache = place_cache(bundle.init_cache(
+                        params, shape.global_batch, shape.seq_len), mesh)
+                step = make_decode_step(bundle, mesh=mesh)
+                args = (params, batch["tokens"], cache)
+            cost, peak, _ = step_cost(step, *args, mesh=mesh)
+    finally:
+        ctx.set_batch_axes(prev[0])
+        ctx.set_seq_axes(prev[1])
+        ctx.set_data_size(prev[2])
+    return cost, peak, time.time() - t0
+
+
+def build_traced(arch: str, shape_name: str, multi_pod: bool = False,
+                 remat: str = "full", strategy: str = "tp",
+                 moe_cap: float = 0.0, attn_chunk: int = 0):
+    """The counterpart of JAX's ``build_lowered``: the cell's config (with
+    JAX's ``moe_cap`` and ``attn_chunk`` replacements) traced on the
+    production mesh. Returns ``(cost, peak, axes, model_flops, cfg,
+    seconds)``."""
     cfg = get_config(arch)
+    if moe_cap and cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_per_choice=moe_cap))
+    if attn_chunk:
+        cfg = dataclasses.replace(cfg, attn_chunk=attn_chunk)
     shape = SHAPES[shape_name]
+    axes = MESHES["2x32x8" if multi_pod else "32x8"]
+    cost, peak, secs = trace_step(cfg, shape, axes, remat, strategy)
+    mf = model_flops(cfg, meta_params(cfg), shape)
+    return cost, peak, axes, mf, cfg, secs
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
+             outdir: str = "", tag: str = "", strategy: str = "tp",
+             remat: str = "full", moe_cap: float = 0.0,
+             attn_chunk: int = 0) -> dict:
+    cost, peak, axes, mf, cfg, secs = build_traced(
+        arch, shape_name, multi_pod, remat=remat, strategy=strategy,
+        moe_cap=moe_cap, attn_chunk=attn_chunk)
     mesh_tag = "2x32x8" if multi_pod else "32x8"
-    axes = MESHES[mesh_tag]
     chips = math.prod(axes.values())
     params = meta_params(cfg)
-    mf = model_flops(cfg, params, shape)
     per = bytes_per_card(params, axes, strategy)
     param_b = sum(n * s for n, s in per.values())
-    train = shape.kind == "train"
+    train = SHAPES[shape_name].kind == "train"
     grad_b = param_b if train else 0
     moment_b = 2 * 4 * sum(n for n, _ in per.values()) if train else 0
     state_b = param_b + grad_b + moment_b
-    t_compute = mf / (chips * HW.PEAK_FLOPS_BF16)
+    rl = RL.analyze(cost, peak, chips, model_flops=mf)
     row = {"arch": arch, "shape": shape_name, "mesh": mesh_tag, "tag": tag,
-           "strategy": strategy, "chips": chips,
+           "strategy": strategy, "remat": remat,
+           "t_trace_s": round(secs, 1),
            "params": RL.count_params(params),
            "active_params": active_params(params, cfg),
-           "model_flops": mf,
            "param_bytes_per_chip": param_b,
            "grad_bytes_per_chip": grad_b,
            "moment_bytes_per_chip": moment_b,
            "state_bytes_per_chip": state_b,
-           "fits_hbm": state_b <= HW.HBM_BYTES,
-           "t_compute_s": t_compute,
-           "t_memory_s": None, "t_collective_s": None,
-           "bottleneck": None,
-           "coll_bytes_per_chip": None,
-           "peak_memory_per_chip": None,
-           "not_counted": NOT_COUNTED}
+           "fits_hbm": peak <= HW.HBM_BYTES,
+           **rl.row()}
     if outdir:
         os.makedirs(outdir, exist_ok=True)
         name = f"{arch}_{shape_name}_{mesh_tag}{tag}.json"
@@ -169,24 +264,58 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     return row
 
 
+def fmt_row(row: dict) -> str:
+    mem = row.get("peak_memory_per_chip")
+    mem_s = f"{mem / 2**30:6.1f}GiB" if mem else "   n/a  "
+    return (f"{row['arch']:22s} {row['shape']:12s} {row['mesh']:8s} "
+            f"tc={row['t_compute_s']:9.3e} tm={row['t_memory_s']:9.3e} "
+            f"tl={row['t_collective_s']:9.3e} bound={row['bottleneck']:10s} "
+            f"mem={mem_s} useful={row.get('useful_ratio') or 0:6.3f} "
+            f"mfu_bound={row.get('mfu_bound') or 0:5.3f} "
+            f"[trace {row['t_trace_s']:.0f}s]")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=list(SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--remat", default="full",
+                    choices=["full", "dots", "none"])
     ap.add_argument("--strategy", default="tp", choices=["tp", "fsdp"])
+    ap.add_argument("--moe-cap", type=float, default=0.0)
+    ap.add_argument("--attn-chunk", type=int, default=0)
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--skip-existing", action="store_true")
     args = ap.parse_args(argv)
     todo = (list(cells()) if args.all else
             [(args.arch or "qwen3_32b", args.shape or "train_4k")])
-    rows = []
+    mesh_tag = "2x32x8" if args.multi_pod else "32x8"
+    rows, failures = [], []
     for arch, shape in todo:
-        row = run_cell(arch, shape, args.multi_pod, args.out, args.tag,
-                       args.strategy)
+        path = os.path.join(args.out,
+                            f"{arch}_{shape}_{mesh_tag}{args.tag}.json")
+        if args.skip_existing and os.path.exists(path):
+            print(f"skip {arch} {shape} (exists)", file=sys.stderr,
+                  flush=True)
+            continue
+        try:
+            row = run_cell(arch, shape, args.multi_pod, args.out, args.tag,
+                           args.strategy, remat=args.remat,
+                           moe_cap=args.moe_cap, attn_chunk=args.attn_chunk)
+        except Exception as e:  # noqa: BLE001  listed; the rest still run
+            failures.append((arch, shape, repr(e)))
+            print(f"FAIL {arch} {shape}: {e!r}", file=sys.stderr,
+                  flush=True)
+            traceback.print_exc()
+            continue
         print(json.dumps(row), flush=True)
+        print(fmt_row(row), file=sys.stderr, flush=True)
         rows.append(row)
+    if failures:
+        raise SystemExit(f"{len(failures)} cells failed: {failures}")
     return rows
 
 

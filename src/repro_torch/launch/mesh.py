@@ -25,4 +25,6 @@ class HW:
     PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
     HBM_BYTES = 80e9                # HBM3 capacity
     NVLINK_BW = 450e9               # B/s each way (NVLink 4, 18 links)
+    NET_BW = 50e9                   # B/s each way across nodes: one 400 Gb/s
+                                    # NDR ConnectX-7 per GPU (DGX H100)
     SMS = 132                       # streaming multiprocessors

@@ -1,4 +1,6 @@
-"""Roofline of the decode on H100s: port of ``repro.launch.roofline``.
+"""Rooflines on H100s: port of ``repro.launch.roofline``.
+
+The Viterbi decode:
 
     compute term    = operations per card / float32 non-tensor op/s
     memory term     = HBM bytes per card / HBM bytes/s
@@ -10,6 +12,22 @@ is three hand-written kernels, so ``kernel_work`` counts each kernel's
 work from its shapes, the way the roofline counts it: every input byte read
 once, every output byte written once, and the operations these inputs
 need.
+
+The LM scaffold's steps (``analyze`` -> ``LMRoofline``, JAX's
+``analyze`` and ``Roofline``): the per-card ``Cost`` of a step traced on
+fake tensors (``op_cost.step_cost``) and its peak live bytes.
+
+    compute term    = FLOPs per card / bf16 tensor-core FLOP/s
+    memory term     = HBM bytes per card / HBM bytes/s
+    collective term = sum over collectives of link-weighted bytes / the
+                      rate of the link its group crosses: NVLink within
+                      a node (the 'model' axis of the production mesh),
+                      the network (``HW.NET_BW``) across nodes
+
+JAX's row also carries ``xla_flops_oncecounted`` and
+``xla_bytes_oncecounted``, XLA's own cost analysis that counts a scanned
+layer once; the port has no compiler and no such count, so its row leaves
+them out.
 """
 from __future__ import annotations
 
@@ -22,7 +40,8 @@ from ..kernels.packing import packed_width
 from .mesh import HW
 
 __all__ = ["ACS_OPS", "TB_OPS", "KERNELS", "Roofline", "kernel_work",
-           "kernel_bound", "decode_roofline", "count_params"]
+           "kernel_bound", "decode_roofline", "count_params", "LMRoofline",
+           "analyze", "link_bw"]
 
 #: ACS operations per state and stage: two candidate adds, compare, select,
 #: the max reduction's compare and the normalising subtract.
@@ -174,6 +193,109 @@ def decode_roofline(trellis: Trellis, spec: FrameSpec, nbits: int,
                     bytes_per_chip=float(nbytes),
                     coll_bytes_per_chip=float(max(coll.values())),
                     coll_breakdown=coll, peak_memory_per_chip=float(home))
+
+
+def link_bw(axes: str, node_axes=("model",)) -> float:
+    """The rate of the link a collective over mesh ``axes`` ('+'-joined)
+    crosses: NVLink when every axis lies within a node, else the
+    network."""
+    inside = all(a in node_axes for a in axes.split("+") if a != "-")
+    return HW.NVLINK_BW if inside else HW.NET_BW
+
+
+@dataclasses.dataclass
+class LMRoofline:
+    """Roofline terms of one LM step on ``chips`` cards (JAX's
+    ``Roofline``); every per-card number is rank 0's."""
+    chips: int
+    flops_per_chip: float
+    bytes_per_chip: float
+    coll_bytes_per_chip: float      # link-weighted
+    coll_breakdown: dict            # raw result bytes by JAX's kinds
+    coll_axes: dict                 # link-weighted bytes by mesh axes
+    convert_bytes_per_chip: float = 0.0
+    peak_memory_per_chip: Optional[float] = None
+    model_flops: Optional[float] = None      # 6*N*D useful flops (global)
+    node_axes: tuple = ("model",)
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops_per_chip / HW.PEAK_FLOPS_BF16
+
+    @property
+    def t_memory(self) -> float:
+        return self.bytes_per_chip / HW.HBM_BW
+
+    @property
+    def t_memory_fused(self) -> float:
+        """Memory term were every dtype conversion fused into its
+        producer (a lower bound)."""
+        return (self.bytes_per_chip - self.convert_bytes_per_chip) / HW.HBM_BW
+
+    @property
+    def t_collective(self) -> float:
+        return sum(b / link_bw(ax, self.node_axes)
+                   for ax, b in self.coll_axes.items())
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def t_bound(self) -> float:
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def mfu_bound(self) -> Optional[float]:
+        """Model-FLOP utilization upper bound implied by the roofline."""
+        if not self.model_flops:
+            return None
+        ideal = self.model_flops / (self.chips * HW.PEAK_FLOPS_BF16)
+        return ideal / self.t_bound if self.t_bound else None
+
+    @property
+    def useful_ratio(self) -> Optional[float]:
+        if not self.model_flops:
+            return None
+        return self.model_flops / (self.flops_per_chip * self.chips)
+
+    def row(self) -> dict:
+        return {
+            "chips": self.chips,
+            "t_compute_s": self.t_compute,
+            "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective,
+            "t_bound_s": self.t_bound,
+            "bottleneck": self.bottleneck,
+            "flops_per_chip": self.flops_per_chip,
+            "bytes_per_chip": self.bytes_per_chip,
+            "coll_bytes_per_chip": self.coll_bytes_per_chip,
+            "convert_bytes_per_chip": self.convert_bytes_per_chip,
+            "t_memory_fused_s": self.t_memory_fused,
+            "coll_breakdown": self.coll_breakdown,
+            "coll_axes": self.coll_axes,
+            "peak_memory_per_chip": self.peak_memory_per_chip,
+            "model_flops": self.model_flops,
+            "useful_ratio": self.useful_ratio,
+            "mfu_bound": self.mfu_bound,
+        }
+
+
+def analyze(cost, peak: float, chips: int,
+            model_flops: Optional[float] = None,
+            node_axes=("model",)) -> LMRoofline:
+    """The roofline of a step from its per-card ``op_cost.Cost`` and peak
+    live bytes. ``node_axes``: the mesh axes inside one NVLink node."""
+    return LMRoofline(chips=chips, flops_per_chip=cost.flops,
+                      bytes_per_chip=cost.bytes,
+                      coll_bytes_per_chip=cost.coll_bytes,
+                      coll_breakdown=dict(cost.coll_raw),
+                      coll_axes=dict(cost.coll_axes),
+                      convert_bytes_per_chip=cost.convert_bytes,
+                      peak_memory_per_chip=float(peak),
+                      model_flops=model_flops, node_axes=tuple(node_axes))
 
 
 def count_params(params) -> int:

@@ -61,14 +61,16 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     def body(x, p):
         x = ctx.constrain_batch(x)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + L.attention(p["attn"], h, cfg, positions, causal=False)
+        x = ctx.constrain_batch(x + L.attention(p["attn"], h, cfg, positions,
+                                                causal=False))
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + L.mlp(p["ff"], h)
+        return ctx.constrain_batch(x + L.mlp(p["ff"], h))
 
     body = L.rematerialized(body, _layer_remat(remat))
     for p in params["enc"]:
         x = body(x, p)
-    return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
+    return ctx.constrain_batch(L.rms_norm(x, params["ln_enc"],
+                                          cfg.norm_eps))
 
 
 def _cross_kv(p, memory, cfg):
@@ -89,12 +91,14 @@ def decode_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     def body(x, p):
         x = ctx.constrain_batch(x)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + L.attention(p["attn"], h, cfg, positions, causal=True)
+        x = ctx.constrain_batch(x + L.attention(p["attn"], h, cfg, positions,
+                                                causal=True))
         h = L.rms_norm(x, p["lnx"], cfg.norm_eps)
         kv = _cross_kv(p["xattn"], memory, cfg)
-        x = x + L.attention(p["xattn"], h, cfg, positions, kv_override=kv)
+        x = ctx.constrain_batch(x + L.attention(p["xattn"], h, cfg,
+                                                positions, kv_override=kv))
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + L.mlp(p["ff"], h)
+        return ctx.constrain_batch(x + L.mlp(p["ff"], h))
 
     body = L.rematerialized(body, _layer_remat(remat))
     for p in params["dec"]:
@@ -126,15 +130,14 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for p, c in zip(params["dec"], cache):
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         y, newc = L.attention_decode(p["attn"], h, cfg, c)
-        x = x + y
+        x = ctx.constrain_batch(x + y)
         h = L.rms_norm(x, p["lnx"], cfg.norm_eps)
-        x = x + L.attention(p["xattn"], h, cfg,
-                            positions=torch.zeros(h.shape[:2],
-                                                  dtype=torch.int32,
-                                                  device=h.device),
-                            kv_override=(c["xk"], c["xv"]))
+        x = ctx.constrain_batch(x + L.attention(
+            p["xattn"], h, cfg, positions=torch.zeros(
+                h.shape[:2], dtype=torch.int32, device=h.device),
+            kv_override=(c["xk"], c["xv"])))
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.mlp(p["ff"], h)
+        x = ctx.constrain_batch(x + L.mlp(p["ff"], h))
         newcache.append({**newc, "xk": c["xk"], "xv": c["xv"]})
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return L.logits(params["embed"], x), newcache

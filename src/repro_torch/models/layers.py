@@ -383,13 +383,40 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return dctx.flatten(out, 2) @ p["wo"]
 
 
+def _decode_scores(q, ck, k, at: int, write: bool):
+    """Write ``k`` at cache position ``at`` (when ``write``) and score
+    q (B,1,H,hd) against the cache (B,S,KV,hd): (B,KV,H/KV,S) fp32."""
+    if write:
+        ck[:, at] = k[:, 0].to(ck.dtype)
+    B, _, H, hd = q.shape
+    qh = q.reshape(B, ck.shape[2], H // ck.shape[2], hd)
+    return torch.einsum("bkgh,bskh->bkgs", qh, ck).float() * hd ** -0.5
+
+
+def _decode_values(w, cv, v, at: int, write: bool):
+    """Write ``v`` at cache position ``at`` (when ``write``) and weight the
+    cache by w (B,KV,G,S): (B,1,KV*G,hd)."""
+    if write:
+        cv[:, at] = v[:, 0].to(cv.dtype)
+    B, KV, G, _ = w.shape
+    return torch.einsum("bkgs,bskh->bkgh", w, cv).reshape(
+        B, 1, KV * G, cv.shape[-1])
+
+
 def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                      cache: dict):
     """One-token decode: x (B,1,d); cache {'k','v': (B,Smax,KV,hd),
     'idx': int}. Every batch row writes position ``idx`` (one index for
     the whole batch, as in the JAX package). The cache tensors are updated
     in place; the write position is clamped to Smax-1 as
-    ``dynamic_update_slice`` clamps it."""
+    ``dynamic_update_slice`` clamps it.
+
+    On a mesh the cache is laid out by ``cache_specs``: rows over the
+    batch axes, and the kv heads over 'model' when they divide it (the
+    scores, softmax and values are local to a rank's rows and heads), else
+    the sequence over 'model' (each rank writes and scores its own
+    positions; the softmax sees the whole row and the values come back as
+    a partial sum over 'model')."""
     B = x.shape[0]
     idx = cache["idx"]
     q, k, v = _qkv(p, x, cfg, positions=torch.full(
@@ -397,16 +424,27 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     ck, cv = cache["k"], cache["v"]
     Smax = ck.shape[1]
     at = min(max(idx, 0), Smax - 1)
-    ck[:, at] = k[:, 0].to(ck.dtype)
-    cv[:, at] = v[:, 0].to(cv.dtype)
     valid = torch.arange(Smax, device=x.device) <= idx
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    qh = q.reshape(B, KV, H // KV, hd)
-    s = torch.einsum("bkgh,bskh->bkgs", qh, ck).float() * hd ** -0.5
+    b, kax = dctx.get_batch_axes(), dctx.model_axes(ck.shape[2])
+    if kax is not None or dctx.shards("model") == 1 or dctx.even_axes(
+            "model", Smax) is None:        # local to (rows, kv heads)
+        c_lay = r_lay = {0: b, 2: kax}     # cache; the new q, k, v
+        s_lay, o_lay, pos, write = {0: b, 1: kax}, (r_lay, None), at, True
+    else:                              # the sequence over 'model'
+        n = Smax // dctx.shards("model")
+        c_lay, r_lay, s_lay = {0: b, 1: "model"}, {0: b}, {0: b, 3: "model"}
+        o_lay, pos = ({0: b}, "model"), at % n
+        write = dctx.get_mesh().get_local_rank("model") == at // n
+    s = dctx.local(functools.partial(_decode_scores, at=pos, write=write),
+                   [(q, r_lay, None), (ck, c_lay, None), (k, r_lay, None)],
+                   [(s_lay, None)])
     s = torch.where(valid, s, NEG)
     w = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgs,bskh->bkgh", w, cv).reshape(B, 1, H * hd)
-    return out @ p["wo"], {"k": ck, "v": cv, "idx": idx + 1}
+    out = dctx.local(functools.partial(_decode_values, at=pos, write=write),
+                     [(w, s_lay, None), (cv, c_lay, None), (v, r_lay, None)],
+                     [o_lay])
+    return dctx.flatten(out, 2) @ p["wo"], {"k": ck, "v": cv,
+                                           "idx": idx + 1}
 
 
 # ------------------------------------------------------------------ mlp ----
@@ -442,10 +480,31 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
                      [({0: b}, None)])
 
 
+def _rows(x: torch.Tensor) -> dict:
+    """The activation context's layout of x's leading (row) dims."""
+    rows = {0: dctx.get_batch_axes()}
+    if dctx.get_seq_axes() is not None and x.ndim >= 3:
+        rows[1] = dctx.get_seq_axes()
+    return rows
+
+
 def logits(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Over the whole padded vocabulary (padding columns included)."""
-    w = p["tok"].T if "head" not in p else p["head"]
-    return x @ w
+    """Over the whole padded vocabulary (padding columns included). On a
+    mesh each rank's rows against its slice of the vocabulary over
+    'model', the weight made whole over the data axes: the rows'
+    gradient comes back as a partial sum over 'model', the weight's over
+    the batch axes. (Left to DTensor, the product with the weight's
+    data-sharded d_model can come out as a partial sum over the data axes
+    with every rank holding the logits of the whole batch.)"""
+    rows = _rows(x)
+    vax = dctx.model_axes(p["tok"].shape[0])
+    b = rows[0]
+    out = [({**rows, x.ndim - 1: vax}, None)]
+    if "head" not in p:
+        return dctx.local(lambda x, t: x @ t.T, [(x, rows, vax),
+                                               (p["tok"], {0: vax}, b)], out)
+    return dctx.local(lambda x, w: x @ w, [(x, rows, vax),
+                                           (p["head"], {1: vax}, b)], out)
 
 
 # --------------------------------------------------------------- losses ----
@@ -454,11 +513,30 @@ def softmax_xent(lg: torch.Tensor, labels: torch.Tensor,
     """lg: (..., V) logits, labels: (...,) int; -1 is ignored. Mean NLL
     over the kept labels plus a z-loss on the log-partition."""
     lg = lg.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    # jax.nn.one_hot: a label of -1 one-hots to zeros
-    oh = (labels[..., None] == torch.arange(
-        lg.shape[-1], device=lg.device)).to(lg.dtype)
-    gold = torch.einsum("...v,...v->...", lg, oh)
+    rows = _rows(lg)
+    vax = dctx.model_axes(lg.shape[-1])
+    lay = {**rows, lg.ndim - 1: vax}
+    # the log-partition as logsumexp computes it (max, then the log of the
+    # sum of exp(lg - max)); on a mesh each rank reduces its vocabulary
+    # slice and only the (rows, shards) maxima and the row sums cross it
+    m = dctx.local(lambda t: t.amax(-1, keepdim=True), [(lg, lay, None)],
+                   [(lay, None)]).amax(-1).detach()
+    from torch.distributed.tensor import DTensor
+    mesh = lg.device_mesh if isinstance(lg, DTensor) else None
+    v0 = (mesh.get_local_rank("model") * (lg.shape[-1] // dctx.shards(vax))
+          if mesh is not None and vax is not None else 0)
+
+    def parts(t, mx, y):
+        s = torch.exp(t - mx[..., None]).sum(-1)
+        # jax.nn.one_hot: a label of -1 one-hots to zeros
+        oh = (y[..., None] == torch.arange(
+            v0, v0 + t.shape[-1], device=t.device)).to(t.dtype)
+        return s, torch.einsum("...v,...v->...", t, oh)
+
+    s, gold = dctx.local(parts, [(lg, lay, None), (m, rows, None),
+                                 (labels, rows, None)],
+                         [(rows, vax), (rows, vax)])
+    lse = m + torch.log(s)
     mask = (labels >= 0).float()
     nll = (lse - gold) * mask
     z = z_coef * (lse * mask) ** 2

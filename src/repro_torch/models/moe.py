@@ -133,9 +133,14 @@ def moe_ff(p: Params, x: torch.Tensor, cfg: ModelConfig):
         y = expert_ff(torch.cat(disp_k, dim=-1), torch.cat(comb_k, dim=-1))
     else:
         y = sum(expert_ff(d_, c_) for d_, c_ in zip(disp_k, comb_k))
-    y = y / torch.clamp(wsum[..., None], min=1e-9).to(x.dtype)
 
+    def normalize(y, wsum):             # each rank's groups -> its rows
+        y = y / torch.clamp(wsum[..., None], min=1e-9).to(x.dtype)
+        return y.reshape(-1, S, d)
+
+    y = ctx.local(normalize, [(y, {0: gax}, None), (wsum, {0: gax}, None)],
+                  [({0: gax}, None)])
     if m.shared_expert:
         sp = p["shared"]
-        y = y + (F.silu(xt @ sp["wg"]) * (xt @ sp["wu"])) @ sp["wd"]
-    return y.reshape(B, S, d), aux
+        y = y + (F.silu(x @ sp["wg"]) * (x @ sp["wu"])) @ sp["wd"]
+    return y, aux

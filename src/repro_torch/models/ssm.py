@@ -117,7 +117,7 @@ def mamba_forward(p: Params, u: torch.Tensor, cfg: ModelConfig):
     if S0 % Q:                        # causal => tail padding is harmless
         u = F.pad(u, (0, 0, 0, Q - S0 % Q))
 
-    proj = u @ p["in_proj"]
+    proj = ctx.pin_grad(u @ p["in_proj"])
     z, xBC, dt_raw = _split_proj(proj, cfg)
     b = ctx.get_batch_axes()
     ch = ctx.model_axes(xBC.shape[-1])
@@ -155,26 +155,46 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     }
 
 
+def _conv_step(hist, w, b):
+    """The causal conv at the newest position: hist (B,K,C) -> (B,1,C)."""
+    return F.silu(torch.einsum("bkc,kc->bc", hist, w) + b)[:, None, :]
+
+
+def _ssm_step(ssm, xs, Bs, Cs, dt, A_log, D):
+    """One step of the state recurrence per (row, head): (y (B,H,P),
+    new state (B,H,N,P))."""
+    a = torch.exp(dt * -torch.exp(A_log))               # (B,H)
+    ssm = ssm * a[..., None, None] + torch.einsum(
+        "bhn,bhp->bhnp", Bs * dt[..., None], xs)
+    y = torch.einsum("bhn,bhnp->bhp", Cs, ssm) + xs * D[:, None]
+    return y, ssm
+
+
 def mamba_decode(p: Params, u: torch.Tensor, cfg: ModelConfig, state: dict):
-    """One-token decode: u (B, 1, d_model); O(1) state, no KV growth."""
-    s, d_in, H, G, N = _dims(cfg)
-    B = u.shape[0]
+    """One-token decode: u (B, 1, d_model); O(1) state, no KV growth. On a
+    mesh the conv runs on each rank's rows and channels and the state
+    update on its rows and heads, as the state is laid out by
+    ``cache_specs``."""
+    H = _dims(cfg)[2]
     proj = u @ p["in_proj"]
     z, xBC, dt_raw = _split_proj(proj, cfg)             # (B,1,*)
     # conv over (cached d_conv-1 inputs | current)
     hist = torch.cat([state["conv"], xBC.to(state["conv"].dtype)], dim=1)
-    w, b = p["conv_w"], p["conv_b"]
-    conv = F.silu(torch.einsum("bkc,kc->bc", hist, w) + b)[:, None, :]
+    b = ctx.get_batch_axes()
+    ch = ctx.model_axes(hist.shape[-1])
+    conv = ctx.local(_conv_step, [(hist, {0: b, 2: ch}, None),
+                                  (p["conv_w"], {1: ch}, None),
+                                  (p["conv_b"], {0: ch}, None)],
+                     [({0: b, 2: ch}, None)])
     x, Bm, Cm = _split_xbc(conv, cfg)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])[:, 0]
-    A = -torch.exp(p["A_log"])
-    a = torch.exp(dt * A)                               # (B,H)
-    xs = x[:, 0].float()                                # (B,H,P)
-    Bs = Bm[:, 0].float()                               # (B,H,N)
-    Cs = Cm[:, 0].float()
-    ssm = state["ssm"] * a[..., None, None] + torch.einsum(
-        "bhn,bhp->bhnp", Bs * dt[..., None], xs)
-    y = torch.einsum("bhn,bhnp->bhp", Cs, ssm) + xs * p["D"][:, None]
-    y = y.reshape(B, 1, d_in).to(u.dtype)
+    hx = ctx.model_axes(H)
+    lay, heads = {0: b, 1: hx}, {0: hx}
+    y, ssm = ctx.local(_ssm_step, [
+        (state["ssm"], lay, None), (x[:, 0].float(), lay, None),
+        (Bm[:, 0].float(), lay, None), (Cm[:, 0].float(), lay, None),
+        (dt, lay, None), (p["A_log"], heads, None), (p["D"], heads, None)],
+        [(lay, None), (lay, None)])
+    y = ctx.flatten(y[:, None], 2).to(u.dtype)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"], {"conv": hist[:, 1:], "ssm": ssm}

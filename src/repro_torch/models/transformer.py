@@ -71,20 +71,27 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def _apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig, kind,
                  positions: torch.Tensor):
+    """One layer. On a mesh the residual stream is pinned to the batch
+    layout after each sub-layer (``ctx.constrain_batch``): a sub-layer's
+    output comes back as a partial sum over 'model' (the row-sharded
+    ``wo``, ``wd``, ``out_proj``), and a partial residual would carry into
+    the next sub-layer's products, which every 'model' rank would then
+    compute whole on its partial input."""
     mixer, ff = kind
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if mixer == "A":
-        x = x + L.attention(p["mixer"], h, cfg, positions)
+        x = ctx.constrain_batch(x + L.attention(p["mixer"], h, cfg,
+                                                positions))
     else:
-        x = x + mamba_forward(p["mixer"], h, cfg)
+        x = ctx.constrain_batch(x + mamba_forward(p["mixer"], h, cfg))
     if ff is not None:
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         if ff == "moe":
             y, aux = moe_ff(p["ff"], h, cfg)
-            x = x + y
+            x = ctx.constrain_batch(x + y)
         else:
-            x = x + L.mlp(p["ff"], h)
+            x = ctx.constrain_batch(x + L.mlp(p["ff"], h))
     return x, aux
 
 
@@ -154,13 +161,13 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             y, c = mamba_decode(p["mixer"], h, cfg, c)
         newcache.append(c)
-        x = x + y
+        x = ctx.constrain_batch(x + y)
         if ff is not None:
             h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
             if ff == "moe":
                 y, _ = moe_ff(p["ff"], h, cfg)
-                x = x + y
+                x = ctx.constrain_batch(x + y)
             else:
-                x = x + L.mlp(p["ff"], h)
+                x = ctx.constrain_batch(x + L.mlp(p["ff"], h))
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return L.logits(params["embed"], x), newcache

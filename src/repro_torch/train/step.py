@@ -35,19 +35,19 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def _place_batch(batch: dict, mesh) -> dict:
-    specs = batch_specs(batch, mesh)
+def _place_batch(batch: dict, mesh, strategy: str = "tp") -> dict:
+    specs = batch_specs(batch, mesh, strategy)
     return {k: place(v, mesh, specs[k]) for k, v in batch.items()}
 
 
 @contextlib.contextmanager
-def on_mesh(mesh, batch: dict):
+def on_mesh(mesh, batch: dict, strategy: str = "tp"):
     """The activation context of a step over ``batch`` (already placed) on
     ``mesh``: the mesh, the batch axes when the batch is sharded, the data
     size, and plain tensors taken as replicated. Restores the previous
     context after."""
     from torch.distributed.tensor.experimental import implicit_replication
-    spec = next(iter(batch_specs(batch, mesh).values()))
+    spec = next(iter(batch_specs(batch, mesh, strategy).values()))
     axes = spec[0] if spec else None
     prev = (ctx.get_mesh(), ctx.get_batch_axes(), ctx.get_data_size())
     ctx.set_mesh(mesh)
@@ -62,23 +62,29 @@ def on_mesh(mesh, batch: dict):
         ctx.set_data_size(prev[2])
 
 
-def _value_and_grad(bundle: ModelBundle, params, batch, mesh=None):
+def _value_and_grad(bundle: ModelBundle, params, batch, mesh=None,
+                    strategy: str = "tp"):
     named = list(params.named_parameters())
     if mesh is None:
         loss = bundle.loss(params, batch)
         grads = torch.autograd.grad(loss, [p for _, p in named])
         return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
-    batch = _place_batch(batch, mesh)
-    with on_mesh(mesh, batch):
+    batch = _place_batch(batch, mesh, strategy)
+    with on_mesh(mesh, batch, strategy):
         loss = bundle.loss(params, batch).full_tensor()
         grads = torch.autograd.grad(loss, [p for _, p in named])
     return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
 
 
-def make_train_step(bundle: ModelBundle, opt: AdamW, mesh=None):
+def make_train_step(bundle: ModelBundle, opt: AdamW, mesh=None,
+                    strategy: str = "tp"):
+    """One AdamW step. On a ``mesh`` the batch is laid out by
+    ``batch_specs(strategy=)``: over the data axes ('tp'), or over them
+    and 'model' ('fsdp')."""
     def train_step(params, opt_state, batch):
         loss, grads = _value_and_grad(bundle, params,
-                                      to_device(batch, bundle.device), mesh)
+                                      to_device(batch, bundle.device), mesh,
+                                      strategy)
         params, opt_state, metrics = opt.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, **metrics}
     return train_step
@@ -114,15 +120,38 @@ def make_accum_train_step(bundle: ModelBundle, opt: AdamW, accum: int,
     return train_step
 
 
-def make_prefill_step(bundle: ModelBundle):
+def make_prefill_step(bundle: ModelBundle, mesh=None, strategy: str = "tp"):
+    """The prefill; on a ``mesh`` the batch is placed by ``batch_specs``
+    and the model runs under the activation context, as in the train
+    step."""
     def prefill_step(params, batch):
-        return bundle.prefill(params, batch)
+        if mesh is None:
+            return bundle.prefill(params, batch)
+        batch = _place_batch(to_device(batch, bundle.device), mesh,
+                             strategy)
+        with on_mesh(mesh, batch, strategy):
+            return bundle.prefill(params, batch)
     return prefill_step
 
 
-def make_decode_step(bundle: ModelBundle):
+def make_decode_step(bundle: ModelBundle, mesh=None):
+    """One decode step; on a ``mesh`` the tokens are placed as a batch
+    (the cache already placed, by ``cache_specs``) under the activation
+    context. The tokens follow the 'tp' rule under any strategy, as the
+    cache does (the JAX package's dry run places them so too)."""
+    def pick(last):
+        return torch.argmax(last, dim=-1).to(torch.int32)
+
     def decode_step(params, tokens, cache):
-        logits, cache = bundle.decode(params, tokens, cache)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        if mesh is None:
+            logits, cache = bundle.decode(params, tokens, cache)
+            return pick(logits[:, -1])[:, None], logits, cache
+        batch = _place_batch({"tokens": tokens}, mesh)
+        with on_mesh(mesh, batch):
+            logits, cache = bundle.decode(params, batch["tokens"], cache)
+            # each rank's rows made whole over the vocabulary, then local
+            b = ctx.get_batch_axes()
+            next_tok = ctx.local(pick, [(logits[:, -1], {0: b}, None)],
+                                 [({0: b}, None)])
         return next_tok[:, None], logits, cache
     return decode_step

@@ -15,7 +15,14 @@ Cases:
     same next step after restoring the checkpoint onto a (2, 1) mesh of
     ranks 0-1, and after ``elastic_rescale`` of the live (2, 2) state
     (restored in place) onto it;
-  * error feedback and the compressed step on a 'data' mesh of ranks 0-1.
+  * error feedback and the compressed step on a 'data' mesh of ranks 0-1;
+  * collectives: one train step of each architecture on (2, 2) under
+    ``op_cost.CollectiveCounter`` (counts and result bytes by kind) and
+    torch's ``CommDebugMode`` (counts), for holding the fake-process-group
+    trace to;
+  * serve: the prefill's logits and 6 decode steps' logits (tokens fed
+    from the batch, cache laid out by ``cache_specs``) on (2, 2) and
+    (1, 4), whole.
 """
 import dataclasses
 import datetime
@@ -31,16 +38,21 @@ from repro_torch.convert import lm_params_from_jax
 from repro_torch.data import DataConfig, make_batch
 from repro_torch.distributed.compress import (compressed_grads, init_ef,
                                               make_compressed_train_step)
-from repro_torch.distributed.sharding import param_shardings, state_shardings
+from repro_torch.distributed.sharding import (param_shardings, place_cache,
+                                              state_shardings)
+from repro_torch.launch.op_cost import CollectiveCounter
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, constant
 from repro_torch.optim.adamw import like_param
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import make_accum_train_step, make_train_step
+from repro_torch.train.step import make_decode_step, make_prefill_step
 from repro_torch.train.loop import elastic_rescale
 from repro_torch.train.step import _value_and_grad, to_device
 
 MESHES = [(2, 2), (1, 4), (4, 1)]
+SERVE_MESHES = [(2, 2), (1, 4)]
+DECODE_STEPS = 6
 ARCHS = ["qwen3_32b", "qwen3_moe_235b", "mamba2_2p7b"]
 LR = 1e-3
 
@@ -90,6 +102,38 @@ def two_steps(arch, mesh=None):
         params, st, met = step(params, st, b)
         mets.append((float(met["loss"]), float(met["grad_norm"])))
     return grads, mets, {n: _whole(p) for n, p in params.named_parameters()}
+
+
+def collectives(arch, mesh):
+    """One train step of the reduced config (float32) under
+    CollectiveCounter inside torch's CommDebugMode: (counts, result bytes)
+    by kind, and CommDebugMode's counts by functional collective."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    m, params = init(cfg32(arch), mesh)
+    opt = adamw(constant(LR))
+    st = opt.init(params)
+    with CommDebugMode() as cdm, CollectiveCounter(mesh) as cc:
+        make_train_step(m, opt, mesh=mesh)(params, st, batches(arch, 1)[0])
+    comm = {str(k).split(".")[-1]: v for k, v in cdm.get_comm_counts().items()}
+    return cc.counts, cc.raw, comm
+
+
+def serve_steps(arch, mesh=None):
+    """The prefill's last logits, then DECODE_STEPS decode steps from an
+    empty cache of 16 positions fed the batch's tokens: [logits] whole."""
+    cfg = cfg32(arch)
+    m, params = init(cfg, mesh)
+    tokens = torch.as_tensor(batches(arch, 1)[0]["tokens"])
+    out = [_whole(make_prefill_step(m, mesh=mesh)(params,
+                                                  {"tokens": tokens}))]
+    cache = m.init_cache(params, tokens.shape[0], 16)
+    if mesh is not None:
+        cache = place_cache(cache, mesh)
+    decode = make_decode_step(m, mesh=mesh)
+    for i in range(DECODE_STEPS):
+        _, logits, cache = decode(params, tokens[:, i:i + 1], cache)
+        out.append(_whole(logits))
+    return out
 
 
 def accum_step(mesh=None):
@@ -174,6 +218,10 @@ def run(rank, world, store, out, jparams, jbatch, cbatch):
                                     mesh_dim_names=("data", "model"))
             for arch in ARCHS:
                 res[("parity", arch, shape)] = two_steps(arch, mesh)
+                if shape in SERVE_MESHES:
+                    res[("serve", arch, shape)] = serve_steps(arch, mesh)
+                if shape == (2, 2):
+                    res[("collectives", arch)] = collectives(arch, mesh)
             if shape == (2, 2):
                 res["jax"] = _jax_case(mesh, jparams, jbatch)
                 res["accum"] = accum_step(mesh)

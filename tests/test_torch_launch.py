@@ -136,3 +136,27 @@ def test_new_modules_import_no_jax_and_no_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("flag,value", [("--f", 128), ("--v2", 30),
+                                        ("--f0", 16)])
+def test_dryrun_frame_flags(flag, value):
+    """JAX's --f, --v2 and --f0: FrameSpec(f, v1=20, v2, f0, v2s=v2), the
+    frames padded to the cards' tiles and the roofline over that frame."""
+    from repro.core.framed import FrameSpec as JFrameSpec
+    kw = {"f": 256, "v2": 45, "f0": 32, flag[2:]: value}
+    nbits = 10 ** 6
+    row = viterbi_dryrun.main(["--nbits", str(nbits), "--gpus", "8", flag,
+                               str(value)])
+    assert row["frame"] == kw
+    spec = viterbi_dryrun.frame_spec(**kw)
+    jspec = JFrameSpec(f=kw["f"], v1=20, v2=kw["v2"], f0=kw["f0"],
+                       v2s=kw["v2"])
+    assert (spec.frame_len, spec.num_frames(nbits)) == (
+        jspec.frame_len, jspec.num_frames(nbits))
+    tile = row["frames_per_tile"]
+    assert row["frames"] == -(-spec.num_frames(nbits) // (8 * tile)) * 8 * tile
+    rl = RL.decode_roofline(STD_K7, spec, nbits, 8, frames_multiple=tile)
+    assert (row["bytes_per_chip"], row["flops_per_chip"]) == (
+        rl.bytes_per_chip, rl.flops_per_chip)
+    assert row != viterbi_dryrun.main(["--nbits", str(nbits), "--gpus", "8"])

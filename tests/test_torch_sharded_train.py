@@ -22,6 +22,13 @@ Tolerances (float32, reduced configs):
   * against JAX on JAX's weights: tests/_torch_train_parity.py's bounds;
   * the elastic rescale's next loss within 1e-5 relative of the (2, 2)
     mesh's (the JAX package's test allows 5e-2; the math is the same);
+  * the sharded prefill's and decode steps' logits within 1e-5 of the
+    largest magnitude of the single-process port's (float32, the same
+    products summed in another order across shards);
+  * the fake-process-group trace's collectives (launch/op_cost.py) equal,
+    by kind, in count and in result bytes, those CollectiveCounter sees
+    over the real gloo step, and torch's CommDebugMode's counts: exactly
+    (both are shapes);
   * ``compressed_grads`` at world 1 bit for bit against JAX's; the error
     feedback's sum over 50 steps within 2e-2 relative (as JAX's test);
   * the compressed step's loss within 1e-5 relative of JAX's on one
@@ -98,6 +105,12 @@ def sharded(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def single_serve():
+    """The single-process port's prefill and decode steps per arch."""
+    return {arch: W.serve_steps(arch) for arch in W.ARCHS}
+
+
+@pytest.fixture(scope="module")
 def single():
     """The single-process port's two steps per architecture."""
     return {arch: W.two_steps(arch) for arch in W.ARCHS}
@@ -121,6 +134,44 @@ def test_two_sharded_steps_equal_one_device(sharded, single, arch, shape):
     print(f"{arch} {shape}: loss/grad norm {dloss:.2e}, grads {dgrad:.2e} "
           f"of each leaf's max, params {dparam:.2e}")   # -s shows maxima
     assert dloss <= REL and dgrad <= REL and dparam <= PARAM_ATOL
+
+
+@pytest.mark.parametrize("shape", W.SERVE_MESHES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_sharded_prefill_and_decode_equal_one_process(sharded, single_serve,
+                                                      arch, shape):
+    """make_prefill_step and make_decode_step on a mesh, the cache laid out
+    by cache_specs: on (2, 2) the kv heads split over 'model', on (1, 4)
+    (2 kv heads) the cache's sequence does."""
+    got, want = sharded[("serve", arch, shape)], single_serve[arch]
+    assert len(got) == len(want) == W.DECODE_STEPS + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= REL * np.abs(w).max(), (arch, i)
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_fake_trace_collectives_equal_gloo(sharded, arch):
+    """launch.dryrun.trace_step's count of one train step on a fake (2, 2)
+    process group, against CollectiveCounter over the real 4-process gloo
+    step of the same config and batch shape."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import trace_step
+    counts, raw, comm = sharded[("collectives", arch)]
+    cost, _, _ = trace_step(W.cfg32(arch), ShapeSpec("reduced", 16, 4,
+                                                     "train"),
+                            {"data": 2, "model": 2})
+    assert sum(counts.values()) > 0
+    assert cost.coll_count == counts
+    assert cost.coll_raw == raw
+    # CommDebugMode sees gloo's all-to-all fallback as the all-gather it is
+    c = cost.coll_count
+    assert {k: v for k, v in comm.items() if v} == {
+        k: v for k, v in {
+            "all_gather_into_tensor": c["all-gather"] + c["all-to-all"],
+            "all_reduce": c["all-reduce"],
+            "reduce_scatter_tensor": c["reduce-scatter"]}.items() if v}
 
 
 def test_accumulated_step_on_a_mesh(sharded):
