@@ -25,7 +25,10 @@ non-zero:
              on a sliced stream. Both paths through ops with a ragged
              frame count. The block-parallel decode (block_frames > 1)
              through both kernels against the CPU's, and at full overlap
-             against the unblocked decode.
+             against the unblocked decode. The wide mapping (every code
+             past k = 15 or beta = 8: one block a frame, k and beta at
+             run time): K=16, 17, 18, K=16 beta=3, K=7 beta=9 and 12,
+             all three kernels over the same knob grid and starts.
 4. main    — make_decoder(backend="kernel"), then
              make_decoder(backend="kernel_split"), each at full size: K=7,
              n = 2^22 bits, Eb/N0 = 3 dB, rates 1/2 and 3/4. Launch counts
@@ -33,7 +36,10 @@ non-zero:
              one forward and one traceback launch per call, no unified
              launch); the bits must equal backend="reference" on the same
              LLRs (and the split bits the unified bits), and the rate-1/2
-             BER must be below 1e-3.
+             BER must be below 1e-3. Then the wide path: K=16 rate
+             1/2 at the main frame, 132 frames, through both kernel
+             backends (counts set to 0 just before each and read just
+             after), bits equal to the reference backend's.
 5. time    — each kernel at the main path's shape with CUDA events, beside
              its plain version and its bound; the unified kernel's knob
              sweep and its auto tile against tile 4 (must be within 2 %);
@@ -41,6 +47,8 @@ non-zero:
              chases in turns, at K=7 (lane and sublane, packed, unpacked,
              serial) and K=11 (4096 frames), beside the shape rule's pick
              and the bound; B1 and B3 at K=12, 13, 15 beside their bounds;
+             B1, B3 and the traceback on the wide mapping at K=16, K=17
+             and K=7 beta=9, beside their bounds and plain versions;
              the whole split call against the
              whole unified call (median and quartiles over 20 rounds, and
              the host's dispatch time per call); plan_decode(measure=True)
@@ -169,9 +177,10 @@ non-zero:
 
 The line before the last is a JSON `kernels` line (with each kernel's
 launches on the main path, and ``launches_stream``/``launches_serve``/
-``launches_mesh`` on phases 7, 8 and 9; B1's and B3's ``large_codes``
-times and the traceback's ``modes``); each kernel's bound comes from
-launch/roofline.py. The last line is the JSON `ok` line with the device.
+``launches_mesh`` on phases 7, 8 and 9, ``launches_wide`` on phase 4's
+K=16 path; B1's and B3's ``large_codes`` times, the three kernels'
+``wide_codes`` rows and the traceback's ``modes``); each kernel's bound
+comes from launch/roofline.py. The last line is the JSON `ok` line with the device.
 """
 from __future__ import annotations
 
@@ -223,9 +232,29 @@ PARITY_FRAMES = {False: 12, True: 4}
 #: Frames of the large codes' timing (one and two waves of one frame per
 #: SM at 132 SMs): K=12 and K=13 at 264, K=14 and K=15 at 132.
 LARGE_TIME_FRAMES = {12: 264, 13: 264, 14: 132, 15: 132}
+#: The wide mapping's codes (k > 15 or beta > 8; one block a frame, k and
+#: beta at run time): K=16, 17, 18 at rate 1/2 (path metrics in device
+#: memory), K=16 at rate 1/3, K=7 at rates 1/9 and 1/12 (path metrics in
+#: shared memory); distinct polynomials with the top and bottom taps set.
+WIDE_CODES = [(16, (0o135417, 0o163251)), (17, (0o247153, 0o365715)),
+              (18, (0o523571, 0o634657)),
+              (16, (0o135417, 0o163251, 0o117643)),
+              (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155,
+                   0o173)),
+              (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155,
+                   0o173, 0o103, 0o111, 0o125))]
+#: Frames per wide parity call.
+WIDE_PARITY_FRAMES = 3
+#: The wide main path: K=16 rate 1/2 at the main frame, one frame per SM.
+WIDE_MAIN_FRAMES = 132
+#: The wide timing rows: (code, frames): one wave of blocks each (one
+#: 1024-thread block an SM at K=16, 17; 32 blocks of a warp at K=7 beta=9).
+WIDE_TIME = [(WIDE_CODES[0], 132), (WIDE_CODES[1], 132),
+             (WIDE_CODES[4], 4224)]
 DECODE_KERNELS = ("viterbi_unified_kernel", "viterbi_fwd_kernel",
                   "traceback_frames_kernel", "viterbi_unified_smem_kernel",
-                  "viterbi_fwd_smem_kernel")
+                  "viterbi_fwd_smem_kernel", "viterbi_unified_wide_kernel",
+                  "viterbi_fwd_wide_kernel")
 
 
 def log(phase: str, msg: str) -> None:
@@ -327,6 +356,28 @@ def register_report(built, kernel: str, attrs) -> str:
             + "; ".join(rows))
 
 
+def wide_register_report(built, kernel: str, attrs) -> str:
+    """Registers (cudaFuncGetAttributes of the K=16 code) and ptxas
+    spill stores of the wide mapping's kernel (``<kernel>`` with ``_wide``
+    before ``_kernel``), one instantiation for every code."""
+    import ctypes
+    wide = kernel.replace("_kernel", "_wide_kernel")
+    out = (ctypes.c_int * 3)()
+    if attrs(16, 2, out) != 0:
+        raise RuntimeError(f"{wide}: no function attributes")
+    spill, seen = "?", False
+    for ln in built.log.splitlines():
+        if re.search(r"Function properties for \w*" + wide, ln):
+            seen = True
+            continue
+        sp = re.search(r"(\d+) bytes spill stores", ln)
+        if seen and sp:
+            spill = sp.group(1)
+            break
+    return (f"{wide} (every code past k=15 or beta=8): {out[0]} registers, "
+            f"{spill} bytes spilled, {out[2]} threads a block at most")
+
+
 def phase_build():
     from repro_torch.kernels import traceback_frames as tbf
     from repro_torch.kernels import viterbi_fwd as vf
@@ -347,6 +398,8 @@ def phase_build():
                           ("viterbi_fwd_kernel", "viterbi_fwd_func_attrs")):
         log("build", register_report(built[kernel], kernel,
                                      getattr(built[kernel].lib, attrs)))
+        log("build", wide_register_report(built[kernel], kernel,
+                                          getattr(built[kernel].lib, attrs)))
 
 
 def _frames(trellis, spec, nframes, gen, dtype):
@@ -466,7 +519,7 @@ def phase_parity(gen):
         frames = _frames(tr, long_spec, 2, gen, torch.float32)
         if tr.k >= LARGE_K:
             assert vu.kernel_library().lib.viterbi_unified_smem_bytes(
-                tr.k, long_spec.frame_len, 1, int(pack), 0, 1, 0) > \
+                tr.k, tr.beta, long_spec.frame_len, 1, int(pack), 0, 1, 0) > \
                 autotune.device_limits("cuda").smem_per_block
         kw = dict(trellis=tr, v1=45, f=f, v2=45, f0=f, v2s=45,
                   frames_per_tile=1, pack_survivors=pack, radix=2)
@@ -495,6 +548,7 @@ def phase_parity(gen):
                     sel, amax[:33], chase=chase, **tkw), want,
                     f"traceback {chase} k={tr.k} {layout} packed={pack}")
                 counts["traceback"] += 1
+    wide = phase_parity_wide(gen, specs)
     blocked = phase_blocked(gen)
     log("parity", f"kernel calls equal to the plain version: {counts} "
         f"(codes K=3, K=4 beta=3, K=5, K=6, K=7, K=9, K=11, K=12, K=13, "
@@ -503,6 +557,63 @@ def phase_parity(gen):
         f"survivors at K=7, K=11, K=13 and K=15; the traceback's staged and "
         f"direct chase at K=7 and K=11); split and unified ops with a "
         f"ragged F equal to the CPU for every code; {blocked}")
+    log("parity", f"wide mapping, kernel calls equal to the plain version: "
+        f"{wide} (K=16, 17, 18 beta=2, K=16 beta=3, K=7 beta=9 and 12; "
+        f"pack x radix x layout x bm_dtype; serial, boundary, fixed)")
+
+
+def phase_parity_wide(gen, specs):
+    """The wide mapping's codes through the three kernels, each against
+    its plain version (torch.equal) over the knob grid and the three
+    starts. Returns the calls by kernel."""
+    import torch
+    from repro_torch.core.trellis import make_trellis
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import traceback_frames as tbf
+    from repro_torch.kernels import viterbi_fwd as vf
+    from repro_torch.kernels import viterbi_unified as vu
+    counts = {"unified": 0, "forward": 0, "traceback": 0}
+    for k, polys in WIDE_CODES:
+        tr = make_trellis(k, polys)
+        if not autotune.wide_mapping(tr):
+            raise AssertionError(f"K={k} beta={tr.beta} is not a wide code")
+        for spec in specs:
+            frames = _frames(tr, spec, WIDE_PARITY_FRAMES, gen,
+                             torch.float32)
+            f0, v2s, start = _tb_geometry(spec)
+            for pack in (False, True):
+                for radix in (2, 4):
+                    for bm in ("float32", "bfloat16"):
+                        kw = dict(trellis=tr, v1=spec.v1, f=spec.f,
+                                  v2=spec.v2, f0=f0, v2s=v2s, start=start,
+                                  frames_per_tile=1, pack_survivors=pack,
+                                  radix=radix, bm_dtype=bm)
+                        what = f"k={k} beta={tr.beta} {spec} {kw}"
+                        _check_equal(
+                            vu.unified_decode_frames_cuda(frames, **kw),
+                            vu.unified_decode_frames_plain(frames, **kw),
+                            "wide unified " + what)
+                        counts["unified"] += 1
+                        for layout in ("lane", "sublane"):
+                            fkw = dict(trellis=tr, frames_per_tile=1,
+                                       pack_survivors=pack, radix=radix,
+                                       layout=layout, bm_dtype=bm)
+                            fwd = vf.forward_frames_cuda(frames, **fkw)
+                            _check_equal(fwd,
+                                         vf.forward_frames_plain(frames,
+                                                                 **fkw),
+                                         f"wide forward {layout} " + what)
+                            counts["forward"] += 1
+                            tkw = dict(trellis=tr, v1=spec.v1, f=spec.f,
+                                       f0=f0, v2s=v2s, start=start,
+                                       packed=pack, layout=layout)
+                            _check_equal(
+                                tbf.traceback_frames_cuda(*fwd, **tkw),
+                                tbf.traceback_frames_plain(*fwd, **tkw),
+                                f"wide traceback {layout} " + what)
+                            counts["traceback"] += 1
+            del frames
+    return counts
 
 
 def phase_blocked(gen):
@@ -630,6 +741,63 @@ def phase_main(gen):
                 "viterbi_fwd": scounts["viterbi_fwd"],
                 "traceback_frames": scounts["traceback_frames"]}
     return launches, frames, rx
+
+
+def wide_config(backend: str):
+    """The wide main path's configuration: the K=16 rate-1/2 code of
+    WIDE_CODES at the paper's frame."""
+    import dataclasses
+    from repro_torch.core.trellis import make_trellis
+    return dataclasses.replace(main_config("1/2", backend),
+                               trellis=make_trellis(*WIDE_CODES[0]))
+
+
+def phase_main_wide(gen):
+    """The wide mapping's main path: WIDE_MAIN_FRAMES frames of K=16 rate
+    1/2 through make_decoder(backend="kernel"), then "kernel_split", the
+    launch counts set to 0 just before each and read just after; the bits
+    equal the reference backend's. Returns {kernel: launches} of the
+    backend that runs it."""
+    import torch
+    from repro_torch.channel.sim import ber, channel
+    from repro_torch.core.pipeline import make_decoder
+    tr = wide_config("kernel").trellis
+    n = WIDE_MAIN_FRAMES * wide_config("kernel").spec.f
+    bits, rx = channel(gen, n, EBN0_DB, "1/2", trellis=tr)
+    ref = make_decoder(wide_config("reference"), "cuda")(rx, n)
+    counters = _counters()
+    counts, walls = {}, {}
+    for backend in ("kernel", "kernel_split"):
+        decode = make_decoder(wide_config(backend), "cuda")
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = decode(rx, n)
+        torch.cuda.synchronize()
+        walls[backend] = time.perf_counter() - t0
+        counts[backend] = {name: fn.launches
+                           for name, fn in counters.items()}
+        if not (out.shape == (n,) and out.dtype == torch.int32):
+            raise AssertionError(f"K=16 {backend}: bad output {out.shape} "
+                                 f"{out.dtype}")
+        if not torch.equal(out, ref):
+            raise AssertionError(f"K=16 {backend} != reference backend")
+    want = {"kernel": {"viterbi_unified": 1, "viterbi_fwd": 0,
+                       "traceback_frames": 0},
+            "kernel_split": {"viterbi_unified": 0, "viterbi_fwd": 1,
+                             "traceback_frames": 1}}
+    if counts != want:
+        raise AssertionError(f"K=16 launches {counts}, expected {want}")
+    log("main", f"K=16 rate 1/2 (wide mapping): n={n} ({WIDE_MAIN_FRAMES} "
+        f"frames of f=256) Eb/N0={EBN0_DB} dB BER={ber(ref, bits):.3e}; "
+        f"kernel and kernel_split equal to the reference backend; launches "
+        f"{counts}; first calls {walls['kernel'] * 1e3:.1f} ms / "
+        f"{walls['kernel_split'] * 1e3:.1f} ms (host clock, after "
+        f"synchronize)")
+    return {"viterbi_unified": counts["kernel"]["viterbi_unified"],
+            "viterbi_fwd": counts["kernel_split"]["viterbi_fwd"],
+            "traceback_frames": counts["kernel_split"]["traceback_frames"]}
 
 
 def _interleaved(fns: dict, reps: int, rounds: int = 2) -> dict:
@@ -904,6 +1072,75 @@ def time_large_codes(gen):
     return out
 
 
+def time_wide_codes(gen):
+    """B1, B3 and the traceback on the wide mapping (WIDE_TIME: K=16 and
+    K=17 at rate 1/2, K=7 at rate 1/9) at the main frame, packed, radix
+    4, lane: each equal to its plain version, then ms per launch in turns
+    (CUDA events) beside the plain version's (host clock, once) and the
+    bound. Returns {name: [{k, beta, F, ms, plain_ms, bound_ms, bound_by},
+    ...]}."""
+    import torch
+    from repro_torch.core.trellis import make_trellis
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import traceback_frames as tbf
+    from repro_torch.kernels import viterbi_fwd as vf
+    from repro_torch.kernels import viterbi_unified as vu
+    spec = main_config("1/2", "kernel").spec
+    names = ("viterbi_unified", "viterbi_fwd", "traceback_frames")
+    out = {n: [] for n in names}
+    for code, F in WIDE_TIME:
+        tr = make_trellis(*code)
+        frames = _frames(tr, spec, F, gen, torch.float32)
+        kw = dict(trellis=tr, v1=20, f=256, v2=45, f0=32, v2s=45,
+                  frames_per_tile=1, pack_survivors=True, radix=4)
+        fkw = dict(trellis=tr, frames_per_tile=1, pack_survivors=True,
+                   radix=4)
+        tkw = dict(trellis=tr, v1=20, f=256, f0=32, v2s=45, packed=True)
+        plain = {}
+        plain_ms = {
+            "viterbi_unified": host_ms(lambda: plain.__setitem__(
+                "viterbi_unified",
+                vu.unified_decode_frames_plain(frames, **kw))),
+            "viterbi_fwd": host_ms(lambda: plain.__setitem__(
+                "viterbi_fwd", vf.forward_frames_plain(frames, **fkw)))}
+        sel, amax = vf.forward_frames_cuda(frames, **fkw)
+        plain_ms["traceback_frames"] = host_ms(lambda: plain.__setitem__(
+            "traceback_frames", tbf.traceback_frames_plain(sel, amax,
+                                                           **tkw)))
+        _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
+                     plain["viterbi_unified"], f"wide unified k={tr.k}")
+        _check_equal((sel, amax), plain["viterbi_fwd"],
+                     f"wide forward k={tr.k}")
+        _check_equal(tbf.traceback_frames_cuda(sel, amax, **tkw),
+                     plain["traceback_frames"], f"wide traceback k={tr.k}")
+        del plain
+        ms = _interleaved({
+            "viterbi_unified": lambda: vu.unified_decode_frames_cuda(
+                frames, **kw),
+            "viterbi_fwd": lambda: vf.forward_frames_cuda(frames, **fkw),
+            "traceback_frames": lambda: tbf.traceback_frames_cuda(
+                sel, amax, **tkw)}, 3, rounds=2)
+        plan = autotune.plan_tiles(tr, spec, pack_survivors=True,
+                                   device="cuda")
+        for name in names:
+            b = bound(name, spec, F, trellis=tr)
+            out[name].append({"k": tr.k, "beta": tr.beta, "F": F,
+                              "ms": ms[name], "plain_ms": plain_ms[name],
+                              "bound_ms": b[0], "bound_by": b[1]})
+        log("time", f"wide mapping K={tr.k} beta={tr.beta} F={F} L="
+            f"{spec.frame_len} ({autotune.wide_threads(tr)} threads a "
+            f"block, grid {autotune.wide_grid(tr, F, 'cuda')}, "
+            f"{plan.smem_bytes} B smem, {plan.registers} registers, path "
+            f"metrics {'on chip' if autotune.wide_pm_on_chip(tr) else 'in device memory'}): "
+            + "; ".join(f"{n} {ms[n]:.4f} ms, plain {plain_ms[n]:.1f} ms, "
+                        f"bound {out[n][-1]['bound_ms']:.4f} ms "
+                        f"({out[n][-1]['bound_by']}, "
+                        f"{out[n][-1]['bound_ms'] / ms[n]:.1%})"
+                        for n in names))
+        del frames, sel, amax
+    return out
+
+
 def time_end_to_end(rx_half):
     """The paper's unified vs split comparison: whole make_decoder calls on
     the same card. E2E_ROUNDS rounds in turns (kernel, split, split,
@@ -992,6 +1229,9 @@ def phase_time(frames, rx_half, launches, gen):
     large = time_large_codes(gen)
     unified["large_codes"] = large["viterbi_unified"]
     split["fwd"]["large_codes"] = large["viterbi_fwd"]
+    wide = time_wide_codes(gen)
+    for entry in (unified, split["fwd"], split["tb"]):
+        entry["wide_codes"] = wide[entry["name"]]
     calls = time_end_to_end(rx_half)
     time_planner(frames)
     return [unified, split["fwd"], split["tb"]], calls
@@ -2744,6 +2984,7 @@ def main(argv=None) -> int:
     phase_build()
     phase_parity(gen)
     launches, frames, rx = phase_main(gen)
+    wide_launches = phase_main_wide(gen)
     entries, call_ms = phase_time(frames, rx, launches, gen)
     phase_profile(rx, call_ms)
     stream = phase_stream(gen)
@@ -2756,6 +2997,7 @@ def main(argv=None) -> int:
         entry["launches_stream"] = stream[entry["name"]]
         entry["launches_serve"] = serve[entry["name"]]
         entry["launches_mesh"] = mesh[entry["name"]]
+        entry["launches_wide"] = wide_launches[entry["name"]]
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:

@@ -41,6 +41,17 @@ metrics. A large code's unified block whose survivors do not fit beside
 them is planned as the kernel runs it, survivors in the device-memory
 scratch, so every such code has a plan that fits.
 
+``MAX_K`` = 15 and ``MAX_BETA`` = 8 are the edge of those two fast
+mappings. Every code past them (``wide_mapping``: k > 15, or beta > 8 at
+any k) runs the wide mapping: one frame a block of ``wide_threads`` (S/2
+clamped to 32..1024) threads, k and beta at run time, survivors in a
+device-memory scratch, path metrics in shared memory to k = 15
+(``wide_pm_on_chip``) and in the scratch past it. Its only tile is one
+frame and it always fits: a block's shared memory is a fixed core and, to
+k = 15, the path metrics (``WIDE_CORE_BYTES`` + 8 S). Its launch takes
+``wide_grid`` blocks, the most that are resident at once, and each block
+takes frames in turn, so the scratch is per block.
+
 ``plan_decode`` returns the whole plan the decode front end executes:
 kernel, layout, tile and chunk geometry (``chunk_frames`` = two tiles per
 device, as in the JAX package), optionally measured on the card
@@ -69,7 +80,8 @@ __all__ = ["TilePlan", "DecodePlan", "DeviceLimits", "H100_LIMITS",
            "plan_tiles", "plan_decode", "measure_plan", "AUTO_LAYOUT",
            "BLOCK_THREADS", "lanes_per_frame", "max_frames_per_block",
            "block_threads", "SMEM_MIN_K", "SMEM_THREADS", "MAX_K",
-           "MAX_BETA", "smem_mapping"]
+           "MAX_BETA", "smem_mapping", "wide_mapping", "wide_threads",
+           "wide_pm_on_chip", "wide_grid", "WIDE_CORE_BYTES", "H100_SMS"]
 
 #: Most threads one block of either kernel runs (csrc/acs.cuh
 #: VIT_BLOCK_THREADS): eight warps.
@@ -79,18 +91,45 @@ BLOCK_THREADS = 256
 #: (VIT_SMEM_MIN_K, VIT_SMEM_THREADS).
 SMEM_MIN_K = 12
 SMEM_THREADS = 1024
-#: The largest code and the lowest rate the CUDA kernels take.
+#: The largest code and the lowest rate the two fast mappings take
+#: (VIT_SMEM_MAX_K, VIT_MAX_BETA); past either the wide mapping runs.
 MAX_K = 15
 MAX_BETA = 8
 #: Bytes of the large-code mapping's branch-metric tables and warp
 #: partials (acs.cuh vit_smem_core_bytes, beside the path metrics).
 _SMEM_TABLES = 8 * 128 + 4 * 4 * 32
+#: Bytes of the wide mapping's fixed shared memory (VIT_WIDE_CORE_BYTES):
+#: warp partials, a two-stage LLR buffer and the polynomials, 32 terms each.
+WIDE_CORE_BYTES = 4 * 4 * 32 + 2 * 4 * 32 + 4 * 32
+#: Most threads of a wide-mapping block (VIT_WIDE_MAX_THREADS).
+_WIDE_MAX_THREADS = 1024
+#: Streaming multiprocessors of an H100 SXM, what the CPU plans with.
+H100_SMS = 132
 _BM_DTYPES = ("float32", "bfloat16")
+
+
+def wide_mapping(trellis: Trellis) -> bool:
+    """Whether the kernels run ``trellis`` on the wide mapping: any code
+    past the fast mappings' ``MAX_K`` or ``MAX_BETA``."""
+    return trellis.k > MAX_K or trellis.beta > MAX_BETA
 
 
 def smem_mapping(trellis: Trellis) -> bool:
     """Whether the kernels run ``trellis`` on the large-code mapping."""
-    return trellis.k >= SMEM_MIN_K
+    return trellis.k >= SMEM_MIN_K and not wide_mapping(trellis)
+
+
+def wide_threads(trellis: Trellis) -> int:
+    """Threads of one wide-mapping block: one a butterfly (S/2), at
+    least a warp, at most 1024 (acs.cuh vit_wide_threads)."""
+    return max(32, min(_WIDE_MAX_THREADS, trellis.num_states // 2))
+
+
+def wide_pm_on_chip(trellis: Trellis) -> bool:
+    """Whether the wide mapping keeps the path metrics in shared memory
+    (k <= 15: two buffers of at most 2^14 float32, 128 KB) rather than in
+    the block's device-memory scratch."""
+    return trellis.k <= MAX_K
 
 
 def lanes_per_frame(trellis: Trellis) -> int:
@@ -101,15 +140,17 @@ def lanes_per_frame(trellis: Trellis) -> int:
 
 def max_frames_per_block(trellis: Trellis) -> int:
     """The thread cap: eight warps of ``32 // lanes_per_frame`` frames;
-    one frame for a large code."""
-    if smem_mapping(trellis):
+    one frame for a large or wide code."""
+    if smem_mapping(trellis) or wide_mapping(trellis):
         return 1
     return BLOCK_THREADS // 32 * (32 // lanes_per_frame(trellis))
 
 
 def block_threads(trellis: Trellis, frames_per_block: int) -> int:
     """Threads of a block of that many frames: whole warps; a large
-    code's block is ``SMEM_THREADS``."""
+    code's block is ``SMEM_THREADS``, a wide code's ``wide_threads``."""
+    if wide_mapping(trellis):
+        return wide_threads(trellis)
     if smem_mapping(trellis):
         return SMEM_THREADS
     fpw = 32 // lanes_per_frame(trellis)
@@ -139,9 +180,10 @@ H100_LIMITS = DeviceLimits(232448, 233472, 2048, 32, 1024, 65536)
 #: instantiation's). The CPU plans every code with it; on the card the
 #: planner asks the kernels, whose counts grow with R and beta. The
 #: ``*_smem`` counts are the large-code mapping's at k=12 beta=2, with
-#: which the CPU plans the codes k >= 12.
+#: which the CPU plans the codes 12 <= k <= 15; the ``*_wide`` counts the
+#: wide mapping's (one instantiation for every code past them).
 H100_REGISTERS = {"unified": 48, "split": 48, "unified_smem": 63,
-                  "split_smem": 58}
+                  "split_smem": 58, "unified_wide": 64, "split_wide": 56}
 
 _limits: dict = {}
 
@@ -180,7 +222,8 @@ def kernel_registers(trellis: Trellis, *, unified: bool = True,
     name = "unified" if unified else "split"
     dev = _resolve_device(device)
     if dev.type != "cuda":
-        return H100_REGISTERS[name + ("_smem" if smem_mapping(trellis)
+        return H100_REGISTERS[name + ("_wide" if wide_mapping(trellis) else
+                                      "_smem" if smem_mapping(trellis)
                                       else "")]
     key = (name, trellis.k, trellis.beta)
     if key not in _registers:
@@ -197,6 +240,23 @@ def kernel_registers(trellis: Trellis, *, unified: bool = True,
                                f"CUDA error {err}")
         _registers[key] = int(out[0])
     return _registers[key]
+
+
+def wide_grid(trellis: Trellis, frames: int, device=None, *,
+              unified: bool = True) -> int:
+    """Blocks of a wide-mapping launch over ``frames`` frames: at most
+    one a frame, and at most as many as the card keeps resident at once
+    (its SMs times the blocks an SM holds by threads, block slots, shared
+    memory and the kernel's registers), so that no block waits for
+    another and the per-block scratch is no larger than it must be."""
+    dev = _resolve_device(device)
+    limits = device_limits(dev)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    per_sm = _resident_frames(
+        _wide_smem(trellis)[0], wide_threads(trellis), 1,
+        kernel_registers(trellis, unified=unified, device=dev), limits)
+    return max(1, min(int(frames), sms * max(1, per_sm)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,9 +322,15 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     metrics in two shared buffers of S float32 beside two branch-metric
     tables and the warps' partials (``smem_layout_smem``).
     ``scratch=True`` is the kernel's device-memory survivor scratch:
-    survivors and traceback starts leave shared memory."""
+    survivors and traceback starts leave shared memory.
+
+    A wide code (``wide_mapping``) keeps its survivors and starts in the
+    scratch always: its block is the mapping's fixed core and, to k = 15,
+    the path metrics (``spec`` is not read)."""
     _check_knobs(layout, bm_dtype)
     del radix
+    if wide_mapping(trellis):
+        return _wide_smem(trellis)
     S = trellis.num_states
     W = packed_width(S)
     fpb = int(frames_per_tile)
@@ -281,6 +347,16 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     return sum(b for _, b in breakdown), breakdown
 
 
+def _wide_smem(trellis: Trellis):
+    """(total_bytes, breakdown) of one wide-mapping block of either
+    kernel (acs.cuh vit_wide_smem_bytes)."""
+    breakdown = (("path_metrics",
+                  8 * trellis.num_states if wide_pm_on_chip(trellis) else 0),
+                 ("tables_and_partials", WIDE_CORE_BYTES),
+                 ("traceback_starts", 0), ("sel_survivors", 0))
+    return sum(b for _, b in breakdown), breakdown
+
+
 def split_smem_bytes(trellis: Trellis, spec: FrameSpec,
                      frames_per_tile: int, *, pack_survivors: bool = False,
                      radix: int = 2, layout=Layout.LANE,
@@ -290,9 +366,12 @@ def split_smem_bytes(trellis: Trellis, spec: FrameSpec,
     registers and its survivors and argmax go to device memory; each warp
     stages one run of them (32 words and 32 argmax, 256 bytes) in shared
     memory, whatever the knobs. A large code's block keeps the mapping's
-    path metrics, tables and partials instead."""
+    path metrics, tables and partials instead, a wide code's the wide
+    mapping's."""
     _check_knobs(layout, bm_dtype)
     del spec, pack_survivors, radix
+    if wide_mapping(trellis):
+        return _wide_smem(trellis)
     if smem_mapping(trellis):
         breakdown = (("path_metrics", 8 * trellis.num_states),
                      ("tables_and_partials", _SMEM_TABLES))

@@ -47,7 +47,9 @@
 // Radix 4 is two exact radix-2 stages; here every stage runs the same code.
 //
 // Codes 12 <= k <= 15 take a second mapping, VitBlock (below): one block a
-// frame, path metrics in shared memory.
+// frame, path metrics in shared memory. Every other code the plain version
+// takes (k >= 16, or beta > 8 at any k) takes a third, VitWide (at the end):
+// one block a frame, k and beta at run time.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -607,6 +609,276 @@ int vit_dispatch_smem(int k, int beta, A... a) {
     default: return vit_dispatch_smem_beta<F, 16>(beta, a...);
   }
 }
+
+// ---------------------------------------------------------------------------
+// Every other code (k >= 16, or beta > 8 at any k): the wide mapping.
+//
+// Past k = 15 two buffers of S float32 path metrics outgrow a block's shared
+// memory (256 KB at k = 16, over the 227 KB a block can have), and past
+// beta = 8 VitBlock's compressed table of 2^(beta-1) entries outgrows the
+// 7-bit index of its edge bytes (and the register path's 2 R beta sign
+// registers). Those codes take a third mapping, instantiated once in each
+// kernel beside the other two (so their instantiations do not change), which
+// takes k and beta at run time: per-(k, beta) templates would multiply the
+// build for codes that are rare.
+//   * one block a frame, T = clamp(S/2, 32, 1024) threads (vit_wide_threads);
+//     thread t runs the butterflies q = t + T i, i < max(1, S/2 / T), each the
+//     states q and q + S/2 with the predecessors 2q and 2q + 1. A block
+//     takes frames blockIdx.x, + gridDim.x, ...: the wrapper sizes the grid
+//     to the blocks that are resident at once, so the device-memory scratch
+//     is per block, not per frame;
+//   * path metrics: two buffers of S float32, in the block's shared memory
+//     for k <= VIT_WIDE_SMEM_MAX_K and in its device-memory scratch past it,
+//     both read and written through one generic pointer. Stage t reads the
+//     old buffer (the predecessors 2q, 2q + 1 as one float2) and writes the
+//     new one; the stage's __syncthreads makes the writes visible to the
+//     block in either memory. As in VitBlock the buffer holds the stage's
+//     metrics before the normalisation and the reader subtracts the max;
+//   * branch metrics: each edge sums its own terms. Term b of the edge with
+//     encoder word w is x[b] with its sign bit flipped by parity(w & g_b)
+//     (g_b: generator polynomial b); in b order, the first term and then
+//     one rounded add per term, rounded once to bf16 for bm_dtype bf16. By
+//     the identity at the head of this file that is the compressed table's
+//     sgn * bm_half[idx] of the other mappings and of the plain version.
+//     The four edges of a butterfly share the word 2q: predecessor 2q + 1
+//     adds the bottom tap, the high state the top tap (bit k-1) of each g_b;
+//   * the stage's LLRs: thread b < beta loads term b two stages ahead into a
+//     register and stores it to a two-stage buffer in shared memory one
+//     stage ahead, so the stage's barrier publishes it;
+//   * the stage max, the first maximal state (least state; the low half of
+//     the states before the high half) and ties, as VitBlock: a redux per
+//     warp, the warps' partials through shared memory after the barrier.
+// What bounds it: the same six float operations a state and stage as the
+// other mappings, with beta adds per edge for the branch metrics; past
+// k = 15 each stage also moves 2 x 4 S bytes of path metrics through the L2
+// cache (a block's 256 KB at k = 16 stay in the 50 MB L2 for 132 blocks).
+#define VIT_WIDE_MAX_THREADS 1024
+// Most beta the mapping takes (a warp loads a stage's terms; the plain
+// version's 2^beta-entry tables end far below).
+#define VIT_WIDE_MAX_BETA 32
+// Largest k whose path metrics the mapping keeps in shared memory (two
+// buffers of 2^14 float32, 128 KB); past it they go to device memory.
+#define VIT_WIDE_SMEM_MAX_K 15
+// Largest k: a state is an int (S = 2^30 states at k = 31).
+#define VIT_WIDE_MAX_K 31
+// The fixed part of the mapping's shared memory: warp partials [4][32] int,
+// the LLR buffer [2][VIT_WIDE_MAX_BETA] float, the polynomials
+// [VIT_WIDE_MAX_BETA] int; then the path metrics [2][S] float if on chip.
+#define VIT_WIDE_CORE_BYTES (4 * 4 * 32 + 2 * 4 * VIT_WIDE_MAX_BETA + \
+                             4 * VIT_WIDE_MAX_BETA)
+
+// Whether (k, beta) is outside the two fast mappings' domain.
+__host__ __device__ inline bool vit_wide_code(int k, int beta) {
+  return k > VIT_SMEM_MAX_K || beta > VIT_MAX_BETA;
+}
+
+// Threads of one wide-mapping block: one a butterfly, at least a warp and
+// at most VIT_WIDE_MAX_THREADS.
+__host__ __device__ inline int vit_wide_threads(int k) {
+  const long long h = 1LL << (k - 2);
+  return h < 32 ? 32 : (h > VIT_WIDE_MAX_THREADS ? VIT_WIDE_MAX_THREADS
+                                                 : (int)h);
+}
+
+// Whether the mapping keeps the path metrics of a k code in shared memory.
+__host__ __device__ inline bool vit_wide_pm_on_chip(int k) {
+  return k <= VIT_WIDE_SMEM_MAX_K;
+}
+
+// Dynamic shared memory of one wide-mapping block.
+__host__ __device__ inline long long vit_wide_smem_bytes(int k) {
+  return VIT_WIDE_CORE_BYTES +
+         (vit_wide_pm_on_chip(k) ? 8LL * (1LL << (k - 1)) : 0);
+}
+
+// One frame on one block. Shared memory at `sm` (16-byte aligned), laid
+// out as VIT_WIDE_CORE_BYTES says; the path metrics at `pm_global` (the
+// block's [2][S] float in device memory) or after the core.
+struct VitWide {
+  int k, beta, S, H, T, nit;
+  float* pm;
+  int* red;
+  float* sx;
+  unsigned* g;
+
+  __device__ __forceinline__ void init(int k_, int beta_, const int* polys,
+                                       unsigned char* sm, float* pm_global) {
+    k = k_;
+    beta = beta_;
+    S = 1 << (k - 1);
+    H = S >> 1;
+    T = blockDim.x;
+    nit = H > T ? H / T : 1;
+    red = reinterpret_cast<int*>(sm);
+    sx = reinterpret_cast<float*>(sm + 4 * 4 * 32);
+    g = reinterpret_cast<unsigned*>(sx + 2 * VIT_WIDE_MAX_BETA);
+    pm = pm_global != nullptr
+             ? pm_global
+             : reinterpret_cast<float*>(sm + VIT_WIDE_CORE_BYTES);
+    const int tid = threadIdx.x;
+    if (tid < beta) g[tid] = (unsigned)polys[tid];
+  }
+
+  // The branch metrics of butterfly q from the stage's LLRs x: e[h][p] is
+  // edge p (from 2q + p) into state q + h S/2.
+  __device__ __forceinline__ void bm(int q, const float* x, bool bf16,
+                                     float (&e)[2][2]) const {
+    const unsigned base = 2u * (unsigned)q;
+    const int top = k - 1;
+    for (int b = 0; b < beta; ++b) {
+      const unsigned gb = g[b];
+      const unsigned s = (unsigned)__popc(base & gb) & 1u;
+      const unsigned bot = gb & 1u, tp = (gb >> top) & 1u;
+      const int xi = __float_as_int(x[b]);
+      const float t00 = __int_as_float(xi ^ (int)(s << 31));
+      const float t01 = __int_as_float(xi ^ (int)((s ^ bot) << 31));
+      const float t10 = __int_as_float(xi ^ (int)((s ^ tp) << 31));
+      const float t11 = __int_as_float(xi ^ (int)((s ^ bot ^ tp) << 31));
+      if (b == 0) {
+        e[0][0] = t00;
+        e[0][1] = t01;
+        e[1][0] = t10;
+        e[1][1] = t11;
+      } else {
+        e[0][0] = __fadd_rn(e[0][0], t00);
+        e[0][1] = __fadd_rn(e[0][1], t01);
+        e[1][0] = __fadd_rn(e[1][0], t10);
+        e[1][1] = __fadd_rn(e[1][1], t11);
+      }
+    }
+    if (bf16) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          e[h][p] = __bfloat162float(__float2bfloat16_rn(e[h][p]));
+    }
+  }
+};
+
+// The recursion of one frame over L stages on the block. Calls, per
+// butterfly and stage, st.butterfly(t, q, valid, sel_lo, sel_hi, b_lo,
+// b_hi) in every thread (b_lo / b_hi: the warp's ballots of the low and
+// high states' selectors; lanes past S/2 are not valid and ballot 0) and,
+// for each stage t with st.wants_argmax(t) (block-uniform), st.argmax(t, a)
+// in warp 0 once a, the stage's first maximal state, is known (during
+// stage t + 1, or after the loop). Ends with a __syncthreads.
+template <class Store>
+__device__ __forceinline__ void vit_wide_recursion(VitWide& w,
+                                                   const void* llr,
+                                                   int dtype, bool bf16,
+                                                   long long frame_base,
+                                                   int L, Store& st) {
+  const int S = w.S, H = w.H, T = w.T, beta = w.beta;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = T >> 5;
+  for (int s = tid; s < S; s += T) w.pm[S + s] = 0.f;    // stage -1: zeros
+  const bool ld = tid < beta;
+  float pf = 0.f;                       // term tid of stage t + 1
+  if (ld) {
+    w.sx[tid] = vit_load_llr(llr, dtype, frame_base + tid);
+    if (L > 1) pf = vit_load_llr(llr, dtype, frame_base + beta + tid);
+  }
+  __syncthreads();
+  float m = 0.f;              // the previous stage's max
+  int pend = -1;              // stage whose first maximum is pending
+  for (int t = 0; t < L; ++t) {
+    if (ld) {
+      w.sx[((t + 1) & 1) * VIT_WIDE_MAX_BETA + tid] = pf;
+      if (t + 2 < L)
+        pf = vit_load_llr(llr, dtype,
+                          frame_base + (long long)(t + 2) * beta + tid);
+    }
+    const float* x = w.sx + (t & 1) * VIT_WIDE_MAX_BETA;
+    const float2* old = reinterpret_cast<const float2*>(
+        w.pm + ((t + 1) & 1) * S);
+    float* nwb = w.pm + (t & 1) * S;
+    float mlo = -INFINITY, mhi = -INFINITY;
+    int slo = 0, shi = 0;
+    int q = tid;
+    for (int i = 0; i < w.nit; ++i, q += T) {
+      const bool valid = q < H;
+      bool sl = false, sh = false;
+      if (valid) {
+        const float2 pp = old[q];              // v of 2q and 2q + 1
+        const float p0 = __fsub_rn(pp.x, m);
+        const float p1 = __fsub_rn(pp.y, m);
+        float e[2][2];
+        w.bm(q, x, bf16, e);
+        const float l0 = __fadd_rn(p0, e[0][0]);
+        const float l1 = __fadd_rn(p1, e[0][1]);
+        const float h0 = __fadd_rn(p0, e[1][0]);
+        const float h1 = __fadd_rn(p1, e[1][1]);
+        sl = l1 >= l0;
+        sh = h1 >= h0;
+        const float vl = sl ? l1 : l0;
+        const float vh = sh ? h1 : h0;
+        nwb[q] = vl;
+        nwb[q + H] = vh;
+        if (vl > mlo) { mlo = vl; slo = q; }
+        if (vh > mhi) { mhi = vh; shi = q + H; }
+      }
+      st.butterfly(t, q, valid, sl, sh, __ballot_sync(VIT_FULL, sl),
+                   __ballot_sync(VIT_FULL, sh));
+    }
+    const int key = __reduce_max_sync(
+        VIT_FULL, vit_key(__float_as_int(fmaxf(mlo, mhi))));
+    if (lane == 0) w.red[(t & 1) * 32 + warp] = key;
+    __syncthreads();
+    if (pend >= 0 && warp == 0) {
+      const int a = __reduce_min_sync(
+          VIT_FULL, lane < nw ? w.red[64 + (pend & 1) * 32 + lane]
+                              : 0x7fffffff);
+      st.argmax(pend, a);
+    }
+    pend = -1;
+    m = __int_as_float(vit_key(__reduce_max_sync(
+        VIT_FULL, lane < nw ? w.red[(t & 1) * 32 + lane]
+                            : (int)0x80000000)));
+    if (st.wants_argmax(t)) {
+      int a = 0x7fffffff;
+      if (mhi == m) a = shi;
+      if (mlo == m) a = slo;                  // low states come first
+      a = __reduce_min_sync(VIT_FULL, a);
+      if (lane == 0) w.red[64 + (t & 1) * 32 + warp] = a;
+      pend = t;
+    }
+  }
+  __syncthreads();
+  if (pend >= 0 && warp == 0) {
+    const int a = __reduce_min_sync(
+        VIT_FULL, lane < nw ? w.red[64 + (pend & 1) * 32 + lane]
+                            : 0x7fffffff);
+    st.argmax(pend, a);
+  }
+  __syncthreads();
+}
+
+// The survivor words of one butterfly step, as packing.py's LANE words:
+// with S/2 >= 32 a warp's ballots are whole words (its lanes run 32
+// neighbouring butterflies q0 = q of lane 0, a multiple of 32): word q0 / 32
+// (low states) and (q0 + S/2) / 32 (high states); with S <= 32 the one word
+// of the stage is the low ballot with the high one above it.
+struct VitWideWords {
+  int n;                 // words this warp holds: 1 or 2
+  int i0, i1;            // their indices
+  unsigned w0, w1;
+  __device__ __forceinline__ VitWideWords(int H, int q, unsigned blo,
+                                          unsigned bhi) {
+    if (H >= 32) {
+      const int q0 = q & ~31;
+      n = 2;
+      i0 = q0 >> 5;
+      i1 = (q0 + H) >> 5;
+      w0 = blo;
+      w1 = bhi;
+    } else {
+      n = 1;
+      i0 = i1 = 0;
+      w0 = w1 = blo | (bhi << H);
+    }
+  }
+};
 
 // numRegs, localSizeBytes (spills) and maxThreadsPerBlock of one kernel
 // instantiation, for the tile planner (kernels/autotune.py).

@@ -38,6 +38,8 @@
 //   * direct: the cursors chase the stream in device memory. Taken where a
 //     stage row is wide, and copying whole rows would read far more than
 //     the chase's one sector per step.
+// Any code up to k = 31 (a state is an int): the rows of the codes past
+// k = 15 (4 KB a stage packed at k = 16) are chased direct by the rule.
 // Frames are fastest within a warp (neighbouring words of a sublane row;
 // banks spread by the frame stride in shared memory), except in the direct
 // lane chase, where a frame's subframes are (a warp reads a few frames'
@@ -334,7 +336,7 @@ int traceback_frames_launch(const void* sel, const void* amax, void* out,
                             int f0, int v2s, int pack, int sublane,
                             int start_fixed, int G, int staged, int threads,
                             void* stream) {
-  if (k < 2 || k > 15 || F < 1 || f0 < 1 || f % f0 != 0 || v2s < 0 ||
+  if (k < 2 || k > 31 || F < 1 || f0 < 1 || f % f0 != 0 || v2s < 0 ||
       v1 < 0 || v1 + f + v2s > L || threads < 32 || threads > 1024 ||
       threads % 32 != 0 || G < 1)
     return (int)cudaErrorInvalidValue;

@@ -44,6 +44,14 @@
 // ballot words (word 32 r + warp of a stage), every thread its states'
 // bytes unpacked, and warp 0 each stage's first maximal state, known
 // during the next stage.
+//
+// Every other code (k >= 16, or beta > 8) runs acs.cuh's wide mapping, in
+// a third kernel (viterbi_fwd_wide_kernel): one block a frame, k and beta
+// at run time, path metrics in shared memory to k = 15 and in a
+// device-memory scratch past it. It stores as the large-code kernel does
+// (packed: lane 0 of each warp its words; unpacked: every thread its
+// states' bytes; warp 0 the first maximal state). A block decodes frames
+// blockIdx.x, + gridDim.x, ...; its path-metric scratch is its own.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,7 +68,9 @@ struct FwdParams {
   const float* signs_half;  // (half, beta)
   void* sel;                // survivor stream, see above
   int* amax;                // (F, L)
-  int F, L, k, llr_dtype, pack, sublane, bf16_bm, fpb;
+  const int* polys;         // (beta,) generator polynomials (wide mapping)
+  float* pm_global;         // wide mapping past k = 15: [grid][2][S]
+  int F, L, k, beta, llr_dtype, pack, sublane, bf16_bm, fpb;
 };
 
 // What the forward kernel keeps of each stage: its first maximal state and
@@ -186,10 +196,72 @@ __global__ void __launch_bounds__(VIT_SMEM_THREADS)
     vit_block_recursion(b, p.llr, p.llr_dtype, false, base, p.L, st);
 }
 
+// ---- every other code: one frame a block, acs.cuh's VitWide -------------
+
+// What the wide kernel keeps of each stage: packed, lane 0 of each warp
+// stores its words (VitWideWords); unpacked, every thread its states'
+// bytes; warp 0 the stage's first maximal state.
+struct FwdWideStore {
+  uint32_t* sel32;
+  int8_t* sel8;
+  int* amax;                 // this frame's (L,) row
+  long long frame;
+  int F, L, S, W, H, pack, sublane;
+  __device__ __forceinline__ bool wants_argmax(int) const { return true; }
+  __device__ __forceinline__ void argmax(int t, int a) {
+    if ((threadIdx.x & 31) == 0) amax[t] = a;
+  }
+  __device__ __forceinline__ void put8(int t, int s, bool v) {
+    const long long o = sublane ? ((long long)t * S + s) * F + frame
+                                : (frame * L + t) * S + s;
+    sel8[o] = (int8_t)v;
+  }
+  __device__ __forceinline__ void put32(int t, int wi, unsigned v) {
+    const long long i = (long long)t * W + wi;
+    sel32[sublane ? i * F + frame : frame * L * W + i] = v;
+  }
+  __device__ __forceinline__ void butterfly(int t, int q, bool valid,
+                                            bool slo, bool shi, unsigned blo,
+                                            unsigned bhi) {
+    if (pack) {
+      if ((threadIdx.x & 31) == 0) {
+        const VitWideWords w(H, q, blo, bhi);
+        put32(t, w.i0, w.w0);
+        if (w.n == 2) put32(t, w.i1, w.w1);
+      }
+    } else if (valid) {
+      put8(t, q, slo);
+      put8(t, q + H, shi);
+    }
+  }
+};
+
+__global__ void __launch_bounds__(VIT_WIDE_MAX_THREADS)
+    viterbi_fwd_wide_kernel(const FwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = 1 << (p.k - 1);
+  VitWide w;
+  w.init(p.k, p.beta, p.polys, smem,
+         p.pm_global != nullptr ? p.pm_global + blockIdx.x * 2LL * S
+                                : nullptr);
+  for (long long frame = blockIdx.x; frame < p.F; frame += gridDim.x) {
+    FwdWideStore st{static_cast<uint32_t*>(p.sel),
+                    static_cast<int8_t*>(p.sel), p.amax + frame * p.L,
+                    frame, p.F, p.L, S, (S + 31) / 32, S >> 1, p.pack,
+                    p.sublane};
+    const long long base = frame * p.L * p.beta;
+    if (p.bf16_bm)        // one inlined loop per bm_dtype
+      vit_wide_recursion(w, p.llr, p.llr_dtype, true, base, p.L, st);
+    else
+      vit_wide_recursion(w, p.llr, p.llr_dtype, false, base, p.L, st);
+  }
+}
+
 // Shared memory of one block of fpb frames: each warp's run buffers, 32
 // words and 32 argmax; for a large code, the mapping's path metrics,
-// tables and partials.
-inline long long fwd_smem(int k, int fpb) {
+// tables and partials; for a wide code, the wide mapping's.
+inline long long fwd_smem(int k, int beta, int fpb) {
+  if (vit_wide_code(k, beta)) return vit_wide_smem_bytes(k);
   if (k >= VIT_SMEM_MIN_K) return vit_smem_core_bytes(k);
   const int fpw = 32 / vit_lanes_per_frame(k);
   return (long long)(fpb + fpw - 1) / fpw * 64 * 4;
@@ -202,7 +274,8 @@ struct Launch {
     const int threads = (p->fpb + fpw - 1) / fpw * 32;
     const int grid = (p->F + p->fpb - 1) / p->fpb;
     viterbi_fwd_kernel<R, BETA>
-        <<<grid, threads, (size_t)fwd_smem(p->k, p->fpb), stream>>>(*p);
+        <<<grid, threads, (size_t)fwd_smem(p->k, p->beta, p->fpb),
+           stream>>>(*p);
     return (int)cudaGetLastError();
   }
 };
@@ -236,31 +309,62 @@ struct Attrs {
   }
 };
 
+// Launches the wide kernel on `grid` blocks.
+inline int launch_wide(const FwdParams* p, int grid, cudaStream_t stream) {
+  const long long smem = vit_wide_smem_bytes(p->k);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        viterbi_fwd_wide_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  viterbi_fwd_wide_kernel<<<grid, vit_wide_threads(p->k), (size_t)smem,
+                            stream>>>(*p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory of one block of fpb frames: the warps' run
-// buffers (the path metrics live in registers).
-long long viterbi_fwd_smem_bytes(int k, int fpb) { return fwd_smem(k, fpb); }
+// buffers (the path metrics live in registers); a large or wide code's
+// mapping's own.
+long long viterbi_fwd_smem_bytes(int k, int beta, int fpb) {
+  return fwd_smem(k, beta, fpb);
+}
 
 // out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the instantiation
-// that runs (k, beta). Returns 0 or the CUDA error.
+// that runs (k, beta): the wide kernel for every code past the fast
+// mappings. Returns 0 or the CUDA error.
 int viterbi_fwd_func_attrs(int k, int beta, int* out) {
-  if (k < 2 || k > VIT_SMEM_MAX_K || beta < 2 || beta > VIT_MAX_BETA)
+  if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 || beta > VIT_WIDE_MAX_BETA)
     return (int)cudaErrorInvalidValue;
+  if (vit_wide_code(k, beta))
+    return vit_func_attrs(
+        reinterpret_cast<const void*>(viterbi_fwd_wide_kernel), out);
   if (k >= VIT_SMEM_MIN_K) return vit_dispatch_smem<Attrs>(k, beta, out);
   return vit_dispatch<Attrs>(k, beta, out);
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
+// The wide mapping (every code outside the fast mappings' domain, or any
+// code with wide != 0, which the wrapper passes only to test the mapping)
+// takes `grid` blocks and, past k = 15, the path metrics in pm_global
+// (grid of [2][S] float32); the other mappings take fpb frames a block.
 int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
-                       const void* signs_half, void* sel, void* amax, int F,
-                       int L, int beta, int k, int llr_dtype, int pack,
-                       int sublane, int bf16_bm, int fpb, void* stream) {
-  if (k < 2 || k > VIT_SMEM_MAX_K || beta < 2 || beta > VIT_MAX_BETA ||
-      fpb < 1 ||
-      fpb > vit_max_frames_per_block(k) || F < 1 || L < 1)
+                       const void* signs_half, const void* polys, void* sel,
+                       void* amax, void* pm_global, int F, int L, int beta,
+                       int k, int llr_dtype, int pack, int sublane,
+                       int bf16_bm, int fpb, int wide, int grid,
+                       void* stream) {
+  wide = wide || vit_wide_code(k, beta);
+  if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 ||
+      beta > VIT_WIDE_MAX_BETA || F < 1 || L < 1)
+    return (int)cudaErrorInvalidValue;
+  if (wide ? (polys == nullptr || grid < 1 ||
+              (pm_global == nullptr) == !vit_wide_pm_on_chip(k))
+           : (fpb < 1 || fpb > vit_max_frames_per_block(k)))
     return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.llr = llr;
@@ -269,14 +373,18 @@ int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
   p.signs_half = static_cast<const float*>(signs_half);
   p.sel = sel;
   p.amax = static_cast<int*>(amax);
+  p.polys = static_cast<const int*>(polys);
+  p.pm_global = static_cast<float*>(pm_global);
   p.F = F;
   p.L = L;
   p.k = k;
+  p.beta = beta;
   p.llr_dtype = llr_dtype;
   p.pack = pack;
   p.sublane = sublane;
   p.bf16_bm = bf16_bm;
   p.fpb = fpb;
+  if (wide) return launch_wide(&p, grid, static_cast<cudaStream_t>(stream));
   if (k >= VIT_SMEM_MIN_K)
     return vit_dispatch_smem<LaunchSmem>(k, beta, &p,
                                          static_cast<cudaStream_t>(stream));

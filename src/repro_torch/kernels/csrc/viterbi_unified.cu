@@ -37,6 +37,13 @@
 // k=13) and in the device-memory scratch below otherwise: the kernel picks
 // by shape. Phase 3 runs the frame's nsub cursors on the block's threads.
 //
+// Every other code (k >= 16, or beta > 8) runs acs.cuh's wide mapping, in
+// a third kernel (viterbi_unified_wide_kernel): one block a frame, k and
+// beta at run time, path metrics in shared memory to k = 15 and in a
+// device-memory scratch past it, survivors and traceback starts always in
+// the device-memory scratch. A block decodes frames blockIdx.x, +
+// gridDim.x, ...; its scratch is its own, reused frame after frame.
+//
 // When one frame's survivors exceed the shared memory a block can have
 // (unpacked K=7 survivors of one f=4096 frame need L*S ~ 266 KB), the same
 // kernel keeps survivors and traceback starts in a device-memory scratch
@@ -63,7 +70,9 @@ struct UnifiedParams {
   int* out;                   // (F, f) decoded bits
   unsigned char* sel_global;  // survivor scratch, or null for shared memory
   int* amax_global;           // traceback-start scratch (with sel_global)
-  int F, L, k, v1, f, f0, v2s, nsub;
+  const int* polys;           // (beta,) generator polynomials (wide mapping)
+  float* pm_global;           // wide mapping past k = 15: [grid][2][S]
+  int F, L, k, beta, v1, f, f0, v2s, nsub;
   int llr_dtype, start_fixed, pack, bf16_bm, fpb;
 };
 
@@ -304,6 +313,87 @@ __global__ void __launch_bounds__(VIT_SMEM_THREADS)
   }
 }
 
+// ---- every other code: one frame a block, acs.cuh's VitWide -------------
+
+// What the wide kernel keeps of each stage: the survivors in the block's
+// scratch (packed: lane 0 of each warp stores the warp's words; else every
+// thread its states' bytes) and the first maximal state of each traceback
+// start stage.
+struct UnifiedWideStore {
+  unsigned char* sel;       // the block's [L][row]
+  int* am;                  // its [nsub] starts
+  long long row;
+  int H, pack, f0, e_first, next_e;
+  __device__ __forceinline__ bool wants_argmax(int t) {
+    if (t != next_e) return false;
+    next_e += f0;
+    return true;
+  }
+  __device__ __forceinline__ void argmax(int t, int a) {
+    if ((threadIdx.x & 31) == 0) am[(t - e_first) / f0] = a;
+  }
+  __device__ __forceinline__ void butterfly(int t, int q, bool valid,
+                                            bool slo, bool shi, unsigned blo,
+                                            unsigned bhi) {
+    unsigned char* r = sel + (long long)t * row;
+    if (pack) {
+      if ((threadIdx.x & 31) == 0) {
+        const VitWideWords w(H, q, blo, bhi);
+        uint32_t* r32 = reinterpret_cast<uint32_t*>(r);
+        r32[w.i0] = w.w0;
+        if (w.n == 2) r32[w.i1] = w.w1;
+      }
+    } else if (valid) {
+      r[q] = (unsigned char)slo;
+      r[q + H] = (unsigned char)shi;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(VIT_WIDE_MAX_THREADS)
+    viterbi_unified_wide_kernel(const UnifiedParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = 1 << (p.k - 1);
+  const long long row = p.pack ? 4LL * ((S + 31) / 32) : S;
+  unsigned char* sel = p.sel_global + (long long)blockIdx.x * p.L * row;
+  int* am = p.amax_global + (long long)blockIdx.x * p.nsub;
+  VitWide w;
+  w.init(p.k, p.beta, p.polys, smem,
+         p.pm_global != nullptr ? p.pm_global + blockIdx.x * 2LL * S
+                                : nullptr);
+  const int e_first = p.v1 + p.f0 - 1 + p.v2s;
+  const int kshift = p.k - 2;
+  const int T = p.f0 + p.v2s;
+  for (long long frame = blockIdx.x; frame < p.F; frame += gridDim.x) {
+    UnifiedWideStore st{sel, am, row, S >> 1, p.pack, p.f0, e_first,
+                        p.start_fixed ? 0x7fffffff : e_first};
+    const long long base = frame * p.L * p.beta;
+    if (p.bf16_bm)        // one inlined loop per bm_dtype
+      vit_wide_recursion(w, p.llr, p.llr_dtype, true, base, p.L, st);
+    else
+      vit_wide_recursion(w, p.llr, p.llr_dtype, false, base, p.L, st);
+
+    // ---- phase 3: the frame's nsub cursors, one per thread ----------------
+    for (int q = threadIdx.x; q < p.nsub; q += blockDim.x) {
+      int state = p.start_fixed ? 0 : am[q];
+      const int e2 = p.v1 + (q + 1) * p.f0 - 1 + p.v2s;
+      int* o = p.out + frame * p.f + (long long)q * p.f0;
+      for (int r = 0; r < T; ++r) {
+        const long long ts = e2 - r;
+        if (r >= p.v2s) o[p.f0 - 1 - (r - p.v2s)] = state >> kshift;
+        int bit;
+        if (p.pack)
+          bit = (reinterpret_cast<const uint32_t*>(sel + ts * row)
+                     [state >> 5] >> (state & 31)) & 1;
+        else
+          bit = sel[ts * row + state];
+        state = ((state << 1) & (S - 1)) | bit;
+      }
+    }
+    __syncthreads();      // the scratch is read before the next frame's
+  }
+}
+
 // Threads of a block of fpb frames: whole warps of 32 / P frames each.
 inline int block_threads(int k, int fpb) {
   const int fpw = 32 / vit_lanes_per_frame(k);
@@ -357,9 +447,26 @@ struct Attrs {
   }
 };
 
-// Shared memory of one block for either mapping.
-inline long long unified_smem(int k, int L, int nsub, int pack,
+// Launches the wide kernel on `grid` blocks.
+inline int launch_wide(const UnifiedParams* p, int grid,
+                       cudaStream_t stream) {
+  const long long smem = vit_wide_smem_bytes(p->k);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        viterbi_unified_wide_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  viterbi_unified_wide_kernel<<<grid, vit_wide_threads(p->k), (size_t)smem,
+                                stream>>>(*p);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory of one block for any mapping (wide: the mapping's own;
+// its survivors are always in the scratch).
+inline long long unified_smem(int k, int beta, int L, int nsub, int pack,
                               int start_fixed, int fpb, int global) {
+  if (vit_wide_code(k, beta)) return vit_wide_smem_bytes(k);
   if (k >= VIT_SMEM_MIN_K)
     return smem_layout_smem(k, L, nsub, pack, start_fixed, global).total;
   return smem_layout(k, L, nsub, pack, start_fixed, fpb, global).total;
@@ -370,18 +477,30 @@ inline long long unified_smem(int k, int L, int nsub, int pack,
 extern "C" {
 
 // Dynamic shared memory of one block of fpb frames (global_scratch != 0:
-// survivors and traceback starts live in device memory instead).
-long long viterbi_unified_smem_bytes(int k, int L, int nsub, int pack,
-                                     int start_fixed, int fpb,
+// survivors and traceback starts live in device memory instead; the wide
+// mapping's always do).
+long long viterbi_unified_smem_bytes(int k, int beta, int L, int nsub,
+                                     int pack, int start_fixed, int fpb,
                                      int global_scratch) {
-  return unified_smem(k, L, nsub, pack, start_fixed, fpb, global_scratch);
+  return unified_smem(k, beta, L, nsub, pack, start_fixed, fpb,
+                      global_scratch);
 }
 
+// Whether (k, beta) runs on the wide mapping: 1 or 0.
+int viterbi_wide_code(int k, int beta) { return vit_wide_code(k, beta); }
+
+// Threads of one wide-mapping block of a k code.
+int viterbi_wide_threads(int k) { return vit_wide_threads(k); }
+
 // out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the instantiation
-// that decodes (k, beta). Returns 0 or the CUDA error.
+// that runs (k, beta): the wide kernel for every code past the fast
+// mappings. Returns 0 or the CUDA error.
 int viterbi_unified_func_attrs(int k, int beta, int* out) {
-  if (k < 2 || k > VIT_SMEM_MAX_K || beta < 2 || beta > VIT_MAX_BETA)
+  if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 || beta > VIT_WIDE_MAX_BETA)
     return (int)cudaErrorInvalidValue;
+  if (vit_wide_code(k, beta))
+    return vit_func_attrs(
+        reinterpret_cast<const void*>(viterbi_unified_wide_kernel), out);
   if (k >= VIT_SMEM_MIN_K) return vit_dispatch_smem<Attrs>(k, beta, out);
   return vit_dispatch<Attrs>(k, beta, out);
 }
@@ -407,17 +526,26 @@ int viterbi_device_limits(int device, int* out) {
 }
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
+// The wide mapping (every code outside the fast mappings' domain, or any
+// code with wide != 0, which the wrapper passes only to test the mapping)
+// takes `grid` blocks, survivors and starts in the scratch (grid of [L][row]
+// bytes and of [nsub] int32) and, past k = 15, the path metrics in pm_global
+// (grid of [2][S] float32); the other mappings take fpb frames a block.
 int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
-                           const void* signs_half, void* out,
-                           void* sel_global, void* amax_global, int F, int L,
-                           int beta, int k, int v1, int f, int f0, int v2s,
-                           int llr_dtype, int start_fixed, int pack,
-                           int bf16_bm, int fpb, void* stream) {
-  if (k < 2 || k > VIT_SMEM_MAX_K || beta < 2 || beta > VIT_MAX_BETA ||
-      fpb < 1 ||
-      fpb > vit_max_frames_per_block(k) || f0 < 1 || f % f0 != 0 ||
-      F < 1 ||
+                           const void* signs_half, const void* polys,
+                           void* out, void* sel_global, void* amax_global,
+                           void* pm_global, int F, int L, int beta, int k,
+                           int v1, int f, int f0, int v2s, int llr_dtype,
+                           int start_fixed, int pack, int bf16_bm, int fpb,
+                           int wide, int grid, void* stream) {
+  wide = wide || vit_wide_code(k, beta);
+  if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 ||
+      beta > VIT_WIDE_MAX_BETA || f0 < 1 || f % f0 != 0 || F < 1 ||
       (sel_global == nullptr) != (amax_global == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (wide ? (sel_global == nullptr || polys == nullptr || grid < 1 ||
+              (pm_global == nullptr) == !vit_wide_pm_on_chip(k))
+           : (fpb < 1 || fpb > vit_max_frames_per_block(k)))
     return (int)cudaErrorInvalidValue;
   UnifiedParams p;
   p.llr = llr;
@@ -427,9 +555,12 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
   p.out = static_cast<int*>(out);
   p.sel_global = static_cast<unsigned char*>(sel_global);
   p.amax_global = static_cast<int*>(amax_global);
+  p.polys = static_cast<const int*>(polys);
+  p.pm_global = static_cast<float*>(pm_global);
   p.F = F;
   p.L = L;
   p.k = k;
+  p.beta = beta;
   p.v1 = v1;
   p.f = f;
   p.f0 = f0;
@@ -440,8 +571,10 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
   p.pack = pack;
   p.bf16_bm = bf16_bm;
   p.fpb = fpb;
-  const long long smem = unified_smem(k, L, p.nsub, pack, start_fixed, fpb,
-                                      sel_global != nullptr);
+  if (wide)
+    return launch_wide(&p, grid, static_cast<cudaStream_t>(stream));
+  const long long smem = unified_smem(k, beta, L, p.nsub, pack, start_fixed,
+                                      fpb, sel_global != nullptr);
   if (k >= VIT_SMEM_MIN_K)
     return vit_dispatch_smem<LaunchSmem>(k, beta, &p, smem,
                                          static_cast<cudaStream_t>(stream));

@@ -41,7 +41,7 @@ import torch
 
 from ..core.traceback import parallel_traceback_frames, serial_traceback_frames
 from ..core.trellis import Trellis
-from .autotune import H100_LIMITS, MAX_K, device_limits
+from .autotune import H100_LIMITS, H100_SMS, device_limits
 from .build import build
 from .packing import Layout, packed_width
 
@@ -61,8 +61,6 @@ MAX_GROUP = 32
 #: Fewest frames a staged sublane block takes (a row's int32 words of 8
 #: frames fill one 32-byte sector).
 SUBLANE_MIN_GROUP = 8
-#: Streaming multiprocessors of an H100 SXM, what the CPU plans with.
-H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,9 +221,6 @@ def traceback_frames_cuda(sel: torch.Tensor, amax: torch.Tensor, *,
                              "evenly strided rows")
     elif not sel.is_contiguous():
         raise ValueError("a lane sel must be contiguous")
-    if not 2 <= trellis.k <= MAX_K:
-        raise ValueError(f"the CUDA kernel takes 2 <= k <= {MAX_K}, got "
-                         f"k={trellis.k}")
     dev = sel.device
     out = torch.empty((F, f), dtype=torch.int32, device=dev)
     if F == 0:

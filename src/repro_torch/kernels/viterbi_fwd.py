@@ -34,10 +34,11 @@ import torch
 
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
-from .autotune import MAX_BETA, MAX_K, max_frames_per_block
+from .autotune import (max_frames_per_block, wide_grid, wide_mapping,
+                       wide_pm_on_chip)
 from .build import build
 from .packing import Layout, pack_bits, packed_width
-from .viterbi_unified import _LLR_DTYPES, device_tables
+from .viterbi_unified import _LLR_DTYPES, device_polys, device_tables
 
 __all__ = ["forward_frames", "forward_frames_cuda", "forward_frames_plain",
            "kernel_library"]
@@ -51,9 +52,9 @@ def kernel_library():
     lib = built.lib
     if not getattr(lib, "_argtypes_set", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.viterbi_fwd_launch.argtypes = [vp] * 6 + [i] * 9 + [vp]
+        lib.viterbi_fwd_launch.argtypes = [vp] * 8 + [i] * 11 + [vp]
         lib.viterbi_fwd_launch.restype = i
-        lib.viterbi_fwd_smem_bytes.argtypes = [i, i]
+        lib.viterbi_fwd_smem_bytes.argtypes = [i, i, i]
         lib.viterbi_fwd_smem_bytes.restype = ctypes.c_longlong
         lib.viterbi_fwd_func_attrs.argtypes = [i, i, ctypes.POINTER(i)]
         lib.viterbi_fwd_func_attrs.restype = i
@@ -96,13 +97,18 @@ def forward_frames(frames: torch.Tensor, *, trellis: Trellis,
 def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
                         frames_per_tile: int = 8,
                         pack_survivors: bool = False, radix: int = 2,
-                        layout: str = "lane", bm_dtype: str = "float32"):
+                        layout: str = "lane", bm_dtype: str = "float32",
+                        _wide: bool = False):
     """Launch the CUDA kernel on ``frames`` (a contiguous CUDA tensor of
     float32, bfloat16 or float16); raises on anything else or if the build
     or the launch fails. A block holds at most ``frames_per_tile`` and at
-    most ``autotune.max_frames_per_block`` frames. ``radix`` is checked as
-    in JAX but has no effect on the card: every stage is one exact radix-2
-    step, and the outputs are the same for both."""
+    most ``autotune.max_frames_per_block`` frames; a code outside the fast
+    mappings' domain runs the wide mapping (one frame a block, the grid
+    the blocks resident at once, past k = 15 each block's path metrics in
+    a device-memory scratch). ``radix`` is checked as in JAX but has no
+    effect on the card: every stage is one exact radix-2 step, and the
+    outputs are the same for both. ``_wide`` runs any code on the wide
+    mapping, for the tests that hold it against the fast mappings."""
     lay = _check(frames, trellis, frames_per_tile, radix, layout, bm_dtype)
     if not frames.is_cuda:
         raise ValueError(f"frames must lie on a CUDA device, got "
@@ -113,9 +119,6 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
     k, beta = trellis.k, trellis.beta
-    if not 2 <= k <= MAX_K or not 2 <= beta <= MAX_BETA:
-        raise ValueError(f"the CUDA kernel takes 2 <= k <= {MAX_K} and "
-                         f"2 <= beta <= {MAX_BETA}, got k={k} beta={beta}")
     dev = frames.device
     F, L, _ = frames.shape
     S = trellis.num_states
@@ -131,15 +134,25 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     if F == 0:
         return sel, amax
     lib = kernel_library().lib
-    fpb = min(frames_per_tile, max_frames_per_block(trellis), F)
+    wide = _wide or wide_mapping(trellis)
+    pm = None
+    if wide:
+        fpb, grid = 1, wide_grid(trellis, F, dev, unified=False)
+        if not wide_pm_on_chip(trellis):
+            pm = torch.empty((grid, 2, S), dtype=torch.float32, device=dev)
+    else:
+        fpb, grid = min(frames_per_tile, max_frames_per_block(trellis), F), 0
     idx, sgn, signs_half = device_tables(trellis, dev)
+    polys = device_polys(trellis, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.viterbi_fwd_launch(
             frames.data_ptr(), idx.data_ptr(), sgn.data_ptr(),
-            signs_half.data_ptr(), sel.data_ptr(), amax.data_ptr(),
+            signs_half.data_ptr(), polys.data_ptr(), sel.data_ptr(),
+            amax.data_ptr(), pm.data_ptr() if pm is not None else None,
             F, L, beta, k, _LLR_DTYPES[frames.dtype], int(pack_survivors),
-            int(sub), int(bm_dtype == "bfloat16"), fpb, stream)
+            int(sub), int(bm_dtype == "bfloat16"), fpb, int(wide), grid,
+            stream)
     if err != 0:
         raise RuntimeError(f"viterbi_fwd launch failed: CUDA error {err}")
     forward_frames_cuda.launches += 1

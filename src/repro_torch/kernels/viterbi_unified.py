@@ -27,9 +27,14 @@ segment of S lanes for S < 32), at most eight warps a block, so a block
 holds at most ``autotune.max_frames_per_block`` frames, and fewer when
 their survivors would overflow shared memory. Codes 12 <= k <= 15 run one
 frame on a block of 1024 threads, path metrics in shared memory
-(``acs.cuh``'s large-code mapping). The card takes k <= 15 and beta <= 8
-(``autotune.MAX_K``, ``MAX_BETA``); past them the wrapper raises, naming
-the limit. Bits never depend on the tile.
+(``acs.cuh``'s large-code mapping). Every other code the plain version
+takes (k > ``autotune.MAX_K`` = 15 or beta > ``MAX_BETA`` = 8) runs the
+wide mapping (``acs.cuh``'s ``VitWide``): one frame a block, k and beta at
+run time, survivors and traceback starts in a device-memory scratch of
+each block's, and past k = 15 the path metrics too; the grid is the
+blocks resident at once (``autotune.wide_grid``), each taking frames in
+turn. Where the card cannot hold that scratch, the allocation or the
+launch raises. Bits never depend on the tile.
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ import torch
 
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
-from .autotune import MAX_BETA, MAX_K, device_limits, max_frames_per_block
+from .autotune import (device_limits, max_frames_per_block, wide_grid,
+                       wide_mapping, wide_pm_on_chip)
 from .build import build
 from .packing import Layout, extract_bit, pack_bits, packed_width
 from .tables import kernel_tables
@@ -59,12 +65,16 @@ def kernel_library():
     lib = built.lib
     if not getattr(lib, "_argtypes_set", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.viterbi_unified_launch.argtypes = [vp] * 7 + [i] * 13 + [vp]
+        lib.viterbi_unified_launch.argtypes = [vp] * 9 + [i] * 15 + [vp]
         lib.viterbi_unified_launch.restype = i
-        lib.viterbi_unified_smem_bytes.argtypes = [i] * 7
+        lib.viterbi_unified_smem_bytes.argtypes = [i] * 8
         lib.viterbi_unified_smem_bytes.restype = ctypes.c_longlong
         lib.viterbi_unified_func_attrs.argtypes = [i, i, ctypes.POINTER(i)]
         lib.viterbi_unified_func_attrs.restype = i
+        lib.viterbi_wide_code.argtypes = [i, i]
+        lib.viterbi_wide_code.restype = i
+        lib.viterbi_wide_threads.argtypes = [i]
+        lib.viterbi_wide_threads.restype = i
         lib.viterbi_device_limits.argtypes = [i, ctypes.POINTER(i)]
         lib.viterbi_device_limits.restype = i
         lib._argtypes_set = True
@@ -73,7 +83,8 @@ def kernel_library():
 
 def device_tables(trellis: Trellis, device: torch.device):
     """(idx (2,S) int32, sgn (2,S) f32, signs_half (half,beta) f32) on
-    ``device``, built once on the host (kernels/tables.py) and cached."""
+    ``device``, built once on the host (kernels/tables.py) and cached (the
+    wide mapping reads ``device_polys`` instead)."""
     key = (trellis.k, trellis.polys, str(device))
     if key not in _tables:
         _, idx_p, sgn_p, signs_half = kernel_tables(trellis)
@@ -81,6 +92,16 @@ def device_tables(trellis: Trellis, device: torch.device):
             torch.as_tensor(np.stack(idx_p), dtype=torch.int32).to(device),
             torch.as_tensor(np.stack(sgn_p), dtype=torch.float32).to(device),
             torch.as_tensor(signs_half, dtype=torch.float32).to(device))
+    return _tables[key]
+
+
+def device_polys(trellis: Trellis, device: torch.device) -> torch.Tensor:
+    """The generator polynomials (beta,) int32 on ``device``, cached:
+    what the wide mapping builds its branch metrics from."""
+    key = ("polys", trellis.k, trellis.polys, str(device))
+    if key not in _tables:
+        _tables[key] = torch.tensor(trellis.polys, dtype=torch.int32,
+                                    device=device)
     return _tables[key]
 
 
@@ -136,12 +157,14 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
                                frames_per_tile: int = 8,
                                pack_survivors: bool = False, radix: int = 2,
                                layout: str = "lane",
-                               bm_dtype: str = "float32") -> torch.Tensor:
+                               bm_dtype: str = "float32",
+                               _wide: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel on ``frames`` (a contiguous CUDA tensor of
     float32, bfloat16 or float16); raises on anything else or if the build
     or the launch fails. ``radix`` and ``layout`` are checked as in JAX but
     have no effect on the card: every stage is one exact radix-2 step, and
-    the bits are the same for both."""
+    the bits are the same for both. ``_wide`` runs any code on the wide
+    mapping, for the tests that hold it against the fast mappings."""
     _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
            radix, layout, bm_dtype)
     if not frames.is_cuda:
@@ -153,9 +176,6 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
     k, beta = trellis.k, trellis.beta
-    if not 2 <= k <= MAX_K or not 2 <= beta <= MAX_BETA:
-        raise ValueError(f"the CUDA kernel takes 2 <= k <= {MAX_K} and "
-                         f"2 <= beta <= {MAX_BETA}, got k={k} beta={beta}")
     lib = kernel_library().lib
     dev = frames.device
     F, L, _ = frames.shape
@@ -165,32 +185,43 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     nsub = f // f0
     pack = int(pack_survivors)
     fixed = int(start == "fixed")
-    limit = device_limits(dev).smem_per_block
-    cap = min(frames_per_tile, max_frames_per_block(trellis), F)
-    fpb = cap
-    while fpb and lib.viterbi_unified_smem_bytes(
-            k, L, nsub, pack, fixed, fpb, 0) > limit:
-        fpb -= 1
-    glob = fpb == 0                      # survivors too long for on-chip
-    if glob:
+    row = 4 * packed_width(S) if pack else S
+    wide = _wide or wide_mapping(trellis)
+    pm = None
+    if wide:             # a block's survivors and starts in its scratch
+        grid = nframes = wide_grid(trellis, F, dev)
+        fpb, glob = 1, True
+        if not wide_pm_on_chip(trellis):
+            pm = torch.empty((grid, 2, S), dtype=torch.float32, device=dev)
+    else:
+        grid = 0
+        limit = device_limits(dev).smem_per_block
+        cap = min(frames_per_tile, max_frames_per_block(trellis), F)
         fpb = cap
+        while fpb and lib.viterbi_unified_smem_bytes(
+                k, beta, L, nsub, pack, fixed, fpb, 0) > limit:
+            fpb -= 1
+        glob = fpb == 0                  # survivors too long for on-chip
+        if glob:
+            fpb = cap
+        nframes = -(-F // fpb) * fpb
     idx, sgn, signs_half = device_tables(trellis, dev)
+    polys = device_polys(trellis, dev)
     out = torch.empty((F, f), dtype=torch.int32, device=dev)
     sel = amax = None
     if glob:
-        nframes = -(-F // fpb) * fpb
-        row = 4 * packed_width(S) if pack else S
         sel = torch.empty((nframes, L, row), dtype=torch.uint8, device=dev)
         amax = torch.empty((nframes, nsub), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.viterbi_unified_launch(
             frames.data_ptr(), idx.data_ptr(), sgn.data_ptr(),
-            signs_half.data_ptr(), out.data_ptr(),
+            signs_half.data_ptr(), polys.data_ptr(), out.data_ptr(),
             sel.data_ptr() if glob else None,
             amax.data_ptr() if glob else None,
+            pm.data_ptr() if pm is not None else None,
             F, L, beta, k, v1, f, f0, v2s, _LLR_DTYPES[frames.dtype], fixed,
-            pack, int(bm_dtype == "bfloat16"), fpb, stream)
+            pack, int(bm_dtype == "bfloat16"), fpb, int(wide), grid, stream)
     if err != 0:
         raise RuntimeError(f"viterbi_unified launch failed: CUDA error {err}")
     unified_decode_frames_cuda.launches += 1

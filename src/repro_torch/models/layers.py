@@ -191,6 +191,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _proj(x, w, b):
+    """x @ w (+ b), the weight through ``ctx.weight`` (gathered over the
+    data axes where a partial sum over them would cost more)."""
+    w = dctx.weight(w, x)
     return x @ w if b is None else x @ w + b
 
 
@@ -380,7 +383,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
     lay = {0: dctx.get_batch_axes(), 2: dctx.model_axes(k.shape[2])}
     out = dctx.local(fn, [(q, lay, None), (k, lay, None), (v, lay, None)],
                     [(lay, None)])
-    return dctx.flatten(out, 2) @ p["wo"]
+    return _proj(dctx.flatten(out, 2), p["wo"], None)
 
 
 def _decode_scores(q, ck, k, at: int, write: bool):
@@ -443,8 +446,8 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     out = dctx.local(functools.partial(_decode_values, at=pos, write=write),
                      [(w, s_lay, None), (cv, c_lay, None), (v, r_lay, None)],
                      [o_lay])
-    return dctx.flatten(out, 2) @ p["wo"], {"k": ck, "v": cv,
-                                           "idx": idx + 1}
+    return _proj(dctx.flatten(out, 2), p["wo"], None), {
+        "k": ck, "v": cv, "idx": idx + 1}
 
 
 # ------------------------------------------------------------------ mlp ----
@@ -458,7 +461,8 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return _proj(F.silu(_proj(x, p["wg"], None)) * _proj(x, p["wu"], None),
+                 p["wd"], None)
 
 
 # ----------------------------------------------------------- embeddings ----

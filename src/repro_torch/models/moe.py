@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..distributed import ctx
-from .layers import Params, init_normal
+from .layers import Params, init_normal, mlp
 
 __all__ = ["init_moe", "moe_ff"]
 
@@ -45,16 +45,14 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return F.one_hot(idx.long(), n).float()
 
 
-def _route(xt, router, k: int, C1: int, n: int):
-    """Top-k routing of the groups ``xt`` (G, g, d): the k dispatch
-    one-hots (G, g, E, C1), their combine weights, the kept weight per
-    token (G, g), and the load-balance statistics (E,) — the share of
-    tokens whose top-1 is each expert and the mean router probability —
-    each divided by ``n``, the number of group shards they are summed
-    over."""
-    E = router.shape[1]
-    G, g, _ = xt.shape
-    rl = xt.float() @ router                             # (G, g, E)
+def _route(rl, dtype, k: int, C1: int, n: int):
+    """Top-k routing of the groups' router logits ``rl`` (G, g, E): the
+    k dispatch one-hots (G, g, E, C1) in ``dtype``, their combine weights,
+    the kept weight per token (G, g), and the load-balance statistics
+    (E,) — the share of tokens whose top-1 is each expert and the mean
+    router probability — each divided by ``n``, the number of group
+    shards they are summed over."""
+    G, g, E = rl.shape
     probs = torch.softmax(rl, dim=-1)
     top1 = probs.argmax(-1)
     frac = _one_hot(top1, E).mean(dim=(0, 1)) / n
@@ -62,7 +60,7 @@ def _route(xt, router, k: int, C1: int, n: int):
 
     remaining = probs
     disp_k, comb_k = [], []
-    wsum = torch.zeros((G, g), dtype=torch.float32, device=xt.device)
+    wsum = torch.zeros((G, g), dtype=torch.float32, device=rl.device)
     for _ in range(k):                                   # top-k loop
         w_j, e_j = remaining.max(-1)                     # first maximum
         oh_e = _one_hot(e_j, E)                          # (G, g, E)
@@ -72,9 +70,9 @@ def _route(xt, router, k: int, C1: int, n: int):
         keep = pos_tok < C1
         # a position past capacity one-hots to nothing (jax.nn.one_hot)
         oh_c = _one_hot(pos_tok.clamp(max=C1 - 1), C1) * keep[..., None]
-        disp = torch.einsum("gte,gtc->gtec", oh_e, oh_c).to(xt.dtype)
+        disp = torch.einsum("gte,gtc->gtec", oh_e, oh_c).to(dtype)
         disp_k.append(disp)                              # (G, g, E, C1)
-        comb_k.append(disp * w_j[..., None, None].to(xt.dtype))
+        comb_k.append(disp * w_j[..., None, None].to(dtype))
         wsum = wsum + w_j * keep                         # dropped -> no w
     return (*disp_k, *comb_k, wsum, frac, mprob)
 
@@ -92,11 +90,15 @@ def _experts(disp, comb, xt, ewg, ewu, ewd):
 def moe_ff(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, d) -> (y (B, S, d), aux_loss scalar).
 
-    On a mesh the routing runs on each rank's groups (groups over the
-    batch axes when they divide; the router whole), and the experts with
-    experts over 'model' when they divide (EP) on their own tokens: each
-    rank's partial sum of the combine is reduced over 'model'. The expert
-    weights' gradients come back as partial sums over the group axes."""
+    On a mesh, as the JAX package pins its expert buffers: groups over
+    the batch axes but 'model' when they divide, and experts over 'model'
+    when they divide (EP), under either strategy. The router product runs
+    on each rank's groups and its experts' columns (the router's columns
+    over 'model', as GSPMD splits it), the rest of the routing on each
+    rank's groups with the logits whole, and the experts on their own
+    tokens: each rank's partial sum of the combine is reduced over
+    'model'. The weights' gradients come back as partial sums over the
+    group axes."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.num_experts, m.top_k
@@ -112,10 +114,13 @@ def moe_ff(p: Params, x: torch.Tensor, cfg: ModelConfig):
     gax = tuple(a for a in (axes if isinstance(axes, tuple) else (axes,))
                 if a not in (None, "model")) or None
     gax = ctx.even_axes(gax, G)
-    eax = ctx.model_axes(E)
+    eax = ctx.even_axes("model", E)
     grp = ({0: gax}, None)
-    out = ctx.local(lambda xt, r: _route(xt, r, k, C1, ctx.shards(gax)),
-                    [(xt, {0: gax}, None), (p["router"], {}, gax)],
+    rl = ctx.local(lambda xt, r: xt.float() @ r,
+                   [(xt, {0: gax}, eax), (p["router"], {1: eax}, gax)],
+                   [({0: gax, 2: eax}, None)])            # (G, g, E)
+    out = ctx.local(lambda rl: _route(rl, x.dtype, k, C1, ctx.shards(gax)),
+                    [(rl, {0: gax}, None)],
                     [grp] * (2 * k + 1) + [({}, gax)] * 2)
     disp_k, comb_k = out[:k], out[k:2 * k]
     wsum, frac, mprob = out[2 * k:]
@@ -141,6 +146,5 @@ def moe_ff(p: Params, x: torch.Tensor, cfg: ModelConfig):
     y = ctx.local(normalize, [(y, {0: gax}, None), (wsum, {0: gax}, None)],
                   [({0: gax}, None)])
     if m.shared_expert:
-        sp = p["shared"]
-        y = y + (F.silu(x @ sp["wg"]) * (x @ sp["wu"])) @ sp["wd"]
+        y = y + mlp(p["shared"], x)
     return y, aux

@@ -117,7 +117,7 @@ def mamba_forward(p: Params, u: torch.Tensor, cfg: ModelConfig):
     if S0 % Q:                        # causal => tail padding is harmless
         u = F.pad(u, (0, 0, 0, Q - S0 % Q))
 
-    proj = ctx.pin_grad(u @ p["in_proj"])
+    proj = ctx.pin_grad(u @ ctx.weight(p["in_proj"], u))
     z, xBC, dt_raw = _split_proj(proj, cfg)
     b = ctx.get_batch_axes()
     ch = ctx.model_axes(xBC.shape[-1])
@@ -140,7 +140,7 @@ def mamba_forward(p: Params, u: torch.Tensor, cfg: ModelConfig):
     y = ctx.flatten(y, 2).to(u.dtype)
 
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return (y @ p["out_proj"])[:, :S0]
+    return (y @ ctx.weight(p["out_proj"], y))[:, :S0]
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -176,7 +176,7 @@ def mamba_decode(p: Params, u: torch.Tensor, cfg: ModelConfig, state: dict):
     update on its rows and heads, as the state is laid out by
     ``cache_specs``."""
     H = _dims(cfg)[2]
-    proj = u @ p["in_proj"]
+    proj = u @ ctx.weight(p["in_proj"], u)
     z, xBC, dt_raw = _split_proj(proj, cfg)             # (B,1,*)
     # conv over (cached d_conv-1 inputs | current)
     hist = torch.cat([state["conv"], xBC.to(state["conv"].dtype)], dim=1)
@@ -197,4 +197,4 @@ def mamba_decode(p: Params, u: torch.Tensor, cfg: ModelConfig, state: dict):
         [(lay, None), (lay, None)])
     y = ctx.flatten(y[:, None], 2).to(u.dtype)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"], {"conv": hist[:, 1:], "ssm": ssm}
+    return y @ ctx.weight(p["out_proj"], y), {"conv": hist[:, 1:], "ssm": ssm}

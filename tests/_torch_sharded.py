@@ -8,7 +8,9 @@ own below.
 Cases:
   * parity: per mesh shape and architecture (reduced, float32), the loss
     and grad norm of 2 sharded AdamW steps, the first step's gradients
-    laid out as their params and made whole, and the params after;
+    laid out as their params and made whole, and the params after; the
+    same under ``strategy="fsdp"`` on (2, 2) (weights over ('data',
+    'model') on their former data dim, the batch over both axes);
   * jax: the sharded loss and gradients on JAX's weights and batch;
   * accum: one accumulated step over 2 microbatches on (2, 2);
   * elastic: a step on (2, 2), a checkpoint, the next step there; the
@@ -68,11 +70,11 @@ def batches(arch, n=2):
     return [make_batch(cfg32(arch), DataConfig(4, 16), s) for s in range(n)]
 
 
-def init(cfg, mesh=None):
+def init(cfg, mesh=None, strategy="tp"):
     m = build_model(cfg, device="cpu")
     params = m.init(torch.Generator("cpu").manual_seed(0))
     if mesh is not None:
-        param_shardings(mesh, params)
+        param_shardings(mesh, params, strategy=strategy)
     return m, params
 
 
@@ -82,21 +84,22 @@ def _whole(t):
     return t.detach().numpy().copy()
 
 
-def first_grads(m, params, batch, mesh=None):
-    loss, grads = _value_and_grad(m, params, to_device(batch, "cpu"), mesh)
+def first_grads(m, params, batch, mesh=None, strategy="tp"):
+    loss, grads = _value_and_grad(m, params, to_device(batch, "cpu"), mesh,
+                                  strategy)
     named = dict(params.named_parameters())
     return float(loss), {n: _whole(like_param(g, named[n]))
                          for n, g in grads.items()}
 
 
-def two_steps(arch, mesh=None):
+def two_steps(arch, mesh=None, strategy="tp"):
     """(first-step grads, [(loss, grad_norm)] x 2, final params)."""
-    m, params = init(cfg32(arch), mesh)
+    m, params = init(cfg32(arch), mesh, strategy)
     bs = batches(arch)
-    _, grads = first_grads(m, params, bs[0], mesh)
+    _, grads = first_grads(m, params, bs[0], mesh, strategy)
     opt = adamw(constant(LR))
     st = opt.init(params)
-    step = make_train_step(m, opt, mesh=mesh)
+    step = make_train_step(m, opt, mesh=mesh, strategy=strategy)
     mets = []
     for b in bs:
         params, st, met = step(params, st, b)
@@ -222,6 +225,8 @@ def run(rank, world, store, out, jparams, jbatch, cbatch):
                     res[("serve", arch, shape)] = serve_steps(arch, mesh)
                 if shape == (2, 2):
                     res[("collectives", arch)] = collectives(arch, mesh)
+                    res[("parity_fsdp", arch)] = two_steps(arch, mesh,
+                                                           "fsdp")
             if shape == (2, 2):
                 res["jax"] = _jax_case(mesh, jparams, jbatch)
                 res["accum"] = accum_step(mesh)

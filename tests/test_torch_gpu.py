@@ -40,6 +40,19 @@ LARGE_CODES = [(12, (0o4335, 0o5723)), (13, (0o10533, 0o17661)),
                (14, (0o21645, 0o35661)),
                (12, (0o4335, 0o5723, 0o6475, 0o7061, 0o4767, 0o5251, 0o6163,
                      0o7555))]
+#: The wide mapping (every code past k = 15 or beta = 8; one block a
+#: frame, k and beta at run time): k = 16, 17, 18 at rate 1/2 (path metrics
+#: in device memory), k = 16 at rate 1/3, and k = 7 at rate 1/9 and k = 5
+#: at rate 1/12 (path metrics in shared memory), the codes of
+#: tests/test_torch_large_codes.py, which holds their plain versions
+#: against JAX.
+WIDE_CODES = [(16, (0o135417, 0o163251)), (17, (0o247153, 0o365715)),
+              (18, (0o523571, 0o634657)),
+              (16, (0o135417, 0o163251, 0o117643)),
+              (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155,
+                   0o173)),
+              (5, (0o21, 0o23, 0o25, 0o27, 0o31, 0o33, 0o35, 0o37, 0o20,
+                   0o22, 0o24, 0o26))]
 
 
 @pytest.fixture
@@ -204,7 +217,7 @@ def test_split_path_goes_through_both_kernels(cuda):
     assert got.is_cuda and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("code", CODES + LARGE_CODES)
+@pytest.mark.parametrize("code", CODES + LARGE_CODES + WIDE_CODES)
 def test_smem_models_equal_kernel_carve_up(cuda, code):
     """autotune's shared-memory models are the kernels' own numbers."""
     tr = make_trellis(*code)
@@ -221,19 +234,24 @@ def test_smem_models_equal_kernel_carve_up(cuda, code):
                 got, _ = autotune.unified_smem_bytes(
                     tr, spec, fpb, pack_survivors=pack)
                 assert got == ulib.viterbi_unified_smem_bytes(
-                    tr.k, spec.frame_len, nsub, int(pack), fixed, fpb, 0)
+                    tr.k, tr.beta, spec.frame_len, nsub, int(pack), fixed,
+                    fpb, 0)
             got, _ = autotune.split_smem_bytes(tr, spec, fpb)
-            assert got == flib.viterbi_fwd_smem_bytes(tr.k, fpb)
+            assert got == flib.viterbi_fwd_smem_bytes(tr.k, tr.beta, fpb)
         got, _ = autotune.unified_smem_bytes(tr, spec, 1, scratch=True)
         assert got == ulib.viterbi_unified_smem_bytes(
-            tr.k, spec.frame_len, nsub, 1, fixed, 1, 1)
+            tr.k, tr.beta, spec.frame_len, nsub, 1, fixed, 1, 1)
+        assert ulib.viterbi_wide_code(tr.k, tr.beta) == \
+            autotune.wide_mapping(tr)
+        assert ulib.viterbi_wide_threads(tr.k) == autotune.wide_threads(tr)
 
 
 @pytest.mark.parametrize("unified", [True, False])
 def test_register_model_is_the_kernels(cuda, unified):
     """The planner's registers are the built kernels' (cudaFuncGetAttributes),
     and on an H100 the count the CPU plans with is the K=7 beta=2
-    instantiation's."""
+    instantiation's (k=12 for the large-code mapping, k=16 for the wide
+    one)."""
     lib = (vu if unified else vf).kernel_library().lib
     attrs = (lib.viterbi_unified_func_attrs if unified
              else lib.viterbi_fwd_func_attrs)
@@ -253,8 +271,17 @@ def test_register_model_is_the_kernels(cuda, unified):
                 assert autotune.H100_REGISTERS[name] == out[0]
             if h100 and (k, beta) == (autotune.SMEM_MIN_K, 2):
                 assert autotune.H100_REGISTERS[name + "_smem"] == out[0]
+    for k, polys in WIDE_CODES:
+        tr = make_trellis(k, polys)
+        out = (ctypes.c_int * 3)()
+        assert attrs(k, tr.beta, out) == 0
+        assert autotune.kernel_registers(tr, unified=unified,
+                                         device="cuda") == out[0]
+        assert out[2] >= autotune.wide_threads(tr)
+        if h100:
+            assert autotune.H100_REGISTERS[name + "_wide"] == out[0]
     out = (ctypes.c_int * 3)()
-    assert attrs(autotune.MAX_K + 1, 2, out) != 0
+    assert attrs(32, 2, out) != 0 and attrs(7, 33, out) != 0
 
 
 def test_device_limits_query(cuda):
@@ -520,8 +547,8 @@ def test_large_code_survivor_scratch(cuda, code, f, pack):
     kw = _kw(code, spec, frames_per_tile=1, pack_survivors=pack, radix=4)
     tr = kw["trellis"]
     lib = vu.kernel_library().lib
-    on_chip = lib.viterbi_unified_smem_bytes(tr.k, spec.frame_len, 4,
-                                             int(pack), 0, 1, 0)
+    on_chip = lib.viterbi_unified_smem_bytes(tr.k, tr.beta, spec.frame_len,
+                                             4, int(pack), 0, 1, 0)
     assert on_chip > autotune.device_limits("cuda").smem_per_block
     plan = autotune.plan_tiles(tr, spec, pack_survivors=pack, device="cuda")
     assert plan.fits and dict(plan.breakdown)["sel_survivors"] == 0
@@ -530,32 +557,106 @@ def test_large_code_survivor_scratch(cuda, code, f, pack):
 
 
 def test_codes_past_the_limits_are_refused(cuda):
-    """k > 15 and beta > 8 name the limit, in every wrapper."""
-    spec = FrameSpec(f=16, v1=4, v2=4)
-    for k, beta in ((16, 2), (7, 9)):
-        tr = make_trellis(k, tuple([(1 << k) - 1] * beta))
-        frames = torch.zeros((1, spec.frame_len, beta), device=cuda)
-        with pytest.raises(ValueError, match=r"k <= 15 and 2 <= beta <= 8"):
-            vu.unified_decode_frames_cuda(frames, **_kw(
-                ((k, tr.polys)), spec, frames_per_tile=1))
-        with pytest.raises(ValueError, match=r"k <= 15 and 2 <= beta <= 8"):
-            vf.forward_frames_cuda(frames, trellis=tr, frames_per_tile=1)
-    tr = make_trellis(16, (0o177777, 0o177775))
-    sel = torch.zeros((1, 24, 1024), dtype=torch.int32, device=cuda)
-    amax = torch.zeros((1, 24), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match=r"k <= 15"):
-        tbf.traceback_frames_cuda(sel, amax, trellis=tr, v1=4, f=16, f0=16,
-                                  v2s=4, packed=True)
+    """The codes past the fast mappings' limits (k > 15, beta > 8), which
+    the wrappers once refused, run the wide mapping: each kernel equals
+    its plain version (the unified bits, the forward sel and amax in both
+    layouts, the traceback on them) over pack x radix x bm_dtype and the
+    serial, boundary and fixed starts, and each launch is counted."""
+    specs = [FrameSpec(f=32, v1=10, v2=11),
+             FrameSpec(f=32, v1=10, v2=11, f0=8, v2s=11),
+             FrameSpec(f=48, v1=6, v2=12, f0=12, v2s=10, start="fixed")]
+    for code in WIDE_CODES:
+        tr = make_trellis(*code)
+        assert autotune.wide_mapping(tr)
+        for si, spec in enumerate(specs):
+            frames = _frames(code, spec, 3, 20 + si, cuda)
+            for pack in (False, True):
+                for radix in (2, 4):
+                    for bm in ("float32", "bfloat16"):
+                        kw = _kw(code, spec, frames_per_tile=1,
+                                 pack_survivors=pack, radix=radix,
+                                 bm_dtype=bm)
+                        before = vu.unified_decode_frames_cuda.launches
+                        got = vu.unified_decode_frames(frames, **kw)
+                        torch.cuda.synchronize()
+                        assert vu.unified_decode_frames_cuda.launches == \
+                            before + 1
+                        assert torch.equal(got, vu.unified_decode_frames_plain(
+                            frames, **kw)), (code, spec, pack, radix, bm)
+                        for layout in ("lane", "sublane"):
+                            fkw = dict(trellis=tr, frames_per_tile=1,
+                                       pack_survivors=pack, radix=radix,
+                                       layout=layout, bm_dtype=bm)
+                            before = vf.forward_frames_cuda.launches
+                            sel, amax = vf.forward_frames(frames, **fkw)
+                            assert vf.forward_frames_cuda.launches == \
+                                before + 1
+                            psel, pamax = vf.forward_frames_plain(frames,
+                                                                  **fkw)
+                            assert sel.dtype == psel.dtype
+                            assert torch.equal(sel, psel), (code, fkw)
+                            assert torch.equal(amax, pamax), (code, fkw)
+                            tkw = dict(trellis=tr, v1=spec.v1, f=spec.f,
+                                       f0=kw["f0"], v2s=kw["v2s"],
+                                       start=spec.start, packed=pack,
+                                       layout=layout)
+                            before = tbf.traceback_frames_cuda.launches
+                            got = tbf.traceback_frames(sel, amax, **tkw)
+                            assert tbf.traceback_frames_cuda.launches == \
+                                before + 1
+                            assert torch.equal(got, tbf.traceback_frames_plain(
+                                psel, pamax, **tkw)), (code, tkw)
+
+
+@pytest.mark.parametrize("code", [K7, LARGE_CODES[1], CODES[0]])
+def test_wide_mapping_equals_fast_mappings(cuda, monkeypatch, code):
+    """The wide mapping, forced through the launch's private flag, equals
+    the register mapping (K=7, K=3) and the large-code mapping (K=13) on
+    their codes: bits, sel and amax, over pack x radix x bm_dtype and both
+    layouts, on the planner's grid and on a grid of 7 blocks that each
+    take several frames in turn (the per-block scratch reused)."""
+    tr = make_trellis(*code)
+    spec = FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21)
+    frames = _frames(code, spec, 40, 31, cuda)
+    assert 1 <= autotune.wide_grid(tr, 40, cuda) <= 40
+    for grid in (None, 7):
+        if grid is not None:
+            for mod in (vu, vf):
+                monkeypatch.setattr(mod, "wide_grid",
+                                    lambda *a, **k: grid)
+        for pack in (False, True):
+            for radix in (2, 4):
+                for bm in ("float32", "bfloat16"):
+                    kw = _kw(code, spec, frames_per_tile=1,
+                             pack_survivors=pack, radix=radix, bm_dtype=bm)
+                    assert torch.equal(
+                        vu.unified_decode_frames_cuda(frames, _wide=True,
+                                                      **kw),
+                        vu.unified_decode_frames_cuda(frames, **kw))
+                    for layout in ("lane", "sublane"):
+                        fkw = dict(trellis=tr, frames_per_tile=1,
+                                   pack_survivors=pack, radix=radix,
+                                   layout=layout, bm_dtype=bm)
+                        got = vf.forward_frames_cuda(frames, _wide=True,
+                                                     **fkw)
+                        want = vf.forward_frames_cuda(frames, **fkw)
+                        assert all(torch.equal(g, w)
+                                   for g, w in zip(got, want))
 
 
 def test_large_code_through_every_entry(cuda):
-    """A K=13 rate-1/2 config through make_decoder (both kernel backends),
-    stream_decode and a DecodeServer on the card: bits equal the plain
-    decode."""
+    """A K=13 and a K=16 rate-1/2 config through make_decoder (both kernel
+    backends), stream_decode and a DecodeServer on the card: bits equal
+    the plain decode."""
+    for code in (LARGE_CODES[1], WIDE_CODES[0]):
+        _code_through_every_entry(code)
+
+
+def _code_through_every_entry(code):
     import dataclasses
     from repro_torch.core.stream import stream_decode
     from repro_torch.serve import DecodeServer, PlanCache
-    tr = make_trellis(*LARGE_CODES[1])
+    tr = make_trellis(*code)
     spec = FrameSpec(f=128, v1=40, v2=60, f0=32, v2s=60)
     cfg = DecoderConfig(trellis=tr, spec=spec, backend="kernel")
     n = 20 * 128 + 33

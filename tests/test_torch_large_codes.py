@@ -1,0 +1,236 @@
+"""Codes past the fast mappings (k >= 16, or beta >= 9 at any k): the
+port's plain versions against the JAX package's kernels, on the CPU.
+
+On the card these codes run the wide mapping of ``csrc/acs.cuh`` in both
+ACS kernels and the traceback kernel's direct chase;
+``tests/test_torch_gpu.py`` holds each to the plain versions here. The
+same numpy inputs, made from a seed, go through JAX's
+``unified_decode_frames`` and ``forward_frames`` (the Pallas kernels in
+interpret mode, as the JAX tests run them), its ``core.traceback`` chases
+and its ``make_decoder``, and through their port counterparts on the CPU.
+Tolerance: exact (bits, sel and amax equal, with equal shapes and dtypes).
+
+Codes: k = 16 and 17 at rate 1/2, k = 16 at rate 1/3, k = 7 at rate 1/9
+and k = 5 at rate 1/12. Their polynomials are distinct and set the top
+and the bottom tap, except k = 5, which has only 8 such polynomials: its
+12 are distinct and set the top tap. Each JAX call runs in interpret mode
+(about a second at k = 16), so the knobs are spread over the calls: every
+unified call is compared with the port's plain version at pack x layout x
+radix, and bf16 branch metrics take one start of each code.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import FrameSpec as JFrameSpec
+from repro.core import pipeline as jpipe
+from repro.core import traceback as jtb
+from repro.core.framed import frame_llr as jframe_llr
+from repro.core.trellis import make_trellis as jmake_trellis
+from repro.kernels import autotune as jautotune
+from repro.kernels import tables as jtables
+from repro.kernels.viterbi_fwd import forward_frames as jforward_frames
+from repro.kernels.viterbi_unified import (
+    unified_decode_frames as junified_decode_frames)
+
+from repro_torch.core import traceback as ttb
+from repro_torch.core.encoder import encode_bits
+from repro_torch.core.framed import FrameSpec, frame_llr
+from repro_torch.core.pipeline import DecoderConfig, make_decoder
+from repro_torch.core.trellis import make_trellis
+from repro_torch.kernels import autotune, tables
+from repro_torch.kernels import traceback_frames as tbf
+from repro_torch.kernels import viterbi_fwd as vf
+from repro_torch.kernels import viterbi_unified as vu
+from repro_torch.kernels.packing import Layout
+
+from _torch_parity import jcfg
+
+# the tests' tensors are tiny: one intra-op thread per test worker keeps
+# parallel workers from oversubscribing the cores
+torch.set_num_threads(1)
+
+K16 = (16, (0o135417, 0o163251))
+K17 = (17, (0o247153, 0o365715))
+K16B3 = (16, (0o135417, 0o163251, 0o117643))
+K7B9 = (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155,
+            0o173))
+K5B12 = (5, (0o21, 0o23, 0o25, 0o27, 0o31, 0o33, 0o35, 0o37, 0o20, 0o22,
+             0o24, 0o26))
+CODES = [K16, K17, K16B3, K7B9, K5B12]
+#: serial, boundary and fixed starts
+SPECS = [FrameSpec(f=16, v1=8, v2=8),
+         FrameSpec(f=16, v1=8, v2=8, f0=8, v2s=8),
+         FrameSpec(f=24, v1=8, v2=12, f0=8, v2s=6, start="fixed")]
+#: the port's knob grid for every JAX call: (pack, layout, radix)
+GRID = [(p, lay, r) for p in (False, True) for lay in ("lane", "sublane")
+        for r in (2, 4)]
+F = 2
+
+
+def _frames(code, spec, seed, snr=6.0):
+    """F noisy frames of a random codeword, the same for both packages:
+    (torch (F, L, beta), jax)."""
+    rng = np.random.default_rng(seed)
+    tr = make_trellis(*code)
+    coded = encode_bits(rng.integers(0, 2, F * spec.f), tr)
+    sigma = 10.0 ** (-snr / 20.0)
+    llr = (1.0 - 2.0 * coded + sigma * rng.standard_normal(coded.shape)
+           ).astype(np.float32)
+    return (frame_llr(torch.from_numpy(llr), spec),
+            jframe_llr(jnp.asarray(llr), JFrameSpec(**vars(spec))))
+
+
+def _geometry(spec):
+    """(f0, v2s, start) as the kernels take them: serial = one subframe."""
+    if spec.parallel_tb:
+        return spec.f0, spec.v2s, spec.start
+    return spec.f, spec.v2, "boundary"
+
+
+def _same(got: torch.Tensor, want) -> None:
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_codes_are_past_the_fast_mappings():
+    for code in CODES:
+        tr = make_trellis(*code)
+        assert autotune.wide_mapping(tr) and len(set(tr.polys)) == tr.beta
+        assert all(g >> (tr.k - 1) == 1 for g in tr.polys)
+        if tr.k > 5:
+            assert all(g & 1 for g in tr.polys)
+
+
+@pytest.mark.parametrize("code", [K16, K17, K7B9, K5B12])
+def test_host_tables_equal_jax(code):
+    """kernels/tables.py's host tables equal JAX's in-kernel ones: int32
+    indices into a signs_half of (2^(beta-1), beta)."""
+    got = tables.kernel_tables(make_trellis(*code))
+    want = jtables.kernel_tables(jmake_trellis(*code))
+    for g, w in zip(got[:3], want[:3]):
+        for gp, wp in zip(g, w):
+            np.testing.assert_array_equal(gp, np.asarray(wp))
+            assert gp.dtype == np.asarray(wp).dtype
+    half = 1 << (len(code[1]) - 1)
+    assert got[3].shape == (half, len(code[1]))
+    np.testing.assert_array_equal(got[3], np.asarray(want[3]))
+    assert got[1][0].dtype == np.int32 and got[1][0].max() < half
+
+
+@pytest.mark.parametrize("si", range(len(SPECS)))
+@pytest.mark.parametrize("code", CODES)
+def test_unified_equals_jax_kernel(code, si):
+    """The unified kernel's plain version equals JAX's Pallas kernel at
+    every (pack, layout, radix); the boundary start in bf16."""
+    spec = SPECS[si]
+    f0, v2s, start = _geometry(spec)
+    bm = "bfloat16" if si == 1 else "float32"
+    tf, jf = _frames(code, spec, 11 + si)
+    kw = dict(v1=spec.v1, f=spec.f, v2=spec.v2, f0=f0, v2s=v2s, start=start,
+              frames_per_tile=1, bm_dtype=bm)
+    pack, layout, radix = GRID[(si + len(code[1])) % len(GRID)]
+    want = np.asarray(junified_decode_frames(
+        jf, trellis=jmake_trellis(*code), pack_survivors=pack,
+        layout=layout, radix=radix, interpret=True, **kw))
+    for pack, layout, radix in GRID:
+        _same(vu.unified_decode_frames(tf, trellis=make_trellis(*code),
+                                       pack_survivors=pack, layout=layout,
+                                       radix=radix, **kw), want)
+
+
+@pytest.mark.parametrize("knobs", [(True, "sublane", "bfloat16"),
+                                   (False, "lane", "float32")])
+@pytest.mark.parametrize("code", CODES)
+def test_forward_and_tracebacks_equal_jax(code, knobs):
+    """The forward kernel's plain version equals JAX's Pallas kernel (sel
+    and amax, in JAX's shape and dtype) at radix 2 and 4; the split
+    traceback (``traceback_frames`` and ``core.traceback``'s serial and
+    parallel chases) on it equals JAX's on JAX's stream."""
+    pack, layout, bm = knobs
+    spec = SPECS[1]
+    tf, jf = _frames(code, spec, 21)
+    fkw = dict(frames_per_tile=1, pack_survivors=pack, layout=layout,
+               bm_dtype=bm)
+    jtr = jmake_trellis(*code)
+    jsel, jamax = (np.asarray(a) for a in jforward_frames(
+        jf, trellis=jtr, radix=4 if pack else 2, interpret=True, **fkw))
+    tr = make_trellis(*code)
+    for radix in (2, 4):
+        sel, amax = vf.forward_frames(tf, trellis=tr, radix=radix, **fkw)
+        _same(sel, jsel)
+        _same(amax, jamax)
+    lay = Layout(layout)
+    from repro.kernels.packing import Layout as JLayout
+    jlay = JLayout(layout)
+    L = spec.frame_len
+    for f0, v2s, start in ((spec.f, L - spec.v1 - spec.f, "boundary"),
+                           (spec.f0, spec.v2s, "boundary"),
+                           (spec.f0, spec.v2s - 2, "fixed")):
+        tkw = dict(v1=spec.v1, f=spec.f, f0=f0, v2s=v2s, start=start,
+                   packed=pack, layout=layout)
+        got = tbf.traceback_frames(sel, amax, trellis=tr, **tkw)
+        want = np.asarray(jtb.parallel_traceback_frames(
+            jnp.asarray(jsel), jnp.asarray(jamax), jtr, spec.v1, spec.f, f0,
+            v2s, start, packed=pack, layout=jlay))
+        _same(got, want)
+        _same(ttb.parallel_traceback_frames(sel, amax, tr, spec.v1, spec.f,
+                                            f0, v2s, start, packed=pack,
+                                            layout=lay), want)
+    _same(ttb.serial_traceback_frames(sel, amax, tr, spec.v1, spec.f,
+                                      packed=pack, layout=lay),
+          jtb.serial_traceback_frames(jnp.asarray(jsel), jnp.asarray(jamax),
+                                      jtr, spec.v1, spec.f, packed=pack,
+                                      layout=jlay))
+
+
+@pytest.mark.parametrize("backend", ["kernel", "kernel_split"])
+@pytest.mark.parametrize("code", [K16, K7B9])
+def test_make_decoder_equals_jax(code, backend):
+    """make_decoder's kernel backends on the CPU against JAX's, on one
+    received stream of three and a half frames."""
+    tr = make_trellis(*code)
+    spec = FrameSpec(f=32, v1=8, v2=16, f0=16, v2s=12)
+    cfg = DecoderConfig(trellis=tr, spec=spec, backend=backend)
+    n = 3 * 32 + 17
+    rng = np.random.default_rng(31)
+    coded = encode_bits(rng.integers(0, 2, n), tr)
+    stream = (1.0 - 2.0 * coded + 0.5 * rng.standard_normal(coded.shape)
+              ).astype(np.float32)
+    got = make_decoder(cfg, "cpu")(stream, n)
+    want = np.asarray(jpipe.make_decoder(jcfg(cfg))(stream, n))
+    _same(got, want)
+
+
+@pytest.mark.parametrize("unified", [True, False])
+def test_planner_plans_every_code(unified):
+    """plan_tiles returns a fitting plan of one frame for the wide codes
+    on the H100's limits, as JAX's planner returns one for any code; the
+    block is the wide mapping's core and, to k = 15, its path metrics."""
+    spec = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
+    for code in CODES:
+        tr = make_trellis(*code)
+        plan = autotune.plan_tiles(tr, spec, pack_survivors=True,
+                                   unified=unified, device="cpu")
+        jplan = jautotune.plan_tiles(jmake_trellis(*code),
+                                     JFrameSpec(**vars(spec)),
+                                     pack_survivors=True, unified=unified)
+        assert jplan.frames_per_tile >= 1
+        pm = 8 * tr.num_states if tr.k <= autotune.MAX_K else 0
+        assert plan.frames_per_tile == 1 and plan.fits
+        assert plan.budget == autotune.H100_LIMITS.smem_per_block
+        assert plan.smem_bytes == autotune.WIDE_CORE_BYTES + pm
+        assert dict(plan.breakdown)["sel_survivors"] == 0
+        assert plan.registers == autotune.H100_REGISTERS[
+            ("unified" if unified else "split") + "_wide"]
+        assert plan.frames_per_sm >= 1
+        assert autotune.block_threads(tr, 1) == autotune.wide_threads(tr) \
+            == max(32, min(1024, tr.num_states // 2))
+        assert autotune.max_frames_per_block(tr) == 1
+        assert not autotune.smem_mapping(tr)
+    # k = 16 on the H100: one 1024-thread block an SM, one frame a block
+    tr = make_trellis(*K16)
+    assert autotune.wide_grid(tr, 10_000, "cpu") == autotune.H100_SMS
+    assert autotune.wide_grid(tr, 7, "cpu") == 7

@@ -12,9 +12,10 @@ package's HLO cost model (repro.launch.hlo_cost).
     (float32, batch 4 x 16, attention chunks of 8, remat full): on a
     (1, 1) fake mesh their FLOPs equal ``FlopCounterMode``'s count of the
     plain step exactly, and JAX's ``module_cost`` of the same step within
-    ``JAX_RTOL``; on (2, 2) each card does at least JAX's total / 4, and
-    the ratio to JAX's per-chip count (a 4-device JAX subprocess) is
-    printed (PERF.md records it).
+    ``JAX_RTOL``; on (2, 2) each card does at least JAX's total / 4 and,
+    under ``strategy`` tp and fsdp alike, JAX's per-chip count (a
+    4-device JAX subprocess) within ``JAX_RTOL`` (PERF.md records the
+    ratios).
   * Peak memory: a state-only in-place update of full-size Qwen3-32B on
     the (32, 8) mesh peaks at exactly the placed state (``bytes_per_card``
     of params and fp32 moments, and AdamW's int32 step); no remat peaks
@@ -83,26 +84,29 @@ from repro.optim import adamw, constant
 from repro.train.step import make_train_step
 mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 2),
                          ("data", "model"))
-ctx.set_batch_axes("data")
 ctx.set_data_size(2)
 out = {}
-for arch in sys.argv[1:]:
-    cfg = dataclasses.replace(get_config(arch, reduced=True),
-                              dtype="float32", attn_chunk=8)
-    bundle = build_model(cfg)
-    params = jax.eval_shape(bundle.init, jax.random.PRNGKey(0))
-    opt = adamw(constant(1e-3))
-    ost = jax.eval_shape(opt.init, params)
-    batch = {k: jax.ShapeDtypeStruct((4, 16), jnp.int32)
-             for k in ("tokens", "labels")}
-    osh = param_shardings(mesh, ost["m"])
-    with mesh:
-        c = jax.jit(make_train_step(bundle, opt), in_shardings=(
-            param_shardings(mesh, params),
-            {"m": osh, "v": osh, "step": jax.NamedSharding(
-                mesh, jax.sharding.PartitionSpec())},
-            batch_specs(batch, mesh))).lower(params, ost, batch).compile()
-    out[arch] = module_cost(c.as_text()).flops
+for strategy, baxes in (("tp", "data"), ("fsdp", ("data", "model"))):
+    ctx.set_batch_axes(baxes)
+    out[strategy] = {}
+    for arch in sys.argv[1:]:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  dtype="float32", attn_chunk=8)
+        bundle = build_model(cfg)
+        params = jax.eval_shape(bundle.init, jax.random.PRNGKey(0))
+        opt = adamw(constant(1e-3))
+        ost = jax.eval_shape(opt.init, params)
+        batch = {k: jax.ShapeDtypeStruct((4, 16), jnp.int32)
+                 for k in ("tokens", "labels")}
+        osh = param_shardings(mesh, ost["m"], strategy=strategy)
+        with mesh:
+            c = jax.jit(make_train_step(bundle, opt), in_shardings=(
+                param_shardings(mesh, params, strategy=strategy),
+                {"m": osh, "v": osh, "step": jax.NamedSharding(
+                    mesh, jax.sharding.PartitionSpec())},
+                batch_specs(batch, mesh, strategy=strategy))).lower(
+                    params, ost, batch).compile()
+        out[strategy][arch] = module_cost(c.as_text()).flops
 print("PER_CHIP", json.dumps(out))
 """
 
@@ -127,8 +131,9 @@ def _jax_one_device(arch) -> float:
 
 
 @pytest.fixture(scope="module")
-def jax_flops():
-    """{arch: (one-device FLOPs, per-chip FLOPs on a (2, 2) mesh)}."""
+def jax_per_chip():
+    """{strategy: {arch: per-chip FLOPs on a (2, 2) mesh}} for 'tp' (the
+    batch over 'data') and 'fsdp' (the batch over ('data', 'model'))."""
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable, "-c", JAX_PER_CHIP, *ARCHS],
@@ -136,8 +141,13 @@ def jax_flops():
                        cwd=ROOT)
     line = [s for s in r.stdout.splitlines() if s.startswith("PER_CHIP")]
     assert line, r.stdout + r.stderr
-    per_chip = json.loads(line[0].split(" ", 1)[1])
-    return {a: (_jax_one_device(a), per_chip[a]) for a in ARCHS}
+    return json.loads(line[0].split(" ", 1)[1])
+
+
+@pytest.fixture(scope="module")
+def jax_flops(jax_per_chip):
+    """{arch: (one-device FLOPs, per-chip FLOPs on a (2, 2) mesh)}."""
+    return {a: (_jax_one_device(a), jax_per_chip["tp"][a]) for a in ARCHS}
 
 
 # ------------------------------------------------------------ calibration --
@@ -252,6 +262,53 @@ def test_per_card_flops_on_2x2_against_jax(jax_flops, arch):
           f"{per_chip:.0f} a chip: ratio {cost.flops / per_chip:.4f}")
     assert cost.flops >= whole / 4
     assert cost.flops >= (1 - JAX_RTOL[arch]) * one / 4
+    assert abs(cost.flops / per_chip - 1) <= JAX_RTOL[arch]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_per_card_flops_on_2x2_fsdp_against_jax(jax_per_chip, arch):
+    """``strategy="fsdp"`` (weights over ('data', 'model') on their
+    former data dim, the batch over both axes): each card does JAX's
+    per-chip work within JAX_RTOL, as JAX's fsdp step does its tp step's.
+    The weights are gathered before their products (``ctx.weight``);
+    without that DTensor computed them as partial sums over the data axes,
+    1.66-1.70x JAX's count."""
+    cost, _, _ = dryrun.trace_step(cfg32(arch), SHAPE,
+                                   {"data": 2, "model": 2}, strategy="fsdp")
+    want = jax_per_chip["fsdp"][arch]
+    print(f"{arch} fsdp on (2, 2): port {cost.flops:.0f} a card, JAX "
+          f"{want:.0f} a chip: ratio {cost.flops / want:.4f}")
+    assert abs(cost.flops / want - 1) <= JAX_RTOL[arch]
+
+
+@pytest.mark.parametrize("batch,seq,rows,fsdp,want", [
+    ("data", None, 64, False, "kept"),        # tp, a divided batch
+    (("data", "model"), None, 64, True, "whole"),    # fsdp
+    ("data", "model", 64, True, "whole"),     # fsdp, sequence over 'model'
+    (None, None, 64, False, "data"),          # a whole batch, many rows
+    (None, None, 8, False, "kept"),           # a whole batch, few rows
+])
+def test_weight_gathered_where_the_batch_misses_the_data_axes(
+        batch, seq, rows, fsdp, want):
+    """``ctx.weight(w, x)``: kept where DTensor chooses (the batch over
+    exactly the data axes; a whole batch of fewer rows than w's
+    contraction dim), else gathered over the data axes, and over 'model'
+    where it shares the data dim (fsdp)."""
+    from repro_torch.distributed import ctx
+    pls = (Shard(0), Shard(0)) if fsdp else (Shard(0), Shard(1))
+    prev = (ctx.get_batch_axes(), ctx.get_seq_axes())
+    ctx.set_batch_axes(batch)
+    ctx.set_seq_axes(seq)
+    try:
+        with fake_mesh({"data": 2, "model": 2}) as mesh:
+            w = distribute_tensor(torch.randn(32, 16), mesh, pls,
+                                  src_data_rank=None)
+            got = tuple(ctx.weight(w, torch.zeros(rows, 32)).placements)
+    finally:
+        ctx.set_batch_axes(prev[0])
+        ctx.set_seq_axes(prev[1])
+    assert got == {"kept": pls, "whole": (Replicate(), Replicate()),
+                   "data": (Replicate(), Shard(1))}[want]
 
 
 # ---------------------------------------------------------------- memory --

@@ -136,6 +136,24 @@ def test_two_sharded_steps_equal_one_device(sharded, single, arch, shape):
     assert dloss <= REL and dgrad <= REL and dparam <= PARAM_ATOL
 
 
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_two_fsdp_steps_equal_one_device(sharded, single, arch):
+    """``strategy="fsdp"`` on (2, 2): the weights gathered before their
+    products (``ctx.weight``), the batch over ('data', 'model'); the
+    tolerances of test_two_sharded_steps_equal_one_device."""
+    grads, mets, params = sharded[("parity_fsdp", arch)]
+    wgrads, wmets, wparams = single[arch]
+    assert sorted(grads) == sorted(wgrads) == sorted(params)
+    dloss = max(max(_rel(l, wl), _rel(g, wg))
+                for (l, g), (wl, wg) in zip(mets, wmets))
+    dgrad = max(np.abs(grads[n] - w).max() / np.abs(w).max()
+                for n, w in wgrads.items())
+    dparam = max(np.abs(params[n] - w).max() for n, w in wparams.items())
+    print(f"{arch} fsdp (2, 2): loss/grad norm {dloss:.2e}, grads "
+          f"{dgrad:.2e} of each leaf's max, params {dparam:.2e}")
+    assert dloss <= REL and dgrad <= REL and dparam <= PARAM_ATOL
+
+
 @pytest.mark.parametrize("shape", W.SERVE_MESHES,
                          ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("arch", W.ARCHS)
