@@ -26,9 +26,11 @@ non-zero:
              frame count. The block-parallel decode (block_frames > 1)
              through both kernels against the CPU's, and at full overlap
              against the unblocked decode. The wide mapping (every code
-             past k = 15 or beta = 8: one block a frame, k and beta at
-             run time): K=16, 17, 18, K=16 beta=3, K=7 beta=9 and 12,
-             all three kernels over the same knob grid and starts.
+             past k = 15 or beta = 8, k and beta at run time; at
+             16 <= k <= 19 one thread-block cluster of 2^(k-15) blocks a
+             frame, else one block a frame): K=16, 17, 18, 19, K=16
+             beta=3, K=7 beta=9 and 12, all three kernels over the same
+             knob grid and starts (every cluster size the planner picks).
 4. main    — make_decoder(backend="kernel"), then
              make_decoder(backend="kernel_split"), each at full size: K=7,
              n = 2^22 bits, Eb/N0 = 3 dB, rates 1/2 and 3/4. Launch counts
@@ -47,8 +49,10 @@ non-zero:
              chases in turns, at K=7 (lane and sublane, packed, unpacked,
              serial) and K=11 (4096 frames), beside the shape rule's pick
              and the bound; B1 and B3 at K=12, 13, 15 beside their bounds;
-             B1, B3 and the traceback on the wide mapping at K=16, K=17
-             and K=7 beta=9, beside their bounds and plain versions;
+             B1, B3 and the traceback on the wide mapping at K=16, 17,
+             18 and K=7 beta=9, beside their bounds and plain versions,
+             with the cluster size, the clusters resident and each
+             block's shared memory;
              the whole split call against the
              whole unified call (median and quartiles over 20 rounds, and
              the host's dispatch time per call); plan_decode(measure=True)
@@ -232,29 +236,43 @@ PARITY_FRAMES = {False: 12, True: 4}
 #: Frames of the large codes' timing (one and two waves of one frame per
 #: SM at 132 SMs): K=12 and K=13 at 264, K=14 and K=15 at 132.
 LARGE_TIME_FRAMES = {12: 264, 13: 264, 14: 132, 15: 132}
-#: The wide mapping's codes (k > 15 or beta > 8; one block a frame, k and
-#: beta at run time): K=16, 17, 18 at rate 1/2 (path metrics in device
-#: memory), K=16 at rate 1/3, K=7 at rates 1/9 and 1/12 (path metrics in
-#: shared memory); distinct polynomials with the top and bottom taps set.
+#: The wide mapping's codes (k > 15 or beta > 8; k and beta at run time):
+#: K=16, 17, 18 at rate 1/2 and K=16 at rate 1/3 (a cluster of 2, 4, 8, 2
+#: blocks a frame, path metrics in the cluster's shared memory), K=7 at
+#: rates 1/9 and 1/12 (one block a frame), K=19 at rate 1/2 (a cluster of
+#: 16 where the card holds one, else the device-memory path); distinct
+#: polynomials with the top and bottom taps set (the cluster's one-metric
+#: butterfly table); then two K=16 codes on a cluster of 2 that take its
+#: other branch metrics: one polynomial without its bottom tap (the
+#: four-metric table) and rate 1/9 (per-edge sums).
 WIDE_CODES = [(16, (0o135417, 0o163251)), (17, (0o247153, 0o365715)),
               (18, (0o523571, 0o634657)),
               (16, (0o135417, 0o163251, 0o117643)),
               (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155,
                    0o173)),
               (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155,
-                   0o173, 0o103, 0o111, 0o125))]
+                   0o173, 0o103, 0o111, 0o125)),
+              (19, (0o1234567, 0o1654321)),
+              (16, (0o135417, 0o163250)),
+              (16, (0o135417, 0o163251, 0o117643, 0o100001, 0o123457,
+                    0o145673, 0o167011, 0o110101, 0o133333))]
 #: Frames per wide parity call.
 WIDE_PARITY_FRAMES = 3
+#: Bytes of survivors (L x S x 8: pack_bits' int64 words) a plain version
+#: holds at a time in the wide timing rows: K=18 at 132 frames runs in 25.
+PLAIN_WIDE_BYTES = 1 << 33
 #: The wide main path: K=16 rate 1/2 at the main frame, one frame per SM.
 WIDE_MAIN_FRAMES = 132
-#: The wide timing rows: (code, frames): one wave of blocks each (one
-#: 1024-thread block an SM at K=16, 17; 32 blocks of a warp at K=7 beta=9).
+#: The wide timing rows: (code, frames): K=16, 17, 18 at 132 frames (one
+#: frame a cluster of 2, 4, 8 blocks, the clusters resident taking frames
+#: in turn), K=7 beta=9 at 4224 (one wave of 32 one-warp blocks an SM).
 WIDE_TIME = [(WIDE_CODES[0], 132), (WIDE_CODES[1], 132),
-             (WIDE_CODES[4], 4224)]
+             (WIDE_CODES[2], 132), (WIDE_CODES[4], 4224)]
 DECODE_KERNELS = ("viterbi_unified_kernel", "viterbi_fwd_kernel",
                   "traceback_frames_kernel", "viterbi_unified_smem_kernel",
                   "viterbi_fwd_smem_kernel", "viterbi_unified_wide_kernel",
-                  "viterbi_fwd_wide_kernel")
+                  "viterbi_fwd_wide_kernel", "viterbi_unified_cluster_kernel",
+                  "viterbi_fwd_cluster_kernel")
 
 
 def log(phase: str, msg: str) -> None:
@@ -356,26 +374,49 @@ def register_report(built, kernel: str, attrs) -> str:
             + "; ".join(rows))
 
 
-def wide_register_report(built, kernel: str, attrs) -> str:
-    """Registers (cudaFuncGetAttributes of the K=16 code) and ptxas
-    spill stores of the wide mapping's kernel (``<kernel>`` with ``_wide``
-    before ``_kernel``), one instantiation for every code."""
-    import ctypes
-    wide = kernel.replace("_kernel", "_wide_kernel")
-    out = (ctypes.c_int * 3)()
-    if attrs(16, 2, out) != 0:
-        raise RuntimeError(f"{wide}: no function attributes")
-    spill, seen = "?", False
+def _spill_of(built, function: str) -> str:
+    """Spill stores (bytes) of the first ptxas report whose function name
+    matches ``function`` (a regex), or '?'."""
+    seen = False
     for ln in built.log.splitlines():
-        if re.search(r"Function properties for \w*" + wide, ln):
+        if re.search(r"Function properties for \w*" + function, ln):
             seen = True
             continue
         sp = re.search(r"(\d+) bytes spill stores", ln)
         if seen and sp:
-            spill = sp.group(1)
-            break
-    return (f"{wide} (every code past k=15 or beta=8): {out[0]} registers, "
-            f"{spill} bytes spilled, {out[2]} threads a block at most")
+            return sp.group(1)
+    return "?"
+
+
+def wide_register_report(built, kernel: str, attrs, cluster_attrs) -> str:
+    """Registers (cudaFuncGetAttributes) and ptxas spill stores of the
+    wide mapping's kernel (``<kernel>`` with ``_wide`` before ``_kernel``,
+    one instantiation for every code off a cluster: the K=7 beta=9 code's
+    attributes) and of its cluster kernels (``_cluster``, per butterflies
+    a thread NB and table or per-edge branch metrics; the attributes of
+    K=16 beta=2 on 2 blocks and K=16 beta=9)."""
+    import ctypes
+    wide = kernel.replace("_kernel", "_wide_kernel")
+    cl = kernel.replace("_kernel", "_cluster_kernel")
+    out = (ctypes.c_int * 3)()
+    if attrs(7, 9, out) != 0:
+        raise RuntimeError(f"{wide}: no function attributes")
+    rows = [f"{wide} (codes past k=15 or beta=8 off a cluster): {out[0]} "
+            f"registers, {_spill_of(built, wide)} bytes spilled, {out[2]} "
+            f"threads a block at most"]
+    regs = {}
+    for beta in (2, 9):
+        if cluster_attrs(16, beta, 2, out) != 0:
+            raise RuntimeError(f"{cl}: no function attributes")
+        regs[beta] = (out[0], out[2])
+    spills = " ".join(
+        f"NB={nb}{' table' if tbl else ' per-edge'}:"
+        f"{_spill_of(built, cl + f'ILi{nb}ELb{int(tbl)}')}"
+        for nb in (1, 2, 4, 8, 16) for tbl in (True, False))
+    rows.append(f"{cl} (16<=k<=19 on a cluster): {regs[2][0]} registers "
+                f"(beta 9: {regs[9][0]}), {regs[2][1]} threads a block at "
+                f"most; bytes spilled {spills}")
+    return "; ".join(rows)
 
 
 def phase_build():
@@ -393,13 +434,14 @@ def phase_build():
     for kernel, b in built.items():
         log("build", f"{b.path.name} nvcc {b.seconds:.1f} s")
     log("build", f"all {len(built)} sources in {wall:.1f} s (parallel)")
-    for kernel, attrs in (("viterbi_unified_kernel",
-                           "viterbi_unified_func_attrs"),
-                          ("viterbi_fwd_kernel", "viterbi_fwd_func_attrs")):
+    for kernel, attrs in (("viterbi_unified_kernel", "viterbi_unified"),
+                          ("viterbi_fwd_kernel", "viterbi_fwd")):
+        lib = built[kernel].lib
         log("build", register_report(built[kernel], kernel,
-                                     getattr(built[kernel].lib, attrs)))
-        log("build", wide_register_report(built[kernel], kernel,
-                                          getattr(built[kernel].lib, attrs)))
+                                     getattr(lib, attrs + "_func_attrs")))
+        log("build", wide_register_report(
+            built[kernel], kernel, getattr(lib, attrs + "_func_attrs"),
+            getattr(lib, attrs + "_cluster_attrs")))
 
 
 def _frames(trellis, spec, nframes, gen, dtype):
@@ -558,25 +600,39 @@ def phase_parity(gen):
         f"direct chase at K=7 and K=11); split and unified ops with a "
         f"ragged F equal to the CPU for every code; {blocked}")
     log("parity", f"wide mapping, kernel calls equal to the plain version: "
-        f"{wide} (K=16, 17, 18 beta=2, K=16 beta=3, K=7 beta=9 and 12; "
+        f"{wide} (K=16, 17, 18, 19 beta=2, K=16 beta=3, K=7 beta=9 and 12, "
+        f"K=16 without a bottom tap, K=16 beta=9; K=16 again off a "
+        f"cluster, its path metrics in device memory; "
         f"pack x radix x layout x bm_dtype; serial, boundary, fixed)")
 
 
 def phase_parity_wide(gen, specs):
     """The wide mapping's codes through the three kernels, each against
     its plain version (torch.equal) over the knob grid and the three
-    starts. Returns the calls by kernel."""
+    starts, on the cluster the planner picks (every size from 2 to 16
+    that the card holds), and K=16 once more off a cluster (``_cluster=1``:
+    the path metrics in device memory, as every k >= 20 code and k = 16-19
+    on a card without the cluster run). Returns the calls by kernel and
+    by cluster."""
     import torch
     from repro_torch.core.trellis import make_trellis
     from repro_torch.kernels import autotune
     from repro_torch.kernels import traceback_frames as tbf
     from repro_torch.kernels import viterbi_fwd as vf
     from repro_torch.kernels import viterbi_unified as vu
-    counts = {"unified": 0, "forward": 0, "traceback": 0}
-    for k, polys in WIDE_CODES:
+    counts = {"unified": 0, "forward": 0, "traceback": 0, "clusters": {}}
+    for (k, polys), force in ([(code, None) for code in WIDE_CODES]
+                              + [(WIDE_CODES[0], 1)]):
         tr = make_trellis(k, polys)
         if not autotune.wide_mapping(tr):
             raise AssertionError(f"K={k} beta={tr.beta} is not a wide code")
+        C = autotune.wide_cluster(tr, "cuda") if force is None else force
+        if force is None and C != autotune.cluster_size(tr):
+            log("parity", f"K={k}: the card holds no cluster of "
+                f"{autotune.cluster_size(tr)} blocks; the device-memory "
+                f"path runs it")
+        counts["clusters"][f"K={k} beta={tr.beta}"
+                           + (" forced" if force else "")] = C
         for spec in specs:
             frames = _frames(tr, spec, WIDE_PARITY_FRAMES, gen,
                              torch.float32)
@@ -588,9 +644,10 @@ def phase_parity_wide(gen, specs):
                                   v2=spec.v2, f0=f0, v2s=v2s, start=start,
                                   frames_per_tile=1, pack_survivors=pack,
                                   radix=radix, bm_dtype=bm)
-                        what = f"k={k} beta={tr.beta} {spec} {kw}"
+                        what = f"k={k} beta={tr.beta} C={C} {spec} {kw}"
                         _check_equal(
-                            vu.unified_decode_frames_cuda(frames, **kw),
+                            vu.unified_decode_frames_cuda(
+                                frames, _cluster=force, **kw),
                             vu.unified_decode_frames_plain(frames, **kw),
                             "wide unified " + what)
                         counts["unified"] += 1
@@ -598,7 +655,8 @@ def phase_parity_wide(gen, specs):
                             fkw = dict(trellis=tr, frames_per_tile=1,
                                        pack_survivors=pack, radix=radix,
                                        layout=layout, bm_dtype=bm)
-                            fwd = vf.forward_frames_cuda(frames, **fkw)
+                            fwd = vf.forward_frames_cuda(
+                                frames, _cluster=force, **fkw)
                             _check_equal(fwd,
                                          vf.forward_frames_plain(frames,
                                                                  **fkw),
@@ -789,7 +847,10 @@ def phase_main_wide(gen):
                              "traceback_frames": 1}}
     if counts != want:
         raise AssertionError(f"K=16 launches {counts}, expected {want}")
-    log("main", f"K=16 rate 1/2 (wide mapping): n={n} ({WIDE_MAIN_FRAMES} "
+    from repro_torch.kernels import autotune
+    log("main", f"K=16 rate 1/2 (wide mapping, a cluster of "
+        f"{autotune.wide_cluster(tr, 'cuda')} blocks a frame): n={n} "
+        f"({WIDE_MAIN_FRAMES} "
         f"frames of f=256) Eb/N0={EBN0_DB} dB BER={ber(ref, bits):.3e}; "
         f"kernel and kernel_split equal to the reference backend; launches "
         f"{counts}; first calls {walls['kernel'] * 1e3:.1f} ms / "
@@ -1073,11 +1134,13 @@ def time_large_codes(gen):
 
 
 def time_wide_codes(gen):
-    """B1, B3 and the traceback on the wide mapping (WIDE_TIME: K=16 and
-    K=17 at rate 1/2, K=7 at rate 1/9) at the main frame, packed, radix
+    """B1, B3 and the traceback on the wide mapping (WIDE_TIME: K=16, 17
+    and 18 at rate 1/2, K=7 at rate 1/9) at the main frame, packed, radix
     4, lane: each equal to its plain version, then ms per launch in turns
     (CUDA events) beside the plain version's (host clock, once) and the
-    bound. Returns {name: [{k, beta, F, ms, plain_ms, bound_ms, bound_by},
+    bound, with the cluster (C blocks a frame, 1: none), the clusters (or
+    blocks) launched and resident, and each block's shared memory. Returns
+    {name: [{k, beta, F, cluster, grid, ms, plain_ms, bound_ms, bound_by},
     ...]}."""
     import torch
     from repro_torch.core.trellis import make_trellis
@@ -1096,17 +1159,32 @@ def time_wide_codes(gen):
         fkw = dict(trellis=tr, frames_per_tile=1, pack_survivors=True,
                    radix=4)
         tkw = dict(trellis=tr, v1=20, f=256, f0=32, v2s=45, packed=True)
+        # the plain versions keep every stage's (F, S) survivors: past
+        # k = 17 they run PLAIN_WIDE_BYTES of them at a time, frames being
+        # independent
+        n = max(1, PLAIN_WIDE_BYTES // (spec.frame_len * tr.num_states * 8))
+
+        def chunked(fn, *xs):
+            parts = [fn(*(x[i:i + n] for x in xs))
+                     for i in range(0, F, n)]
+            if isinstance(parts[0], tuple):
+                return tuple(torch.cat(p) for p in zip(*parts))
+            return torch.cat(parts)
+
         plain = {}
         plain_ms = {
             "viterbi_unified": host_ms(lambda: plain.__setitem__(
-                "viterbi_unified",
-                vu.unified_decode_frames_plain(frames, **kw))),
+                "viterbi_unified", chunked(
+                    lambda x: vu.unified_decode_frames_plain(x, **kw),
+                    frames))),
             "viterbi_fwd": host_ms(lambda: plain.__setitem__(
-                "viterbi_fwd", vf.forward_frames_plain(frames, **fkw)))}
+                "viterbi_fwd", chunked(
+                    lambda x: vf.forward_frames_plain(x, **fkw), frames)))}
         sel, amax = vf.forward_frames_cuda(frames, **fkw)
         plain_ms["traceback_frames"] = host_ms(lambda: plain.__setitem__(
-            "traceback_frames", tbf.traceback_frames_plain(sel, amax,
-                                                           **tkw)))
+            "traceback_frames", chunked(
+                lambda a, b: tbf.traceback_frames_plain(a, b, **tkw),
+                sel, amax)))
         _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
                      plain["viterbi_unified"], f"wide unified k={tr.k}")
         _check_equal((sel, amax), plain["viterbi_fwd"],
@@ -1122,16 +1200,27 @@ def time_wide_codes(gen):
                 sel, amax, **tkw)}, 3, rounds=2)
         plan = autotune.plan_tiles(tr, spec, pack_survivors=True,
                                    device="cuda")
+        C = autotune.wide_cluster(tr, "cuda")
+        grid = autotune.wide_grid(tr, F, "cuda")
+        resident = (autotune.cluster_capacity(tr, C, "cuda") if C > 1
+                    else autotune.wide_grid(tr, 1 << 30, "cuda"))
         for name in names:
             b = bound(name, spec, F, trellis=tr)
             out[name].append({"k": tr.k, "beta": tr.beta, "F": F,
-                              "ms": ms[name], "plain_ms": plain_ms[name],
+                              "cluster": C, "grid": grid, "ms": ms[name],
+                              "plain_ms": plain_ms[name],
                               "bound_ms": b[0], "bound_by": b[1]})
+        where = (f"cluster C={C}: {grid} clusters launched, {resident} "
+                 f"resident, {autotune.cluster_threads(tr, C)} threads and "
+                 f"{plan.smem_bytes} B smem a block, path metrics in the "
+                 f"cluster's shared memory" if C > 1 else
+                 f"no cluster: {grid} blocks launched, {resident} resident, "
+                 f"{autotune.wide_threads(tr)} threads and {plan.smem_bytes}"
+                 f" B smem a block, path metrics "
+                 + ("on chip" if autotune.wide_pm_on_chip(tr)
+                    else "in device memory"))
         log("time", f"wide mapping K={tr.k} beta={tr.beta} F={F} L="
-            f"{spec.frame_len} ({autotune.wide_threads(tr)} threads a "
-            f"block, grid {autotune.wide_grid(tr, F, 'cuda')}, "
-            f"{plan.smem_bytes} B smem, {plan.registers} registers, path "
-            f"metrics {'on chip' if autotune.wide_pm_on_chip(tr) else 'in device memory'}): "
+            f"{spec.frame_len} ({where}, {plan.registers} registers): "
             + "; ".join(f"{n} {ms[n]:.4f} ms, plain {plain_ms[n]:.1f} ms, "
                         f"bound {out[n][-1]['bound_ms']:.4f} ms "
                         f"({out[n][-1]['bound_by']}, "

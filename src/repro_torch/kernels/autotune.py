@@ -52,6 +52,15 @@ k = 15, the path metrics (``WIDE_CORE_BYTES`` + 8 S). Its launch takes
 ``wide_grid`` blocks, the most that are resident at once, and each block
 takes frames in turn, so the scratch is per block.
 
+Codes 16 <= k <= 19 run the wide mapping on a thread-block cluster
+instead (``wide_cluster``: C = 2^(k-15) blocks a frame, acs.cuh's
+``VitCluster``), where the card keeps such a cluster resident: the path
+metrics stay in the cluster's shared memory, 8 S / C bytes a block beside
+``CLUSTER_CORE_BYTES``, and ``wide_grid`` counts clusters (the card's
+``cudaOccupancyMaxActiveClusters``; ``H100_CLUSTERS`` on the CPU). Where
+the card holds no cluster of C, ``wide_cluster`` is 1 and the code keeps
+the device-memory path.
+
 ``plan_decode`` returns the whole plan the decode front end executes:
 kernel, layout, tile and chunk geometry (``chunk_frames`` = two tiles per
 device, as in the JAX package), optionally measured on the card
@@ -81,7 +90,10 @@ __all__ = ["TilePlan", "DecodePlan", "DeviceLimits", "H100_LIMITS",
            "BLOCK_THREADS", "lanes_per_frame", "max_frames_per_block",
            "block_threads", "SMEM_MIN_K", "SMEM_THREADS", "MAX_K",
            "MAX_BETA", "smem_mapping", "wide_mapping", "wide_threads",
-           "wide_pm_on_chip", "wide_grid", "WIDE_CORE_BYTES", "H100_SMS"]
+           "wide_pm_on_chip", "wide_grid", "WIDE_CORE_BYTES", "H100_SMS",
+           "CLUSTER_MIN_K", "CLUSTER_MAX_K", "CLUSTER_CORE_BYTES",
+           "H100_CLUSTERS", "cluster_size", "cluster_threads",
+           "cluster_capacity", "wide_cluster"]
 
 #: Most threads one block of either kernel runs (csrc/acs.cuh
 #: VIT_BLOCK_THREADS): eight warps.
@@ -101,10 +113,23 @@ _SMEM_TABLES = 8 * 128 + 4 * 4 * 32
 #: Bytes of the wide mapping's fixed shared memory (VIT_WIDE_CORE_BYTES):
 #: warp partials, a two-stage LLR buffer and the polynomials, 32 terms each.
 WIDE_CORE_BYTES = 4 * 4 * 32 + 2 * 4 * 32 + 4 * 32
-#: Most threads of a wide-mapping block (VIT_WIDE_MAX_THREADS).
+#: Most threads of a wide-mapping block (VIT_WIDE_MAX_THREADS) and of a
+#: cluster block (VIT_CLUSTER_THREADS).
 _WIDE_MAX_THREADS = 1024
+_CLUSTER_THREADS = 512
 #: Streaming multiprocessors of an H100 SXM, what the CPU plans with.
 H100_SMS = 132
+#: Codes from CLUSTER_MIN_K to CLUSTER_MAX_K run the wide mapping on a
+#: cluster of 2^(k-15) blocks (acs.cuh VIT_CLUSTER_MIN_K, _MAX_K).
+CLUSTER_MIN_K = 16
+CLUSTER_MAX_K = 19
+#: Bytes of a cluster block's fixed shared memory (VIT_CLUSTER_CORE_BYTES):
+#: two stages' butterfly tables (2^8 float4 each); max and argmax partials
+#: for 16 blocks (the H100's largest cluster) of 32 warps, two stages
+#: each; the small-code word staging; the LLR buffer and the polynomials.
+#: The path metrics, 8 S / C bytes, come after it.
+CLUSTER_CORE_BYTES = (2 * 256 * 16 + 2 * 2 * 16 * 32 * 4 + 2 * 32 * 4
+                      + 2 * 32 * 4 + 32 * 4)
 _BM_DTYPES = ("float32", "bfloat16")
 
 
@@ -132,6 +157,22 @@ def wide_pm_on_chip(trellis: Trellis) -> bool:
     return trellis.k <= MAX_K
 
 
+def cluster_size(trellis: Trellis) -> int:
+    """The cluster the mapping puts a code on: C = 2^(k-15) blocks for
+    CLUSTER_MIN_K <= k <= CLUSTER_MAX_K (each block's double-buffered path
+    metrics 128 KB), else 1 (acs.cuh vit_cluster_size)."""
+    k = trellis.k
+    return 1 << (k - 15) if CLUSTER_MIN_K <= k <= CLUSTER_MAX_K else 1
+
+
+def cluster_threads(trellis: Trellis, cluster: int) -> int:
+    """Threads of one block of a cluster of ``cluster`` blocks: one a
+    butterfly of the block's S / 2 / C, at least a warp, at most
+    ``_CLUSTER_THREADS`` (acs.cuh vit_cluster_threads)."""
+    return max(32, min(_CLUSTER_THREADS,
+                       trellis.num_states // 2 // int(cluster)))
+
+
 def lanes_per_frame(trellis: Trellis) -> int:
     """Lanes of a warp one frame's path metrics take: ``min(S, 32)`` (a
     large code's frame takes a whole block of such warps)."""
@@ -146,11 +187,14 @@ def max_frames_per_block(trellis: Trellis) -> int:
     return BLOCK_THREADS // 32 * (32 // lanes_per_frame(trellis))
 
 
-def block_threads(trellis: Trellis, frames_per_block: int) -> int:
+def block_threads(trellis: Trellis, frames_per_block: int,
+                  cluster: int = 1) -> int:
     """Threads of a block of that many frames: whole warps; a large
-    code's block is ``SMEM_THREADS``, a wide code's ``wide_threads``."""
+    code's block is ``SMEM_THREADS``, a wide code's ``wide_threads``, or
+    ``cluster_threads`` in a cluster of ``cluster`` > 1 blocks."""
     if wide_mapping(trellis):
-        return wide_threads(trellis)
+        return (cluster_threads(trellis, cluster) if cluster > 1
+                else wide_threads(trellis))
     if smem_mapping(trellis):
         return SMEM_THREADS
     fpw = 32 // lanes_per_frame(trellis)
@@ -181,9 +225,18 @@ H100_LIMITS = DeviceLimits(232448, 233472, 2048, 32, 1024, 65536)
 #: planner asks the kernels, whose counts grow with R and beta. The
 #: ``*_smem`` counts are the large-code mapping's at k=12 beta=2, with
 #: which the CPU plans the codes 12 <= k <= 15; the ``*_wide`` counts the
-#: wide mapping's (one instantiation for every code past them).
+#: wide mapping's (one instantiation for every code past them); the
+#: ``*_cluster`` counts its cluster kernels' at k = 16 beta = 2 (512
+#: threads a block, so at most 128 registers a thread).
 H100_REGISTERS = {"unified": 48, "split": 48, "unified_smem": 63,
-                  "split_smem": 58, "unified_wide": 64, "split_wide": 56}
+                  "split_smem": 58, "unified_wide": 64, "split_wide": 56,
+                  "unified_cluster": 128, "split_cluster": 128}
+
+#: Clusters of C blocks of the cluster kernels (one 1024-thread block of
+#: 2^14 states an SM, k = 15 + log2 C) an NVIDIA H100 80GB HBM3 keeps
+#: resident at once: ``cudaOccupancyMaxActiveClusters`` on the card
+#: (chip_smoke.py's time phase prints it). What the CPU plans with.
+H100_CLUSTERS = {2: 66, 4: 30, 8: 15, 16: 7}
 
 _limits: dict = {}
 
@@ -213,49 +266,116 @@ def device_limits(device=None) -> DeviceLimits:
 _registers: dict = {}
 
 
+def _library(unified: bool):
+    if unified:
+        from .viterbi_unified import kernel_library
+    else:
+        from .viterbi_fwd import kernel_library
+    return kernel_library().lib
+
+
 def kernel_registers(trellis: Trellis, *, unified: bool = True,
-                     device=None) -> int:
+                     device=None, cluster: int | None = None) -> int:
     """Registers per thread of the kernel instantiation that runs
     ``trellis`` (``device=None`` = ``"cuda"``: asked of the built kernel
     through ``cudaFuncGetAttributes``; the CPU takes ``H100_REGISTERS``,
-    the main path's count, for every code of its mapping)."""
+    the main path's count, for every code of its mapping). ``cluster``
+    (default ``wide_cluster``'s) > 1 asks for the cluster kernel's."""
     name = "unified" if unified else "split"
     dev = _resolve_device(device)
+    if cluster is None:
+        cluster = (wide_cluster(trellis, dev, unified=unified)
+                   if wide_mapping(trellis) else 1)
     if dev.type != "cuda":
-        return H100_REGISTERS[name + ("_wide" if wide_mapping(trellis) else
-                                      "_smem" if smem_mapping(trellis)
-                                      else "")]
-    key = (name, trellis.k, trellis.beta)
+        return H100_REGISTERS[name + (
+            "_cluster" if cluster > 1 else
+            "_wide" if wide_mapping(trellis) else
+            "_smem" if smem_mapping(trellis) else "")]
+    key = (name, trellis.k, trellis.beta, int(cluster))
     if key not in _registers:
-        if unified:
-            from .viterbi_unified import kernel_library
-            fn = "viterbi_unified_func_attrs"
-        else:
-            from .viterbi_fwd import kernel_library
-            fn = "viterbi_fwd_func_attrs"
         out = (ctypes.c_int * 3)()
-        err = getattr(kernel_library().lib, fn)(trellis.k, trellis.beta, out)
+        if cluster > 1:
+            fn = f"viterbi_{'unified' if unified else 'fwd'}_cluster_attrs"
+            err = getattr(_library(unified), fn)(trellis.k, trellis.beta,
+                                                 int(cluster), out)
+        else:
+            fn = f"viterbi_{'unified' if unified else 'fwd'}_func_attrs"
+            err = getattr(_library(unified), fn)(trellis.k, trellis.beta,
+                                                 out)
         if err != 0:
-            raise RuntimeError(f"{fn}(k={trellis.k}, beta={trellis.beta}): "
-                               f"CUDA error {err}")
+            raise RuntimeError(f"{fn}(k={trellis.k}, beta={trellis.beta}, "
+                               f"cluster={cluster}): CUDA error {err}")
         _registers[key] = int(out[0])
     return _registers[key]
 
 
+_clusters: dict = {}
+
+
+def cluster_capacity(trellis: Trellis, cluster: int, device=None, *,
+                     unified: bool = True) -> int:
+    """Clusters of ``cluster`` blocks of the kernel that runs ``trellis``
+    the card keeps resident at once (``device=None`` = ``"cuda"``: the
+    card's ``cudaOccupancyMaxActiveClusters``, queried once; the CPU takes
+    ``H100_CLUSTERS``). Raises where the card refuses the query."""
+    dev = _resolve_device(device)
+    C = int(cluster)
+    if dev.type != "cuda":
+        return H100_CLUSTERS.get(C, 0)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (unified, trellis.k, trellis.beta, C, index)
+    if key not in _clusters:
+        fn = f"viterbi_{'unified' if unified else 'fwd'}_max_clusters"
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = getattr(_library(unified), fn)(trellis.k, trellis.beta, C,
+                                                 ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"{fn}(k={trellis.k}, beta={trellis.beta}, "
+                               f"C={C}): the card refuses a cluster of {C} "
+                               f"blocks (CUDA error {err})")
+        _clusters[key] = int(out.value)
+    return _clusters[key]
+
+
+def wide_cluster(trellis: Trellis, device=None, *,
+                 unified: bool = True) -> int:
+    """Blocks of the cluster one frame of ``trellis`` runs on:
+    ``cluster_size`` (2, 4, 8, 16 at k = 16-19) where the card keeps at
+    least one such cluster resident, else 1 (no cluster: the device-memory
+    path of the wide mapping, or another mapping)."""
+    C = cluster_size(trellis)
+    if C > 1 and cluster_capacity(trellis, C, device, unified=unified) < 1:
+        return 1
+    return C
+
+
 def wide_grid(trellis: Trellis, frames: int, device=None, *,
-              unified: bool = True) -> int:
+              unified: bool = True, cluster: int | None = None) -> int:
     """Blocks of a wide-mapping launch over ``frames`` frames: at most
     one a frame, and at most as many as the card keeps resident at once
     (its SMs times the blocks an SM holds by threads, block slots, shared
     memory and the kernel's registers), so that no block waits for
-    another and the per-block scratch is no larger than it must be."""
+    another and the per-block scratch is no larger than it must be. On a
+    cluster (``cluster``, default ``wide_cluster``'s, > 1) it counts
+    clusters, at most one a frame and at most ``cluster_capacity``; raises
+    where the card holds none."""
     dev = _resolve_device(device)
+    C = (wide_cluster(trellis, dev, unified=unified) if cluster is None
+         else int(cluster))
+    if C > 1:
+        cap = cluster_capacity(trellis, C, dev, unified=unified)
+        if cap < 1:
+            raise RuntimeError(f"the card keeps no cluster of {C} blocks "
+                               f"resident for k={trellis.k}")
+        return max(1, min(int(frames), cap))
     limits = device_limits(dev)
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
            if dev.type == "cuda" else H100_SMS)
     per_sm = _resident_frames(
-        _wide_smem(trellis)[0], wide_threads(trellis), 1,
-        kernel_registers(trellis, unified=unified, device=dev), limits)
+        _wide_smem(trellis, 1)[0], wide_threads(trellis), 1,
+        kernel_registers(trellis, unified=unified, device=dev, cluster=1),
+        limits)
     return max(1, min(int(frames), sms * max(1, per_sm)))
 
 
@@ -307,7 +427,8 @@ def _check_knobs(layout, bm_dtype):
 def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
                        frames_per_tile: int, *, pack_survivors: bool = False,
                        radix: int = 2, layout=Layout.LANE,
-                       bm_dtype: str = "float32", scratch: bool = False):
+                       bm_dtype: str = "float32", scratch: bool = False,
+                       cluster: int = 1):
     """(total_bytes, breakdown) of one unified-kernel block: the carve-up of
     ``csrc/viterbi_unified.cu::smem_layout``. Each frame keeps its
     traceback starts (one int32 state per subframe, the block's padded to
@@ -326,11 +447,13 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
 
     A wide code (``wide_mapping``) keeps its survivors and starts in the
     scratch always: its block is the mapping's fixed core and, to k = 15,
-    the path metrics (``spec`` is not read)."""
+    the path metrics (``spec`` is not read); in a cluster of ``cluster``
+    > 1 blocks (``plan_tiles`` passes ``wide_cluster``'s) the cluster core
+    and the block's 8 S / C bytes of path metrics."""
     _check_knobs(layout, bm_dtype)
     del radix
     if wide_mapping(trellis):
-        return _wide_smem(trellis)
+        return _wide_smem(trellis, cluster)
     S = trellis.num_states
     W = packed_width(S)
     fpb = int(frames_per_tile)
@@ -347,12 +470,17 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     return sum(b for _, b in breakdown), breakdown
 
 
-def _wide_smem(trellis: Trellis):
+def _wide_smem(trellis: Trellis, cluster: int = 1):
     """(total_bytes, breakdown) of one wide-mapping block of either
-    kernel (acs.cuh vit_wide_smem_bytes)."""
-    breakdown = (("path_metrics",
-                  8 * trellis.num_states if wide_pm_on_chip(trellis) else 0),
-                 ("tables_and_partials", WIDE_CORE_BYTES),
+    kernel (acs.cuh vit_wide_smem_bytes), or, with ``cluster`` > 1, of
+    one block of a cluster of that many (vit_cluster_smem_bytes)."""
+    C = int(cluster)
+    if C > 1:
+        pm, core = 8 * trellis.num_states // C, CLUSTER_CORE_BYTES
+    else:
+        pm = 8 * trellis.num_states if wide_pm_on_chip(trellis) else 0
+        core = WIDE_CORE_BYTES
+    breakdown = (("path_metrics", pm), ("tables_and_partials", core),
                  ("traceback_starts", 0), ("sel_survivors", 0))
     return sum(b for _, b in breakdown), breakdown
 
@@ -360,18 +488,19 @@ def _wide_smem(trellis: Trellis):
 def split_smem_bytes(trellis: Trellis, spec: FrameSpec,
                      frames_per_tile: int, *, pack_survivors: bool = False,
                      radix: int = 2, layout=Layout.LANE,
-                     bm_dtype: str = "float32"):
+                     bm_dtype: str = "float32", cluster: int = 1):
     """(total_bytes, breakdown) of one forward-kernel block: the carve-up
     of ``csrc/viterbi_fwd.cu::fwd_smem``. Its path metrics live in
     registers and its survivors and argmax go to device memory; each warp
     stages one run of them (32 words and 32 argmax, 256 bytes) in shared
     memory, whatever the knobs. A large code's block keeps the mapping's
     path metrics, tables and partials instead, a wide code's the wide
-    mapping's."""
+    mapping's (on a cluster of ``cluster`` blocks, as
+    ``unified_smem_bytes``)."""
     _check_knobs(layout, bm_dtype)
     del spec, pack_survivors, radix
     if wide_mapping(trellis):
-        return _wide_smem(trellis)
+        return _wide_smem(trellis, cluster)
     if smem_mapping(trellis):
         breakdown = (("path_metrics", 8 * trellis.num_states),
                      ("tables_and_partials", _SMEM_TABLES))
@@ -407,20 +536,23 @@ def _resident_frames(smem: int, threads: int, fpb: int, registers: int,
 
 def _tile_at(trellis: Trellis, spec: FrameSpec, ft: int, *, unified: bool,
              pack_survivors: bool, radix: int, layout, bm_dtype: str,
-             budget: int, limits: DeviceLimits,
-             registers: int) -> TilePlan:
+             budget: int, limits: DeviceLimits, registers: int,
+             cluster: int = 1) -> TilePlan:
     """The TilePlan of one tile under the kernel's footprint model. A
     large code's unified block whose survivors overflow the budget is
     planned as the kernel runs it: survivors in the device-memory
-    scratch (its only tile is one frame)."""
+    scratch (its only tile is one frame). A wide code's block is one of
+    a cluster of ``cluster`` blocks (1: off a cluster): its bytes and its
+    threads both."""
     model = unified_smem_bytes if unified else split_smem_bytes
     total, breakdown = model(trellis, spec, ft, pack_survivors=pack_survivors,
-                             radix=radix, layout=layout, bm_dtype=bm_dtype)
+                             radix=radix, layout=layout, bm_dtype=bm_dtype,
+                             cluster=cluster)
     if unified and smem_mapping(trellis) and total > budget:
         total, breakdown = unified_smem_bytes(
             trellis, spec, ft, pack_survivors=pack_survivors, radix=radix,
             layout=layout, bm_dtype=bm_dtype, scratch=True)
-    threads = block_threads(trellis, ft)
+    threads = block_threads(trellis, ft, cluster)
     resident = (_resident_frames(total, threads, ft, registers, limits)
                 if total <= budget else 0)
     return TilePlan(int(ft), total, breakdown, budget,
@@ -446,14 +578,17 @@ def plan_tiles(trellis: Trellis, spec: FrameSpec, *,
     spec.validate()
     _check_knobs(layout, bm_dtype)
     limits = device_limits(device)
-    registers = kernel_registers(trellis, unified=unified, device=device)
+    cluster = (wide_cluster(trellis, device, unified=unified)
+               if wide_mapping(trellis) else 1)
+    registers = kernel_registers(trellis, unified=unified, device=device,
+                                 cluster=cluster)
     budget = limits.smem_per_block if smem_budget is None else int(smem_budget)
     best = None
     for ft in candidate_tiles(trellis, max_frames):
         plan = _tile_at(trellis, spec, ft, unified=unified,
                         pack_survivors=pack_survivors, radix=radix,
                         layout=layout, bm_dtype=bm_dtype, budget=budget,
-                        limits=limits, registers=registers)
+                        limits=limits, registers=registers, cluster=cluster)
         if best is None or plan.frames_per_sm > best.frames_per_sm:
             best = plan
         if not plan.fits:                    # footprints grow with the tile

@@ -48,8 +48,12 @@
 //
 // Codes 12 <= k <= 15 take a second mapping, VitBlock (below): one block a
 // frame, path metrics in shared memory. Every other code the plain version
-// takes (k >= 16, or beta > 8 at any k) takes a third, VitWide (at the end):
-// one block a frame, k and beta at run time.
+// takes (k >= 16, or beta > 8 at any k) takes a third, VitWide: one block a
+// frame, k and beta at run time; and codes 16 <= k <= 19 a fourth,
+// VitCluster (at the end), in its place where the card holds the cluster:
+// one thread-block cluster of C = 2^(k-15) blocks a frame, the path
+// metrics in the cluster's shared memory, exchanged through distributed
+// shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -612,6 +616,8 @@ int vit_dispatch_smem(int k, int beta, A... a) {
 
 // ---------------------------------------------------------------------------
 // Every other code (k >= 16, or beta > 8 at any k): the wide mapping.
+// (Codes 16 <= k <= 19 run it on a thread-block cluster instead where the
+// card holds one: VitCluster, after it.)
 //
 // Past k = 15 two buffers of S float32 path metrics outgrow a block's shared
 // memory (256 KB at k = 16, over the 227 KB a block can have), and past
@@ -691,6 +697,45 @@ __host__ __device__ inline long long vit_wide_smem_bytes(int k) {
          (vit_wide_pm_on_chip(k) ? 8LL * (1LL << (k - 1)) : 0);
 }
 
+// The branch metrics of butterfly q of a k code with beta polynomials g
+// from the stage's LLRs x: e[h][p] is edge p (from 2q + p) into state
+// q + h S/2.
+__device__ __forceinline__ void vit_wide_edges(int k, int beta,
+                                               const unsigned* g, int q,
+                                               const float* x, bool bf16,
+                                               float (&e)[2][2]) {
+  const unsigned base = 2u * (unsigned)q;
+  const int top = k - 1;
+  for (int b = 0; b < beta; ++b) {
+    const unsigned gb = g[b];
+    const unsigned s = (unsigned)__popc(base & gb) & 1u;
+    const unsigned bot = gb & 1u, tp = (gb >> top) & 1u;
+    const int xi = __float_as_int(x[b]);
+    const float t00 = __int_as_float(xi ^ (int)(s << 31));
+    const float t01 = __int_as_float(xi ^ (int)((s ^ bot) << 31));
+    const float t10 = __int_as_float(xi ^ (int)((s ^ tp) << 31));
+    const float t11 = __int_as_float(xi ^ (int)((s ^ bot ^ tp) << 31));
+    if (b == 0) {
+      e[0][0] = t00;
+      e[0][1] = t01;
+      e[1][0] = t10;
+      e[1][1] = t11;
+    } else {
+      e[0][0] = __fadd_rn(e[0][0], t00);
+      e[0][1] = __fadd_rn(e[0][1], t01);
+      e[1][0] = __fadd_rn(e[1][0], t10);
+      e[1][1] = __fadd_rn(e[1][1], t11);
+    }
+  }
+  if (bf16) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        e[h][p] = __bfloat162float(__float2bfloat16_rn(e[h][p]));
+  }
+}
+
 // One frame on one block. Shared memory at `sm` (16-byte aligned), laid
 // out as VIT_WIDE_CORE_BYTES says; the path metrics at `pm_global` (the
 // block's [2][S] float in device memory) or after the core.
@@ -719,40 +764,10 @@ struct VitWide {
     if (tid < beta) g[tid] = (unsigned)polys[tid];
   }
 
-  // The branch metrics of butterfly q from the stage's LLRs x: e[h][p] is
-  // edge p (from 2q + p) into state q + h S/2.
+  // The branch metrics of butterfly q (vit_wide_edges).
   __device__ __forceinline__ void bm(int q, const float* x, bool bf16,
                                      float (&e)[2][2]) const {
-    const unsigned base = 2u * (unsigned)q;
-    const int top = k - 1;
-    for (int b = 0; b < beta; ++b) {
-      const unsigned gb = g[b];
-      const unsigned s = (unsigned)__popc(base & gb) & 1u;
-      const unsigned bot = gb & 1u, tp = (gb >> top) & 1u;
-      const int xi = __float_as_int(x[b]);
-      const float t00 = __int_as_float(xi ^ (int)(s << 31));
-      const float t01 = __int_as_float(xi ^ (int)((s ^ bot) << 31));
-      const float t10 = __int_as_float(xi ^ (int)((s ^ tp) << 31));
-      const float t11 = __int_as_float(xi ^ (int)((s ^ bot ^ tp) << 31));
-      if (b == 0) {
-        e[0][0] = t00;
-        e[0][1] = t01;
-        e[1][0] = t10;
-        e[1][1] = t11;
-      } else {
-        e[0][0] = __fadd_rn(e[0][0], t00);
-        e[0][1] = __fadd_rn(e[0][1], t01);
-        e[1][0] = __fadd_rn(e[1][0], t10);
-        e[1][1] = __fadd_rn(e[1][1], t11);
-      }
-    }
-    if (bf16) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-          e[h][p] = __bfloat162float(__float2bfloat16_rn(e[h][p]));
-    }
+    vit_wide_edges(k, beta, g, q, x, bf16, e);
   }
 };
 
@@ -879,6 +894,653 @@ struct VitWideWords {
     }
   }
 };
+
+// ---------------------------------------------------------------------------
+// Codes 16 <= k <= 19: the cluster mapping.
+//
+// Past k = 15 the two buffers of S float32 path metrics outgrow a block's
+// shared memory (256 KB at k = 16), and VitWide keeps them in a device-memory
+// scratch that every stage reads and writes through L2 (or, past the 50 MB
+// L2 at k = 17, through device memory). Hopper's thread-block clusters put
+// 2-16 blocks on neighbouring SMs that read and write each other's shared
+// memory (distributed shared memory) and meet at one cluster barrier. So a
+// k code with 16 <= k <= 19 runs one frame on a cluster of C = 2^(k-15)
+// blocks, the least power of two whose blocks hold the double-buffered 8 S
+// bytes in 128 KB each (vit_cluster_size). Kernels instantiate this mapping
+// beside the other three, so their instantiations do not change; a test
+// may force it on any code with any C (the `cluster` launch argument; the
+// kernel reads C back from %cluster_nctarank).
+//   * ownership: with Hc = S/2/C, block c (its rank in the cluster) owns
+//     the old states [2 c Hc, 2 (c+1) Hc) and runs the butterflies q in
+//     [c Hc, (c+1) Hc), whose predecessors 2q and 2q + 1 it reads from its
+//     own shared memory as one float2. T = clamp(Hc, 32, 512) threads,
+//     NB = max(1, Hc / T) butterflies a thread, a template constant (16 at
+//     k = 16-19), the loop unrolled;
+//   * the exchange: new state q belongs to block c/2 and new state q + S/2
+//     to block c/2 + C/2, both at offset (c & 1) Hc + (q - c Hc); the block
+//     writes them there with plain stores through the owners' shared
+//     memory mapped into its address space (__cluster_map_shared_rank, once
+//     a launch). One cluster barrier a stage (barrier.cluster.arrive.release
+//     / wait.acquire) stands in for the block barrier: it publishes the
+//     writes, and the double buffer lets the next stage's writes start
+//     only after every block has read the buffer they overwrite. Between
+//     the arrive and the wait a block stores the stage's survivors;
+//   * butterfly i + 1's two shared-memory loads are issued before
+//     butterfly i's stores, which the compiler may not move loads past;
+//   * the stage max: each warp's redux max (on vit_key's integer image) goes
+//     to every block of the cluster (lane j stores to block j), into a slot
+//     per (block, warp); after the barrier every warp reduces the C x warps
+//     partials. The first maximal state, only at the stages the store asks
+//     for (B1: its traceback starts; B3: every stage): each warp's least
+//     first hit goes to block 0, whose warp 0 takes the least after the
+//     next stage's barrier. Both are exact and order-free (a max, and a
+//     min of state indices);
+//   * lazy normalisation as VitBlock: the buffers hold each stage's metrics
+//     before it, and the reader subtracts the previous stage's max;
+//   * branch metrics (beta <= 8): the four edges of butterfly q are the
+//     metrics of the encoder words a, a ^ bottom taps, a ^ top taps and
+//     a ^ both (a: the parities of 2q and the polynomials), so a table of
+//     2^beta entries a stage, built one stage ahead from the LLRs in shared
+//     memory, serves every butterfly through its byte a (in registers):
+//     one float4 a butterfly, or, where every polynomial has both taps,
+//     one float whose negation is two of the edges (vit_edge0). Past
+//     beta = 8 VitWide's per-edge sums (TBL = false). Both are
+//     vit_wide_edges' sums, the plain version's sgn * bm_half[idx];
+//   * survivors: each block's warps ballot 32 neighbouring butterflies, so
+//     packed they are packing.py's LANE words, contiguous ranges of words
+//     per block; lane i of a warp holds the word of its butterfly run i
+//     (lane NB + i the high states') and stores it. A forced small code
+//     (Hc < 32: one partial word a block) ORs its bits into a staging word
+//     of block 0 (red.shared::cluster), which block 0 stores after the
+//     barrier.
+// What bounds it: the six float operations a state and stage, as the other
+// mappings, now with no path-metric bytes off the chip: per SM and stage
+// S/C states (16384 at k = 16-19) and one cluster barrier. 512 threads a
+// block leave a thread 128 registers for its 16 butterflies (1024 threads,
+// 64 registers, spilled and ran no faster).
+#define VIT_CLUSTER_MIN_K 16
+#define VIT_CLUSTER_MAX_K 19
+// Most blocks of a cluster the mapping lays out room for: the H100's
+// largest, non-portable cluster. A larger one is refused before any launch
+// (vit_cluster_ok).
+#define VIT_CLUSTER_MAX_DIM 16
+// Most threads of a cluster block, and most butterflies a thread runs: 16
+// of 512 threads, 2^14 states a block (512 threads leave a thread 128
+// registers for its 16 butterflies; 1024, at 64, spilled).
+#define VIT_CLUSTER_THREADS 512
+#define VIT_CLUSTER_MAX_NB 16
+// Words a stage's small-code staging holds (S < 64 C <= 1024 states).
+#define VIT_CLUSTER_WORDS 32
+// Entries of a stage's butterfly table: one per encoder word of the
+// butterfly's first edge, 2^beta for beta <= 8.
+#define VIT_CLUSTER_QUADS (1 << VIT_MAX_BETA)
+// The fixed part of a cluster block's shared memory: the butterfly tables
+// [2][VIT_CLUSTER_QUADS] float4, the max and argmax partials
+// [2][VIT_CLUSTER_MAX_DIM * 32] int each, the word staging
+// [2][VIT_CLUSTER_WORDS], the LLR buffer [2][VIT_WIDE_MAX_BETA] and the
+// polynomials; then the path metrics [2][S/C] float.
+#define VIT_CLUSTER_CORE_BYTES                                         \
+  (2 * VIT_CLUSTER_QUADS * 16 + 2 * 2 * VIT_CLUSTER_MAX_DIM * 32 * 4 + \
+   2 * VIT_CLUSTER_WORDS * 4 + 2 * VIT_WIDE_MAX_BETA * 4 +             \
+   VIT_WIDE_MAX_BETA * 4)
+
+// The cluster a k code runs on by default: 2^(k-15) blocks for 16 <= k <=
+// 19, else 1 (no cluster).
+__host__ __device__ inline int vit_cluster_size(int k) {
+  return k >= VIT_CLUSTER_MIN_K && k <= VIT_CLUSTER_MAX_K ? 1 << (k - 15)
+                                                          : 1;
+}
+
+// Butterflies of one block of a cluster of C (Hc).
+__host__ __device__ inline long long vit_cluster_half(int k, int C) {
+  return (1LL << (k - 2)) / C;
+}
+
+// Threads of one block of a cluster of C: one a butterfly, at least a warp
+// and at most VIT_CLUSTER_THREADS.
+__host__ __device__ inline int vit_cluster_threads(int k, int C) {
+  const long long h = vit_cluster_half(k, C);
+  return h < 32 ? 32 : (h > VIT_CLUSTER_THREADS ? VIT_CLUSTER_THREADS
+                                                : (int)h);
+}
+
+// Butterflies a thread runs (NB).
+__host__ __device__ inline int vit_cluster_nb(int k, int C) {
+  const long long h = vit_cluster_half(k, C);
+  return h > VIT_CLUSTER_THREADS ? (int)(h / VIT_CLUSTER_THREADS) : 1;
+}
+
+// Dynamic shared memory of one block of a cluster of C: the core and the
+// path metrics (8 S / C bytes).
+__host__ __device__ inline long long vit_cluster_smem_bytes(int k, int C) {
+  return VIT_CLUSTER_CORE_BYTES + 8LL * ((1LL << (k - 1)) / C);
+}
+
+// Whether the mapping takes a k code on a cluster of C: C a power of two,
+// 2 <= C <= VIT_CLUSTER_MAX_DIM, a butterfly a block at least, at most
+// VIT_CLUSTER_MAX_NB a thread.
+__host__ __device__ inline bool vit_cluster_ok(int k, int C) {
+  return C >= 2 && C <= VIT_CLUSTER_MAX_DIM && (C & (C - 1)) == 0 &&
+         k >= 2 && k <= VIT_WIDE_MAX_K && vit_cluster_half(k, C) >= 1 &&
+         vit_cluster_nb(k, C) <= VIT_CLUSTER_MAX_NB;
+}
+
+__device__ __forceinline__ unsigned vit_cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned vit_cluster_blocks() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned vit_cluster_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned vit_cluster_count() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+// The shared::cluster address of `a` (this block's shared address) in
+// block `rank` of the cluster.
+__device__ __forceinline__ uint32_t vit_mapa(uint32_t a, unsigned rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void vit_st_cluster_s32(uint32_t a, int v) {
+  asm volatile("st.shared::cluster.s32 [%0], %1;" :: "r"(a), "r"(v));
+}
+__device__ __forceinline__ void vit_or_cluster_u32(uint32_t a, unsigned v) {
+  asm volatile("red.relaxed.cluster.shared::cluster.or.b32 [%0], %1;"
+               :: "r"(a), "r"(v) : "memory");
+}
+// A generic pointer to `p` (in this block's shared memory) in block `rank`
+// of the cluster: plain stores through it reach that block.
+__device__ __forceinline__ float* vit_map_rank(float* p, unsigned rank) {
+  return static_cast<float*>(__cluster_map_shared_rank(p, rank));
+}
+// Every thread of the cluster: what each wrote before (shared memory of any
+// block, device memory) is visible to each after. Split in two, the
+// thread's work between arrive and wait overlaps the others' arrival but
+// is not published by this barrier.
+__device__ __forceinline__ void vit_cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void vit_cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void vit_cluster_sync() {
+  vit_cluster_arrive();
+  vit_cluster_wait();
+}
+
+// The four branch metrics of the butterflies whose first edge has the
+// encoder word `a` (bit b = the sign of term b), as vit_wide_edges sums
+// them: the other edges flip the terms of the polynomials' bottom taps
+// (predecessor 2q + 1) and top taps (state q + S/2). Component 2 h + p of
+// the float4 is edge p into state q + h S/2.
+__device__ __forceinline__ float4 vit_quad(unsigned a, const float* x,
+                                           const unsigned* g, int k,
+                                           int beta, bool bf16) {
+  float e[4];
+#pragma unroll
+  for (int b = 0; b < VIT_MAX_BETA; ++b) {
+    if (b < beta) {
+      const unsigned gb = g[b];
+      const unsigned s = (a >> b) & 1u, bot = gb & 1u;
+      const unsigned tp = (gb >> (k - 1)) & 1u;
+      const int xi = __float_as_int(x[b]);
+      const float t[4] = {__int_as_float(xi ^ (int)(s << 31)),
+                          __int_as_float(xi ^ (int)((s ^ bot) << 31)),
+                          __int_as_float(xi ^ (int)((s ^ tp) << 31)),
+                          __int_as_float(xi ^ (int)((s ^ bot ^ tp) << 31))};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[i] = b == 0 ? t[i] : __fadd_rn(e[i], t[i]);
+    }
+  }
+  if (bf16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      e[i] = __bfloat162float(__float2bfloat16_rn(e[i]));
+  }
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+// The first edge's metric alone (component 0 of vit_quad). Where every
+// polynomial has its top and bottom taps, the butterfly's other edges flip
+// every term: edges 01 and 10 are its negation and edge 11 itself
+// (negation commutes with each rounded add and with the bf16 rounding; a
+// zero may change sign, which no comparison sees).
+__device__ __forceinline__ float vit_edge0(unsigned a, const float* x,
+                                          int beta, bool bf16) {
+  float e = __int_as_float(__float_as_int(x[0]) ^ (int)((a & 1u) << 31));
+#pragma unroll
+  for (int b = 1; b < VIT_MAX_BETA; ++b)
+    if (b < beta)
+      e = __fadd_rn(e, __int_as_float(__float_as_int(x[b]) ^
+                                      (int)(((a >> b) & 1u) << 31)));
+  if (bf16) e = __bfloat162float(__float2bfloat16_rn(e));
+  return e;
+}
+
+// One frame on one block of a cluster. Shared memory at `sm` (16-byte
+// aligned), laid out as VIT_CLUSTER_CORE_BYTES says, then the block's path
+// metrics [2][S/C] float. Loop invariants live in shared memory and in
+// 32-bit shared addresses, so that a thread keeps its registers for its NB
+// butterflies.
+template <int NB, bool TBL>
+struct VitCluster {
+  int k, beta, S, H, C, c, Hc, T, nw, nq;
+  bool small;            // Hc < 32: a block's survivors are a partial word
+  bool taps;             // every polynomial has its top and bottom taps
+  float* pm;             // [2][2 Hc], this block's old states
+  float4* quad;          // [2][VIT_CLUSTER_QUADS] butterfly tables (TBL);
+                         // with taps, slot s holds VIT_CLUSTER_QUADS floats
+                         // (vit_edge0) at quad + s VIT_CLUSTER_QUADS
+  unsigned aw[(NB + 3) / 4];   // byte i: the encoder word of butterfly i's
+                               // first edge, its table entry (TBL)
+  int* rmax;             // [2][VIT_CLUSTER_MAX_DIM][32] warp maxima (keys)
+  int* rarg;             // [2][VIT_CLUSTER_MAX_DIM][32] warp first hits
+  unsigned* sw;          // [2][VIT_CLUSTER_WORDS] small-code words
+  float* sx;             // [2][VIT_WIDE_MAX_BETA] LLRs
+  unsigned* g;           // [VIT_WIDE_MAX_BETA] polynomials
+  float* lo_dst;         // buffer 0 of blocks c/2, c/2 + C/2 (generic
+  float* hi_dst;         // addresses of their shared memory), + offset
+  uint32_t max_dst;      // lane j < C: block j's rmax + this block's row
+  uint32_t arg_dst;      // block 0's rarg + this block's row
+  uint32_t sw_dst;       // block 0's sw
+
+  __device__ __forceinline__ void init(int k_, int beta_, const int* polys,
+                                       unsigned char* sm) {
+    constexpr int RED = 2 * VIT_CLUSTER_MAX_DIM * 32;
+    k = k_;
+    beta = beta_;
+    S = 1 << (k - 1);
+    H = S >> 1;
+    C = (int)vit_cluster_blocks();
+    c = (int)vit_cluster_rank();
+    Hc = H / C;
+    T = blockDim.x;
+    nw = T >> 5;
+    nq = TBL ? 1 << beta : 0;
+    small = Hc < 32;
+    quad = reinterpret_cast<float4*>(sm);
+    rmax = reinterpret_cast<int*>(quad + 2 * VIT_CLUSTER_QUADS);
+    rarg = rmax + RED;
+    sw = reinterpret_cast<unsigned*>(rarg + RED);
+    sx = reinterpret_cast<float*>(sw + 2 * VIT_CLUSTER_WORDS);
+    g = reinterpret_cast<unsigned*>(sx + 2 * VIT_WIDE_MAX_BETA);
+    pm = reinterpret_cast<float*>(sm + VIT_CLUSTER_CORE_BYTES);
+    const int tid = threadIdx.x, lane = tid & 31;
+    if (tid < beta) g[tid] = (unsigned)polys[tid];
+    taps = true;
+    for (int b = 0; b < beta; ++b)
+      taps = taps && (polys[b] & 1) && ((polys[b] >> (k - 1)) & 1);
+    lo_dst = vit_map_rank(pm, c >> 1) + (c & 1) * Hc;
+    hi_dst = vit_map_rank(pm, (c >> 1) + C / 2) + (c & 1) * Hc;
+    const uint32_t rmax_s =
+        static_cast<uint32_t>(__cvta_generic_to_shared(rmax));
+    const uint32_t rarg_s =
+        static_cast<uint32_t>(__cvta_generic_to_shared(rarg));
+    max_dst = vit_mapa(rmax_s, lane < C ? lane : 0) + 4u * 32 * c;
+    arg_dst = vit_mapa(rarg_s, 0) + 4u * 32 * c;
+    sw_dst = vit_mapa(static_cast<uint32_t>(__cvta_generic_to_shared(sw)),
+                      0);
+#pragma unroll
+    for (int w = 0; w < (NB + 3) / 4; ++w) aw[w] = 0u;
+    if (TBL) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const unsigned e2 = 2u * (unsigned)(c * Hc + tid + T * i);
+        unsigned a = 0u;
+        for (int b = 0; b < beta; ++b)
+          a |= ((unsigned)__popc(e2 & (unsigned)polys[b]) & 1u) << b;
+        aw[i >> 2] |= a << (8 * (i & 3));
+      }
+    }
+    __syncthreads();          // the polynomials
+  }
+
+  // Stage `slot`'s butterfly table from its LLRs x, entries a = tid,
+  // tid + T, ...
+  __device__ __forceinline__ void table(int slot, const float* x,
+                                        bool bf16) const {
+    float* tp = reinterpret_cast<float*>(quad + slot * VIT_CLUSTER_QUADS);
+    for (int a = threadIdx.x; a < nq; a += T) {
+      if (taps)
+        tp[a] = vit_edge0((unsigned)a, x, beta, bf16);
+      else
+        quad[slot * VIT_CLUSTER_QUADS + a] =
+            vit_quad((unsigned)a, x, g, k, beta, bf16);
+    }
+  }
+};
+
+// The first maximal state of stage `t`, from the warps' first hits in
+// block 0 (after the barrier that follows their stores); in warp 0 of
+// block 0.
+template <int NB, bool TBL>
+__device__ __forceinline__ int vit_cluster_first_max(
+    const VitCluster<NB, TBL>& v, int t) {
+  const int lane = threadIdx.x & 31;
+  const int* r = v.rarg + (t & 1) * VIT_CLUSTER_MAX_DIM * 32;
+  int a = 0x7fffffff;
+  if (lane < v.nw)
+    for (int j = 0; j < v.C; ++j) a = min(a, r[32 * j + lane]);
+  return __reduce_min_sync(VIT_FULL, a);
+}
+
+// The recursion of one frame over L stages on the cluster, with VitWide's
+// Store interface and st.argmax_at(t) (whether stage t's first maximal
+// state is wanted, without consuming it): packed, st.word(t, i, w) in the
+// lane that holds word i
+// (lane i < NB the low states of butterfly run i, lane NB + i the high
+// ones), or in warp 0 of block 0 for a small code; unpacked,
+// st.butterfly(t, q, valid, sel_lo, sel_hi, b_lo, b_hi) per butterfly in
+// every thread; st.wants_argmax(t) in every thread (cluster uniform) and
+// st.argmax(t, a) in warp 0 of block 0. Starts and ends with a cluster
+// barrier: the frame's survivors and first maxima are then visible to the
+// whole cluster, and its buffers free.
+template <bool PACK, bool TAPS, int NB, bool TBL, class Store>
+__device__ __forceinline__ void vit_cluster_recursion(
+    VitCluster<NB, TBL>& v, const void* llr, int dtype, bool bf16,
+    long long frame_base, int L, Store& st) {
+  const int Hc = v.Hc, T = v.T, beta = v.beta;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int SC = 2 * Hc;                      // old states a block owns
+  constexpr int SLOT = VIT_CLUSTER_MAX_DIM * 32;
+  const bool words = v.small && PACK;
+  for (int s = tid; s < SC; s += T) v.pm[SC + s] = 0.f;   // stage -1
+  for (int i = tid; i < 2 * VIT_CLUSTER_WORDS; i += T) v.sw[i] = 0u;
+  // The LLRs: thread b < beta loads term b ahead into pf and stores it to
+  // the two-stage buffer sx, which a barrier publishes. TBL: the tables
+  // of stage t + 1 are built during stage t from sx (stage t + 1's terms,
+  // stored during stage t - 1), so pf runs three stages ahead; else the
+  // butterflies read sx (stage t's terms, stored during stage t - 1).
+  float pf = 0.f;
+  if (tid < beta) {
+    v.sx[tid] = vit_load_llr(llr, dtype, frame_base + tid);
+    if (TBL) {
+      if (L > 1)
+        v.sx[VIT_WIDE_MAX_BETA + tid] =
+            vit_load_llr(llr, dtype, frame_base + beta + tid);
+      if (L > 2)
+        pf = vit_load_llr(llr, dtype, frame_base + 2LL * beta + tid);
+    } else if (L > 1) {
+      pf = vit_load_llr(llr, dtype, frame_base + beta + tid);
+    }
+  }
+  if (TBL) {                  // stage 0's table, from the thread's loads
+    float x0[VIT_MAX_BETA];
+    if (tid < v.nq) {
+#pragma unroll
+      for (int b = 0; b < VIT_MAX_BETA; ++b)
+        if (b < beta) x0[b] = vit_load_llr(llr, dtype, frame_base + b);
+      v.table(0, x0, bf16);
+    }
+  }
+  vit_cluster_sync();
+  float m = 0.f;              // the previous stage's max
+  int pend = -1;              // stage whose first maximum is pending
+  for (int t = 0; t < L; ++t) {
+    if (TBL) {
+      if (t + 1 < L)          // the next stage's table
+        v.table((t + 1) & 1, v.sx + ((t + 1) & 1) * VIT_WIDE_MAX_BETA, bf16);
+      if (tid < beta) {
+        if (t + 2 < L) v.sx[(t & 1) * VIT_WIDE_MAX_BETA + tid] = pf;
+        if (t + 3 < L)
+          pf = vit_load_llr(llr, dtype,
+                            frame_base + (long long)(t + 3) * beta + tid);
+      }
+    } else if (tid < beta) {
+      v.sx[((t + 1) & 1) * VIT_WIDE_MAX_BETA + tid] = pf;
+      if (t + 2 < L)
+        pf = vit_load_llr(llr, dtype,
+                          frame_base + (long long)(t + 2) * beta + tid);
+    }
+    const float4* qd = v.quad + (t & 1) * VIT_CLUSTER_QUADS;
+    const float* tp = reinterpret_cast<const float*>(qd);
+    const float* x = v.sx + (t & 1) * VIT_WIDE_MAX_BETA;
+    const float2* old = reinterpret_cast<const float2*>(
+        v.pm + ((t + 1) & 1) * SC) + tid;
+    float* lo = v.lo_dst + (t & 1) * SC + tid;
+    float* hi = v.hi_dst + (t & 1) * SC + tid;
+    float mlo = -INFINITY, mhi = -INFINITY;
+    int slo = 0, shi = 0;
+    unsigned myw = 0u;        // packed: the survivor word this lane holds
+    // The first maximal state only where the store wants it (B1: at the
+    // traceback starts; B3: every stage); else the max alone.
+    const bool track = st.argmax_at(t);
+    // Butterfly i + 1's loads go out before butterfly i's stores: the
+    // compiler may not move a shared-memory load past a store that may
+    // alias it.
+    float2 ppn = make_float2(0.f, 0.f);
+    float4 en = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (NB > 1 || tid < Hc) {
+      ppn = old[0];                         // v of 2q and 2q + 1
+      if (TAPS) en.x = tp[v.aw[0] & 0xffu];
+      else if (TBL) en = qd[v.aw[0] & 0xffu];
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int j = tid + T * i;              // butterfly within the block
+      const int q = v.c * Hc + j;
+      const bool valid = NB > 1 || j < Hc;    // false only for small codes
+      const float2 pp = ppn;
+      float e[2][2] = {{en.x, en.y}, {en.z, en.w}};
+      if (TAPS) {
+        e[0][1] = e[1][0] = -en.x;
+        e[1][1] = en.x;
+      }
+      if (i + 1 < NB) {
+        ppn = old[T * (i + 1)];
+        const unsigned a = (v.aw[(i + 1) >> 2] >> (8 * ((i + 1) & 3))) & 0xffu;
+        if (TAPS) en.x = tp[a];
+        else if (TBL) en = qd[a];
+      }
+      bool sl = false, sh = false;
+      if (valid) {
+        const float p0 = __fsub_rn(pp.x, m);
+        const float p1 = __fsub_rn(pp.y, m);
+        if (!TBL) vit_wide_edges(v.k, v.beta, v.g, q, x, bf16, e);
+        const float l0 = __fadd_rn(p0, e[0][0]);
+        const float l1 = __fadd_rn(p1, e[0][1]);
+        const float h0 = __fadd_rn(p0, e[1][0]);
+        const float h1 = __fadd_rn(p1, e[1][1]);
+        sl = l1 >= l0;
+        sh = h1 >= h0;
+        const float vl = sl ? l1 : l0;
+        const float vh = sh ? h1 : h0;
+        // the exchange: new state q to block c/2, q + S/2 to c/2 + C/2
+        lo[T * i] = vl;
+        hi[T * i] = vh;
+        if (track) {
+          if (vl > mlo) { mlo = vl; slo = q; }
+          if (vh > mhi) { mhi = vh; shi = q + v.H; }
+        } else {
+          mlo = fmaxf(mlo, vl);
+          mhi = fmaxf(mhi, vh);
+        }
+      }
+      if (PACK) {
+        const unsigned blo = __ballot_sync(VIT_FULL, sl);
+        const unsigned bhi = __ballot_sync(VIT_FULL, sh);
+        if (lane == i) myw = blo;
+        if (lane == NB + i) myw = bhi;
+      } else {
+        st.butterfly(t, q, valid, sl, sh, 0u, 0u);
+      }
+    }
+    const int key = __reduce_max_sync(
+        VIT_FULL, vit_key(__float_as_int(fmaxf(mlo, mhi))));
+    if (lane < v.C)
+      vit_st_cluster_s32(v.max_dst + 4u * ((t & 1) * SLOT + warp), key);
+    if (words) {              // one warp; bits at lanes < Hc (NB = 1)
+      const unsigned bhi = __shfl_sync(VIT_FULL, myw, 1);
+      if (lane == 0) {
+        const int s0 = v.c * Hc, s1 = s0 + v.H;
+        const uint32_t base = v.sw_dst + 4u * (t & 1) * VIT_CLUSTER_WORDS;
+        vit_or_cluster_u32(base + 4u * (s0 >> 5), myw << (s0 & 31));
+        vit_or_cluster_u32(base + 4u * (s1 >> 5), bhi << (s1 & 31));
+      }
+    }
+    vit_cluster_arrive();
+    // While the cluster gathers: the stage's survivor words, which only the
+    // recursion's closing barrier (or the next stage's) has to publish.
+    if (PACK && !words && lane < 2 * NB) {
+      const int q0 = v.c * Hc + warp * 32 + T * (lane % NB);
+      st.word(t, (lane < NB ? q0 : q0 + v.H) >> 5, myw);
+    }
+    vit_cluster_wait();
+    if (v.c == 0 && warp == 0) {
+      if (pend >= 0) st.argmax(pend, vit_cluster_first_max(v, pend));
+      if (words) {
+        unsigned* sw = v.sw + (t & 1) * VIT_CLUSTER_WORDS;
+        for (int i = lane; i < (v.S + 31) / 32; i += 32) {
+          st.word(t, i, sw[i]);
+          sw[i] = 0u;
+        }
+      }
+    }
+    pend = -1;
+    {
+      const int* r = v.rmax + (t & 1) * SLOT;
+      int k = (int)0x80000000;
+      if (lane < v.nw)
+        for (int b = 0; b < v.C; ++b) k = max(k, r[32 * b + lane]);
+      m = __int_as_float(vit_key(__reduce_max_sync(VIT_FULL, k)));
+    }
+    if (st.wants_argmax(t)) {
+      int a = 0x7fffffff;
+      if (mhi == m) a = shi;
+      if (mlo == m) a = slo;                  // low states come first
+      a = __reduce_min_sync(VIT_FULL, a);
+      if (lane == 0)
+        vit_st_cluster_s32(v.arg_dst + 4u * ((t & 1) * SLOT + warp), a);
+      pend = t;
+    }
+  }
+  vit_cluster_sync();
+  if (pend >= 0 && v.c == 0 && warp == 0)
+    st.argmax(pend, vit_cluster_first_max(v, pend));
+  vit_cluster_sync();
+}
+
+// The recursion with the store's survivor format (st.pack) and, for the
+// table, whether one metric a butterfly serves its four edges (v.taps)
+// constants.
+template <int NB, bool TBL, class Store>
+__device__ __forceinline__ void vit_cluster_run(VitCluster<NB, TBL>& v,
+                                                const void* llr, int dtype,
+                                                bool bf16,
+                                                long long frame_base, int L,
+                                                Store& st) {
+  if (TBL && v.taps) {
+    if (st.pack)
+      vit_cluster_recursion<true, true>(v, llr, dtype, bf16, frame_base, L,
+                                        st);
+    else
+      vit_cluster_recursion<false, true>(v, llr, dtype, bf16, frame_base, L,
+                                         st);
+  } else if (st.pack) {
+    vit_cluster_recursion<true, false>(v, llr, dtype, bf16, frame_base, L,
+                                       st);
+  } else {
+    vit_cluster_recursion<false, false>(v, llr, dtype, bf16, frame_base, L,
+                                        st);
+  }
+}
+
+// Calls F::template run_cluster<NB, TBL>(a...) for the cluster
+// instantiation that serves (k, beta) on a cluster of C: NB butterflies a
+// thread, the compressed table for beta <= 8.
+template <class F, class... A>
+int vit_dispatch_cluster(int k, int beta, int C, A... a) {
+  const bool tbl = beta <= VIT_MAX_BETA;
+  switch (vit_cluster_nb(k, C)) {
+    case 1: return tbl ? F::template run_cluster<1, true>(a...)
+                       : F::template run_cluster<1, false>(a...);
+    case 2: return tbl ? F::template run_cluster<2, true>(a...)
+                       : F::template run_cluster<2, false>(a...);
+    case 4: return tbl ? F::template run_cluster<4, true>(a...)
+                       : F::template run_cluster<4, false>(a...);
+    case 8: return tbl ? F::template run_cluster<8, true>(a...)
+                       : F::template run_cluster<8, false>(a...);
+    default: return tbl ? F::template run_cluster<16, true>(a...)
+                        : F::template run_cluster<16, false>(a...);
+  }
+}
+
+// The launch configuration of `clusters` clusters of C blocks of a k code's
+// cluster kernel (the attribute array must outlive it), after setting the
+// kernel's shared memory and non-portable cluster size (16 needs it).
+// Returns the CUDA error of the attribute calls.
+template <class P>
+__host__ inline cudaError_t vit_cluster_config(void (*kern)(const P), int k,
+                                               int C, int clusters,
+                                               cudaStream_t stream,
+                                               cudaLaunchAttribute* attr,
+                                               cudaLaunchConfig_t* cfg) {
+  const long long smem = vit_cluster_smem_bytes(k, C);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)clusters * C, 1, 1);
+  cfg->blockDim = dim3(vit_cluster_threads(k, C), 1, 1);
+  cfg->dynamicSmemBytes = (size_t)smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return err;
+}
+
+// Launches `kern` (a cluster kernel taking P) on `clusters` clusters of C
+// blocks: the cluster size is a launch attribute (cudaLaunchKernelEx).
+// Returns the launch's CUDA error (0 = ok), cleared from the runtime's
+// last error so that it is reported once; a cluster the card cannot hold
+// is refused here, never replaced.
+template <class P>
+__host__ inline int vit_cluster_launch(void (*kern)(const P), const P& p,
+                                       int k, int C, int clusters,
+                                       cudaStream_t stream) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err =
+      vit_cluster_config(kern, k, C, clusters, stream, &attr, &cfg);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kern, p);
+  if (err != cudaSuccess) {
+    (void)cudaGetLastError();
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The clusters of C blocks of `kern` the card keeps resident at once
+// (cudaOccupancyMaxActiveClusters) into *out. Returns 0 or the CUDA error.
+template <class P>
+__host__ inline int vit_cluster_occupancy(void (*kern)(const P), int k,
+                                          int C, int* out) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = vit_cluster_config(kern, k, C, 1, 0, &attr, &cfg);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(out, kern, &cfg);
+  if (err != cudaSuccess) (void)cudaGetLastError();
+  return (int)err;
+}
 
 // numRegs, localSizeBytes (spills) and maxThreadsPerBlock of one kernel
 // instantiation, for the tile planner (kernels/autotune.py).

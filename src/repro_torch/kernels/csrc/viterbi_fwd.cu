@@ -51,7 +51,12 @@
 // device-memory scratch past it. It stores as the large-code kernel does
 // (packed: lane 0 of each warp its words; unpacked: every thread its
 // states' bytes; warp 0 the first maximal state). A block decodes frames
-// blockIdx.x, + gridDim.x, ...; its path-metric scratch is its own.
+// blockIdx.x, + gridDim.x, ...; its path-metric scratch is its own. Codes
+// 16 <= k <= 19 run it on a thread-block cluster instead (a fourth kernel,
+// viterbi_fwd_cluster_kernel, acs.cuh's VitCluster): one frame a cluster
+// of 2^(k-15) blocks, the path metrics in the cluster's shared memory,
+// each block storing its butterflies' survivors and block 0 each stage's
+// first maximal state.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -208,6 +213,7 @@ struct FwdWideStore {
   long long frame;
   int F, L, S, W, H, pack, sublane;
   __device__ __forceinline__ bool wants_argmax(int) const { return true; }
+  __device__ __forceinline__ bool argmax_at(int) const { return true; }
   __device__ __forceinline__ void argmax(int t, int a) {
     if ((threadIdx.x & 31) == 0) amax[t] = a;
   }
@@ -219,6 +225,9 @@ struct FwdWideStore {
   __device__ __forceinline__ void put32(int t, int wi, unsigned v) {
     const long long i = (long long)t * W + wi;
     sel32[sublane ? i * F + frame : frame * L * W + i] = v;
+  }
+  __device__ __forceinline__ void word(int t, int i, unsigned w) {
+    put32(t, i, w);
   }
   __device__ __forceinline__ void butterfly(int t, int q, bool valid,
                                             bool slo, bool shi, unsigned blo,
@@ -256,6 +265,52 @@ __global__ void __launch_bounds__(VIT_WIDE_MAX_THREADS)
       vit_wide_recursion(w, p.llr, p.llr_dtype, false, base, p.L, st);
   }
 }
+
+// ---- 16 <= k <= 19: one frame a cluster, acs.cuh's VitCluster -----------
+
+// The wide kernel's work on a cluster of blocks: each block
+// stores its butterflies' survivors as the wide kernel does, block 0's
+// warp 0 each stage's first maximal state.
+template <int NB, bool TBL>
+__global__ void __launch_bounds__(VIT_CLUSTER_THREADS, 1)
+    viterbi_fwd_cluster_kernel(const FwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = 1 << (p.k - 1);
+  VitCluster<NB, TBL> v;
+  v.init(p.k, p.beta, p.polys, smem);
+  for (long long frame = vit_cluster_id(); frame < p.F;
+       frame += vit_cluster_count()) {
+    FwdWideStore st{static_cast<uint32_t*>(p.sel),
+                    static_cast<int8_t*>(p.sel), p.amax + frame * p.L,
+                    frame, p.F, p.L, S, (S + 31) / 32, S >> 1, p.pack,
+                    p.sublane};
+    const long long base = frame * p.L * p.beta;
+    vit_cluster_run(v, p.llr, p.llr_dtype, p.bf16_bm != 0, base, p.L, st);
+  }
+}
+
+struct LaunchCluster {
+  template <int NB, bool TBL>
+  static int run_cluster(const FwdParams* p, int C, int clusters,
+                         cudaStream_t stream) {
+    return vit_cluster_launch(viterbi_fwd_cluster_kernel<NB, TBL>, *p, p->k,
+                              C, clusters, stream);
+  }
+  template <int NB, bool TBL>
+  static int run_cluster(int k, int C, int* out) {
+    return vit_cluster_occupancy(viterbi_fwd_cluster_kernel<NB, TBL>, k, C,
+                                 out);
+  }
+};
+
+struct AttrsCluster {
+  template <int NB, bool TBL>
+  static int run_cluster(int* out) {
+    return vit_func_attrs(
+        reinterpret_cast<const void*>(viterbi_fwd_cluster_kernel<NB, TBL>),
+        out);
+  }
+};
 
 // Shared memory of one block of fpb frames: each warp's run buffers, 32
 // words and 32 argmax; for a large code, the mapping's path metrics,
@@ -347,23 +402,45 @@ int viterbi_fwd_func_attrs(int k, int beta, int* out) {
   return vit_dispatch<Attrs>(k, beta, out);
 }
 
+// *out = the clusters of C blocks of the cluster kernel that runs (k,
+// beta) the card keeps resident at once (cudaOccupancyMaxActiveClusters).
+// Returns 0 or the CUDA error.
+int viterbi_fwd_max_clusters(int k, int beta, int C, int* out) {
+  if (!vit_cluster_ok(k, C) || beta < 2 || beta > VIT_WIDE_MAX_BETA)
+    return (int)cudaErrorInvalidValue;
+  return vit_dispatch_cluster<LaunchCluster>(k, beta, C, k, C, out);
+}
+
+// out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the cluster
+// kernel that runs (k, beta) on a cluster of C. Returns 0 or the error.
+int viterbi_fwd_cluster_attrs(int k, int beta, int C, int* out) {
+  if (!vit_cluster_ok(k, C) || beta < 2 || beta > VIT_WIDE_MAX_BETA)
+    return (int)cudaErrorInvalidValue;
+  return vit_dispatch_cluster<AttrsCluster>(k, beta, C, out);
+}
+
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
 // The wide mapping (every code outside the fast mappings' domain, or any
 // code with wide != 0, which the wrapper passes only to test the mapping)
 // takes `grid` blocks and, past k = 15, the path metrics in pm_global
-// (grid of [2][S] float32); the other mappings take fpb frames a block.
+// (grid of [2][S] float32); with cluster > 1 it runs on `grid` clusters of
+// that many blocks instead (no pm_global); the other mappings take fpb
+// frames a block.
 int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
                        const void* signs_half, const void* polys, void* sel,
                        void* amax, void* pm_global, int F, int L, int beta,
                        int k, int llr_dtype, int pack, int sublane,
-                       int bf16_bm, int fpb, int wide, int grid,
+                       int bf16_bm, int fpb, int wide, int grid, int cluster,
                        void* stream) {
-  wide = wide || vit_wide_code(k, beta);
+  wide = wide || cluster > 1 || vit_wide_code(k, beta);
   if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 ||
       beta > VIT_WIDE_MAX_BETA || F < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
   if (wide ? (polys == nullptr || grid < 1 ||
-              (pm_global == nullptr) == !vit_wide_pm_on_chip(k))
+              (cluster > 1 ? (!vit_cluster_ok(k, cluster) ||
+                              pm_global != nullptr)
+                           : (pm_global == nullptr) ==
+                                 !vit_wide_pm_on_chip(k)))
            : (fpb < 1 || fpb > vit_max_frames_per_block(k)))
     return (int)cudaErrorInvalidValue;
   FwdParams p;
@@ -384,6 +461,10 @@ int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
   p.sublane = sublane;
   p.bf16_bm = bf16_bm;
   p.fpb = fpb;
+  if (cluster > 1)
+    return vit_dispatch_cluster<LaunchCluster>(
+        k, beta, cluster, &p, cluster, grid,
+        static_cast<cudaStream_t>(stream));
   if (wide) return launch_wide(&p, grid, static_cast<cudaStream_t>(stream));
   if (k >= VIT_SMEM_MIN_K)
     return vit_dispatch_smem<LaunchSmem>(k, beta, &p,

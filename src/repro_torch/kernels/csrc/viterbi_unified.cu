@@ -42,7 +42,13 @@
 // beta at run time, path metrics in shared memory to k = 15 and in a
 // device-memory scratch past it, survivors and traceback starts always in
 // the device-memory scratch. A block decodes frames blockIdx.x, +
-// gridDim.x, ...; its scratch is its own, reused frame after frame.
+// gridDim.x, ...; its scratch is its own, reused frame after frame. Codes
+// 16 <= k <= 19 run it on a thread-block cluster instead (a fourth kernel,
+// viterbi_unified_cluster_kernel, acs.cuh's VitCluster): one frame a
+// cluster of 2^(k-15) blocks, the path metrics in the cluster's shared
+// memory, the survivors and starts in a scratch per cluster, the nsub
+// cursors spread over the cluster's blocks; a cluster decodes frames
+// %clusterid, + %nclusterid, ....
 //
 // When one frame's survivors exceed the shared memory a block can have
 // (unpacked K=7 survivors of one f=4096 frame need L*S ~ 266 KB), the same
@@ -324,6 +330,9 @@ struct UnifiedWideStore {
   int* am;                  // its [nsub] starts
   long long row;
   int H, pack, f0, e_first, next_e;
+  __device__ __forceinline__ bool argmax_at(int t) const {
+    return t == next_e;
+  }
   __device__ __forceinline__ bool wants_argmax(int t) {
     if (t != next_e) return false;
     next_e += f0;
@@ -331,6 +340,9 @@ struct UnifiedWideStore {
   }
   __device__ __forceinline__ void argmax(int t, int a) {
     if ((threadIdx.x & 31) == 0) am[(t - e_first) / f0] = a;
+  }
+  __device__ __forceinline__ void word(int t, int i, unsigned w) {
+    reinterpret_cast<uint32_t*>(sel + (long long)t * row)[i] = w;
   }
   __device__ __forceinline__ void butterfly(int t, int q, bool valid,
                                             bool slo, bool shi, unsigned blo,
@@ -393,6 +405,78 @@ __global__ void __launch_bounds__(VIT_WIDE_MAX_THREADS)
     __syncthreads();      // the scratch is read before the next frame's
   }
 }
+
+// ---- 16 <= k <= 19: one frame a cluster, acs.cuh's VitCluster -----------
+
+// The wide kernel's work on a cluster of blocks: survivors and
+// starts in the cluster's scratch, stored as the wide kernel stores them;
+// phase 3's nsub cursors spread over the cluster's blocks (cursor q on
+// block q mod C), after the recursion's closing cluster barrier.
+template <int NB, bool TBL>
+__global__ void __launch_bounds__(VIT_CLUSTER_THREADS, 1)
+    viterbi_unified_cluster_kernel(const UnifiedParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = 1 << (p.k - 1);
+  const long long row = p.pack ? 4LL * ((S + 31) / 32) : S;
+  const long long cl = vit_cluster_id();
+  unsigned char* sel = p.sel_global + cl * p.L * row;
+  int* am = p.amax_global + cl * p.nsub;
+  VitCluster<NB, TBL> v;
+  v.init(p.k, p.beta, p.polys, smem);
+  const int e_first = p.v1 + p.f0 - 1 + p.v2s;
+  const int kshift = p.k - 2;
+  const int T = p.f0 + p.v2s;
+  const int C = v.C;
+  for (long long frame = cl; frame < p.F; frame += vit_cluster_count()) {
+    UnifiedWideStore st{sel, am, row, S >> 1, p.pack, p.f0, e_first,
+                        p.start_fixed ? 0x7fffffff : e_first};
+    const long long base = frame * p.L * p.beta;
+    vit_cluster_run(v, p.llr, p.llr_dtype, p.bf16_bm != 0, base, p.L, st);
+
+    // ---- phase 3: the frame's nsub cursors over the cluster's blocks ------
+    for (int q = v.c + C * threadIdx.x; q < p.nsub; q += C * blockDim.x) {
+      int state = p.start_fixed ? 0 : am[q];
+      const int e2 = p.v1 + (q + 1) * p.f0 - 1 + p.v2s;
+      int* o = p.out + frame * p.f + (long long)q * p.f0;
+      for (int r = 0; r < T; ++r) {
+        const long long ts = e2 - r;
+        if (r >= p.v2s) o[p.f0 - 1 - (r - p.v2s)] = state >> kshift;
+        int bit;
+        if (p.pack)
+          bit = (reinterpret_cast<const uint32_t*>(sel + ts * row)
+                     [state >> 5] >> (state & 31)) & 1;
+        else
+          bit = sel[ts * row + state];
+        state = ((state << 1) & (S - 1)) | bit;
+      }
+    }
+    // the next frame's recursion opens with a cluster barrier: the scratch
+    // is read before it is written again
+  }
+}
+
+struct LaunchCluster {
+  template <int NB, bool TBL>
+  static int run_cluster(const UnifiedParams* p, int C, int clusters,
+                         cudaStream_t stream) {
+    return vit_cluster_launch(viterbi_unified_cluster_kernel<NB, TBL>, *p,
+                              p->k, C, clusters, stream);
+  }
+  template <int NB, bool TBL>
+  static int run_cluster(int k, int C, int* out) {
+    return vit_cluster_occupancy(viterbi_unified_cluster_kernel<NB, TBL>, k,
+                                 C, out);
+  }
+};
+
+struct AttrsCluster {
+  template <int NB, bool TBL>
+  static int run_cluster(int* out) {
+    return vit_func_attrs(reinterpret_cast<const void*>(
+                              viterbi_unified_cluster_kernel<NB, TBL>),
+                          out);
+  }
+};
 
 // Threads of a block of fpb frames: whole warps of 32 / P frames each.
 inline int block_threads(int k, int fpb) {
@@ -492,6 +576,34 @@ int viterbi_wide_code(int k, int beta) { return vit_wide_code(k, beta); }
 // Threads of one wide-mapping block of a k code.
 int viterbi_wide_threads(int k) { return vit_wide_threads(k); }
 
+// The cluster a k code runs on by default (1: none), and, for a cluster
+// of C, its blocks' threads and dynamic shared memory; -1 where the
+// mapping does not take (k, C).
+int viterbi_cluster_size(int k) { return vit_cluster_size(k); }
+int viterbi_cluster_threads(int k, int C) {
+  return vit_cluster_ok(k, C) ? vit_cluster_threads(k, C) : -1;
+}
+long long viterbi_cluster_smem_bytes(int k, int C) {
+  return vit_cluster_ok(k, C) ? vit_cluster_smem_bytes(k, C) : -1;
+}
+
+// *out = the clusters of C blocks of the cluster kernel that runs (k,
+// beta) the card keeps resident at once (cudaOccupancyMaxActiveClusters).
+// Returns 0 or the CUDA error.
+int viterbi_unified_max_clusters(int k, int beta, int C, int* out) {
+  if (!vit_cluster_ok(k, C) || beta < 2 || beta > VIT_WIDE_MAX_BETA)
+    return (int)cudaErrorInvalidValue;
+  return vit_dispatch_cluster<LaunchCluster>(k, beta, C, k, C, out);
+}
+
+// out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the cluster
+// kernel that runs (k, beta) on a cluster of C. Returns 0 or the error.
+int viterbi_unified_cluster_attrs(int k, int beta, int C, int* out) {
+  if (!vit_cluster_ok(k, C) || beta < 2 || beta > VIT_WIDE_MAX_BETA)
+    return (int)cudaErrorInvalidValue;
+  return vit_dispatch_cluster<AttrsCluster>(k, beta, C, out);
+}
+
 // out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the instantiation
 // that runs (k, beta): the wide kernel for every code past the fast
 // mappings. Returns 0 or the CUDA error.
@@ -530,21 +642,26 @@ int viterbi_device_limits(int device, int* out) {
 // code with wide != 0, which the wrapper passes only to test the mapping)
 // takes `grid` blocks, survivors and starts in the scratch (grid of [L][row]
 // bytes and of [nsub] int32) and, past k = 15, the path metrics in pm_global
-// (grid of [2][S] float32); the other mappings take fpb frames a block.
+// (grid of [2][S] float32); with cluster > 1 it runs on `grid` clusters of
+// that many blocks instead (the scratch per cluster, no pm_global); the
+// other mappings take fpb frames a block.
 int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
                            const void* signs_half, const void* polys,
                            void* out, void* sel_global, void* amax_global,
                            void* pm_global, int F, int L, int beta, int k,
                            int v1, int f, int f0, int v2s, int llr_dtype,
                            int start_fixed, int pack, int bf16_bm, int fpb,
-                           int wide, int grid, void* stream) {
-  wide = wide || vit_wide_code(k, beta);
+                           int wide, int grid, int cluster, void* stream) {
+  wide = wide || cluster > 1 || vit_wide_code(k, beta);
   if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 ||
       beta > VIT_WIDE_MAX_BETA || f0 < 1 || f % f0 != 0 || F < 1 ||
       (sel_global == nullptr) != (amax_global == nullptr))
     return (int)cudaErrorInvalidValue;
   if (wide ? (sel_global == nullptr || polys == nullptr || grid < 1 ||
-              (pm_global == nullptr) == !vit_wide_pm_on_chip(k))
+              (cluster > 1 ? (!vit_cluster_ok(k, cluster) ||
+                              pm_global != nullptr)
+                           : (pm_global == nullptr) ==
+                                 !vit_wide_pm_on_chip(k)))
            : (fpb < 1 || fpb > vit_max_frames_per_block(k)))
     return (int)cudaErrorInvalidValue;
   UnifiedParams p;
@@ -571,6 +688,10 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
   p.pack = pack;
   p.bf16_bm = bf16_bm;
   p.fpb = fpb;
+  if (cluster > 1)
+    return vit_dispatch_cluster<LaunchCluster>(
+        k, beta, cluster, &p, cluster, grid,
+        static_cast<cudaStream_t>(stream));
   if (wide)
     return launch_wide(&p, grid, static_cast<cudaStream_t>(stream));
   const long long smem = unified_smem(k, beta, L, p.nsub, pack, start_fixed,

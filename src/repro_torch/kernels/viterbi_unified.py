@@ -33,8 +33,13 @@ wide mapping (``acs.cuh``'s ``VitWide``): one frame a block, k and beta at
 run time, survivors and traceback starts in a device-memory scratch of
 each block's, and past k = 15 the path metrics too; the grid is the
 blocks resident at once (``autotune.wide_grid``), each taking frames in
-turn. Where the card cannot hold that scratch, the allocation or the
-launch raises. Bits never depend on the tile.
+turn. Codes 16 <= k <= 19 run it on a thread-block cluster of 2^(k-15)
+blocks a frame (``acs.cuh``'s ``VitCluster``, ``autotune.wide_cluster``),
+the path metrics in the cluster's shared memory, the scratch per cluster;
+the device-memory path metrics are allocated only where the planner keeps
+the code off a cluster. Where the card cannot hold that scratch or that
+cluster, the allocation, the planner or the launch raises. Bits never
+depend on the tile.
 """
 from __future__ import annotations
 
@@ -45,8 +50,8 @@ import torch
 
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
-from .autotune import (device_limits, max_frames_per_block, wide_grid,
-                       wide_mapping, wide_pm_on_chip)
+from .autotune import (device_limits, max_frames_per_block, wide_cluster,
+                       wide_grid, wide_mapping, wide_pm_on_chip)
 from .build import build
 from .packing import Layout, extract_bit, pack_bits, packed_width
 from .tables import kernel_tables
@@ -65,7 +70,7 @@ def kernel_library():
     lib = built.lib
     if not getattr(lib, "_argtypes_set", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.viterbi_unified_launch.argtypes = [vp] * 9 + [i] * 15 + [vp]
+        lib.viterbi_unified_launch.argtypes = [vp] * 9 + [i] * 16 + [vp]
         lib.viterbi_unified_launch.restype = i
         lib.viterbi_unified_smem_bytes.argtypes = [i] * 8
         lib.viterbi_unified_smem_bytes.restype = ctypes.c_longlong
@@ -77,6 +82,18 @@ def kernel_library():
         lib.viterbi_wide_threads.restype = i
         lib.viterbi_device_limits.argtypes = [i, ctypes.POINTER(i)]
         lib.viterbi_device_limits.restype = i
+        lib.viterbi_cluster_size.argtypes = [i]
+        lib.viterbi_cluster_size.restype = i
+        lib.viterbi_cluster_threads.argtypes = [i, i]
+        lib.viterbi_cluster_threads.restype = i
+        lib.viterbi_cluster_smem_bytes.argtypes = [i, i]
+        lib.viterbi_cluster_smem_bytes.restype = ctypes.c_longlong
+        lib.viterbi_unified_max_clusters.argtypes = [i, i, i,
+                                                     ctypes.POINTER(i)]
+        lib.viterbi_unified_max_clusters.restype = i
+        lib.viterbi_unified_cluster_attrs.argtypes = [i, i, i,
+                                                      ctypes.POINTER(i)]
+        lib.viterbi_unified_cluster_attrs.restype = i
         lib._argtypes_set = True
     return built
 
@@ -103,6 +120,15 @@ def device_polys(trellis: Trellis, device: torch.device) -> torch.Tensor:
         _tables[key] = torch.tensor(trellis.polys, dtype=torch.int32,
                                     device=device)
     return _tables[key]
+
+
+def _check_cluster(cluster):
+    """The private cluster override: None (the planner's), 1 (the wide
+    mapping off a cluster) or a power of two (the kernel and the card
+    decide whether they take it)."""
+    if cluster is not None and (int(cluster) < 1
+                                or int(cluster) & (int(cluster) - 1)):
+        raise ValueError(f"_cluster must be a power of two, got {cluster}")
 
 
 def _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
@@ -158,15 +184,18 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
                                pack_survivors: bool = False, radix: int = 2,
                                layout: str = "lane",
                                bm_dtype: str = "float32",
-                               _wide: bool = False) -> torch.Tensor:
+                               _wide: bool = False,
+                               _cluster: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on ``frames`` (a contiguous CUDA tensor of
     float32, bfloat16 or float16); raises on anything else or if the build
     or the launch fails. ``radix`` and ``layout`` are checked as in JAX but
     have no effect on the card: every stage is one exact radix-2 step, and
     the bits are the same for both. ``_wide`` runs any code on the wide
-    mapping, for the tests that hold it against the fast mappings."""
+    mapping, and ``_cluster=C`` on a cluster of C blocks (1: on none),
+    for the tests that hold them against the other mappings."""
     _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
            radix, layout, bm_dtype)
+    _check_cluster(_cluster)
     if not frames.is_cuda:
         raise ValueError(f"frames must lie on a CUDA device, got "
                          f"{frames.device}")
@@ -186,12 +215,13 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     pack = int(pack_survivors)
     fixed = int(start == "fixed")
     row = 4 * packed_width(S) if pack else S
-    wide = _wide or wide_mapping(trellis)
-    pm = None
-    if wide:             # a block's survivors and starts in its scratch
-        grid = nframes = wide_grid(trellis, F, dev)
+    wide = _wide or bool(_cluster) or wide_mapping(trellis)
+    pm, C = None, 1
+    if wide:             # a block's (a cluster's) survivors and starts
+        C = _cluster or wide_cluster(trellis, dev)
+        grid = nframes = wide_grid(trellis, F, dev, cluster=C)
         fpb, glob = 1, True
-        if not wide_pm_on_chip(trellis):
+        if C == 1 and not wide_pm_on_chip(trellis):
             pm = torch.empty((grid, 2, S), dtype=torch.float32, device=dev)
     else:
         grid = 0
@@ -221,7 +251,8 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
             amax.data_ptr() if glob else None,
             pm.data_ptr() if pm is not None else None,
             F, L, beta, k, v1, f, f0, v2s, _LLR_DTYPES[frames.dtype], fixed,
-            pack, int(bm_dtype == "bfloat16"), fpb, int(wide), grid, stream)
+            pack, int(bm_dtype == "bfloat16"), fpb, int(wide), grid, C,
+            stream)
     if err != 0:
         raise RuntimeError(f"viterbi_unified launch failed: CUDA error {err}")
     unified_decode_frames_cuda.launches += 1

@@ -219,9 +219,25 @@ def test_split_path_goes_through_both_kernels(cuda):
 
 @pytest.mark.parametrize("code", CODES + LARGE_CODES + WIDE_CODES)
 def test_smem_models_equal_kernel_carve_up(cuda, code):
-    """autotune's shared-memory models are the kernels' own numbers."""
+    """autotune's shared-memory models are the kernels' own numbers: the
+    block of every mapping, and for 16 <= k <= 19 both the wide mapping's
+    block off a cluster and a block of the cluster the card holds."""
     tr = make_trellis(*code)
     ulib, flib = vu.kernel_library().lib, vf.kernel_library().lib
+    C = autotune.wide_cluster(tr, "cuda") if autotune.wide_mapping(tr) else 1
+    assert ulib.viterbi_cluster_size(tr.k) == autotune.cluster_size(tr)
+    if C > 1:
+        want = ulib.viterbi_cluster_smem_bytes(tr.k, C)
+        assert want == autotune._wide_smem(tr, C)[0]
+        assert ulib.viterbi_cluster_threads(tr.k, C) == \
+            autotune.cluster_threads(tr, C) == \
+            autotune.block_threads(tr, 1, C)
+        for spec in (FrameSpec(f=64, v1=20, v2=21),
+                     FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)):
+            assert autotune.unified_smem_bytes(tr, spec, 1,
+                                               cluster=C)[0] == want
+            assert autotune.split_smem_bytes(tr, spec, 1,
+                                             cluster=C)[0] == want
     specs = [FrameSpec(f=64, v1=20, v2=21),
              FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45),
              FrameSpec(f=96, v1=12, v2=24, f0=24, v2s=20, start="fixed")]
@@ -244,14 +260,18 @@ def test_smem_models_equal_kernel_carve_up(cuda, code):
         assert ulib.viterbi_wide_code(tr.k, tr.beta) == \
             autotune.wide_mapping(tr)
         assert ulib.viterbi_wide_threads(tr.k) == autotune.wide_threads(tr)
+        if autotune.wide_mapping(tr):           # the block off a cluster
+            assert autotune.block_threads(tr, 1) == autotune.wide_threads(tr)
 
 
 @pytest.mark.parametrize("unified", [True, False])
 def test_register_model_is_the_kernels(cuda, unified):
     """The planner's registers are the built kernels' (cudaFuncGetAttributes),
     and on an H100 the count the CPU plans with is the K=7 beta=2
-    instantiation's (k=12 for the large-code mapping, k=16 for the wide
-    one)."""
+    instantiation's (k=12 for the large-code mapping; for the wide one,
+    which is one instantiation, every wide code's off a cluster; for the
+    cluster kernel its k = 16-19 beta <= 8 instantiations', which run 16
+    butterflies a thread with the butterfly table)."""
     lib = (vu if unified else vf).kernel_library().lib
     attrs = (lib.viterbi_unified_func_attrs if unified
              else lib.viterbi_fwd_func_attrs)
@@ -271,15 +291,29 @@ def test_register_model_is_the_kernels(cuda, unified):
                 assert autotune.H100_REGISTERS[name] == out[0]
             if h100 and (k, beta) == (autotune.SMEM_MIN_K, 2):
                 assert autotune.H100_REGISTERS[name + "_smem"] == out[0]
+    cluster_attrs = (lib.viterbi_unified_cluster_attrs if unified
+                     else lib.viterbi_fwd_cluster_attrs)
     for k, polys in WIDE_CODES:
         tr = make_trellis(k, polys)
+        C = autotune.wide_cluster(tr, "cuda", unified=unified)
         out = (ctypes.c_int * 3)()
-        assert attrs(k, tr.beta, out) == 0
-        assert autotune.kernel_registers(tr, unified=unified,
-                                         device="cuda") == out[0]
+        assert attrs(k, tr.beta, out) == 0      # the wide kernel, no cluster
+        assert autotune.kernel_registers(tr, unified=unified, device="cuda",
+                                         cluster=1) == out[0]
         assert out[2] >= autotune.wide_threads(tr)
         if h100:
             assert autotune.H100_REGISTERS[name + "_wide"] == out[0]
+        if C > 1:             # 16 <= k <= 19: the cluster kernel's
+            out = (ctypes.c_int * 3)()
+            assert cluster_attrs(k, tr.beta, C, out) == 0
+            assert out[2] >= autotune.cluster_threads(tr, C)
+            assert autotune.kernel_registers(tr, unified=unified,
+                                             device="cuda") == out[0]
+            if h100:
+                assert autotune.H100_REGISTERS[name + "_cluster"] == out[0]
+                assert autotune.cluster_capacity(
+                    tr, C, "cuda", unified=unified) == \
+                    autotune.H100_CLUSTERS[C]
     out = (ctypes.c_int * 3)()
     assert attrs(32, 2, out) != 0 and attrs(7, 33, out) != 0
 
@@ -608,17 +642,26 @@ def test_codes_past_the_limits_are_refused(cuda):
                                 psel, pamax, **tkw)), (code, tkw)
 
 
-@pytest.mark.parametrize("code", [K7, LARGE_CODES[1], CODES[0]])
+@pytest.mark.parametrize("code", [K7, LARGE_CODES[1], CODES[0],
+                                  (7, (0o171, 0o132, 0o065))])
 def test_wide_mapping_equals_fast_mappings(cuda, monkeypatch, code):
-    """The wide mapping, forced through the launch's private flag, equals
+    """The wide mapping, forced through the launch's private flags, equals
     the register mapping (K=7, K=3) and the large-code mapping (K=13) on
     their codes: bits, sel and amax, over pack x radix x bm_dtype and both
-    layouts, on the planner's grid and on a grid of 7 blocks that each
-    take several frames in turn (the per-block scratch reused)."""
+    layouts, on the planner's grid and on a grid of 7 blocks (clusters)
+    that each take several frames in turn (the scratch reused). Off a
+    cluster (``_wide``) and on clusters of 2, 4 and 8 blocks
+    (``_cluster``; K=3's 4 states split over 2 at most), whose exchange
+    through distributed shared memory and whose small-code survivor words
+    (fewer than 32 butterflies a block) these codes reach. The last code
+    lacks a bottom and a top tap, so the cluster builds its four-metric
+    butterfly table, not the one-metric table of the others."""
     tr = make_trellis(*code)
     spec = FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21)
     frames = _frames(code, spec, 40, 31, cuda)
     assert 1 <= autotune.wide_grid(tr, 40, cuda) <= 40
+    forced = [dict(_wide=True)] + [
+        dict(_cluster=C) for C in (2, 4, 8) if tr.num_states >= 2 * C]
     for grid in (None, 7):
         if grid is not None:
             for mod in (vu, vf):
@@ -629,19 +672,120 @@ def test_wide_mapping_equals_fast_mappings(cuda, monkeypatch, code):
                 for bm in ("float32", "bfloat16"):
                     kw = _kw(code, spec, frames_per_tile=1,
                              pack_survivors=pack, radix=radix, bm_dtype=bm)
-                    assert torch.equal(
-                        vu.unified_decode_frames_cuda(frames, _wide=True,
-                                                      **kw),
-                        vu.unified_decode_frames_cuda(frames, **kw))
+                    want = vu.unified_decode_frames_cuda(frames, **kw)
+                    for force in forced:
+                        assert torch.equal(vu.unified_decode_frames_cuda(
+                            frames, **force, **kw), want), (force, kw)
                     for layout in ("lane", "sublane"):
                         fkw = dict(trellis=tr, frames_per_tile=1,
                                    pack_survivors=pack, radix=radix,
                                    layout=layout, bm_dtype=bm)
-                        got = vf.forward_frames_cuda(frames, _wide=True,
-                                                     **fkw)
                         want = vf.forward_frames_cuda(frames, **fkw)
-                        assert all(torch.equal(g, w)
-                                   for g, w in zip(got, want))
+                        for force in forced:
+                            got = vf.forward_frames_cuda(frames, **force,
+                                                         **fkw)
+                            assert all(torch.equal(g, w)
+                                       for g, w in zip(got, want)), \
+                                (force, fkw)
+
+
+def test_cluster_mapping_at_k16(cuda, monkeypatch):
+    """K=16 (the planner's cluster of 2) equals the plain versions, the
+    wide mapping off a cluster (``_cluster=1``: path metrics in device
+    memory) and the forced clusters of 4 and 8 blocks, over pack x radix
+    x bm_dtype and both layouts, on the planner's clusters and on 3 that
+    each take several frames in turn."""
+    code = WIDE_CODES[0]
+    tr = make_trellis(*code)
+    assert autotune.wide_cluster(tr, "cuda") == 2
+    spec = FrameSpec(f=32, v1=10, v2=11, f0=8, v2s=11)
+    frames = _frames(code, spec, 7, 41, cuda)
+    for grid in (None, 3):
+        if grid is not None:
+            for mod in (vu, vf):
+                monkeypatch.setattr(mod, "wide_grid",
+                                    lambda *a, **k: grid)
+        for pack in (False, True):
+            for radix in (2, 4):
+                for bm in ("float32", "bfloat16"):
+                    kw = _kw(code, spec, frames_per_tile=1,
+                             pack_survivors=pack, radix=radix, bm_dtype=bm)
+                    want = vu.unified_decode_frames_plain(frames, **kw)
+                    for force in (None, 1, 4, 8):
+                        assert torch.equal(vu.unified_decode_frames_cuda(
+                            frames, _cluster=force, **kw), want), (force, kw)
+                    for layout in ("lane", "sublane"):
+                        fkw = dict(trellis=tr, frames_per_tile=1,
+                                   pack_survivors=pack, radix=radix,
+                                   layout=layout, bm_dtype=bm)
+                        want = vf.forward_frames_plain(frames, **fkw)
+                        for force in (None, 1, 4, 8):
+                            got = vf.forward_frames_cuda(
+                                frames, _cluster=force, **fkw)
+                            assert all(torch.equal(g, w)
+                                       for g, w in zip(got, want)), \
+                                (force, fkw)
+
+
+def test_cluster_the_card_cannot_hold_raises(cuda, monkeypatch):
+    """A cluster of 32 blocks (past the H100's 16) is refused: by the
+    planner, whose occupancy query the kernel library refuses, and, past
+    the planner, by the launch function before any launch; the wrappers
+    raise and fall back to nothing. The card decodes on after it."""
+    code = WIDE_CODES[0]
+    tr = make_trellis(*code)
+    spec = FrameSpec(f=32, v1=10, v2=11, f0=8, v2s=11)
+    frames = _frames(code, spec, 3, 43, cuda)
+    kw = _kw(code, spec, frames_per_tile=1, pack_survivors=True)
+    fkw = dict(trellis=tr, frames_per_tile=1, pack_survivors=True)
+    assert vu.kernel_library().lib.viterbi_cluster_threads(tr.k, 32) == -1
+    with pytest.raises(RuntimeError, match="refuses a cluster of 32"):
+        autotune.wide_grid(tr, 3, cuda, cluster=32)
+    with pytest.raises(RuntimeError):
+        vu.unified_decode_frames_cuda(frames, _cluster=32, **kw)
+    with pytest.raises(RuntimeError):
+        vf.forward_frames_cuda(frames, _cluster=32, **fkw)
+    before = (vu.unified_decode_frames_cuda.launches,
+              vf.forward_frames_cuda.launches)
+    for mod in (vu, vf):
+        monkeypatch.setattr(mod, "wide_grid", lambda *a, **k: 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        vu.unified_decode_frames_cuda(frames, _cluster=32, **kw)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        vf.forward_frames_cuda(frames, _cluster=32, **fkw)
+    assert (vu.unified_decode_frames_cuda.launches,
+            vf.forward_frames_cuda.launches) == before
+    torch.cuda.synchronize()
+    assert torch.equal(vu.unified_decode_frames_cuda(frames, **kw),
+                       vu.unified_decode_frames_plain(frames, **kw))
+
+
+def test_path_metric_scratch_only_off_a_cluster(cuda, monkeypatch):
+    """The wrappers allocate the device-memory path metrics (grid, 2, S)
+    only where the planner keeps a k > 15 code off a cluster."""
+    code = WIDE_CODES[0]
+    tr = make_trellis(*code)
+    S = tr.num_states
+    spec = FrameSpec(f=32, v1=10, v2=11, f0=8, v2s=11)
+    frames = _frames(code, spec, 3, 47, cuda)
+    kw = _kw(code, spec, frames_per_tile=1, pack_survivors=True)
+    seen = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **k):
+        out = empty(*shape, **k)
+        if out.dtype == torch.float32 and out.ndim == 3 and \
+                tuple(out.shape[1:]) == (2, S):
+            seen.append(tuple(out.shape))
+        return out
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    for force, want in ((None, 0), (2, 0), (1, 1)):
+        seen.clear()
+        vu.unified_decode_frames_cuda(frames, _cluster=force, **kw)
+        vf.forward_frames_cuda(frames, trellis=tr, frames_per_tile=1,
+                               pack_survivors=True, _cluster=force)
+        assert len(seen) == 2 * want, (force, seen)
 
 
 def test_large_code_through_every_entry(cuda):

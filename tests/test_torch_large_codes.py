@@ -208,7 +208,9 @@ def test_make_decoder_equals_jax(code, backend):
 def test_planner_plans_every_code(unified):
     """plan_tiles returns a fitting plan of one frame for the wide codes
     on the H100's limits, as JAX's planner returns one for any code; the
-    block is the wide mapping's core and, to k = 15, its path metrics."""
+    block is the wide mapping's core and, to k = 15, its path metrics; at
+    16 <= k <= 19 one block of a cluster of C = 2^(k-15): the cluster core
+    and its 8 S / C bytes of path metrics."""
     spec = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
     for code in CODES:
         tr = make_trellis(*code)
@@ -218,19 +220,33 @@ def test_planner_plans_every_code(unified):
                                      JFrameSpec(**vars(spec)),
                                      pack_survivors=True, unified=unified)
         assert jplan.frames_per_tile >= 1
-        pm = 8 * tr.num_states if tr.k <= autotune.MAX_K else 0
+        C = autotune.wide_cluster(tr, "cpu", unified=unified)
+        assert C == (1 << (tr.k - 15) if 16 <= tr.k <= 19 else 1)
+        if C > 1:
+            pm, core = 8 * tr.num_states // C, autotune.CLUSTER_CORE_BYTES
+        else:
+            pm = 8 * tr.num_states if tr.k <= autotune.MAX_K else 0
+            core = autotune.WIDE_CORE_BYTES
         assert plan.frames_per_tile == 1 and plan.fits
         assert plan.budget == autotune.H100_LIMITS.smem_per_block
-        assert plan.smem_bytes == autotune.WIDE_CORE_BYTES + pm
+        assert plan.smem_bytes == core + pm
         assert dict(plan.breakdown)["sel_survivors"] == 0
         assert plan.registers == autotune.H100_REGISTERS[
-            ("unified" if unified else "split") + "_wide"]
+            ("unified" if unified else "split")
+            + ("_cluster" if C > 1 else "_wide")]
         assert plan.frames_per_sm >= 1
         assert autotune.block_threads(tr, 1) == autotune.wide_threads(tr) \
             == max(32, min(1024, tr.num_states // 2))
+        if C > 1:
+            assert autotune.block_threads(tr, 1, C) == \
+                autotune.cluster_threads(tr, C) == 512
         assert autotune.max_frames_per_block(tr) == 1
         assert not autotune.smem_mapping(tr)
-    # k = 16 on the H100: one 1024-thread block an SM, one frame a block
+    # k = 16 on the H100: clusters of two 512-thread blocks, one an SM
+    # pair, one frame a cluster; off a cluster one block an SM
     tr = make_trellis(*K16)
-    assert autotune.wide_grid(tr, 10_000, "cpu") == autotune.H100_SMS
+    assert autotune.wide_grid(tr, 10_000, "cpu") == \
+        autotune.H100_CLUSTERS[2] <= autotune.H100_SMS // 2
     assert autotune.wide_grid(tr, 7, "cpu") == 7
+    assert autotune.wide_grid(tr, 10_000, "cpu", cluster=1) == \
+        autotune.H100_SMS

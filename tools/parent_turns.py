@@ -14,7 +14,11 @@ own ``build/kernels``); the two sides share only the inputs. Then:
   the main path's shape (K=7, F=16384, L=321, packed, radix 4, this
   tree's planned tiles);
 * the split traceback (``traceback_frames_cuda``) at chip_smoke.py's
-  ``TB_CASES``, on this tree's forward streams.
+  ``TB_CASES``, on this tree's forward streams;
+* B1 and B3 on the wide mapping at chip_smoke.py's ``WIDE_TIME`` rows
+  (K=16, 17, 18 at 132 frames, K=7 beta=9 at 4224; main frame, packed,
+  radix 4), each side planning its own mapping (since the cluster mapping,
+  a thread-block cluster a frame at 16 <= k <= 19).
 
 Each pair runs in turns (other, tree, tree, other, ... over 4 rounds;
 CUDA events; the minimum per side) and must give equal outputs. Prints one
@@ -40,14 +44,14 @@ SOURCES = ("viterbi_unified.cu", "viterbi_fwd.cu", "traceback_frames.cu")
 OTHER = "other_repro_torch"
 
 
-def load_other(parent: Path) -> None:
-    """Import the other checkout's ``repro_torch`` as ``OTHER``: its
+def load_other(parent: Path, name: str = OTHER) -> None:
+    """Import the other checkout's ``repro_torch`` as ``name``: its
     modules' relative imports stay inside that tree."""
     pkg = parent / "src" / "repro_torch"
     spec = importlib.util.spec_from_file_location(
-        OTHER, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
-    sys.modules[OTHER] = mod
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
 
 
@@ -140,6 +144,25 @@ def main(argv=None) -> int:
                 packed=pack, layout=layout))
             for s in sides}, reps)
         del sel, amax
+    del frames, frames11
+
+    # B1 and B3 on the wide mapping, each side through its own planner
+    wkw = dict(v1=20, f=256, v2=45, f0=32, v2s=45, frames_per_tile=1,
+               pack_survivors=True, radix=4)
+    for code, F in cs.WIDE_TIME:
+        tr = {s: d["trellis"].make_trellis(*code) for s, d in sides.items()}
+        wf = cs._frames(tr["tree"], spec, F, gen, torch.float32)
+        shape = f"K={code[0]} beta={len(code[1])} F={F}"
+        compare("viterbi_unified", shape, {
+            s: (lambda s=s: sides[s]["vu"].unified_decode_frames_cuda(
+                wf, trellis=tr[s], **wkw))
+            for s in sides}, 3)
+        compare("viterbi_fwd", shape, {
+            s: (lambda s=s: sides[s]["vf"].forward_frames_cuda(
+                wf, trellis=tr[s], frames_per_tile=1, pack_survivors=True,
+                radix=4))
+            for s in sides}, 3)
+        del wf
     args.json.parent.mkdir(parents=True, exist_ok=True)
     args.json.write_text(json.dumps({
         "device": torch.cuda.get_device_name(0), "rows": rows}, indent=1))
