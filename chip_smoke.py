@@ -12,11 +12,16 @@ non-zero:
 2. build   — nvcc builds every kernel of the paths from `kernels/csrc`, one
              process per source, all started together; prints the seconds
              and, for the two ACS kernels, the -Xptxas -v registers and
-             spills of every instantiation (registers per lane R x beta).
+             spills of every instantiation (registers per lane R x beta;
+             the large codes' one-block kernels per butterflies a thread;
+             the wide and cluster kernels), and the one-block kernels'
+             blocks resident an SM (cudaOccupancyMaxActiveBlocksPer-
+             Multiprocessor, autotune.H100_BLOCKS on an H100).
 3. parity  — each kernel's wrapper against its plain torch version on the
              card, exactly (torch.equal), over the codes K=3, 4 (beta=3),
-             5, 6, 7, 9, 11 and the large codes K=12, 13, 15 (beta=4;
-             one block a frame, path metrics in shared memory). Unified
+             5, 6, 7, 9, 11 and the large codes K=12, 13, 14, 15 (beta=4)
+             and K=12 beta=8 (the cluster mapping's one-block form: one
+             block a frame, path metrics in shared memory). Unified
              kernel: the knob grid, bf16/f16 LLRs, frames too long for
              shared memory. Forward kernel: sel and amax over the same
              grid, both layouts. Traceback kernel: against the plain
@@ -41,14 +46,20 @@ non-zero:
              BER must be below 1e-3. Then the wide path: K=16 rate
              1/2 at the main frame, 132 frames, through both kernel
              backends (counts set to 0 just before each and read just
-             after), bits equal to the reference backend's.
+             after), bits equal to the reference backend's; and the
+             large codes' path the same way: Galileo's K=15 rate-1/4
+             code at the main frame, 132 frames of its (n, 4) LLRs at
+             0 dB.
 5. time    — each kernel at the main path's shape with CUDA events, beside
              its plain version and its bound; the unified kernel's knob
              sweep and its auto tile against tile 4 (must be within 2 %);
              the split path's layouts; the traceback's staged and direct
              chases in turns, at K=7 (lane and sublane, packed, unpacked,
              serial) and K=11 (4096 frames), beside the shape rule's pick
-             and the bound; B1 and B3 at K=12, 13, 15 beside their bounds;
+             and the bound; B1 and B3 at K=12, 13, 14, 15 and K=12 beta=8
+             (132 or 264 frames, and 1056 for K=12 and K=15) beside their
+             bounds, with the one-block form's threads, resident blocks
+             and where B1's survivors are;
              B1, B3 and the traceback on the wide mapping at K=16, 17,
              18 and K=7 beta=9, beside their bounds and plain versions,
              with the cluster size, the clusters resident and each
@@ -181,8 +192,9 @@ non-zero:
 
 The line before the last is a JSON `kernels` line (with each kernel's
 launches on the main path, and ``launches_stream``/``launches_serve``/
-``launches_mesh`` on phases 7, 8 and 9, ``launches_wide`` on phase 4's
-K=16 path; B1's and B3's ``large_codes`` times, the three kernels'
+``launches_mesh`` on phases 7, 8 and 9, ``launches_wide`` and
+``launches_large`` on phase 4's K=16 and Galileo K=15 paths; B1's and
+B3's ``large_codes`` times, the three kernels'
 ``wide_codes`` rows and the traceback's ``modes``); each kernel's bound
 comes from launch/roofline.py. The last line is the JSON `ok` line with the device.
 """
@@ -217,10 +229,11 @@ E2E_ROUNDS = 20
 E2E_CALLS = 5
 #: K=3 (S=4: eight frames a warp), K=4 beta=3, K=5, K=6 (S=32: one
 #: register a lane), K=7, K=9 and K=11 (S=1024: 32 registers a lane);
-#: then the large-code mapping (one block of 1024 threads a frame, path
-#: metrics in shared memory): K=12 (R=2), K=13 (R=4), the Galileo (15, 1/4)
-#: code (R=16), K=14 (R=8) and a K=12 rate-1/8 code (beta 8: four warps
-#: build the branch-metric table).
+#: then the large codes (the cluster mapping's one-block form: one block a
+#: frame, path metrics in shared memory): K=12 (256 threads of 4
+#: butterflies), K=13 (128 of 16), the Galileo (15, 1/4) code (512 of 16),
+#: K=14 (256 of 16) and a K=12 rate-1/8 code (a 256-entry butterfly table
+#: a stage).
 CODES = [(3, (0o7, 0o5)), (4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)),
          (6, (0o65, 0o57)), (7, (0o171, 0o133)), (9, (0o753, 0o561)),
          (11, (0o3345, 0o3613)), (12, (0o4335, 0o5723)),
@@ -233,9 +246,12 @@ LARGE_K = 12
 #: Frames per parity call: 12, and 4 (one tile) for a large code (its
 #: plain version is S = 2^14 states wide at K=15).
 PARITY_FRAMES = {False: 12, True: 4}
-#: Frames of the large codes' timing (one and two waves of one frame per
-#: SM at 132 SMs): K=12 and K=13 at 264, K=14 and K=15 at 132.
+#: Frames of the large codes' timing (one and two frames per SM at 132
+#: SMs): K=12 and K=13 at 264, K=14 and K=15 at 132; and, for K=12 and
+#: K=15, LARGE_FULL_FRAMES (eight frames an SM), where the resident blocks
+#: an SM show.
 LARGE_TIME_FRAMES = {12: 264, 13: 264, 14: 132, 15: 132}
+LARGE_FULL_FRAMES = 1056
 #: The wide mapping's codes (k > 15 or beta > 8; k and beta at run time):
 #: K=16, 17, 18 at rate 1/2 and K=16 at rate 1/3 (a cluster of 2, 4, 8, 2
 #: blocks a frame, path metrics in the cluster's shared memory), K=7 at
@@ -263,14 +279,18 @@ WIDE_PARITY_FRAMES = 3
 PLAIN_WIDE_BYTES = 1 << 33
 #: The wide main path: K=16 rate 1/2 at the main frame, one frame per SM.
 WIDE_MAIN_FRAMES = 132
+#: The large codes' main path: Galileo's K=15 rate-1/4 code at the main
+#: frame, one frame per SM, at an Eb/N0 where its BER is not 0.
+LARGE_MAIN_FRAMES = 132
+LARGE_MAIN_EBN0_DB = 0.0
 #: The wide timing rows: (code, frames): K=16, 17, 18 at 132 frames (one
 #: frame a cluster of 2, 4, 8 blocks, the clusters resident taking frames
 #: in turn), K=7 beta=9 at 4224 (one wave of 32 one-warp blocks an SM).
 WIDE_TIME = [(WIDE_CODES[0], 132), (WIDE_CODES[1], 132),
              (WIDE_CODES[2], 132), (WIDE_CODES[4], 4224)]
 DECODE_KERNELS = ("viterbi_unified_kernel", "viterbi_fwd_kernel",
-                  "traceback_frames_kernel", "viterbi_unified_smem_kernel",
-                  "viterbi_fwd_smem_kernel", "viterbi_unified_wide_kernel",
+                  "traceback_frames_kernel", "viterbi_unified_block_kernel",
+                  "viterbi_fwd_block_kernel", "viterbi_unified_wide_kernel",
                   "viterbi_fwd_wide_kernel", "viterbi_unified_cluster_kernel",
                   "viterbi_fwd_cluster_kernel")
 
@@ -350,28 +370,41 @@ def _ptxas_spills(built, kernel: str) -> dict:
 def register_report(built, kernel: str, attrs) -> str:
     """Registers (cudaFuncGetAttributes) and ptxas spill stores of every
     instantiation of one ACS kernel: per registers per lane R, beta 2..8;
-    then the large-code mapping's (``<kernel>`` with ``_smem`` before
-    ``_kernel``), one R per k = 12..15."""
+    then the large codes' one-block kernel (``<kernel>`` with ``_block``
+    before ``_kernel``), one instantiation per butterflies a thread NB, at
+    k = 12..15 (its registers do not depend on beta <= 8)."""
     import ctypes
-    smem_kernel = kernel.replace("_kernel", "_smem_kernel")
+    from repro_torch.core.trellis import make_trellis
+    from repro_torch.kernels import autotune
+    block_kernel = kernel.replace("_kernel", "_block_kernel")
     spills = _ptxas_spills(built, kernel)
-    smem_spills = _ptxas_spills(built, smem_kernel)
     rows = []
-    for k in (2, 7, 8, 9, 10, 11, 12, 13, 14, 15):
-        large = k >= 12                     # R = S / 1024 states a thread
-        R = (1 << (k - 1)) // 1024 if large else max(1, (1 << (k - 1)) // 32)
+    for k in (2, 7, 8, 9, 10, 11):
+        R = max(1, (1 << (k - 1)) // 32)
         regs = []
         for beta in range(2, 9):
             out = (ctypes.c_int * 3)()
             if attrs(k, beta, out) != 0:
                 raise RuntimeError(f"{kernel} k={k} beta={beta}: no "
                                    f"function attributes")
-            sp = (smem_spills if large else spills).get((R, beta), "?")
-            regs.append(f"{out[0]}/{sp}")
-        rows.append(f"{f'k={k} ' if large else ''}R={R}: " + " ".join(regs))
+            regs.append(f"{out[0]}/{spills.get((R, beta), '?')}")
+        rows.append(f"R={R}: " + " ".join(regs))
+    for k in (12, 13, 14, 15):
+        regs = set()
+        for beta in range(2, 9):
+            out = (ctypes.c_int * 3)()
+            if attrs(k, beta, out) != 0:
+                raise RuntimeError(f"{block_kernel} k={k} beta={beta}: no "
+                                   f"function attributes")
+            regs.add(out[0])
+        T = autotune.large_threads(make_trellis(k, ((1 << k) - 1,) * 2))
+        nb = (1 << (k - 2)) // T
+        rows.append(f"k={k} {block_kernel} T={T} NB={nb}: "
+                    f"{'/'.join(map(str, sorted(regs)))} registers, "
+                    f"{_spill_of(built, block_kernel + f'ILi{nb}E')} bytes "
+                    f"spilled")
     return (f"{kernel} registers/spilled bytes, beta 2..8 (R=1 serves "
-            f"k<=6; k=12..15: {smem_kernel}, 1024 threads): "
-            + "; ".join(rows))
+            f"k<=6; k=12..15: the one-block kernel): " + "; ".join(rows))
 
 
 def _spill_of(built, function: str) -> str:
@@ -442,6 +475,15 @@ def phase_build():
         log("build", wide_register_report(
             built[kernel], kernel, getattr(lib, attrs + "_func_attrs"),
             getattr(lib, attrs + "_cluster_attrs")))
+    from repro_torch.core.trellis import make_trellis
+    from repro_torch.kernels import autotune
+    blocks = {name: {k: autotune.block_capacity(
+        make_trellis(k, ((1 << k) - 1,) * 2), "cuda", unified=unified)
+        for k in (12, 13, 14, 15)}
+        for name, unified in (("unified", True), ("split", False))}
+    log("build", f"one-block kernels' blocks resident an SM (the "
+        f"recursion's shared memory; autotune.H100_BLOCKS on an H100): "
+        f"{blocks}")
 
 
 def _frames(trellis, spec, nframes, gen, dtype):
@@ -810,23 +852,29 @@ def wide_config(backend: str):
                                trellis=make_trellis(*WIDE_CODES[0]))
 
 
-def phase_main_wide(gen):
-    """The wide mapping's main path: WIDE_MAIN_FRAMES frames of K=16 rate
-    1/2 through make_decoder(backend="kernel"), then "kernel_split", the
-    launch counts set to 0 just before each and read just after; the bits
-    equal the reference backend's. Returns {kernel: launches} of the
-    backend that runs it."""
+def large_config(backend: str):
+    """The large codes' main path's configuration: Galileo's K=15 rate-1/4
+    code (CODES[9]) at the paper's frame, unpunctured."""
+    import dataclasses
+    from repro_torch.core.trellis import make_trellis
+    return dataclasses.replace(main_config("1/2", backend),
+                               trellis=make_trellis(*CODES[9]))
+
+
+def _code_path(config, rx, n, label):
+    """``rx`` through make_decoder(config(backend)) for backend "kernel",
+    then "kernel_split", the launch counts set to 0 just before each call
+    and read just after; both equal to the reference backend's bits, B1
+    launched once by the first and B3 and the traceback once each by the
+    second. Returns (the reference bits, {kernel: launches} of the backend
+    that runs it, first-call walls by backend)."""
     import torch
-    from repro_torch.channel.sim import ber, channel
     from repro_torch.core.pipeline import make_decoder
-    tr = wide_config("kernel").trellis
-    n = WIDE_MAIN_FRAMES * wide_config("kernel").spec.f
-    bits, rx = channel(gen, n, EBN0_DB, "1/2", trellis=tr)
-    ref = make_decoder(wide_config("reference"), "cuda")(rx, n)
+    ref = make_decoder(config("reference"), "cuda")(rx, n)
     counters = _counters()
     counts, walls = {}, {}
     for backend in ("kernel", "kernel_split"):
-        decode = make_decoder(wide_config(backend), "cuda")
+        decode = make_decoder(config(backend), "cuda")
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
@@ -837,17 +885,34 @@ def phase_main_wide(gen):
         counts[backend] = {name: fn.launches
                            for name, fn in counters.items()}
         if not (out.shape == (n,) and out.dtype == torch.int32):
-            raise AssertionError(f"K=16 {backend}: bad output {out.shape} "
+            raise AssertionError(f"{label} {backend}: bad output {out.shape} "
                                  f"{out.dtype}")
         if not torch.equal(out, ref):
-            raise AssertionError(f"K=16 {backend} != reference backend")
+            raise AssertionError(f"{label} {backend} != reference backend")
     want = {"kernel": {"viterbi_unified": 1, "viterbi_fwd": 0,
                        "traceback_frames": 0},
             "kernel_split": {"viterbi_unified": 0, "viterbi_fwd": 1,
                              "traceback_frames": 1}}
     if counts != want:
-        raise AssertionError(f"K=16 launches {counts}, expected {want}")
+        raise AssertionError(f"{label} launches {counts}, expected {want}")
+    return ref, {"viterbi_unified": counts["kernel"]["viterbi_unified"],
+                 "viterbi_fwd": counts["kernel_split"]["viterbi_fwd"],
+                 "traceback_frames": counts["kernel_split"][
+                     "traceback_frames"]}, counts, walls
+
+
+def phase_main_wide(gen):
+    """The wide mapping's main path: WIDE_MAIN_FRAMES frames of K=16 rate
+    1/2 through make_decoder(backend="kernel"), then "kernel_split", the
+    launch counts set to 0 just before each and read just after; the bits
+    equal the reference backend's. Returns {kernel: launches} of the
+    backend that runs it."""
+    from repro_torch.channel.sim import ber, channel
     from repro_torch.kernels import autotune
+    tr = wide_config("kernel").trellis
+    n = WIDE_MAIN_FRAMES * wide_config("kernel").spec.f
+    bits, rx = channel(gen, n, EBN0_DB, "1/2", trellis=tr)
+    ref, launches, counts, walls = _code_path(wide_config, rx, n, "K=16")
     log("main", f"K=16 rate 1/2 (wide mapping, a cluster of "
         f"{autotune.wide_cluster(tr, 'cuda')} blocks a frame): n={n} "
         f"({WIDE_MAIN_FRAMES} "
@@ -856,9 +921,39 @@ def phase_main_wide(gen):
         f"{counts}; first calls {walls['kernel'] * 1e3:.1f} ms / "
         f"{walls['kernel_split'] * 1e3:.1f} ms (host clock, after "
         f"synchronize)")
-    return {"viterbi_unified": counts["kernel"]["viterbi_unified"],
-            "viterbi_fwd": counts["kernel_split"]["viterbi_fwd"],
-            "traceback_frames": counts["kernel_split"]["traceback_frames"]}
+    return launches
+
+
+def phase_main_large(gen):
+    """The large codes' main path: LARGE_MAIN_FRAMES frames of Galileo's
+    K=15 rate-1/4 code (the one-block form, one block a frame on the blocks
+    resident at once) through make_decoder(backend="kernel"), then
+    "kernel_split", the launch counts set to 0 just before each and read
+    just after; the bits equal the reference backend's. The received
+    stream is the codeword's (n, 4) symbols through the AWGN channel at
+    LARGE_MAIN_EBN0_DB. Returns {kernel: launches} of the backend that
+    runs it."""
+    from repro_torch.channel.sim import awgn, ber, bpsk
+    from repro_torch.core.encoder import encode
+    from repro_torch.kernels import autotune
+    import torch
+    tr = large_config("kernel").trellis
+    n = LARGE_MAIN_FRAMES * large_config("kernel").spec.f
+    bits = torch.randint(0, 2, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    rx = awgn(bpsk(encode(bits, tr)), LARGE_MAIN_EBN0_DB, gen)   # (n, 4)
+    ref, launches, counts, walls = _code_path(large_config, rx, n,
+                                              "Galileo K=15")
+    log("main", f"Galileo K=15 rate 1/4 (one-block form: "
+        f"{autotune.large_threads(tr)} threads a frame, "
+        f"{autotune.block_grid(tr, LARGE_MAIN_FRAMES, 'cuda')} blocks "
+        f"launched): n={n} ({LARGE_MAIN_FRAMES} frames of f=256) "
+        f"Eb/N0={LARGE_MAIN_EBN0_DB} dB BER={ber(ref, bits):.3e}; kernel "
+        f"and kernel_split equal to the reference backend; launches "
+        f"{counts}; first calls {walls['kernel'] * 1e3:.1f} ms / "
+        f"{walls['kernel_split'] * 1e3:.1f} ms (host clock, after "
+        f"synchronize)")
+    return launches
 
 
 def _interleaved(fns: dict, reps: int, rounds: int = 2) -> dict:
@@ -1079,10 +1174,13 @@ def time_traceback_modes(frames, ft):
 
 def time_large_codes(gen):
     """B1 and B3 at the large codes (K=12, K=13, the Galileo K=15 code,
-    K=14, K=12 beta=8) on the main path's frame, packed, radix 4: bits and
-    streams equal the plain versions; ms per launch beside the bound (CUDA
-    events).
-    Returns {name: [{k, beta, F, ms, bound_ms, bound_by}, ...]}."""
+    K=14, K=12 beta=8) on the main path's frame, packed, radix 4, at
+    LARGE_TIME_FRAMES and, for K=12 and K=15, at LARGE_FULL_FRAMES: bits
+    and streams equal the plain versions (at LARGE_TIME_FRAMES); ms per
+    launch beside the bound (CUDA events), with the one-block form's
+    threads, the blocks launched and resident an SM, and where B1 keeps
+    its survivors. Returns {name: [{k, beta, F, threads, grid, ms,
+    bound_ms, bound_by}, ...]}."""
     import torch
     from repro_torch.core.trellis import make_trellis
     from repro_torch.kernels import autotune
@@ -1090,46 +1188,69 @@ def time_large_codes(gen):
     from repro_torch.kernels import viterbi_unified as vu
     spec = main_config("1/2", "kernel").spec
     out = {"viterbi_unified": [], "viterbi_fwd": []}
+    kw = dict(v1=20, f=256, v2=45, f0=32, v2s=45, frames_per_tile=1,
+              pack_survivors=True, radix=4)
+    fkw = dict(frames_per_tile=1, pack_survivors=True, radix=4)
     for code in CODES:
         if code[0] < LARGE_K:
             continue
         tr = make_trellis(*code)
-        F = LARGE_TIME_FRAMES[tr.k]
-        frames = _frames(tr, spec, F, gen, torch.float32)
-        kw = dict(trellis=tr, v1=20, f=256, v2=45, f0=32, v2s=45,
-                  frames_per_tile=1, pack_survivors=True, radix=4)
-        fkw = dict(trellis=tr, frames_per_tile=1, pack_survivors=True,
-                   radix=4)
-        _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
-                     vu.unified_decode_frames_plain(frames, **kw),
-                     f"unified k={tr.k} main frame")
-        _check_equal(vf.forward_frames_cuda(frames, **fkw),
-                     vf.forward_frames_plain(frames, **fkw),
-                     f"forward k={tr.k} main frame")
-        ms = _interleaved({
-            "viterbi_unified": lambda: vu.unified_decode_frames_cuda(
-                frames, **kw),
-            "viterbi_fwd": lambda: vf.forward_frames_cuda(frames, **fkw)},
-            3, rounds=2)
-        plan = autotune.plan_tiles(tr, spec, pack_survivors=True,
-                                   device="cuda")
-        for name in out:
-            b = bound(name, spec, F, trellis=tr)
-            out[name].append({"k": tr.k, "beta": tr.beta, "F": F,
-                              "ms": ms[name], "bound_ms": b[0],
-                              "bound_by": b[1]})
-        where = ("on chip" if dict(plan.breakdown)["sel_survivors"]
-                 else "in device scratch")
-        log("time", f"large code K={tr.k} beta={tr.beta} F={F} L="
-            f"{spec.frame_len} (one block of 1024 threads a frame; unified "
-            f"survivors {where}, "
-            f"{plan.smem_bytes} B smem, {plan.registers} registers): "
-            + "; ".join(f"{n} {ms[n]:.4f} ms, bound "
-                        f"{out[n][-1]['bound_ms']:.4f} ms "
-                        f"({out[n][-1]['bound_by']}, "
-                        f"{out[n][-1]['bound_ms'] / ms[n]:.1%})"
-                        for n in out))
-        del frames
+        kw["trellis"] = fkw["trellis"] = tr
+        base = _frames(tr, spec, LARGE_TIME_FRAMES[tr.k], gen, torch.float32)
+        want = (vu.unified_decode_frames_plain(base, **kw),
+                vf.forward_frames_plain(base, **fkw))
+        for F in (LARGE_TIME_FRAMES[tr.k],) + (
+                (LARGE_FULL_FRAMES,) if code in (CODES[7], CODES[9]) else ()):
+            # the base frames again and again: blocks that take several
+            # frames in turn must give each the base frame's outputs
+            reps = F // base.shape[0]
+            frames = base.repeat(reps, 1, 1)
+            _check_equal(vu.unified_decode_frames_cuda(frames, **kw),
+                         want[0].repeat(reps, 1),
+                         f"unified k={tr.k} main frame F={F}")
+            _check_equal(vf.forward_frames_cuda(frames, **fkw),
+                         tuple(w.repeat(reps, 1, 1) if w.ndim == 3
+                               else w.repeat(reps, 1) for w in want[1]),
+                         f"forward k={tr.k} main frame F={F}")
+            ms = _interleaved({
+                "viterbi_unified": lambda: vu.unified_decode_frames_cuda(
+                    frames, **kw),
+                "viterbi_fwd": lambda: vf.forward_frames_cuda(frames,
+                                                              **fkw)},
+                3, rounds=2)
+            plans = {name: autotune.plan_tiles(
+                tr, spec, pack_survivors=True, max_frames=F,
+                unified=name == "viterbi_unified", device="cuda")
+                for name in out}
+            T = autotune.large_threads(tr)
+            for name in out:
+                b = bound(name, spec, F, trellis=tr)
+                grid = min(F, plans[name].frames_per_sm
+                           * torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+                out[name].append({"k": tr.k, "beta": tr.beta, "F": F,
+                                  "threads": T, "grid": grid,
+                                  "ms": ms[name], "bound_ms": b[0],
+                                  "bound_by": b[1]})
+            pu = plans["viterbi_unified"]
+            where = ("in device scratch"
+                     if dict(pu.breakdown)["sel_survivors"] == 0
+                     else "on chip")
+            log("time", f"large code K={tr.k} beta={tr.beta} F={F} L="
+                f"{spec.frame_len} (one-block form: {T} threads of "
+                f"{tr.num_states // 2 // T} butterflies a frame; B1 "
+                f"{pu.smem_bytes} B smem, survivors {where}, "
+                f"{pu.frames_per_sm} blocks an SM, {pu.registers} registers;"
+                f" B3 {plans['viterbi_fwd'].smem_bytes} B smem, "
+                f"{plans['viterbi_fwd'].frames_per_sm} blocks an SM, "
+                f"{plans['viterbi_fwd'].registers} registers): "
+                + "; ".join(f"{n} {ms[n]:.4f} ms, bound "
+                            f"{out[n][-1]['bound_ms']:.4f} ms "
+                            f"({out[n][-1]['bound_by']}, "
+                            f"{out[n][-1]['bound_ms'] / ms[n]:.1%})"
+                            for n in out))
+            del frames
+        del base, want
     return out
 
 
@@ -3074,6 +3195,7 @@ def main(argv=None) -> int:
     phase_parity(gen)
     launches, frames, rx = phase_main(gen)
     wide_launches = phase_main_wide(gen)
+    large_launches = phase_main_large(gen)
     entries, call_ms = phase_time(frames, rx, launches, gen)
     phase_profile(rx, call_ms)
     stream = phase_stream(gen)
@@ -3087,6 +3209,7 @@ def main(argv=None) -> int:
         entry["launches_serve"] = serve[entry["name"]]
         entry["launches_mesh"] = mesh[entry["name"]]
         entry["launches_wide"] = wide_launches[entry["name"]]
+        entry["launches_large"] = large_launches[entry["name"]]
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:

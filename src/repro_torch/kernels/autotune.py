@@ -34,12 +34,18 @@ butterfly's shuffles and the max's redux). If no tile fits, the smallest
 is returned (``fits`` is false): the unified kernel then keeps its
 survivors in device memory.
 
-Codes 12 <= k <= 15 (``smem_mapping``) run one frame on a block of
-``SMEM_THREADS`` = 1024 threads with the path metrics in shared memory, so
-their only tile is one frame and the block's shared memory counts the path
-metrics. A large code's unified block whose survivors do not fit beside
-them is planned as the kernel runs it, survivors in the device-memory
-scratch, so every such code has a plan that fits.
+Codes 12 <= k <= 15 at beta <= 8 (``smem_mapping``) run the cluster
+mapping's one-block form (acs.cuh's ``VitCluster`` with no cluster): one
+frame a block of ``large_threads`` threads with the path metrics in shared
+memory, so their only tile is one frame and the block's shared memory
+counts the path metrics beside ``BLOCK_CORE_BYTES``. Their launch takes
+``block_grid`` blocks, the most that are resident at once
+(``block_capacity`` an SM: the card's
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, ``H100_BLOCKS`` on the
+CPU), and each block takes frames in turn. B1 keeps a frame's survivors
+and traceback starts beside the path metrics where that costs no resident
+frame of the launch (``block_survivors_on_chip``), else in a device-memory
+scratch per block, so every such code has a plan that fits.
 
 ``MAX_K`` = 15 and ``MAX_BETA`` = 8 are the edge of those two fast
 mappings. Every code past them (``wide_mapping``: k > 15, or beta > 8 at
@@ -88,8 +94,10 @@ __all__ = ["TilePlan", "DecodePlan", "DeviceLimits", "H100_LIMITS",
            "unified_smem_bytes", "split_smem_bytes", "candidate_tiles",
            "plan_tiles", "plan_decode", "measure_plan", "AUTO_LAYOUT",
            "BLOCK_THREADS", "lanes_per_frame", "max_frames_per_block",
-           "block_threads", "SMEM_MIN_K", "SMEM_THREADS", "MAX_K",
-           "MAX_BETA", "smem_mapping", "wide_mapping", "wide_threads",
+           "block_threads", "SMEM_MIN_K", "MAX_K", "MAX_BETA",
+           "smem_mapping", "wide_mapping", "wide_threads", "large_threads",
+           "BLOCK_CORE_BYTES", "H100_BLOCKS", "block_capacity",
+           "block_grid", "block_survivors_on_chip",
            "wide_pm_on_chip", "wide_grid", "WIDE_CORE_BYTES", "H100_SMS",
            "CLUSTER_MIN_K", "CLUSTER_MAX_K", "CLUSTER_CORE_BYTES",
            "H100_CLUSTERS", "cluster_size", "cluster_threads",
@@ -98,18 +106,25 @@ __all__ = ["TilePlan", "DecodePlan", "DeviceLimits", "H100_LIMITS",
 #: Most threads one block of either kernel runs (csrc/acs.cuh
 #: VIT_BLOCK_THREADS): eight warps.
 BLOCK_THREADS = 256
-#: Codes from this k on take acs.cuh's large-code mapping: one block of
-#: SMEM_THREADS threads per frame, path metrics in shared memory
-#: (VIT_SMEM_MIN_K, VIT_SMEM_THREADS).
+#: Codes from this k on take the cluster mapping's one-block form: one
+#: block a frame, path metrics in shared memory (VIT_SMEM_MIN_K).
 SMEM_MIN_K = 12
-SMEM_THREADS = 1024
 #: The largest code and the lowest rate the two fast mappings take
 #: (VIT_SMEM_MAX_K, VIT_MAX_BETA); past either the wide mapping runs.
 MAX_K = 15
 MAX_BETA = 8
-#: Bytes of the large-code mapping's branch-metric tables and warp
-#: partials (acs.cuh vit_smem_core_bytes, beside the path metrics).
-_SMEM_TABLES = 8 * 128 + 4 * 4 * 32
+#: Threads of a one-block frame by k (acs.cuh vit_block_threads): the
+#: fastest of 128, 256 and 512 at eight frames an SM on an H100
+#: (tools/variant_turns.py --large; PERF.md); below k = 12, where only a
+#: test forces the form, 128; never more than the S/2 butterflies.
+_LARGE_THREADS = {12: 256, 13: 128, 14: 256, 15: 512}
+#: Bytes of the one-block form's fixed shared memory (VIT_BLOCK_CORE_BYTES):
+#: the cluster core's layout with one block's partials: two stages'
+#: butterfly tables (2^8 float4 each), max and argmax partials of 32 warps,
+#: two stages each, the word staging, the LLR buffer and the polynomials.
+#: The path metrics, 8 S bytes, come after it.
+BLOCK_CORE_BYTES = (2 * 256 * 16 + 2 * 2 * 32 * 4 + 2 * 32 * 4 + 2 * 32 * 4
+                    + 32 * 4)
 #: Bytes of the wide mapping's fixed shared memory (VIT_WIDE_CORE_BYTES):
 #: warp partials, a two-stage LLR buffer and the polynomials, 32 terms each.
 WIDE_CORE_BYTES = 4 * 4 * 32 + 2 * 4 * 32 + 4 * 32
@@ -140,7 +155,8 @@ def wide_mapping(trellis: Trellis) -> bool:
 
 
 def smem_mapping(trellis: Trellis) -> bool:
-    """Whether the kernels run ``trellis`` on the large-code mapping."""
+    """Whether the kernels run ``trellis`` on the cluster mapping's
+    one-block form (12 <= k <= 15, beta <= 8)."""
     return trellis.k >= SMEM_MIN_K and not wide_mapping(trellis)
 
 
@@ -173,6 +189,13 @@ def cluster_threads(trellis: Trellis, cluster: int) -> int:
                        trellis.num_states // 2 // int(cluster)))
 
 
+def large_threads(trellis: Trellis) -> int:
+    """Threads of a one-block frame (acs.cuh vit_block_threads): 256, 128,
+    256 and 512 at k = 12..15 (4, 16, 16, 16 butterflies a thread), 128
+    below, at most S/2."""
+    return min(trellis.num_states // 2, _LARGE_THREADS.get(trellis.k, 128))
+
+
 def lanes_per_frame(trellis: Trellis) -> int:
     """Lanes of a warp one frame's path metrics take: ``min(S, 32)`` (a
     large code's frame takes a whole block of such warps)."""
@@ -190,13 +213,13 @@ def max_frames_per_block(trellis: Trellis) -> int:
 def block_threads(trellis: Trellis, frames_per_block: int,
                   cluster: int = 1) -> int:
     """Threads of a block of that many frames: whole warps; a large
-    code's block is ``SMEM_THREADS``, a wide code's ``wide_threads``, or
+    code's block is ``large_threads``, a wide code's ``wide_threads``, or
     ``cluster_threads`` in a cluster of ``cluster`` > 1 blocks."""
     if wide_mapping(trellis):
         return (cluster_threads(trellis, cluster) if cluster > 1
                 else wide_threads(trellis))
     if smem_mapping(trellis):
-        return SMEM_THREADS
+        return large_threads(trellis)
     fpw = 32 // lanes_per_frame(trellis)
     return -(-int(frames_per_block) // fpw) * 32
 
@@ -223,14 +246,25 @@ H100_LIMITS = DeviceLimits(232448, 233472, 2048, 32, 1024, 65536)
 #: on an NVIDIA H100 80GB HBM3 (chip_smoke.py's build phase prints every
 #: instantiation's). The CPU plans every code with it; on the card the
 #: planner asks the kernels, whose counts grow with R and beta. The
-#: ``*_smem`` counts are the large-code mapping's at k=12 beta=2, with
-#: which the CPU plans the codes 12 <= k <= 15; the ``*_wide`` counts the
-#: wide mapping's (one instantiation for every code past them); the
-#: ``*_cluster`` counts its cluster kernels' at k = 16 beta = 2 (512
-#: threads a block, so at most 128 registers a thread).
-H100_REGISTERS = {"unified": 48, "split": 48, "unified_smem": 63,
-                  "split_smem": 58, "unified_wide": 64, "split_wide": 56,
+#: ``*_block`` counts are the one-block form's at k = 12 (its registers
+#: do not depend on beta), which the CPU reports for the codes
+#: 12 <= k <= 15 (their resident blocks are ``H100_BLOCKS``); the
+#: ``*_wide`` counts the wide mapping's (one instantiation for every code
+#: past them); the ``*_cluster`` counts its cluster kernels' at k = 16
+#: beta = 2 (512 threads a block, so at most 128 registers a thread).
+H100_REGISTERS = {"unified": 48, "split": 48, "unified_block": 64,
+                  "split_block": 64, "unified_wide": 64, "split_wide": 56,
                   "unified_cluster": 128, "split_cluster": 128}
+
+#: Blocks of the one-block kernels (k = 12..15, ``large_threads`` threads,
+#: the recursion's shared memory alone: the forward kernel's block, and
+#: B1's with its survivors in the scratch) an NVIDIA H100 80GB HBM3 keeps
+#: resident on one SM: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on
+#: the card (chip_smoke.py's build phase prints it). What the CPU plans
+#: with; a block with more shared memory holds no more than the SM's shared
+#: memory allows beside it.
+H100_BLOCKS = {"unified": {12: 4, 13: 4, 14: 2, 15: 1},
+               "split": {12: 4, 13: 4, 14: 2, 15: 1}}
 
 #: Clusters of C blocks of the cluster kernels (one 1024-thread block of
 #: 2^14 states an SM, k = 15 + log2 C) an NVIDIA H100 80GB HBM3 keeps
@@ -290,7 +324,7 @@ def kernel_registers(trellis: Trellis, *, unified: bool = True,
         return H100_REGISTERS[name + (
             "_cluster" if cluster > 1 else
             "_wide" if wide_mapping(trellis) else
-            "_smem" if smem_mapping(trellis) else "")]
+            "_block" if smem_mapping(trellis) else "")]
     key = (name, trellis.k, trellis.beta, int(cluster))
     if key not in _registers:
         out = (ctypes.c_int * 3)()
@@ -307,6 +341,88 @@ def kernel_registers(trellis: Trellis, *, unified: bool = True,
                                f"cluster={cluster}): CUDA error {err}")
         _registers[key] = int(out[0])
     return _registers[key]
+
+
+_blocks: dict = {}
+
+
+def block_capacity(trellis: Trellis, device=None, *, unified: bool = True,
+                   smem: int | None = None) -> int:
+    """Blocks of the one-block kernel that runs ``trellis`` the card keeps
+    resident on one SM, each with ``smem`` bytes of shared memory (default
+    the recursion's alone, ``_large_smem``: the forward kernel's block,
+    and B1's with its survivors in the scratch). ``device=None`` =
+    ``"cuda"``: the card's ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    queried once; the CPU takes ``H100_BLOCKS``, less where the SM's shared
+    memory holds fewer blocks of ``smem``."""
+    dev = _resolve_device(device)
+    core = _large_smem(trellis)[0]
+    smem = core if smem is None else int(smem)
+    if dev.type != "cuda":
+        lim = H100_LIMITS
+        return min(H100_BLOCKS["unified" if unified else "split"][trellis.k],
+                   lim.smem_per_sm // (smem + lim.smem_reserved_per_block))
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (unified, trellis.k, smem, index)
+    if key not in _blocks:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            if unified:
+                err = _library(True).viterbi_unified_block_occupancy(
+                    trellis.k, smem, ctypes.byref(out))
+            elif smem != core:
+                raise ValueError(f"the forward kernel's block has {core} "
+                                 f"bytes, not {smem}")
+            else:
+                err = _library(False).viterbi_fwd_block_occupancy(
+                    trellis.k, ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"block occupancy (k={trellis.k}, smem="
+                               f"{smem}): CUDA error {err}")
+        _blocks[key] = int(out.value)
+    return _blocks[key]
+
+
+def block_grid(trellis: Trellis, frames: int, device=None, *,
+               unified: bool = True, smem: int | None = None) -> int:
+    """Blocks of a one-block launch over ``frames`` frames: at most one a
+    frame and at most as many as the card keeps resident at once (its SMs
+    times ``block_capacity``), each taking frames in turn. Raises where
+    the card holds none."""
+    dev = _resolve_device(device)
+    cap = block_capacity(trellis, dev, unified=unified, smem=smem)
+    if cap < 1:
+        raise RuntimeError(f"the card keeps no block of k={trellis.k} "
+                           f"({smem} B of shared memory) resident")
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    return max(1, min(int(frames), sms * cap))
+
+
+def block_survivors_on_chip(trellis: Trellis, spec: FrameSpec, *,
+                            pack_survivors: bool,
+                            frames: int | None = None, device=None,
+                            budget: int | None = None) -> bool:
+    """Whether B1's one-block kernel keeps a frame's survivors and starts
+    in shared memory beside the path metrics (else in a device-memory
+    scratch per block): where they fit in a block (``budget``, default the
+    card's limit) and the blocks that hold them keep as many of the
+    launch's ``frames`` (default: as many as the card holds) resident at
+    once as the blocks without them."""
+    dev = _resolve_device(device)
+    on, _ = unified_smem_bytes(trellis, spec, 1,
+                               pack_survivors=pack_survivors)
+    if not smem_mapping(trellis):    # a code a test forces on the form
+        on += _large_smem(trellis)[0]
+    if on > (device_limits(dev).smem_per_block if budget is None
+             else int(budget)):
+        return False
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    want = sms * block_capacity(trellis, dev)
+    if frames is not None:
+        want = min(want, int(frames))
+    return sms * block_capacity(trellis, dev, smem=on) >= want
 
 
 _clusters: dict = {}
@@ -440,8 +556,8 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     they are accepted so call sites can pass the whole configuration.
 
     A large code (``smem_mapping``: one frame a block) keeps its path
-    metrics in two shared buffers of S float32 beside two branch-metric
-    tables and the warps' partials (``smem_layout_smem``).
+    metrics in two shared buffers of S float32 beside the one-block form's
+    tables and partials (``smem_layout_block``).
     ``scratch=True`` is the kernel's device-memory survivor scratch:
     survivors and traceback starts leave shared memory.
 
@@ -461,12 +577,19 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     nsub = spec.f // f0
     fixed = spec.parallel_tb and spec.start == "fixed"
     row = 4 * W if pack_survivors else S
-    core = ((("path_metrics", 8 * S), ("tables_and_partials", _SMEM_TABLES))
-            if smem_mapping(trellis) else ())
+    core = _large_smem(trellis)[1] if smem_mapping(trellis) else ()
     breakdown = core + (
         ("traceback_starts",
          0 if fixed or scratch else -(-fpb * nsub * 4 // 16) * 16),
         ("sel_survivors", 0 if scratch else fpb * spec.frame_len * row))
+    return sum(b for _, b in breakdown), breakdown
+
+
+def _large_smem(trellis: Trellis):
+    """(total_bytes, breakdown) of the one-block form's recursion: its
+    path metrics and core (acs.cuh vit_block_smem_bytes)."""
+    breakdown = (("path_metrics", 8 * trellis.num_states),
+                 ("tables_and_partials", BLOCK_CORE_BYTES))
     return sum(b for _, b in breakdown), breakdown
 
 
@@ -493,18 +616,16 @@ def split_smem_bytes(trellis: Trellis, spec: FrameSpec,
     of ``csrc/viterbi_fwd.cu::fwd_smem``. Its path metrics live in
     registers and its survivors and argmax go to device memory; each warp
     stages one run of them (32 words and 32 argmax, 256 bytes) in shared
-    memory, whatever the knobs. A large code's block keeps the mapping's
-    path metrics, tables and partials instead, a wide code's the wide
-    mapping's (on a cluster of ``cluster`` blocks, as
+    memory, whatever the knobs. A large code's block keeps the one-block
+    form's path metrics, tables and partials instead, a wide code's the
+    wide mapping's (on a cluster of ``cluster`` blocks, as
     ``unified_smem_bytes``)."""
     _check_knobs(layout, bm_dtype)
     del spec, pack_survivors, radix
     if wide_mapping(trellis):
         return _wide_smem(trellis, cluster)
     if smem_mapping(trellis):
-        breakdown = (("path_metrics", 8 * trellis.num_states),
-                     ("tables_and_partials", _SMEM_TABLES))
-        return sum(b for _, b in breakdown), breakdown
+        return _large_smem(trellis)
     warps = block_threads(trellis, frames_per_tile) // 32
     breakdown = (("run_buffers", warps * 256),)
     return warps * 256, breakdown
@@ -537,21 +658,32 @@ def _resident_frames(smem: int, threads: int, fpb: int, registers: int,
 def _tile_at(trellis: Trellis, spec: FrameSpec, ft: int, *, unified: bool,
              pack_survivors: bool, radix: int, layout, bm_dtype: str,
              budget: int, limits: DeviceLimits, registers: int,
-             cluster: int = 1) -> TilePlan:
+             cluster: int = 1, device=None,
+             frames: int | None = None) -> TilePlan:
     """The TilePlan of one tile under the kernel's footprint model. A
-    large code's unified block whose survivors overflow the budget is
-    planned as the kernel runs it: survivors in the device-memory
-    scratch (its only tile is one frame). A wide code's block is one of
-    a cluster of ``cluster`` blocks (1: off a cluster): its bytes and its
-    threads both."""
+    large code's block is planned as the kernel runs it: B1's survivors
+    in shared memory or the device-memory scratch by
+    ``block_survivors_on_chip`` (for ``frames`` frames), its resident
+    blocks ``block_capacity``'s. A wide code's block is one of a cluster
+    of ``cluster`` blocks (1: off a cluster): its bytes and its threads
+    both."""
     model = unified_smem_bytes if unified else split_smem_bytes
-    total, breakdown = model(trellis, spec, ft, pack_survivors=pack_survivors,
-                             radix=radix, layout=layout, bm_dtype=bm_dtype,
-                             cluster=cluster)
-    if unified and smem_mapping(trellis) and total > budget:
-        total, breakdown = unified_smem_bytes(
-            trellis, spec, ft, pack_survivors=pack_survivors, radix=radix,
-            layout=layout, bm_dtype=bm_dtype, scratch=True)
+    kw = dict(pack_survivors=pack_survivors, radix=radix, layout=layout,
+              bm_dtype=bm_dtype)
+    if smem_mapping(trellis):
+        if unified:
+            total, breakdown = unified_smem_bytes(
+                trellis, spec, ft, **kw, scratch=not block_survivors_on_chip(
+                    trellis, spec, pack_survivors=pack_survivors,
+                    frames=frames, device=device, budget=budget))
+        else:
+            total, breakdown = split_smem_bytes(trellis, spec, ft, **kw)
+        resident = (block_capacity(trellis, device, unified=unified,
+                                   smem=total) if total <= budget else 0)
+        return TilePlan(int(ft), total, breakdown, budget,
+                        "unified" if unified else "split", Layout(layout),
+                        str(bm_dtype), False, resident, int(registers))
+    total, breakdown = model(trellis, spec, ft, **kw, cluster=cluster)
     threads = block_threads(trellis, ft, cluster)
     resident = (_resident_frames(total, threads, ft, registers, limits)
                 if total <= budget else 0)
@@ -588,7 +720,8 @@ def plan_tiles(trellis: Trellis, spec: FrameSpec, *,
         plan = _tile_at(trellis, spec, ft, unified=unified,
                         pack_survivors=pack_survivors, radix=radix,
                         layout=layout, bm_dtype=bm_dtype, budget=budget,
-                        limits=limits, registers=registers, cluster=cluster)
+                        limits=limits, registers=registers, cluster=cluster,
+                        device=device, frames=max_frames)
         if best is None or plan.frames_per_sm > best.frames_per_sm:
             best = plan
         if not plan.fits:                    # footprints grow with the tile
@@ -707,7 +840,8 @@ def _measure_candidates(trellis: Trellis, plan_spec: FrameSpec,
                         analytic: DecodePlan, *, layout, unified: bool,
                         pack_survivors: bool, radix: int, bm_dtype: str,
                         budget: int, limits: DeviceLimits, num_devices: int,
-                        bf: int, ov: int, chunk_frames, top_k: int):
+                        bf: int, ov: int, chunk_frames, top_k: int,
+                        device=None, frames: int | None = None):
     """Top-k candidate plans for the timing pass: the analytic winner, the
     other layout at the same tile (layout='auto' only: the measurement
     second-guesses the layout rule), and the half/double tile variants.
@@ -717,7 +851,8 @@ def _measure_candidates(trellis: Trellis, plan_spec: FrameSpec,
     ft0 = analytic.tile.frames_per_tile
     tile_kw = dict(unified=unified, pack_survivors=pack_survivors,
                    radix=radix, bm_dtype=bm_dtype, budget=budget,
-                   limits=limits, registers=analytic.tile.registers)
+                   limits=limits, registers=analytic.tile.registers,
+                   device=device, frames=frames)
     if layout == "auto":
         other = (Layout.SUBLANE if analytic.tile.layout is Layout.LANE
                  else Layout.LANE)
@@ -809,7 +944,8 @@ def plan_decode(trellis: Trellis, spec: FrameSpec, *, unified: bool = True,
                             radix=radix, layout=lay, bm_dtype=bm_dtype,
                             budget=budget, limits=limits,
                             registers=kernel_registers(
-                                trellis, unified=unified, device=device))
+                                trellis, unified=unified, device=device),
+                            device=device, frames=eff_max)
         else:
             tile = plan_tiles(trellis, plan_spec,
                               pack_survivors=pack_survivors, radix=radix,
@@ -830,7 +966,8 @@ def plan_decode(trellis: Trellis, spec: FrameSpec, *, unified: bool = True,
                     pack_survivors=pack_survivors, radix=radix,
                     bm_dtype=bm_dtype, budget=budget, limits=limits,
                     num_devices=num_devices, bf=bf, ov=ov,
-                    chunk_frames=chunk_frames, top_k=measure_top_k)
+                    chunk_frames=chunk_frames, top_k=measure_top_k,
+                    device=device, frames=eff_max)
             plat = platform_id(device)
             records, fresh = [], 0
             for cand in candidates:

@@ -46,14 +46,15 @@
 //   a redux.sync min over the lanes' first hits.
 // Radix 4 is two exact radix-2 stages; here every stage runs the same code.
 //
-// Codes 12 <= k <= 15 take a second mapping, VitBlock (below): one block a
-// frame, path metrics in shared memory. Every other code the plain version
-// takes (k >= 16, or beta > 8 at any k) takes a third, VitWide: one block a
-// frame, k and beta at run time; and codes 16 <= k <= 19 a fourth,
-// VitCluster (at the end), in its place where the card holds the cluster:
-// one thread-block cluster of C = 2^(k-15) blocks a frame, the path
-// metrics in the cluster's shared memory, exchanged through distributed
-// shared memory.
+// Every code the plain version takes past the register mapping's k <= 11
+// or beta <= 8 takes one of two more mappings. VitWide (below): one block a
+// frame, k and beta at run time, for beta > 8 at any k and for k >= 20.
+// VitCluster (at the end): one thread-block cluster of C = 2^(k-15) blocks
+// a frame at 16 <= k <= 19, in VitWide's place where the card holds the
+// cluster, the path metrics in the cluster's shared memory, exchanged
+// through distributed shared memory; and its one-block form (C = 1, a
+// compile-time case) at 12 <= k <= 15 and beta <= 8, the path metrics in
+// the block's shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,9 +68,8 @@
 // Most threads one block of either kernel runs (eight warps): nothing in the
 // recursion is block-wide, so a block is only a unit of scheduling.
 #define VIT_BLOCK_THREADS 256
-// The large-code mapping (below): codes 12 <= k <= 15, one block of 1024
-// threads a frame.
-#define VIT_SMEM_THREADS 1024
+// The large codes: 12 <= k <= 15 (and beta <= 8) run VitCluster's one-block
+// form, one block a frame.
 #define VIT_SMEM_MIN_K 12
 #define VIT_SMEM_MAX_K 15
 
@@ -383,250 +383,19 @@ int vit_dispatch(int k, int beta, A... a) {
 }
 
 // ---------------------------------------------------------------------------
-// Large codes (12 <= k <= 15): path metrics in shared memory.
-//
-// At k = 11 a lane already holds R = 32 path metrics; past it the register
-// mapping runs out of registers. Codes with 2^11 <= S <= 2^14 states take
-// a mapping of their own, which the two kernels instantiate beside (not
-// inside) the register one, so the k <= 11 instantiations do not change:
-//   * one block of VIT_SMEM_THREADS = 1024 threads per frame, R = S / 1024
-//     states a thread (R = 2, 4, 8, 16 at k = 12..15): thread t holds
-//     states s = t + 1024 r. __ballot_sync of register r in warp w is then
-//     packing.py's LANE word 32 r + w, so survivors pack as before;
-//   * the path metrics live in two shared buffers of S float32 (16 KB at
-//     k = 12, 128 KB at k = 15): stage t reads the predecessors 2s and
-//     2s + 1 of the butterfly (s, s + S/2) from the old buffer as one
-//     float2 and writes the new one; one __syncthreads per stage;
-//   * the buffer holds each stage's path metrics before the normalisation;
-//     the reader subtracts the stage's max (sigma = v - max, the same
-//     __fsub_rn as the register path, taken when it is read);
-//   * the stage max: fmaxf per thread, redux.sync per warp on vit_key's
-//     integer image, then the 32 warp maxima through shared memory, read
-//     after the stage's barrier by every warp and reduced once more;
-//   * the first maximal state: each thread keeps the first of its states
-//     that reached its own max, for the low half (r < R/2) and the high
-//     half of its states apart, so the least state is known without a
-//     second pass; a redux.sync min per warp and, after the next stage's
-//     barrier, the min over the warps (the argmax of stage t is known
-//     during stage t + 1);
-//   * branch metrics: 2^(beta-1) threads compute the compressed table
-//     bm_half[h] of stage t + 1 during stage t, into a second table
-//     (the stage's barrier publishes it); an edge reads bm_half[idx] and
-//     flips its sign bit for sgn = -1. Each state keeps its two edges'
-//     (idx, sgn) as two bytes: R / 2 registers a thread, not the 2 R beta
-//     sign registers of the register path, which would spill here.
-// The arithmetic is the register path's: bm_half[h] = sum_b
-// signs_half[h][b] * x[b] in b order (the first product, then one
-// rounded add per term: fma(+-1, x, acc) is that add), bf16 rounded once;
-// folding the edge's sign in after the sum and the rounding gives the same
-// value (both are odd-symmetric); ties >= to predecessor 1; normalise
-// every stage; the least maximal state.
-#define VIT_MAX_HALF 128
-
-// Bytes of the mapping's own shared memory: two path-metric buffers, two
-// branch-metric tables and the warp partials (maxima and first maxima of
-// two stages).
-__host__ __device__ inline long long vit_smem_core_bytes(int k) {
-  return 8LL * (1LL << (k - 1)) + 8 * VIT_MAX_HALF + 4 * 4 * 32;
-}
-
-// One compressed branch metric of the stage whose LLRs are x: terms in b
-// order, signs_half[h][b] = 1 - 2 * bit (beta - 1 - b) of h (tables.py).
-template <int BETA>
-__device__ __forceinline__ float vit_bm_half(int h, const float (&x)[BETA],
-                                             bool bf16) {
-  float acc = __int_as_float(__float_as_int(x[0]) ^
-                             (((h >> (BETA - 1)) & 1) << 31));
-#pragma unroll
-  for (int b = 1; b < BETA; ++b)
-    acc = __fadd_rn(acc, __int_as_float(__float_as_int(x[b]) ^
-                                        (((h >> (BETA - 1 - b)) & 1) << 31)));
-  if (bf16) acc = __bfloat162float(__float2bfloat16_rn(acc));
-  return acc;
-}
-
-// One frame on one block. Shared memory at `sm` (16-byte aligned):
-// pm [2][S] float, tbl [2][VIT_MAX_HALF] float, red [4][32] int.
-template <int R, int BETA>
-struct VitBlock {
-  static constexpr int T = VIT_SMEM_THREADS;
-  unsigned code[R / 2];  // bytes (idx | sign << 7) of edges p of states r
-                         // and r + R/2, byte 2 h + p of word r
-  int S, half;
-  float* pm;
-  float* tbl;
-  int* red;
-
-  __device__ __forceinline__ void init(int k, const int* idx,
-                                       const float* sgn, unsigned char* sm) {
-    S = 1 << (k - 1);
-    half = 1 << (BETA - 1);
-    pm = reinterpret_cast<float*>(sm);
-    tbl = pm + 2 * S;
-    red = reinterpret_cast<int*>(tbl + 2 * VIT_MAX_HALF);
-    const int tid = threadIdx.x;
-#pragma unroll
-    for (int q = 0; q < R / 2; ++q) {
-      unsigned c = 0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const int s = tid + T * (q + h * (R / 2));
-          const unsigned e = (unsigned)idx[p * S + s] |
-                             (sgn[p * S + s] < 0.f ? 0x80u : 0u);
-          c |= e << (16 * h + 8 * p);
-        }
-      code[q] = c;
-    }
-  }
-
-  __device__ __forceinline__ float edge(const float* tb, unsigned e) const {
-    return __int_as_float(__float_as_int(tb[e & 0x7f]) ^ ((e & 0x80u) << 24));
-  }
-};
-
-// The recursion of one frame over L stages on the block. Calls, per state,
-// st.state(t, r, s, sel, word) (word: the warp's ballot of register r; s =
-// threadIdx.x + 1024 r) and, for each stage t with st.wants_argmax(t)
-// (block-uniform), st.argmax(t, a) in warp 0 once a, the stage's first
-// maximal state, is known (during stage t + 1, or after the loop).
-template <int R, int BETA, class Store>
-__device__ __forceinline__ void vit_block_recursion(VitBlock<R, BETA>& b,
-                                                    const void* llr,
-                                                    int dtype, bool bf16,
-                                                    long long frame_base,
-                                                    int L, Store& st) {
-  constexpr int T = VIT_SMEM_THREADS;
-  const int S = b.S;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int s = tid; s < S; s += T) b.pm[S + s] = 0.f;    // stage -1: zeros
-  const bool tw = warp * 32 < b.half;      // warps that build the tables
-  float cur[BETA], nxt[BETA], x[BETA];
-  if (tw) {
-    vit_load_chunk<BETA>(llr, dtype, frame_base, 0, lane, L, true, cur);
-    vit_load_chunk<BETA>(llr, dtype, frame_base, 32, lane, L, true, nxt);
-#pragma unroll
-    for (int i = 0; i < BETA; ++i) x[i] = __shfl_sync(VIT_FULL, cur[i], 0);
-    if (tid < b.half) b.tbl[tid] = vit_bm_half<BETA>(tid, x, bf16);
-  }
-  __syncthreads();
-  float m = 0.f;              // the previous stage's max
-  int pend = -1;              // stage whose first maximum is pending
-  int c0 = 0;                 // first stage of the chunk in cur
-  for (int t = 0; t < L; ++t) {
-    const float2* old = reinterpret_cast<const float2*>(
-        b.pm + ((t + 1) & 1) * S);
-    float* nw = b.pm + (t & 1) * S;
-    const float* tb = b.tbl + (t & 1) * VIT_MAX_HALF;
-    float mlo = -INFINITY, mhi = -INFINITY;
-    int rlo = 0, rhi = 0;
-#pragma unroll
-    for (int q = 0; q < R / 2; ++q) {
-      const int s = tid + T * q;
-      const float2 pp = old[s];              // v of 2s and 2s + 1
-      const float p0 = __fsub_rn(pp.x, m);
-      const float p1 = __fsub_rn(pp.y, m);
-      const unsigned c = b.code[q];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = q + h * (R / 2);
-        const float c0v = __fadd_rn(p0, b.edge(tb, c >> (16 * h)));
-        const float c1v = __fadd_rn(p1, b.edge(tb, c >> (16 * h + 8)));
-        const bool sel = c1v >= c0v;
-        const float v = sel ? c1v : c0v;
-        nw[s + h * (S / 2)] = v;
-        st.state(t, r, s + h * (S / 2), sel, __ballot_sync(VIT_FULL, sel));
-        if (h == 0) {
-          if (v > mlo) { mlo = v; rlo = r; }
-        } else {
-          if (v > mhi) { mhi = v; rhi = r; }
-        }
-      }
-    }
-    const int key = __reduce_max_sync(
-        VIT_FULL, vit_key(__float_as_int(fmaxf(mlo, mhi))));
-    if (lane == 0) b.red[(t & 1) * 32 + warp] = key;
-    if (tw) {                                 // the next stage's table
-      const int u = t - c0;
-#pragma unroll
-      for (int i = 0; i < BETA; ++i)
-        x[i] = __shfl_sync(VIT_FULL, u < 31 ? cur[i] : nxt[i], (u + 1) & 31);
-      if (tid < b.half)
-        b.tbl[((t + 1) & 1) * VIT_MAX_HALF + tid] =
-            vit_bm_half<BETA>(tid, x, bf16);
-      if (u == 31) {
-#pragma unroll
-        for (int i = 0; i < BETA; ++i) cur[i] = nxt[i];
-        c0 += 32;
-        vit_load_chunk<BETA>(llr, dtype, frame_base, c0 + 32, lane, L, true,
-                             nxt);
-      }
-    }
-    __syncthreads();
-    if (pend >= 0 && warp == 0) {
-      const int a = __reduce_min_sync(
-          VIT_FULL, b.red[64 + (pend & 1) * 32 + lane]);
-      st.argmax(pend, a);
-    }
-    pend = -1;
-    m = __int_as_float(vit_key(
-        __reduce_max_sync(VIT_FULL, b.red[(t & 1) * 32 + lane])));
-    if (st.wants_argmax(t)) {
-      int a = 0x7fffffff;
-      if (mhi == m) a = tid + T * rhi;
-      if (mlo == m) a = tid + T * rlo;        // low states come first
-      a = __reduce_min_sync(VIT_FULL, a);
-      if (lane == 0) b.red[64 + (t & 1) * 32 + warp] = a;
-      pend = t;
-    }
-  }
-  __syncthreads();
-  if (pend >= 0 && warp == 0) {
-    const int a = __reduce_min_sync(VIT_FULL,
-                                    b.red[64 + (pend & 1) * 32 + lane]);
-    st.argmax(pend, a);
-  }
-}
-
-// Calls F::template run_smem<R, BETA>(a...) for the large-code
-// instantiation that serves (k, beta): R = 2^(k-1) / 1024, one per k.
-template <class F, int R, class... A>
-int vit_dispatch_smem_beta(int beta, A... a) {
-  switch (beta) {
-    case 2: return F::template run_smem<R, 2>(a...);
-    case 3: return F::template run_smem<R, 3>(a...);
-    case 4: return F::template run_smem<R, 4>(a...);
-    case 5: return F::template run_smem<R, 5>(a...);
-    case 6: return F::template run_smem<R, 6>(a...);
-    case 7: return F::template run_smem<R, 7>(a...);
-    default: return F::template run_smem<R, 8>(a...);
-  }
-}
-
-template <class F, class... A>
-int vit_dispatch_smem(int k, int beta, A... a) {
-  switch (k) {
-    case 12: return vit_dispatch_smem_beta<F, 2>(beta, a...);
-    case 13: return vit_dispatch_smem_beta<F, 4>(beta, a...);
-    case 14: return vit_dispatch_smem_beta<F, 8>(beta, a...);
-    default: return vit_dispatch_smem_beta<F, 16>(beta, a...);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Every other code (k >= 16, or beta > 8 at any k): the wide mapping.
-// (Codes 16 <= k <= 19 run it on a thread-block cluster instead where the
-// card holds one: VitCluster, after it.)
+// (Codes 16 <= k <= 19 run on a thread-block cluster instead where the card
+// holds one, and 12 <= k <= 15 at beta <= 8 on one block: VitCluster, after
+// it.)
 //
 // Past k = 15 two buffers of S float32 path metrics outgrow a block's shared
 // memory (256 KB at k = 16, over the 227 KB a block can have), and past
-// beta = 8 VitBlock's compressed table of 2^(beta-1) entries outgrows the
-// 7-bit index of its edge bytes (and the register path's 2 R beta sign
-// registers). Those codes take a third mapping, instantiated once in each
-// kernel beside the other two (so their instantiations do not change), which
-// takes k and beta at run time: per-(k, beta) templates would multiply the
-// build for codes that are rare.
+// beta = 8 VitCluster's butterfly table of 2^beta entries a stage outgrows
+// the byte that indexes it (and the register path's 2 R beta sign
+// registers). Those codes take a mapping instantiated once in each kernel
+// beside the others (so their instantiations do not change), which takes k
+// and beta at run time: per-(k, beta) templates would multiply the build
+// for codes that are rare.
 //   * one block a frame, T = clamp(S/2, 32, 1024) threads (vit_wide_threads);
 //     thread t runs the butterflies q = t + T i, i < max(1, S/2 / T), each the
 //     states q and q + S/2 with the predecessors 2q and 2q + 1. A block
@@ -638,8 +407,9 @@ int vit_dispatch_smem(int k, int beta, A... a) {
 //     both read and written through one generic pointer. Stage t reads the
 //     old buffer (the predecessors 2q, 2q + 1 as one float2) and writes the
 //     new one; the stage's __syncthreads makes the writes visible to the
-//     block in either memory. As in VitBlock the buffer holds the stage's
-//     metrics before the normalisation and the reader subtracts the max;
+//     block in either memory. The buffer holds the stage's metrics before
+//     the normalisation and the reader subtracts the max (the same __fsub_rn
+//     as the register path, taken when it is read);
 //   * branch metrics: each edge sums its own terms. Term b of the edge with
 //     encoder word w is x[b] with its sign bit flipped by parity(w & g_b)
 //     (g_b: generator polynomial b); in b order, the first term and then
@@ -652,7 +422,7 @@ int vit_dispatch_smem(int k, int beta, A... a) {
 //     register and stores it to a two-stage buffer in shared memory one
 //     stage ahead, so the stage's barrier publishes it;
 //   * the stage max, the first maximal state (least state; the low half of
-//     the states before the high half) and ties, as VitBlock: a redux per
+//     the states before the high half) and ties: a redux per
 //     warp, the warps' partials through shared memory after the barrier.
 // What bounds it: the same six float operations a state and stage as the
 // other mappings, with beta adds per edge for the branch metrics; past
@@ -935,7 +705,7 @@ struct VitWideWords {
 //     first hit goes to block 0, whose warp 0 takes the least after the
 //     next stage's barrier. Both are exact and order-free (a max, and a
 //     min of state indices);
-//   * lazy normalisation as VitBlock: the buffers hold each stage's metrics
+//   * lazy normalisation as VitWide: the buffers hold each stage's metrics
 //     before it, and the reader subtracts the previous stage's max;
 //   * branch metrics (beta <= 8): the four edges of butterfly q are the
 //     metrics of the encoder words a, a ^ bottom taps, a ^ top taps and
@@ -958,6 +728,21 @@ struct VitWideWords {
 // S/C states (16384 at k = 16-19) and one cluster barrier. 512 threads a
 // block leave a thread 128 registers for its 16 butterflies (1024 threads,
 // 64 registers, spilled and ran no faster).
+//
+// The one-block form (template CL = false): codes 12 <= k <= 15 at beta <= 8
+// (the large codes), one frame a block, with no cluster. The block owns all
+// S states (C = 1, Hc = S/2): the exchange is a store to its own shared
+// memory (new state q at q, q + S/2 at q + S/2 of the new buffer), the
+// cluster barrier one __syncthreads a stage (the survivor words are stored
+// before it), and the max and first-hit partials one block's warps'. The
+// butterfly table, the loads a butterfly ahead and the lazy normalisation
+// are the cluster's. T = vit_block_threads(k) threads of NB = S/2 / T
+// butterflies each (16 of 512 at k = 15, the cluster block's shape); the
+// kernels take frames blockIdx.x, + gridDim.x, ... on the blocks the card
+// keeps resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor), so that
+// a smaller block leaves room for more frames an SM, which hide each
+// other's barrier. It takes any k with S/2 >= 32 (whole survivor words a
+// warp) up to 15; below 12 only when a test forces it.
 #define VIT_CLUSTER_MIN_K 16
 #define VIT_CLUSTER_MAX_K 19
 // Most blocks of a cluster the mapping lays out room for: the H100's
@@ -983,6 +768,40 @@ struct VitWideWords {
   (2 * VIT_CLUSTER_QUADS * 16 + 2 * 2 * VIT_CLUSTER_MAX_DIM * 32 * 4 + \
    2 * VIT_CLUSTER_WORDS * 4 + 2 * VIT_WIDE_MAX_BETA * 4 +             \
    VIT_WIDE_MAX_BETA * 4)
+
+// The one-block form's fixed shared memory: VIT_CLUSTER_CORE_BYTES' layout
+// with the partials of one block ([2][32] int each); then the path metrics
+// [2][S] float.
+#define VIT_BLOCK_CORE_BYTES                                          \
+  (2 * VIT_CLUSTER_QUADS * 16 + 2 * 2 * 32 * 4 + 2 * VIT_CLUSTER_WORDS * 4 + \
+   2 * VIT_WIDE_MAX_BETA * 4 + VIT_WIDE_MAX_BETA * 4)
+// Least k the one-block form takes: S/2 >= 32 butterflies.
+#define VIT_BLOCK_MIN_K 7
+
+// Threads of a one-block frame of a k code (at most S/2): 256, 128, 256,
+// 512 at k = 12..15, the fastest of 128, 256 and 512 at eight frames an SM
+// on an H100 (tools/variant_turns.py --large; PERF.md); 128 below k = 12.
+__host__ __device__ inline int vit_block_threads(int k) {
+  const int h = 1 << (k - 2);
+  const int t = k == 12 || k == 14 ? 256 : k >= 15 ? 512 : 128;
+  return h < t ? h : t;
+}
+
+// Butterflies a thread runs in the one-block form (NB).
+__host__ __device__ inline int vit_block_nb(int k) {
+  return (1 << (k - 2)) / vit_block_threads(k);
+}
+
+// Whether the one-block form takes a k code.
+__host__ __device__ inline bool vit_block_ok(int k) {
+  return k >= VIT_BLOCK_MIN_K && k <= VIT_SMEM_MAX_K;
+}
+
+// Dynamic shared memory of a one-block frame's recursion: the core and the
+// path metrics (8 S bytes).
+__host__ __device__ inline long long vit_block_smem_bytes(int k) {
+  return VIT_BLOCK_CORE_BYTES + 8LL * (1LL << (k - 1));
+}
 
 // The cluster a k code runs on by default: 2^(k-15) blocks for 16 <= k <=
 // 19, else 1 (no cluster).
@@ -1129,13 +948,17 @@ __device__ __forceinline__ float vit_edge0(unsigned a, const float* x,
   return e;
 }
 
-// One frame on one block of a cluster. Shared memory at `sm` (16-byte
-// aligned), laid out as VIT_CLUSTER_CORE_BYTES says, then the block's path
-// metrics [2][S/C] float. Loop invariants live in shared memory and in
-// 32-bit shared addresses, so that a thread keeps its registers for its NB
-// butterflies.
-template <int NB, bool TBL>
+// One frame on one block of a cluster (CL) or on one block alone (the
+// one-block form). Shared memory at `sm` (16-byte aligned), laid out as
+// VIT_CLUSTER_CORE_BYTES (CL) or VIT_BLOCK_CORE_BYTES says, then the
+// block's path metrics [2][S/C] float. Loop invariants live in shared
+// memory and in 32-bit shared addresses, so that a thread keeps its
+// registers for its NB butterflies.
+template <int NB, bool TBL, bool CL = true>
 struct VitCluster {
+  // Blocks whose partials a block keeps, and one stage's slot of them.
+  static constexpr int DIM = CL ? VIT_CLUSTER_MAX_DIM : 1;
+  static constexpr int SLOT = DIM * 32;
   int k, beta, S, H, C, c, Hc, T, nw, nq;
   bool small;            // Hc < 32: a block's survivors are a partial word
   bool taps;             // every polynomial has its top and bottom taps
@@ -1145,26 +968,27 @@ struct VitCluster {
                          // (vit_edge0) at quad + s VIT_CLUSTER_QUADS
   unsigned aw[(NB + 3) / 4];   // byte i: the encoder word of butterfly i's
                                // first edge, its table entry (TBL)
-  int* rmax;             // [2][VIT_CLUSTER_MAX_DIM][32] warp maxima (keys)
-  int* rarg;             // [2][VIT_CLUSTER_MAX_DIM][32] warp first hits
+  int* rmax;             // [2][DIM][32] warp maxima (keys)
+  int* rarg;             // [2][DIM][32] warp first hits
   unsigned* sw;          // [2][VIT_CLUSTER_WORDS] small-code words
   float* sx;             // [2][VIT_WIDE_MAX_BETA] LLRs
   unsigned* g;           // [VIT_WIDE_MAX_BETA] polynomials
   float* lo_dst;         // buffer 0 of blocks c/2, c/2 + C/2 (generic
   float* hi_dst;         // addresses of their shared memory), + offset
+                         // (one block: its own buffer 0 and S/2 into it)
   uint32_t max_dst;      // lane j < C: block j's rmax + this block's row
   uint32_t arg_dst;      // block 0's rarg + this block's row
-  uint32_t sw_dst;       // block 0's sw
+  uint32_t sw_dst;       // block 0's sw (CL)
 
   __device__ __forceinline__ void init(int k_, int beta_, const int* polys,
                                        unsigned char* sm) {
-    constexpr int RED = 2 * VIT_CLUSTER_MAX_DIM * 32;
+    constexpr int RED = 2 * SLOT;
     k = k_;
     beta = beta_;
     S = 1 << (k - 1);
     H = S >> 1;
-    C = (int)vit_cluster_blocks();
-    c = (int)vit_cluster_rank();
+    C = CL ? (int)vit_cluster_blocks() : 1;
+    c = CL ? (int)vit_cluster_rank() : 0;
     Hc = H / C;
     T = blockDim.x;
     nw = T >> 5;
@@ -1176,22 +1000,31 @@ struct VitCluster {
     sw = reinterpret_cast<unsigned*>(rarg + RED);
     sx = reinterpret_cast<float*>(sw + 2 * VIT_CLUSTER_WORDS);
     g = reinterpret_cast<unsigned*>(sx + 2 * VIT_WIDE_MAX_BETA);
-    pm = reinterpret_cast<float*>(sm + VIT_CLUSTER_CORE_BYTES);
+    pm = reinterpret_cast<float*>(
+        sm + (CL ? VIT_CLUSTER_CORE_BYTES : VIT_BLOCK_CORE_BYTES));
     const int tid = threadIdx.x, lane = tid & 31;
     if (tid < beta) g[tid] = (unsigned)polys[tid];
     taps = true;
     for (int b = 0; b < beta; ++b)
       taps = taps && (polys[b] & 1) && ((polys[b] >> (k - 1)) & 1);
-    lo_dst = vit_map_rank(pm, c >> 1) + (c & 1) * Hc;
-    hi_dst = vit_map_rank(pm, (c >> 1) + C / 2) + (c & 1) * Hc;
     const uint32_t rmax_s =
         static_cast<uint32_t>(__cvta_generic_to_shared(rmax));
     const uint32_t rarg_s =
         static_cast<uint32_t>(__cvta_generic_to_shared(rarg));
-    max_dst = vit_mapa(rmax_s, lane < C ? lane : 0) + 4u * 32 * c;
-    arg_dst = vit_mapa(rarg_s, 0) + 4u * 32 * c;
-    sw_dst = vit_mapa(static_cast<uint32_t>(__cvta_generic_to_shared(sw)),
-                      0);
+    if constexpr (CL) {
+      lo_dst = vit_map_rank(pm, c >> 1) + (c & 1) * Hc;
+      hi_dst = vit_map_rank(pm, (c >> 1) + C / 2) + (c & 1) * Hc;
+      max_dst = vit_mapa(rmax_s, lane < C ? lane : 0) + 4u * 32 * c;
+      arg_dst = vit_mapa(rarg_s, 0) + 4u * 32 * c;
+      sw_dst = vit_mapa(static_cast<uint32_t>(__cvta_generic_to_shared(sw)),
+                        0);
+    } else {
+      lo_dst = pm;
+      hi_dst = pm + H;
+      max_dst = rmax_s;
+      arg_dst = rarg_s;
+      sw_dst = 0u;
+    }
 #pragma unroll
     for (int w = 0; w < (NB + 3) / 4; ++w) aw[w] = 0u;
     if (TBL) {
@@ -1225,11 +1058,11 @@ struct VitCluster {
 // The first maximal state of stage `t`, from the warps' first hits in
 // block 0 (after the barrier that follows their stores); in warp 0 of
 // block 0.
-template <int NB, bool TBL>
+template <int NB, bool TBL, bool CL>
 __device__ __forceinline__ int vit_cluster_first_max(
-    const VitCluster<NB, TBL>& v, int t) {
+    const VitCluster<NB, TBL, CL>& v, int t) {
   const int lane = threadIdx.x & 31;
-  const int* r = v.rarg + (t & 1) * VIT_CLUSTER_MAX_DIM * 32;
+  const int* r = v.rarg + (t & 1) * v.SLOT;
   int a = 0x7fffffff;
   if (lane < v.nw)
     for (int j = 0; j < v.C; ++j) a = min(a, r[32 * j + lane]);
@@ -1245,17 +1078,21 @@ __device__ __forceinline__ int vit_cluster_first_max(
 // st.butterfly(t, q, valid, sel_lo, sel_hi, b_lo, b_hi) per butterfly in
 // every thread; st.wants_argmax(t) in every thread (cluster uniform) and
 // st.argmax(t, a) in warp 0 of block 0. Starts and ends with a cluster
-// barrier: the frame's survivors and first maxima are then visible to the
-// whole cluster, and its buffers free.
-template <bool PACK, bool TAPS, int NB, bool TBL, class Store>
+// barrier (one block: a block barrier): the frame's survivors and first
+// maxima are then visible to the whole cluster, and its buffers free.
+template <bool PACK, bool TAPS, int NB, bool TBL, bool CL, class Store>
 __device__ __forceinline__ void vit_cluster_recursion(
-    VitCluster<NB, TBL>& v, const void* llr, int dtype, bool bf16,
+    VitCluster<NB, TBL, CL>& v, const void* llr, int dtype, bool bf16,
     long long frame_base, int L, Store& st) {
   const int Hc = v.Hc, T = v.T, beta = v.beta;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int SC = 2 * Hc;                      // old states a block owns
-  constexpr int SLOT = VIT_CLUSTER_MAX_DIM * 32;
-  const bool words = v.small && PACK;
+  constexpr int SLOT = VitCluster<NB, TBL, CL>::SLOT;
+  const bool words = CL && v.small && PACK;   // one block: never small
+  auto sync = [] {
+    if constexpr (CL) vit_cluster_sync();
+    else __syncthreads();
+  };
   for (int s = tid; s < SC; s += T) v.pm[SC + s] = 0.f;   // stage -1
   for (int i = tid; i < 2 * VIT_CLUSTER_WORDS; i += T) v.sw[i] = 0u;
   // The LLRs: thread b < beta loads term b ahead into pf and stores it to
@@ -1285,7 +1122,7 @@ __device__ __forceinline__ void vit_cluster_recursion(
       v.table(0, x0, bf16);
     }
   }
-  vit_cluster_sync();
+  sync();
   float m = 0.f;              // the previous stage's max
   int pend = -1;              // stage whose first maximum is pending
   for (int t = 0; t < L; ++t) {
@@ -1379,7 +1216,10 @@ __device__ __forceinline__ void vit_cluster_recursion(
     }
     const int key = __reduce_max_sync(
         VIT_FULL, vit_key(__float_as_int(fmaxf(mlo, mhi))));
-    if (lane < v.C)
+    if constexpr (!CL)
+      vit_sts_u32_if(lane == 0, v.max_dst + 4u * ((t & 1) * SLOT + warp),
+                     (unsigned)key);
+    else if (lane < v.C)
       vit_st_cluster_s32(v.max_dst + 4u * ((t & 1) * SLOT + warp), key);
     if (words) {              // one warp; bits at lanes < Hc (NB = 1)
       const unsigned bhi = __shfl_sync(VIT_FULL, myw, 1);
@@ -1390,14 +1230,16 @@ __device__ __forceinline__ void vit_cluster_recursion(
         vit_or_cluster_u32(base + 4u * (s1 >> 5), bhi << (s1 & 31));
       }
     }
-    vit_cluster_arrive();
+    if constexpr (CL) vit_cluster_arrive();
     // While the cluster gathers: the stage's survivor words, which only the
-    // recursion's closing barrier (or the next stage's) has to publish.
+    // recursion's closing barrier (or the next stage's) has to publish (one
+    // block: before its barrier).
     if (PACK && !words && lane < 2 * NB) {
       const int q0 = v.c * Hc + warp * 32 + T * (lane % NB);
       st.word(t, (lane < NB ? q0 : q0 + v.H) >> 5, myw);
     }
-    vit_cluster_wait();
+    if constexpr (CL) vit_cluster_wait();
+    else __syncthreads();
     if (v.c == 0 && warp == 0) {
       if (pend >= 0) st.argmax(pend, vit_cluster_first_max(v, pend));
       if (words) {
@@ -1421,22 +1263,25 @@ __device__ __forceinline__ void vit_cluster_recursion(
       if (mhi == m) a = shi;
       if (mlo == m) a = slo;                  // low states come first
       a = __reduce_min_sync(VIT_FULL, a);
-      if (lane == 0)
+      if constexpr (!CL)
+        vit_sts_u32_if(lane == 0, v.arg_dst + 4u * ((t & 1) * SLOT + warp),
+                       (unsigned)a);
+      else if (lane == 0)
         vit_st_cluster_s32(v.arg_dst + 4u * ((t & 1) * SLOT + warp), a);
       pend = t;
     }
   }
-  vit_cluster_sync();
+  sync();
   if (pend >= 0 && v.c == 0 && warp == 0)
     st.argmax(pend, vit_cluster_first_max(v, pend));
-  vit_cluster_sync();
+  sync();
 }
 
 // The recursion with the store's survivor format (st.pack) and, for the
 // table, whether one metric a butterfly serves its four edges (v.taps)
 // constants.
-template <int NB, bool TBL, class Store>
-__device__ __forceinline__ void vit_cluster_run(VitCluster<NB, TBL>& v,
+template <int NB, bool TBL, bool CL, class Store>
+__device__ __forceinline__ void vit_cluster_run(VitCluster<NB, TBL, CL>& v,
                                                 const void* llr, int dtype,
                                                 bool bf16,
                                                 long long frame_base, int L,
@@ -1474,6 +1319,20 @@ int vit_dispatch_cluster(int k, int beta, int C, A... a) {
                        : F::template run_cluster<8, false>(a...);
     default: return tbl ? F::template run_cluster<16, true>(a...)
                         : F::template run_cluster<16, false>(a...);
+  }
+}
+
+// Calls F::template run_block<NB>(a...) for the one-block instantiation
+// that serves a k code: NB = vit_block_nb(k) butterflies a thread (beta <= 8:
+// the table).
+template <class F, class... A>
+int vit_dispatch_block(int k, A... a) {
+  switch (vit_block_nb(k)) {
+    case 1: return F::template run_block<1>(a...);
+    case 2: return F::template run_block<2>(a...);
+    case 4: return F::template run_block<4>(a...);
+    case 8: return F::template run_block<8>(a...);
+    default: return F::template run_block<16>(a...);
   }
 }
 

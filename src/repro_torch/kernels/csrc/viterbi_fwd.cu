@@ -38,12 +38,14 @@
 // run the same loop (the wrapper checks it; the card never sees it); the
 // kernel inlines one loop per bm_dtype.
 //
-// Codes 12 <= k <= 15 run acs.cuh's large-code mapping instead, in a
-// kernel of their own (viterbi_fwd_smem_kernel): one block of 1024 threads
-// a frame, path metrics in shared memory. Each warp's lane 0 stores its
-// ballot words (word 32 r + warp of a stage), every thread its states'
-// bytes unpacked, and warp 0 each stage's first maximal state, known
-// during the next stage.
+// Codes 12 <= k <= 15 (beta <= 8) run the one-block form of acs.cuh's
+// VitCluster instead, in a kernel of their own (viterbi_fwd_block_kernel):
+// one frame a block of vit_block_threads(k) threads, path metrics in shared
+// memory, the grid the blocks the card keeps resident, each taking frames
+// in turn. It stores as the cluster kernel does: lane i of a warp the
+// survivor word of its butterfly run i, every thread its states' bytes
+// unpacked, warp 0 each stage's first maximal state, known during the next
+// stage.
 //
 // Every other code (k >= 16, or beta > 8) runs acs.cuh's wide mapping, in
 // a third kernel (viterbi_fwd_wide_kernel): one block a frame, k and beta
@@ -151,56 +153,6 @@ __global__ void __launch_bounds__(VIT_BLOCK_THREADS)
     vit_recursion(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid, st);
 }
 
-// ---- large codes (12 <= k <= 15): one frame a block, acs.cuh's VitBlock --
-
-// What the large-code kernel keeps of each stage: packed, lane 0 of each
-// warp stores its ballot word 32 r + warp (the warps' words of one stage
-// are one contiguous row of the lane stream); unpacked, every thread its
-// states' bytes (neighbouring threads, neighbouring bytes in the lane
-// stream); warp 0 the stage's first maximal state.
-struct FwdSmemStore {
-  uint32_t* sel32;
-  int8_t* sel8;
-  int* amax;                 // this frame's (L,) row
-  long long frame;
-  int F, L, S, W, pack, sublane;
-  __device__ __forceinline__ bool wants_argmax(int) const { return true; }
-  __device__ __forceinline__ void argmax(int t, int a) {
-    if ((threadIdx.x & 31) == 0) amax[t] = a;
-  }
-  __device__ __forceinline__ void state(int t, int r, int s, bool sel,
-                                        unsigned word) {
-    if (pack) {
-      if ((threadIdx.x & 31) == 0) {
-        const long long i = (long long)t * W + 32 * r + (threadIdx.x >> 5);
-        sel32[sublane ? i * F + frame : frame * L * W + i] = word;
-      }
-    } else {
-      const long long o = sublane ? ((long long)t * S + s) * F + frame
-                                  : (frame * L + t) * S + s;
-      sel8[o] = (int8_t)sel;
-    }
-  }
-};
-
-template <int R, int BETA>
-__global__ void __launch_bounds__(VIT_SMEM_THREADS)
-    viterbi_fwd_smem_kernel(const FwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long frame = blockIdx.x;
-  const int S = 1 << (p.k - 1);
-  VitBlock<R, BETA> b;
-  b.init(p.k, p.idx, p.sgn, smem);
-  FwdSmemStore st{static_cast<uint32_t*>(p.sel),
-                  static_cast<int8_t*>(p.sel), p.amax + frame * p.L, frame,
-                  p.F, p.L, S, S / 32, p.pack, p.sublane};
-  const long long base = frame * p.L * BETA;
-  if (p.bf16_bm)          // one inlined loop per bm_dtype
-    vit_block_recursion(b, p.llr, p.llr_dtype, true, base, p.L, st);
-  else
-    vit_block_recursion(b, p.llr, p.llr_dtype, false, base, p.L, st);
-}
-
 // ---- every other code: one frame a block, acs.cuh's VitWide -------------
 
 // What the wide kernel keeps of each stage: packed, lane 0 of each warp
@@ -289,6 +241,61 @@ __global__ void __launch_bounds__(VIT_CLUSTER_THREADS, 1)
   }
 }
 
+// ---- 12 <= k <= 15: one frame a block, acs.cuh's VitCluster on one block --
+
+// The cluster kernel's work on one block, which takes frames blockIdx.x, +
+// gridDim.x, ....
+template <int NB>
+__global__ void __launch_bounds__(VIT_CLUSTER_THREADS)
+    viterbi_fwd_block_kernel(const FwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = 1 << (p.k - 1);
+  VitCluster<NB, true, false> v;
+  v.init(p.k, p.beta, p.polys, smem);
+  for (long long frame = blockIdx.x; frame < p.F; frame += gridDim.x) {
+    FwdWideStore st{static_cast<uint32_t*>(p.sel),
+                    static_cast<int8_t*>(p.sel), p.amax + frame * p.L,
+                    frame, p.F, p.L, S, S / 32, S >> 1, p.pack, p.sublane};
+    const long long base = frame * p.L * p.beta;
+    vit_cluster_run(v, p.llr, p.llr_dtype, p.bf16_bm != 0, base, p.L, st);
+  }
+}
+
+struct LaunchBlock {
+  template <int NB>
+  static int run_block(const FwdParams* p, int grid, cudaStream_t stream) {
+    const long long smem = vit_block_smem_bytes(p->k);
+    const cudaError_t err = cudaFuncSetAttribute(
+        viterbi_fwd_block_kernel<NB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    viterbi_fwd_block_kernel<NB>
+        <<<grid, vit_block_threads(p->k), (size_t)smem, stream>>>(*p);
+    return (int)cudaGetLastError();
+  }
+  template <int NB>
+  static int run_block(int k, int* out) {
+    const long long smem = vit_block_smem_bytes(k);
+    cudaError_t err = cudaFuncSetAttribute(
+        viterbi_fwd_block_kernel<NB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          out, viterbi_fwd_block_kernel<NB>, vit_block_threads(k),
+          (size_t)smem);
+    if (err != cudaSuccess) (void)cudaGetLastError();
+    return (int)err;
+  }
+};
+
+struct AttrsBlock {
+  template <int NB>
+  static int run_block(int* out) {
+    return vit_func_attrs(
+        reinterpret_cast<const void*>(viterbi_fwd_block_kernel<NB>), out);
+  }
+};
+
 struct LaunchCluster {
   template <int NB, bool TBL>
   static int run_cluster(const FwdParams* p, int C, int clusters,
@@ -313,11 +320,12 @@ struct AttrsCluster {
 };
 
 // Shared memory of one block of fpb frames: each warp's run buffers, 32
-// words and 32 argmax; for a large code, the mapping's path metrics,
-// tables and partials; for a wide code, the wide mapping's.
+// words and 32 argmax; for a large code, the one-block form's path
+// metrics, tables and partials; for a wide code off a cluster, the wide
+// mapping's.
 inline long long fwd_smem(int k, int beta, int fpb) {
   if (vit_wide_code(k, beta)) return vit_wide_smem_bytes(k);
-  if (k >= VIT_SMEM_MIN_K) return vit_smem_core_bytes(k);
+  if (k >= VIT_SMEM_MIN_K) return vit_block_smem_bytes(k);
   const int fpw = 32 / vit_lanes_per_frame(k);
   return (long long)(fpb + fpw - 1) / fpw * 64 * 4;
 }
@@ -335,32 +343,11 @@ struct Launch {
   }
 };
 
-struct LaunchSmem {
-  template <int R, int BETA>
-  static int run_smem(const FwdParams* p, cudaStream_t stream) {
-    const long long smem = vit_smem_core_bytes(p->k);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          viterbi_fwd_smem_kernel<R, BETA>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    viterbi_fwd_smem_kernel<R, BETA>
-        <<<p->F, VIT_SMEM_THREADS, (size_t)smem, stream>>>(*p);
-    return (int)cudaGetLastError();
-  }
-};
-
 struct Attrs {
   template <int R, int BETA>
   static int run(int* out) {
     return vit_func_attrs(
         reinterpret_cast<const void*>(viterbi_fwd_kernel<R, BETA>), out);
-  }
-  template <int R, int BETA>
-  static int run_smem(int* out) {
-    return vit_func_attrs(
-        reinterpret_cast<const void*>(viterbi_fwd_smem_kernel<R, BETA>), out);
   }
 };
 
@@ -390,16 +377,29 @@ long long viterbi_fwd_smem_bytes(int k, int beta, int fpb) {
 }
 
 // out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the instantiation
-// that runs (k, beta): the wide kernel for every code past the fast
-// mappings. Returns 0 or the CUDA error.
+// that runs (k, beta) off a cluster: the one-block kernel for a large code,
+// the wide kernel for every code past them. Returns 0 or the CUDA error.
 int viterbi_fwd_func_attrs(int k, int beta, int* out) {
   if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 || beta > VIT_WIDE_MAX_BETA)
     return (int)cudaErrorInvalidValue;
   if (vit_wide_code(k, beta))
     return vit_func_attrs(
         reinterpret_cast<const void*>(viterbi_fwd_wide_kernel), out);
-  if (k >= VIT_SMEM_MIN_K) return vit_dispatch_smem<Attrs>(k, beta, out);
+  if (k >= VIT_SMEM_MIN_K) return vit_dispatch_block<AttrsBlock>(k, out);
   return vit_dispatch<Attrs>(k, beta, out);
+}
+
+// *out = the blocks of the one-block kernel that runs a k code the card
+// keeps resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// and out = its {numRegs, localSizeBytes, maxThreadsPerBlock}. Return 0 or
+// the CUDA error.
+int viterbi_fwd_block_occupancy(int k, int* out) {
+  if (!vit_block_ok(k)) return (int)cudaErrorInvalidValue;
+  return vit_dispatch_block<LaunchBlock>(k, k, out);
+}
+int viterbi_fwd_block_attrs(int k, int* out) {
+  if (!vit_block_ok(k)) return (int)cudaErrorInvalidValue;
+  return vit_dispatch_block<AttrsBlock>(k, out);
 }
 
 // *out = the clusters of C blocks of the cluster kernel that runs (k,
@@ -424,15 +424,19 @@ int viterbi_fwd_cluster_attrs(int k, int beta, int C, int* out) {
 // code with wide != 0, which the wrapper passes only to test the mapping)
 // takes `grid` blocks and, past k = 15, the path metrics in pm_global
 // (grid of [2][S] float32); with cluster > 1 it runs on `grid` clusters of
-// that many blocks instead (no pm_global); the other mappings take fpb
-// frames a block.
+// that many blocks instead (no pm_global). The large codes (or any code the
+// one-block form takes, with block != 0, which the wrapper passes only to
+// test it) take `grid` blocks of one frame at a time. The register mapping
+// takes fpb frames a block.
 int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
                        const void* signs_half, const void* polys, void* sel,
                        void* amax, void* pm_global, int F, int L, int beta,
                        int k, int llr_dtype, int pack, int sublane,
                        int bf16_bm, int fpb, int wide, int grid, int cluster,
-                       void* stream) {
+                       int block, void* stream) {
+  if (block && (wide || cluster > 1)) return (int)cudaErrorInvalidValue;
   wide = wide || cluster > 1 || vit_wide_code(k, beta);
+  block = block || (!wide && k >= VIT_SMEM_MIN_K);
   if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 ||
       beta > VIT_WIDE_MAX_BETA || F < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
@@ -441,7 +445,9 @@ int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
                               pm_global != nullptr)
                            : (pm_global == nullptr) ==
                                  !vit_wide_pm_on_chip(k)))
-           : (fpb < 1 || fpb > vit_max_frames_per_block(k)))
+      : block ? (!vit_block_ok(k) || beta > VIT_MAX_BETA ||
+                 polys == nullptr || grid < 1 || pm_global != nullptr)
+              : (fpb < 1 || fpb > vit_max_frames_per_block(k)))
     return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.llr = llr;
@@ -466,9 +472,9 @@ int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
         k, beta, cluster, &p, cluster, grid,
         static_cast<cudaStream_t>(stream));
   if (wide) return launch_wide(&p, grid, static_cast<cudaStream_t>(stream));
-  if (k >= VIT_SMEM_MIN_K)
-    return vit_dispatch_smem<LaunchSmem>(k, beta, &p,
-                                         static_cast<cudaStream_t>(stream));
+  if (block)
+    return vit_dispatch_block<LaunchBlock>(k, &p, grid,
+                                           static_cast<cudaStream_t>(stream));
   return vit_dispatch<Launch>(k, beta, &p, static_cast<cudaStream_t>(stream));
 }
 

@@ -29,13 +29,16 @@
 // eight warps; a block is only a unit of scheduling. The kernel inlines
 // one loop per bm_dtype, so the f32 loop carries no bf16 rounding.
 //
-// Codes 12 <= k <= 15 run acs.cuh's large-code mapping instead, in a
-// kernel of their own (viterbi_unified_smem_kernel): one block of 1024
-// threads a frame, path metrics in shared memory, one __syncthreads a
-// stage. The block keeps the frame's survivors in shared memory beside the
-// path metrics while they fit (packed at L=321: 82 KB at k=12, 164 KB at
-// k=13) and in the device-memory scratch below otherwise: the kernel picks
-// by shape. Phase 3 runs the frame's nsub cursors on the block's threads.
+// Codes 12 <= k <= 15 (beta <= 8) run the one-block form of acs.cuh's
+// VitCluster instead, in a kernel of their own
+// (viterbi_unified_block_kernel, one instantiation per butterflies a thread
+// NB): one frame a block of vit_block_threads(k) threads, path metrics in
+// shared memory, one __syncthreads a stage; the grid is the blocks the card
+// keeps resident, each taking frames in turn. The block keeps the frame's
+// survivors and starts in shared memory beside the path metrics or in a
+// device-memory scratch of its own, as the wrapper asks (the planner's
+// autotune.block_survivors_on_chip). Phase 3 runs the frame's nsub cursors
+// on the block's threads.
 //
 // Every other code (k >= 16, or beta > 8) runs acs.cuh's wide mapping, in
 // a third kernel (viterbi_unified_wide_kernel): one block a frame, k and
@@ -215,110 +218,6 @@ __global__ void __launch_bounds__(VIT_BLOCK_THREADS)
   }
 }
 
-// ---- large codes (12 <= k <= 15): one frame a block, acs.cuh's VitBlock --
-
-// Shared-memory carve-up of one large-code block: the mapping's path
-// metrics, tables and partials (vit_smem_core_bytes), the traceback starts
-// [nsub] int32 (none for start=fixed or with the scratch) padded to 16
-// bytes, then the survivors [L][row] (none with the scratch).
-__host__ __device__ inline SmemLayout smem_layout_smem(int k, int L,
-                                                       int nsub, int pack,
-                                                       int start_fixed,
-                                                       int global) {
-  const long long row = pack ? (1LL << (k - 1)) / 8 : 1LL << (k - 1);
-  SmemLayout s;
-  s.am = vit_smem_core_bytes(k);
-  s.sel = s.am + (global || start_fixed ? 0
-                                        : ((long long)nsub * 4 + 15) & ~15LL);
-  s.total = s.sel + (global ? 0 : (long long)L * row);
-  return s;
-}
-
-// What the large-code kernel keeps of each stage: the survivors (packed:
-// lane 0 of each warp stores its ballot word 32 r + warp; else every
-// thread its states' bytes), in shared memory or the scratch, and the
-// first maximal state of each traceback start stage.
-struct UnifiedSmemStore {
-  uint32_t ssel;            // the frame's [L][row] (shared address)
-  unsigned char* gsel;      // or its scratch
-  int* am;                  // its [nsub] starts
-  long long row;
-  int pack, global, f0, e_first, next_e;
-  __device__ __forceinline__ bool wants_argmax(int t) {
-    if (t != next_e) return false;
-    next_e += f0;
-    return true;
-  }
-  __device__ __forceinline__ void argmax(int t, int a) {
-    if ((threadIdx.x & 31) == 0) am[(t - e_first) / f0] = a;
-  }
-  __device__ __forceinline__ void state(int t, int r, int s, bool sel,
-                                        unsigned word) {
-    const bool lead = (threadIdx.x & 31) == 0;
-    if (pack) {
-      const int wi = 32 * r + (threadIdx.x >> 5);
-      if (global) {
-        if (lead) reinterpret_cast<uint32_t*>(gsel + t * row)[wi] = word;
-      } else {
-        vit_sts_u32_if(lead, ssel + (uint32_t)(t * row) + 4 * wi, word);
-      }
-    } else if (global) {
-      gsel[t * row + s] = (unsigned char)sel;
-    } else {
-      vit_sts_u8(ssel + (uint32_t)(t * row) + s, (unsigned)sel);
-    }
-  }
-};
-
-template <int R, int BETA>
-__global__ void __launch_bounds__(VIT_SMEM_THREADS)
-    viterbi_unified_smem_kernel(const UnifiedParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long frame = blockIdx.x;
-  const int S = 1 << (p.k - 1);
-  const int global = p.sel_global != nullptr;
-  const SmemLayout lay =
-      smem_layout_smem(p.k, p.L, p.nsub, p.pack, p.start_fixed, global);
-  const long long row = p.pack ? S / 8 : S;
-  unsigned char* sel =
-      global ? p.sel_global + frame * p.L * row : smem + lay.sel;
-  int* am = global ? p.amax_global + frame * p.nsub
-                   : reinterpret_cast<int*>(smem + lay.am);
-  VitBlock<R, BETA> b;
-  b.init(p.k, p.idx, p.sgn, smem);
-  const int e_first = p.v1 + p.f0 - 1 + p.v2s;
-  UnifiedSmemStore st{
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem + lay.sel)), sel,
-      am, row, p.pack, global, p.f0, e_first,
-      p.start_fixed ? 0x7fffffff : e_first};
-  const long long base = frame * p.L * BETA;
-  if (p.bf16_bm)          // one inlined loop per bm_dtype
-    vit_block_recursion(b, p.llr, p.llr_dtype, true, base, p.L, st);
-  else
-    vit_block_recursion(b, p.llr, p.llr_dtype, false, base, p.L, st);
-  __syncthreads();        // the survivors and the starts, visible
-
-  // ---- phase 3: the frame's nsub cursors, one per thread --------------------
-  const int kshift = p.k - 2;
-  const int T = p.f0 + p.v2s;
-  for (int q = threadIdx.x; q < p.nsub; q += blockDim.x) {
-    int state = p.start_fixed ? 0 : am[q];
-    const int e2 = p.v1 + (q + 1) * p.f0 - 1 + p.v2s;
-    int* o = p.out + frame * p.f + (long long)q * p.f0;
-    for (int r = 0; r < T; ++r) {
-      const long long ts = e2 - r;
-      if (r >= p.v2s) o[p.f0 - 1 - (r - p.v2s)] = state >> kshift;
-      int bit;
-      if (p.pack)
-        bit = (reinterpret_cast<const uint32_t*>(sel + ts * row)[state >> 5] >>
-               (state & 31)) & 1;
-      else
-        bit = sel[ts * row + state];
-      state = ((state << 1) & (S - 1)) | bit;
-    }
-  }
-}
-
 // ---- every other code: one frame a block, acs.cuh's VitWide -------------
 
 // What the wide kernel keeps of each stage: the survivors in the block's
@@ -478,6 +377,114 @@ struct AttrsCluster {
   }
 };
 
+// ---- 12 <= k <= 15: one frame a block, acs.cuh's VitCluster on one block --
+
+// Shared-memory carve-up of one block of the one-block form: the
+// recursion's core and path metrics (vit_block_smem_bytes), the traceback
+// starts [nsub] int32 (none for start=fixed or with the scratch) padded to
+// 16 bytes, then the survivors [L][row] (none with the scratch).
+__host__ __device__ inline SmemLayout smem_layout_block(int k, int L,
+                                                        int nsub, int pack,
+                                                        int start_fixed,
+                                                        int global) {
+  const long long row = pack ? (1LL << (k - 1)) / 8 : 1LL << (k - 1);
+  SmemLayout s;
+  s.am = vit_block_smem_bytes(k);
+  s.sel = s.am + (global || start_fixed ? 0
+                                        : ((long long)nsub * 4 + 15) & ~15LL);
+  s.total = s.sel + (global ? 0 : (long long)L * row);
+  return s;
+}
+
+// The cluster kernel's work on one block: survivors and starts in the
+// block's shared memory after the recursion's (sel_global null) or in its
+// device-memory scratch, stored as the wide kernel stores them; phase 3's
+// nsub cursors on the block's threads, after the recursion's closing
+// barrier. A block decodes frames blockIdx.x, + gridDim.x, ....
+template <int NB>
+__global__ void __launch_bounds__(VIT_CLUSTER_THREADS)
+    viterbi_unified_block_kernel(const UnifiedParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = 1 << (p.k - 1);
+  const long long row = p.pack ? S / 8 : S;
+  const int global = p.sel_global != nullptr;
+  const SmemLayout lay =
+      smem_layout_block(p.k, p.L, p.nsub, p.pack, p.start_fixed, global);
+  const long long b = blockIdx.x;
+  unsigned char* sel = global ? p.sel_global + b * p.L * row : smem + lay.sel;
+  int* am = global ? p.amax_global + b * p.nsub
+                   : reinterpret_cast<int*>(smem + lay.am);
+  VitCluster<NB, true, false> v;
+  v.init(p.k, p.beta, p.polys, smem);
+  const int e_first = p.v1 + p.f0 - 1 + p.v2s;
+  const int kshift = p.k - 2;
+  const int T = p.f0 + p.v2s;
+  for (long long frame = blockIdx.x; frame < p.F; frame += gridDim.x) {
+    UnifiedWideStore st{sel, am, row, S >> 1, p.pack, p.f0, e_first,
+                        p.start_fixed ? 0x7fffffff : e_first};
+    const long long base = frame * p.L * p.beta;
+    vit_cluster_run(v, p.llr, p.llr_dtype, p.bf16_bm != 0, base, p.L, st);
+
+    // ---- phase 3: the frame's nsub cursors, one per thread ----------------
+    for (int q = threadIdx.x; q < p.nsub; q += blockDim.x) {
+      int state = p.start_fixed ? 0 : am[q];
+      const int e2 = p.v1 + (q + 1) * p.f0 - 1 + p.v2s;
+      int* o = p.out + frame * p.f + (long long)q * p.f0;
+      for (int r = 0; r < T; ++r) {
+        const long long ts = e2 - r;
+        if (r >= p.v2s) o[p.f0 - 1 - (r - p.v2s)] = state >> kshift;
+        int bit;
+        if (p.pack)
+          bit = (reinterpret_cast<const uint32_t*>(sel + ts * row)
+                     [state >> 5] >> (state & 31)) & 1;
+        else
+          bit = sel[ts * row + state];
+        state = ((state << 1) & (S - 1)) | bit;
+      }
+    }
+    // the next frame's recursion opens with a block barrier: the
+    // survivors are read before they are written again
+  }
+}
+
+// Sets the one-block kernel's dynamic shared memory.
+template <int NB>
+inline cudaError_t block_smem_attr(long long smem) {
+  return cudaFuncSetAttribute(viterbi_unified_block_kernel<NB>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+struct LaunchBlock {
+  template <int NB>
+  static int run_block(const UnifiedParams* p, long long smem, int grid,
+                       cudaStream_t stream) {
+    const cudaError_t err = block_smem_attr<NB>(smem);
+    if (err != cudaSuccess) return (int)err;
+    viterbi_unified_block_kernel<NB>
+        <<<grid, vit_block_threads(p->k), (size_t)smem, stream>>>(*p);
+    return (int)cudaGetLastError();
+  }
+  template <int NB>
+  static int run_block(int k, long long smem, int* out) {
+    cudaError_t err = block_smem_attr<NB>(smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          out, viterbi_unified_block_kernel<NB>, vit_block_threads(k),
+          (size_t)smem);
+    if (err != cudaSuccess) (void)cudaGetLastError();
+    return (int)err;
+  }
+};
+
+struct AttrsBlock {
+  template <int NB>
+  static int run_block(int* out) {
+    return vit_func_attrs(
+        reinterpret_cast<const void*>(viterbi_unified_block_kernel<NB>), out);
+  }
+};
+
 // Threads of a block of fpb frames: whole warps of 32 / P frames each.
 inline int block_threads(int k, int fpb) {
   const int fpw = 32 / vit_lanes_per_frame(k);
@@ -501,33 +508,11 @@ struct Launch {
   }
 };
 
-struct LaunchSmem {
-  template <int R, int BETA>
-  static int run_smem(const UnifiedParams* p, long long smem,
-                      cudaStream_t stream) {
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          viterbi_unified_smem_kernel<R, BETA>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    viterbi_unified_smem_kernel<R, BETA>
-        <<<p->F, VIT_SMEM_THREADS, (size_t)smem, stream>>>(*p);
-    return (int)cudaGetLastError();
-  }
-};
-
 struct Attrs {
   template <int R, int BETA>
   static int run(int* out) {
     return vit_func_attrs(
         reinterpret_cast<const void*>(viterbi_unified_kernel<R, BETA>), out);
-  }
-  template <int R, int BETA>
-  static int run_smem(int* out) {
-    return vit_func_attrs(
-        reinterpret_cast<const void*>(viterbi_unified_smem_kernel<R, BETA>),
-        out);
   }
 };
 
@@ -546,13 +531,13 @@ inline int launch_wide(const UnifiedParams* p, int grid,
   return (int)cudaGetLastError();
 }
 
-// Shared memory of one block for any mapping (wide: the mapping's own;
-// its survivors are always in the scratch).
+// Shared memory of one block for any mapping off a cluster (wide: the
+// mapping's own; its survivors are always in the scratch).
 inline long long unified_smem(int k, int beta, int L, int nsub, int pack,
                               int start_fixed, int fpb, int global) {
   if (vit_wide_code(k, beta)) return vit_wide_smem_bytes(k);
   if (k >= VIT_SMEM_MIN_K)
-    return smem_layout_smem(k, L, nsub, pack, start_fixed, global).total;
+    return smem_layout_block(k, L, nsub, pack, start_fixed, global).total;
   return smem_layout(k, L, nsub, pack, start_fixed, fpb, global).total;
 }
 
@@ -562,7 +547,7 @@ extern "C" {
 
 // Dynamic shared memory of one block of fpb frames (global_scratch != 0:
 // survivors and traceback starts live in device memory instead; the wide
-// mapping's always do).
+// mapping's always do; a large code's block is one frame).
 long long viterbi_unified_smem_bytes(int k, int beta, int L, int nsub,
                                      int pack, int start_fixed, int fpb,
                                      int global_scratch) {
@@ -587,6 +572,37 @@ long long viterbi_cluster_smem_bytes(int k, int C) {
   return vit_cluster_ok(k, C) ? vit_cluster_smem_bytes(k, C) : -1;
 }
 
+// Threads of a one-block frame of a k code (the large codes' mapping), and
+// the dynamic shared memory of a block with its survivors in shared memory
+// (global_scratch 0) or in the scratch; -1 where the form does not take k.
+int viterbi_block_threads(int k) {
+  return vit_block_ok(k) ? vit_block_threads(k) : -1;
+}
+long long viterbi_unified_block_smem_bytes(int k, int L, int nsub, int pack,
+                                           int start_fixed,
+                                           int global_scratch) {
+  return vit_block_ok(k) ? smem_layout_block(k, L, nsub, pack, start_fixed,
+                                             global_scratch)
+                               .total
+                         : -1;
+}
+
+// *out = the blocks of `smem` bytes of the one-block kernel that runs a k
+// code the card keeps resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns 0 or the CUDA
+// error.
+int viterbi_unified_block_occupancy(int k, long long smem, int* out) {
+  if (!vit_block_ok(k)) return (int)cudaErrorInvalidValue;
+  return vit_dispatch_block<LaunchBlock>(k, k, smem, out);
+}
+
+// out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the one-block
+// kernel that runs a k code. Returns 0 or the CUDA error.
+int viterbi_unified_block_attrs(int k, int* out) {
+  if (!vit_block_ok(k)) return (int)cudaErrorInvalidValue;
+  return vit_dispatch_block<AttrsBlock>(k, out);
+}
+
 // *out = the clusters of C blocks of the cluster kernel that runs (k,
 // beta) the card keeps resident at once (cudaOccupancyMaxActiveClusters).
 // Returns 0 or the CUDA error.
@@ -605,15 +621,15 @@ int viterbi_unified_cluster_attrs(int k, int beta, int C, int* out) {
 }
 
 // out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the instantiation
-// that runs (k, beta): the wide kernel for every code past the fast
-// mappings. Returns 0 or the CUDA error.
+// that runs (k, beta) off a cluster: the one-block kernel for a large code,
+// the wide kernel for every code past them. Returns 0 or the CUDA error.
 int viterbi_unified_func_attrs(int k, int beta, int* out) {
   if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 || beta > VIT_WIDE_MAX_BETA)
     return (int)cudaErrorInvalidValue;
   if (vit_wide_code(k, beta))
     return vit_func_attrs(
         reinterpret_cast<const void*>(viterbi_unified_wide_kernel), out);
-  if (k >= VIT_SMEM_MIN_K) return vit_dispatch_smem<Attrs>(k, beta, out);
+  if (k >= VIT_SMEM_MIN_K) return vit_dispatch_block<AttrsBlock>(k, out);
   return vit_dispatch<Attrs>(k, beta, out);
 }
 
@@ -643,16 +659,22 @@ int viterbi_device_limits(int device, int* out) {
 // takes `grid` blocks, survivors and starts in the scratch (grid of [L][row]
 // bytes and of [nsub] int32) and, past k = 15, the path metrics in pm_global
 // (grid of [2][S] float32); with cluster > 1 it runs on `grid` clusters of
-// that many blocks instead (the scratch per cluster, no pm_global); the
-// other mappings take fpb frames a block.
+// that many blocks instead (the scratch per cluster, no pm_global). The
+// large codes (or any code the one-block form takes, with block != 0, which
+// the wrapper passes only to test it) take `grid` blocks of one frame at a
+// time, survivors and starts in shared memory or, with sel_global, in the
+// scratch (grid of each). The register mapping takes fpb frames a block.
 int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
                            const void* signs_half, const void* polys,
                            void* out, void* sel_global, void* amax_global,
                            void* pm_global, int F, int L, int beta, int k,
                            int v1, int f, int f0, int v2s, int llr_dtype,
                            int start_fixed, int pack, int bf16_bm, int fpb,
-                           int wide, int grid, int cluster, void* stream) {
+                           int wide, int grid, int cluster, int block,
+                           void* stream) {
+  if (block && (wide || cluster > 1)) return (int)cudaErrorInvalidValue;
   wide = wide || cluster > 1 || vit_wide_code(k, beta);
+  block = block || (!wide && k >= VIT_SMEM_MIN_K);
   if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 ||
       beta > VIT_WIDE_MAX_BETA || f0 < 1 || f % f0 != 0 || F < 1 ||
       (sel_global == nullptr) != (amax_global == nullptr))
@@ -662,7 +684,9 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
                               pm_global != nullptr)
                            : (pm_global == nullptr) ==
                                  !vit_wide_pm_on_chip(k)))
-           : (fpb < 1 || fpb > vit_max_frames_per_block(k)))
+      : block ? (!vit_block_ok(k) || beta > VIT_MAX_BETA ||
+                 polys == nullptr || grid < 1 || pm_global != nullptr)
+              : (fpb < 1 || fpb > vit_max_frames_per_block(k)))
     return (int)cudaErrorInvalidValue;
   UnifiedParams p;
   p.llr = llr;
@@ -694,11 +718,15 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
         static_cast<cudaStream_t>(stream));
   if (wide)
     return launch_wide(&p, grid, static_cast<cudaStream_t>(stream));
+  if (block)
+    return vit_dispatch_block<LaunchBlock>(
+        k, &p,
+        smem_layout_block(k, L, p.nsub, pack, start_fixed,
+                          sel_global != nullptr)
+            .total,
+        grid, static_cast<cudaStream_t>(stream));
   const long long smem = unified_smem(k, beta, L, p.nsub, pack, start_fixed,
                                       fpb, sel_global != nullptr);
-  if (k >= VIT_SMEM_MIN_K)
-    return vit_dispatch_smem<LaunchSmem>(k, beta, &p, smem,
-                                         static_cast<cudaStream_t>(stream));
   return vit_dispatch<Launch>(k, beta, &p, smem,
                               static_cast<cudaStream_t>(stream));
 }

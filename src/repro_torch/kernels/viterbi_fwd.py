@@ -34,8 +34,9 @@ import torch
 
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
-from .autotune import (max_frames_per_block, wide_cluster, wide_grid,
-                       wide_mapping, wide_pm_on_chip)
+from .autotune import (block_grid, max_frames_per_block, smem_mapping,
+                       wide_cluster, wide_grid, wide_mapping,
+                       wide_pm_on_chip)
 from .build import build
 from .packing import Layout, pack_bits, packed_width
 from .viterbi_unified import (_LLR_DTYPES, _check_cluster, device_polys,
@@ -53,7 +54,7 @@ def kernel_library():
     lib = built.lib
     if not getattr(lib, "_argtypes_set", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.viterbi_fwd_launch.argtypes = [vp] * 8 + [i] * 12 + [vp]
+        lib.viterbi_fwd_launch.argtypes = [vp] * 8 + [i] * 13 + [vp]
         lib.viterbi_fwd_launch.restype = i
         lib.viterbi_fwd_smem_bytes.argtypes = [i, i, i]
         lib.viterbi_fwd_smem_bytes.restype = ctypes.c_longlong
@@ -63,6 +64,10 @@ def kernel_library():
         lib.viterbi_fwd_max_clusters.restype = i
         lib.viterbi_fwd_cluster_attrs.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.viterbi_fwd_cluster_attrs.restype = i
+        lib.viterbi_fwd_block_occupancy.argtypes = [i, ctypes.POINTER(i)]
+        lib.viterbi_fwd_block_occupancy.restype = i
+        lib.viterbi_fwd_block_attrs.argtypes = [i, ctypes.POINTER(i)]
+        lib.viterbi_fwd_block_attrs.restype = i
         lib._argtypes_set = True
     return built
 
@@ -103,22 +108,26 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
                         frames_per_tile: int = 8,
                         pack_survivors: bool = False, radix: int = 2,
                         layout: str = "lane", bm_dtype: str = "float32",
-                        _wide: bool = False, _cluster: int | None = None):
+                        _wide: bool = False, _cluster: int | None = None,
+                        _block: bool = False):
     """Launch the CUDA kernel on ``frames`` (a contiguous CUDA tensor of
     float32, bfloat16 or float16); raises on anything else or if the build
     or the launch fails. A block holds at most ``frames_per_tile`` and at
-    most ``autotune.max_frames_per_block`` frames; a code outside the fast
-    mappings' domain runs the wide mapping (one frame a block, the grid
-    the blocks resident at once, past k = 15 each block's path metrics in
-    a device-memory scratch; at 16 <= k <= 19 a cluster of 2^(k-15) blocks
-    a frame, path metrics in the cluster's shared memory, where the card
+    most ``autotune.max_frames_per_block`` frames; a large code (12 <= k <=
+    15, beta <= 8) runs one frame a block at a time on the blocks resident
+    at once (``autotune.block_grid``); a code outside the fast mappings'
+    domain runs the wide mapping (one frame a block, the grid the blocks
+    resident at once, past k = 15 each block's path metrics in a
+    device-memory scratch; at 16 <= k <= 19 a cluster of 2^(k-15) blocks a
+    frame, path metrics in the cluster's shared memory, where the card
     holds one). ``radix`` is checked as in JAX but has no effect on the
     card: every stage is one exact radix-2 step, and the outputs are the
-    same for both. ``_wide`` runs any code on the wide mapping, and
-    ``_cluster=C`` on a cluster of C blocks (1: on none), for the tests
-    that hold them against the other mappings."""
+    same for both. ``_wide`` runs any code on the wide mapping,
+    ``_cluster=C`` on a cluster of C blocks (1: on none), and ``_block`` on
+    the one-block form (7 <= k <= 15, beta <= 8), for the tests that hold
+    them against the other mappings."""
     lay = _check(frames, trellis, frames_per_tile, radix, layout, bm_dtype)
-    _check_cluster(_cluster)
+    _check_cluster(_cluster, _wide, _block)
     if not frames.is_cuda:
         raise ValueError(f"frames must lie on a CUDA device, got "
                          f"{frames.device}")
@@ -144,12 +153,15 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
         return sel, amax
     lib = kernel_library().lib
     wide = _wide or bool(_cluster) or wide_mapping(trellis)
+    block = not wide and (_block or smem_mapping(trellis))
     pm, C = None, 1
     if wide:
         C = _cluster or wide_cluster(trellis, dev, unified=False)
         fpb, grid = 1, wide_grid(trellis, F, dev, unified=False, cluster=C)
         if C == 1 and not wide_pm_on_chip(trellis):
             pm = torch.empty((grid, 2, S), dtype=torch.float32, device=dev)
+    elif block:
+        fpb, grid = 1, block_grid(trellis, F, dev, unified=False)
     else:
         fpb, grid = min(frames_per_tile, max_frames_per_block(trellis), F), 0
     idx, sgn, signs_half = device_tables(trellis, dev)
@@ -162,7 +174,7 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
             amax.data_ptr(), pm.data_ptr() if pm is not None else None,
             F, L, beta, k, _LLR_DTYPES[frames.dtype], int(pack_survivors),
             int(sub), int(bm_dtype == "bfloat16"), fpb, int(wide), grid, C,
-            stream)
+            int(block), stream)
     if err != 0:
         raise RuntimeError(f"viterbi_fwd launch failed: CUDA error {err}")
     forward_frames_cuda.launches += 1

@@ -25,9 +25,13 @@ frame count must be a multiple of it, as in the JAX kernel) and the most
 frames one thread block decodes. The kernel runs one warp per frame (a
 segment of S lanes for S < 32), at most eight warps a block, so a block
 holds at most ``autotune.max_frames_per_block`` frames, and fewer when
-their survivors would overflow shared memory. Codes 12 <= k <= 15 run one
-frame on a block of 1024 threads, path metrics in shared memory
-(``acs.cuh``'s large-code mapping). Every other code the plain version
+their survivors would overflow shared memory. Codes 12 <= k <= 15 (beta <=
+8) run one frame on a block of ``autotune.large_threads`` threads, path
+metrics in shared memory (``acs.cuh``'s ``VitCluster`` on one block): the
+grid is the blocks resident at once (``autotune.block_grid``), each taking
+frames in turn, the survivors in shared memory or in a device-memory
+scratch per block as ``autotune.block_survivors_on_chip`` says. Every
+other code the plain version
 takes (k > ``autotune.MAX_K`` = 15 or beta > ``MAX_BETA`` = 8) runs the
 wide mapping (``acs.cuh``'s ``VitWide``): one frame a block, k and beta at
 run time, survivors and traceback starts in a device-memory scratch of
@@ -48,9 +52,11 @@ import ctypes
 import numpy as np
 import torch
 
+from ..core.framed import FrameSpec
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
-from .autotune import (device_limits, max_frames_per_block, wide_cluster,
+from .autotune import (block_grid, block_survivors_on_chip, device_limits,
+                       max_frames_per_block, smem_mapping, wide_cluster,
                        wide_grid, wide_mapping, wide_pm_on_chip)
 from .build import build
 from .packing import Layout, extract_bit, pack_bits, packed_width
@@ -70,7 +76,7 @@ def kernel_library():
     lib = built.lib
     if not getattr(lib, "_argtypes_set", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.viterbi_unified_launch.argtypes = [vp] * 9 + [i] * 16 + [vp]
+        lib.viterbi_unified_launch.argtypes = [vp] * 9 + [i] * 17 + [vp]
         lib.viterbi_unified_launch.restype = i
         lib.viterbi_unified_smem_bytes.argtypes = [i] * 8
         lib.viterbi_unified_smem_bytes.restype = ctypes.c_longlong
@@ -94,6 +100,15 @@ def kernel_library():
         lib.viterbi_unified_cluster_attrs.argtypes = [i, i, i,
                                                       ctypes.POINTER(i)]
         lib.viterbi_unified_cluster_attrs.restype = i
+        lib.viterbi_block_threads.argtypes = [i]
+        lib.viterbi_block_threads.restype = i
+        lib.viterbi_unified_block_smem_bytes.argtypes = [i] * 6
+        lib.viterbi_unified_block_smem_bytes.restype = ctypes.c_longlong
+        lib.viterbi_unified_block_occupancy.argtypes = [
+            i, ctypes.c_longlong, ctypes.POINTER(i)]
+        lib.viterbi_unified_block_occupancy.restype = i
+        lib.viterbi_unified_block_attrs.argtypes = [i, ctypes.POINTER(i)]
+        lib.viterbi_unified_block_attrs.restype = i
         lib._argtypes_set = True
     return built
 
@@ -122,13 +137,17 @@ def device_polys(trellis: Trellis, device: torch.device) -> torch.Tensor:
     return _tables[key]
 
 
-def _check_cluster(cluster):
-    """The private cluster override: None (the planner's), 1 (the wide
-    mapping off a cluster) or a power of two (the kernel and the card
-    decide whether they take it)."""
+def _check_cluster(cluster, wide=False, block=False):
+    """The private mapping overrides: ``_cluster`` None (the planner's), 1
+    (the wide mapping off a cluster) or a power of two (the kernel and the
+    card decide whether they take it); ``_block`` (the one-block form) with
+    neither ``_wide`` nor ``_cluster``."""
     if cluster is not None and (int(cluster) < 1
                                 or int(cluster) & (int(cluster) - 1)):
         raise ValueError(f"_cluster must be a power of two, got {cluster}")
+    if block and (wide or cluster is not None):
+        raise ValueError("_block forces the one-block form: it takes "
+                         "neither _wide nor _cluster")
 
 
 def _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
@@ -185,17 +204,19 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
                                layout: str = "lane",
                                bm_dtype: str = "float32",
                                _wide: bool = False,
-                               _cluster: int | None = None) -> torch.Tensor:
+                               _cluster: int | None = None,
+                               _block: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel on ``frames`` (a contiguous CUDA tensor of
     float32, bfloat16 or float16); raises on anything else or if the build
     or the launch fails. ``radix`` and ``layout`` are checked as in JAX but
     have no effect on the card: every stage is one exact radix-2 step, and
     the bits are the same for both. ``_wide`` runs any code on the wide
-    mapping, and ``_cluster=C`` on a cluster of C blocks (1: on none),
-    for the tests that hold them against the other mappings."""
+    mapping, ``_cluster=C`` on a cluster of C blocks (1: on none), and
+    ``_block`` on the one-block form (7 <= k <= 15, beta <= 8), for the
+    tests that hold them against the other mappings."""
     _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
            radix, layout, bm_dtype)
-    _check_cluster(_cluster)
+    _check_cluster(_cluster, _wide, _block)
     if not frames.is_cuda:
         raise ValueError(f"frames must lie on a CUDA device, got "
                          f"{frames.device}")
@@ -216,6 +237,7 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     fixed = int(start == "fixed")
     row = 4 * packed_width(S) if pack else S
     wide = _wide or bool(_cluster) or wide_mapping(trellis)
+    block = not wide and (_block or smem_mapping(trellis))
     pm, C = None, 1
     if wide:             # a block's (a cluster's) survivors and starts
         C = _cluster or wide_cluster(trellis, dev)
@@ -223,6 +245,15 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
         fpb, glob = 1, True
         if C == 1 and not wide_pm_on_chip(trellis):
             pm = torch.empty((grid, 2, S), dtype=torch.float32, device=dev)
+    elif block:          # on chip, or a block's survivors and starts
+        spec = FrameSpec(f=f, v1=v1, v2=v2, f0=f0, v2s=v2s, start=start)
+        fpb = 1
+        glob = not block_survivors_on_chip(
+            trellis, spec, pack_survivors=pack_survivors, frames=F,
+            device=dev)
+        grid = nframes = block_grid(
+            trellis, F, dev, smem=lib.viterbi_unified_block_smem_bytes(
+                k, L, nsub, pack, fixed, int(glob)))
     else:
         grid = 0
         limit = device_limits(dev).smem_per_block
@@ -252,7 +283,7 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
             pm.data_ptr() if pm is not None else None,
             F, L, beta, k, v1, f, f0, v2s, _LLR_DTYPES[frames.dtype], fixed,
             pack, int(bm_dtype == "bfloat16"), fpb, int(wide), grid, C,
-            stream)
+            int(block), stream)
     if err != 0:
         raise RuntimeError(f"viterbi_unified launch failed: CUDA error {err}")
     unified_decode_frames_cuda.launches += 1

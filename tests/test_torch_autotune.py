@@ -27,7 +27,8 @@ import torch
 from repro_torch.core.framed import FrameSpec, frame_llr
 from repro_torch.core.trellis import STD_K7, make_trellis
 from repro_torch.kernels import autotune, ops, ref
-from repro_torch.kernels.autotune import (H100_LIMITS, H100_REGISTERS,
+from repro_torch.kernels.autotune import (H100_BLOCKS, H100_LIMITS,
+                                          H100_REGISTERS,
                                           candidate_tiles, measure_plan,
                                           plan_decode, plan_tiles,
                                           split_smem_bytes,
@@ -626,7 +627,7 @@ def test_cuda_rows_belong_to_a_kernel_build(db_path, monkeypatch):
     assert db.stats()["hits"] == 1 and db.stats()["misses"] == 1
 
 
-# ---- codes 12 <= k <= 15: the large-code mapping ---------------------------
+# ---- codes 12 <= k <= 15: the cluster mapping's one-block form ------------
 
 LARGE = [make_trellis(12, (0o4335, 0o5723)), make_trellis(13, (0o10533,
                                                                 0o17661)),
@@ -636,14 +637,17 @@ LARGE = [make_trellis(12, (0o4335, 0o5723)), make_trellis(13, (0o10533,
 
 @pytest.mark.parametrize("tr", LARGE, ids=lambda t: f"k{t.k}")
 def test_large_code_block_is_one_frame(tr):
-    """A large code runs one frame on a block of SMEM_THREADS threads: the
-    thread cap, the candidate tiles and the block's threads say so, and
-    the CPU plans with the large mapping's registers."""
+    """A large code runs one frame on a block of ``large_threads`` threads
+    (256, 128, 256, 512 at k = 12..15: 4, 16, 16, 16 butterflies a
+    thread): the thread cap, the candidate tiles and the block's threads
+    say so, and the CPU plans with the one-block kernels' registers."""
     assert autotune.smem_mapping(tr) and not autotune.smem_mapping(K9)
     assert autotune.max_frames_per_block(tr) == 1
     assert candidate_tiles(tr) == [1]
-    assert autotune.block_threads(tr, 1) == autotune.SMEM_THREADS == 1024
-    for unified, name in ((True, "unified_smem"), (False, "split_smem")):
+    T = {12: 256, 13: 128, 14: 256, 15: 512}[tr.k]
+    assert autotune.block_threads(tr, 1) == autotune.large_threads(tr) == T
+    assert tr.num_states // 2 // T == (4 if tr.k == 12 else 16)
+    for unified, name in ((True, "unified_block"), (False, "split_block")):
         assert autotune.kernel_registers(tr, unified=unified,
                                          **CPU) == H100_REGISTERS[name]
     assert autotune.kernel_registers(K9, **CPU) == H100_REGISTERS["unified"]
@@ -651,45 +655,89 @@ def test_large_code_block_is_one_frame(tr):
 
 @pytest.mark.parametrize("tr", LARGE, ids=lambda t: f"k{t.k}")
 def test_large_code_smem_models(tr):
-    """The large mapping's shared memory, term for term: two path-metric
-    buffers of S float32, the tables and warp partials (1536 bytes), then
-    the unified block's starts and survivors; the forward block keeps
-    only the first two."""
+    """The one-block form's shared memory, term for term: two path-metric
+    buffers of S float32, the tables and one block's partials (9344
+    bytes), then the unified block's starts and survivors when they sit
+    on chip; the forward block keeps only the first two."""
     S, L = tr.num_states, SPEC.frame_len
+    core = autotune.BLOCK_CORE_BYTES
+    assert core == 9344
     total, bd = unified_smem_bytes(tr, SPEC, 1, pack_survivors=True)
-    assert dict(bd) == {"path_metrics": 8 * S, "tables_and_partials": 1536,
+    assert dict(bd) == {"path_metrics": 8 * S, "tables_and_partials": core,
                         "traceback_starts": 32,
                         "sel_survivors": L * S // 8}
-    assert total == 8 * S + 1536 + 32 + L * S // 8
+    assert total == 8 * S + core + 32 + L * S // 8
     scratch, bd = unified_smem_bytes(tr, SPEC, 1, pack_survivors=True,
                                      scratch=True)
-    assert scratch == 8 * S + 1536 and dict(bd)["sel_survivors"] == 0
+    assert scratch == 8 * S + core and dict(bd)["sel_survivors"] == 0
     split, bd = split_smem_bytes(tr, SPEC, 1)
-    assert split == 8 * S + 1536 and [n for n, _ in bd] == [
+    assert split == 8 * S + core and [n for n, _ in bd] == [
         "path_metrics", "tables_and_partials"]
 
 
 def test_large_code_plans_fit_one_frame_per_sm():
-    """plan_tiles gives every large code a plan that fits: one frame a
-    block, one block an SM (1024 threads at the registers the CPU plans
-    with). K=12 and K=13 keep their packed survivors on chip (100128 and
-    198688 bytes); K=14 and K=15 cannot, and are planned as the kernel runs
-    them, survivors in the device-memory scratch."""
-    want = {12: 100128, 13: 198688, 14: 65536 * 1 + 1536,
-            15: 131072 + 1536}
+    """plan_tiles gives every large code a plan that fits, one frame a
+    block, ``H100_BLOCKS`` blocks an SM. B1 keeps its packed survivors on
+    chip only where that costs none of the launch's resident frames: for
+    as many frames as the card holds (no ``max_frames``) nowhere, so every
+    block is the recursion's alone (8 S + 9344 bytes); K=12 at 132 and
+    264 frames (two 107936-byte blocks an SM) and K=13 at 132 (one of
+    206496 bytes) on chip, at 1056 not; K=14 and K=15 never (their
+    survivors outgrow a block)."""
+    core = autotune.BLOCK_CORE_BYTES
     for tr in LARGE:
         for unified in (True, False):
+            name = "unified" if unified else "split"
             plan = plan_tiles(tr, SPEC, pack_survivors=True,
                               unified=unified, **CPU)
             assert plan.frames_per_tile == 1 and plan.fits
-            assert plan.frames_per_sm == 1
-            if unified:
-                assert plan.smem_bytes == want[tr.k]
-                assert (dict(plan.breakdown)["sel_survivors"] == 0) == (
-                    tr.k >= 14)
+            assert plan.smem_bytes == 8 * tr.num_states + core
+            assert plan.frames_per_sm == H100_BLOCKS[name][tr.k] >= 1
+    on_chip = {12: ((132, 264), 107936, 2), 13: ((132,), 206496, 1)}
+    for tr in LARGE:
+        for frames in (132, 264, 1056):
+            plan = plan_tiles(tr, SPEC, pack_survivors=True,
+                              max_frames=frames, **CPU)
+            if frames in on_chip.get(tr.k, ((),))[0]:
+                _, smem, per_sm = on_chip[tr.k]
+                assert (plan.smem_bytes, plan.frames_per_sm) == (smem, per_sm)
+                assert dict(plan.breakdown)["sel_survivors"] > 0
             else:
-                assert plan.smem_bytes == 8 * tr.num_states + 1536
+                assert plan.smem_bytes == 8 * tr.num_states + core
+                assert dict(plan.breakdown)["sel_survivors"] == 0
     plan = plan_decode(LARGE[1], SPEC, **CPU)
     assert plan.frames_per_tile == 1 and plan.chunk_frames == 2
     assert plan.tile.fits and plan.tile.registers == H100_REGISTERS[
-        "unified_smem"]
+        "unified_block"]
+
+
+@pytest.mark.parametrize("tr", LARGE, ids=lambda t: f"k{t.k}")
+def test_large_code_grid_is_the_resident_blocks(tr):
+    """block_grid launches at most one block a frame and at most the
+    blocks the card keeps resident (132 SMs x ``H100_BLOCKS``), each
+    taking frames in turn; a block with more shared memory (B1's
+    survivors on chip) holds no more than the SM's shared memory allows,
+    and the survivors go on chip exactly when those blocks still hold the
+    launch's frames."""
+    spec = SPEC
+    for unified, name in ((True, "unified"), (False, "split")):
+        cap = H100_BLOCKS[name][tr.k]
+        assert autotune.block_capacity(tr, "cpu", unified=unified) == cap
+        for frames in (1, 7, 132, 264, 1056, 10_000):
+            assert autotune.block_grid(tr, frames, "cpu",
+                                       unified=unified) == \
+                min(frames, autotune.H100_SMS * cap)
+    on, _ = unified_smem_bytes(tr, spec, 1, pack_survivors=True)
+    limits = H100_LIMITS
+    held = min(H100_BLOCKS["unified"][tr.k],
+               limits.smem_per_sm // (on + limits.smem_reserved_per_block))
+    assert autotune.block_capacity(tr, "cpu", smem=on) == held
+    for frames in (1, 132, 264, 1056):
+        want = (on <= limits.smem_per_block
+                and 132 * held >= min(frames,
+                                      132 * H100_BLOCKS["unified"][tr.k]))
+        assert autotune.block_survivors_on_chip(
+            tr, spec, pack_survivors=True, frames=frames, device="cpu") == want
+    assert not autotune.block_survivors_on_chip(tr, spec,
+                                                pack_survivors=False,
+                                                device="cpu")

@@ -31,10 +31,11 @@ CODES = [(3, (0o7, 0o5)), (4, (0o13, 0o15, 0o17)), (5, (0o23, 0o35)),
          (6, (0o65, 0o57)), (7, (0o171, 0o133)), (9, (0o753, 0o561)),
          (11, (0o3345, 0o3613))]
 K7 = CODES[4]
-#: The large-code mapping (one block of 1024 threads a frame, path metrics
-#: in shared memory): K=12 (R=2), K=13 (R=4), the Galileo (15, 1/4) code
-#: (R=16), K=14 (R=8) and a K=12 rate-1/8 code (beta 8: four warps build
-#: the branch-metric table).
+#: The large codes (the cluster mapping's one-block form: one block a
+#: frame, path metrics in shared memory): K=12 (256 threads of 4
+#: butterflies), K=13 (128 of 16), the Galileo (15, 1/4) code (512 of 16),
+#: K=14 (256 of 16) and a K=12 rate-1/8 code (a 256-entry butterfly table
+#: a stage).
 LARGE_CODES = [(12, (0o4335, 0o5723)), (13, (0o10533, 0o17661)),
                (15, (0o46321, 0o51271, 0o63667, 0o70535)),
                (14, (0o21645, 0o35661)),
@@ -221,11 +222,45 @@ def test_split_path_goes_through_both_kernels(cuda):
 def test_smem_models_equal_kernel_carve_up(cuda, code):
     """autotune's shared-memory models are the kernels' own numbers: the
     block of every mapping, and for 16 <= k <= 19 both the wide mapping's
-    block off a cluster and a block of the cluster the card holds."""
+    block off a cluster and a block of the cluster the card holds; for a
+    large code the one-block form's threads, its block with the survivors
+    on chip and in the scratch, and the blocks an SM holds of each (the
+    card's occupancy query against the planner's model of threads, block
+    slots, shared memory and the kernel's registers, and on an H100
+    against ``H100_BLOCKS``)."""
     tr = make_trellis(*code)
     ulib, flib = vu.kernel_library().lib, vf.kernel_library().lib
     C = autotune.wide_cluster(tr, "cuda") if autotune.wide_mapping(tr) else 1
     assert ulib.viterbi_cluster_size(tr.k) == autotune.cluster_size(tr)
+    if autotune.smem_mapping(tr):
+        T = autotune.large_threads(tr)
+        assert ulib.viterbi_block_threads(tr.k) == T == \
+            autotune.block_threads(tr, 1)
+        limits = autotune.device_limits("cuda")
+        h100 = "H100" in torch.cuda.get_device_name(0)
+        for unified in (True, False):
+            regs = autotune.kernel_registers(tr, unified=unified,
+                                             device="cuda")
+            core = autotune.split_smem_bytes(tr, FrameSpec(), 1)[0]
+            got = autotune.block_capacity(tr, "cuda", unified=unified)
+            assert got == autotune._resident_frames(core, T, 1, regs,
+                                                    limits) >= 1
+            if h100:
+                assert got == autotune.H100_BLOCKS[
+                    "unified" if unified else "split"][tr.k]
+        spec = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
+        on, _ = autotune.unified_smem_bytes(tr, spec, 1, pack_survivors=True)
+        assert on == ulib.viterbi_unified_block_smem_bytes(
+            tr.k, spec.frame_len, 8, 1, 0, 0)
+        if on <= limits.smem_per_block:
+            assert autotune.block_capacity(tr, "cuda", smem=on) == \
+                autotune._resident_frames(
+                    on, T, 1, autotune.kernel_registers(tr, device="cuda"),
+                    limits)
+    else:
+        assert ulib.viterbi_block_threads(tr.k) == (
+            -1 if tr.k < 7 or tr.k > autotune.MAX_K
+            else min(128, tr.num_states // 2))
     if C > 1:
         want = ulib.viterbi_cluster_smem_bytes(tr.k, C)
         assert want == autotune._wide_smem(tr, C)[0]
@@ -268,10 +303,12 @@ def test_smem_models_equal_kernel_carve_up(cuda, code):
 def test_register_model_is_the_kernels(cuda, unified):
     """The planner's registers are the built kernels' (cudaFuncGetAttributes),
     and on an H100 the count the CPU plans with is the K=7 beta=2
-    instantiation's (k=12 for the large-code mapping; for the wide one,
-    which is one instantiation, every wide code's off a cluster; for the
-    cluster kernel its k = 16-19 beta <= 8 instantiations', which run 16
-    butterflies a thread with the butterfly table)."""
+    instantiation's (for the large codes' one-block kernels, whose
+    registers do not depend on beta, k=12's; no one-block kernel spills
+    past what PERF.md records; for the wide one, which is one
+    instantiation, every wide code's off a cluster; for the cluster kernel
+    its k = 16-19 beta <= 8 instantiations', which run 16 butterflies a
+    thread with the butterfly table)."""
     lib = (vu if unified else vf).kernel_library().lib
     attrs = (lib.viterbi_unified_func_attrs if unified
              else lib.viterbi_fwd_func_attrs)
@@ -284,13 +321,19 @@ def test_register_model_is_the_kernels(cuda, unified):
             tr = make_trellis(k, tuple([(1 << k) - 1] * beta))
             assert autotune.kernel_registers(tr, unified=unified,
                                              device="cuda") == out[0]
-            assert out[2] >= (autotune.SMEM_THREADS
+            assert out[2] >= (autotune.large_threads(tr)
                               if autotune.smem_mapping(tr)
                               else autotune.BLOCK_THREADS)
             if h100 and (k, beta) == (7, 2):
                 assert autotune.H100_REGISTERS[name] == out[0]
-            if h100 and (k, beta) == (autotune.SMEM_MIN_K, 2):
-                assert autotune.H100_REGISTERS[name + "_smem"] == out[0]
+            if autotune.smem_mapping(tr):        # the one-block kernel's
+                block = (ctypes.c_int * 3)()
+                assert (lib.viterbi_unified_block_attrs if unified
+                        else lib.viterbi_fwd_block_attrs)(k, block) == 0
+                assert list(block) == list(out)
+                if h100 and k == autotune.SMEM_MIN_K:
+                    assert autotune.H100_REGISTERS[name + "_block"] == \
+                        out[0]
     cluster_attrs = (lib.viterbi_unified_cluster_attrs if unified
                      else lib.viterbi_fwd_cluster_attrs)
     for k, polys in WIDE_CODES:
@@ -528,7 +571,7 @@ def test_planning_a_bucket_loads_its_kernels(cuda):
     assert {"viterbi_fwd.cu", "traceback_frames.cu"} <= set(build._built)
 
 
-# -- codes 12 <= k <= 15 (the large-code mapping) ---------------------------
+# -- codes 12 <= k <= 15 (the cluster mapping's one-block form) -------------
 _SPECS = [FrameSpec(f=64, v1=20, v2=21),
           FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21),
           FrameSpec(f=96, v1=12, v2=24, f0=24, v2s=20, start="fixed")]
@@ -590,6 +633,38 @@ def test_large_code_survivor_scratch(cuda, code, f, pack):
                        vu.unified_decode_frames_plain(frames, **kw))
 
 
+@pytest.mark.parametrize("code", LARGE_CODES)
+def test_large_code_survivors_on_chip_and_in_scratch(cuda, monkeypatch,
+                                                     code):
+    """B1's one-block kernel with its survivors and starts on chip where
+    the planner keeps them there (packed, a short frame) and in the
+    device-memory scratch (forced), on the planner's grid and on 2 blocks
+    that take the 7 frames in turn: bits equal the plain version's, packed
+    and not, boundary and fixed starts."""
+    tr = make_trellis(*code)
+    specs = [FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21),
+             FrameSpec(f=96, v1=12, v2=24, f0=24, v2s=20, start="fixed")]
+    if tr.k <= 14:             # packed survivors fit beside the metrics
+        assert autotune.block_survivors_on_chip(
+            tr, specs[0], pack_survivors=True, frames=7, device="cuda")
+    for grid in (None, 2):
+        if grid is not None:
+            monkeypatch.setattr(vu, "block_grid", lambda *a, **k: grid)
+        for spec in specs:
+            frames = _frames(code, spec, 7, 50, cuda)
+            for pack in (False, True):
+                kw = _kw(code, spec, frames_per_tile=1, pack_survivors=pack,
+                         radix=4, bm_dtype="bfloat16" if pack else "float32")
+                want = vu.unified_decode_frames_plain(frames, **kw)
+                assert torch.equal(vu.unified_decode_frames_cuda(frames, **kw),
+                                   want), (grid, spec, pack)
+                with monkeypatch.context() as m:
+                    m.setattr(vu, "block_survivors_on_chip",
+                              lambda *a, **k: False)
+                    assert torch.equal(vu.unified_decode_frames_cuda(
+                        frames, **kw), want), (grid, spec, pack, "scratch")
+
+
 def test_codes_past_the_limits_are_refused(cuda):
     """The codes past the fast mappings' limits (k > 15, beta > 8), which
     the wrappers once refused, run the wide mapping: each kernel equals
@@ -646,14 +721,15 @@ def test_codes_past_the_limits_are_refused(cuda):
                                   (7, (0o171, 0o132, 0o065))])
 def test_wide_mapping_equals_fast_mappings(cuda, monkeypatch, code):
     """The wide mapping, forced through the launch's private flags, equals
-    the register mapping (K=7, K=3) and the large-code mapping (K=13) on
-    their codes: bits, sel and amax, over pack x radix x bm_dtype and both
-    layouts, on the planner's grid and on a grid of 7 blocks (clusters)
-    that each take several frames in turn (the scratch reused). Off a
-    cluster (``_wide``) and on clusters of 2, 4 and 8 blocks
+    the register mapping (K=7, K=3) and the large codes' one-block form
+    (K=13) on their codes: bits, sel and amax, over pack x radix x
+    bm_dtype and both layouts, on the planner's grid and on a grid of 7
+    blocks (clusters) that each take several frames in turn (the scratch
+    reused). Off a cluster (``_wide``) and on clusters of 2, 4 and 8 blocks
     (``_cluster``; K=3's 4 states split over 2 at most), whose exchange
     through distributed shared memory and whose small-code survivor words
-    (fewer than 32 butterflies a block) these codes reach. The last code
+    (fewer than 32 butterflies a block) these codes reach; and the
+    one-block form forced (``_block``) on the K=7 codes. The last code
     lacks a bottom and a top tap, so the cluster builds its four-metric
     butterfly table, not the one-metric table of the others."""
     tr = make_trellis(*code)
@@ -661,11 +737,14 @@ def test_wide_mapping_equals_fast_mappings(cuda, monkeypatch, code):
     frames = _frames(code, spec, 40, 31, cuda)
     assert 1 <= autotune.wide_grid(tr, 40, cuda) <= 40
     forced = [dict(_wide=True)] + [
-        dict(_cluster=C) for C in (2, 4, 8) if tr.num_states >= 2 * C]
+        dict(_cluster=C) for C in (2, 4, 8) if tr.num_states >= 2 * C] + (
+        [dict(_block=True)] if tr.k == 7 else [])
     for grid in (None, 7):
         if grid is not None:
             for mod in (vu, vf):
                 monkeypatch.setattr(mod, "wide_grid",
+                                    lambda *a, **k: grid)
+                monkeypatch.setattr(mod, "block_grid",
                                     lambda *a, **k: grid)
         for pack in (False, True):
             for radix in (2, 4):

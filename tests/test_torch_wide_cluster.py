@@ -1,9 +1,11 @@
-"""The cluster mapping of the wide ACS kernels (16 <= k <= 19), on the CPU.
+"""The cluster mapping of the wide ACS kernels (16 <= k <= 19) and its
+one-block form (12 <= k <= 15), on the CPU.
 
 On the card ``csrc/acs.cuh``'s ``VitCluster`` runs one frame on a
 thread-block cluster of C blocks that exchange path metrics through
-distributed shared memory; ``tests/test_torch_gpu.py`` holds the kernels
-to their plain versions there. Here, without a card:
+distributed shared memory, or, for the large codes, on one block alone
+(C = 1); ``tests/test_torch_gpu.py`` holds the kernels to their plain
+versions there. Here, without a card:
 
 * the planner: C = 2, 4, 8, 16 at k = 16-19 and 1 elsewhere, each block's
   shared memory within the H100's 227 KB, ``wide_grid`` counting
@@ -14,7 +16,16 @@ to their plain versions there. Here, without a card:
   a few stages at K=8-10 on clusters of 2, 4 and 8 blocks: every new state
   and every survivor word is written exactly once, and the selectors,
   first maxima and path metrics equal ``acs.py``'s plain recursion (held
-  against the JAX package's by test_torch_kernels.py) bit for bit.
+  against the JAX package's by test_torch_kernels.py) bit for bit;
+* the same model on one block (C = 1: the one-block form's exchange into
+  its own buffer, ``large_threads`` threads whose warps store the survivor
+  words) at k = 12-15, beta 2 and 8, f32 and bf16 branch metrics.
+
+Every model builds its branch metrics as the kernels do: a table of the
+four edges of each butterfly from its encoder word, summed term by term in
+b order (acs.cuh ``vit_quad``), or, where every polynomial has its top and
+bottom taps, one metric and its negation (``vit_edge0``); equal to the
+plain version's compressed table ``sgn * bm_half[idx]`` bit for bit.
 
 Tolerance: exact.
 """
@@ -37,6 +48,21 @@ torch.set_num_threads(1)
 CODES = {8: (0o247, 0o371), 9: (0o561, 0o753), 10: (0o1167, 0o1545),
          16: (0o135417, 0o163251), 17: (0o247153, 0o365715),
          18: (0o523571, 0o634657), 19: (0o1234567, 0o1654321)}
+#: The large codes at rates 1/2 and 1/8: K=12, 13, 14 and the first two
+#: of Galileo's K=15 polynomials at rate 1/2; at rate 1/8 the K=12 code of
+#: chip_smoke.py (both taps everywhere: one metric a butterfly) and, at
+#: k = 13-15, eight polynomials of which one lacks its bottom tap (four
+#: metrics a butterfly).
+LARGE = {(12, 2): (0o4335, 0o5723), (13, 2): (0o10533, 0o17661),
+         (14, 2): (0o21645, 0o35661), (15, 2): (0o46321, 0o51271),
+         (12, 8): (0o4335, 0o5723, 0o6475, 0o7061, 0o4767, 0o5251, 0o6163,
+                   0o7555),
+         (13, 8): (0o10533, 0o17661, 0o12345, 0o15473, 0o11111, 0o13577,
+                   0o16243, 0o17000),
+         (14, 8): (0o21645, 0o35661, 0o24567, 0o31235, 0o27771, 0o22223,
+                   0o36541, 0o20002),
+         (15, 8): (0o46321, 0o51271, 0o63667, 0o70535, 0o41111, 0o57773,
+                   0o62345, 0o77776)}
 
 
 @pytest.mark.parametrize("k", range(12, 22))
@@ -113,21 +139,52 @@ def test_cluster_override_is_checked():
             vu.unified_decode_frames_cuda(frames, _cluster=good, **kw)
 
 
-def _cluster_model(llr, trellis, C, bm_dtype):
+def _parity(x):
+    """Parity of each element of a long tensor (31 bits at most)."""
+    out = torch.zeros_like(x)
+    for i in range(31):
+        out ^= (x >> i) & 1
+    return out
+
+
+def _edges(x, trellis, q, bm_dtype):
+    """The kernels' branch metrics of butterflies q from one stage's LLRs
+    x (F, beta): (F, len(q), 2, 2), [h][p] the edge from 2q + p into
+    q + h S/2. Term b of an edge is x[b] with its sign flipped by the
+    parity of its encoder word and g_b, summed in b order in float32 and
+    rounded once for bf16 (acs.cuh vit_quad); where every polynomial has
+    both taps, edges 01 and 10 are edge 00's negation and 11 edge 00
+    (vit_edge0)."""
+    k, polys = trellis.k, trellis.polys
+    e = torch.zeros(x.shape[0], len(q), 2, 2)
+    for b, g in enumerate(polys):
+        a = _parity((2 * q) & g)
+        for h in (0, 1):
+            for p in (0, 1):
+                flip = a ^ (p & g & 1) ^ (h & (g >> (k - 1)) & 1)
+                term = torch.where(flip.bool(), -x[:, b:b + 1], x[:, b:b + 1])
+                e[..., h, p] = term if b == 0 else e[..., h, p] + term
+    e = e.to(BM_DTYPES[bm_dtype]).float()
+    if all(g & 1 and (g >> (k - 1)) & 1 for g in polys):
+        e[..., 0, 1] = e[..., 1, 0] = -e[..., 0, 0]
+        e[..., 1, 1] = e[..., 0, 0]
+    return e
+
+
+def _cluster_model(llr, trellis, C, bm_dtype, threads=None):
     """VitCluster's recursion in plain torch: per stage, each block c of C
     reads its own old states, runs butterflies [c Hc, (c+1) Hc) and writes
-    the new states into the blocks that own them; the stage max and first
-    maximal state from the blocks' partials; each block's survivor words.
+    the new states into the blocks that own them (new state s to block
+    s // 2 Hc; on one block, C = 1, q and q + S/2 of its own buffer); the
+    stage max and first maximal state from the blocks' partials; each
+    block's survivor words (on one block of ``threads`` threads, lane i of
+    warp w stores the words of butterflies w 32 + threads i, ...).
     Returns (sel (F, L, S) bool, words (F, L, W) int64, amax (F, L), the
     final normalised path metrics (F, S))."""
     F, L, _ = llr.shape
     S = trellis.num_states
     H, Hc = S // 2, S // 2 // C
     SC = 2 * Hc
-    _, idx_p, sgn_p, signs_half = kernel_tables(trellis)
-    idx = torch.as_tensor(np.stack(idx_p), dtype=torch.long)
-    sgn = torch.as_tensor(np.stack(sgn_p), dtype=torch.float32)
-    bm = signed_sum(llr, signs_half).to(BM_DTYPES[bm_dtype]).float()
     W = packed_width(S)
     buf = [[torch.zeros(F, SC) for _ in range(C)] for _ in range(2)]
     m = torch.zeros(F)
@@ -144,22 +201,27 @@ def _cluster_model(llr, trellis, C, bm_dtype):
             q = c * Hc + j
             pp = old[c].view(F, Hc, 2)                 # own states 2q, 2q+1
             p0, p1 = pp[..., 0] - m[:, None], pp[..., 1] - m[:, None]
+            e = _edges(llr[:, t], trellis, q, bm_dtype)
             out = []
             for h in (0, 1):
-                s = q + h * H
-                e = [sgn[p, s] * bm[:, t, idx[p, s]] for p in (0, 1)]
-                c0, c1 = p0 + e[0], p1 + e[1]
+                c0, c1 = p0 + e[..., h, 0], p1 + e[..., h, 1]
                 sl = c1 >= c0
                 out.append((torch.where(sl, c1, c0), sl))
             (vl, sl), (vh, sh) = out
-            for dst, v in ((c >> 1, vl), ((c >> 1) + C // 2, vh)):
-                new[dst][:, (c & 1) * Hc + j] = v
-                written[dst, (c & 1) * Hc + j] += 1
+            for s, v in ((q, vl), (q + H, vh)):        # to the owners
+                for dst in range(C):
+                    mine = s // SC == dst
+                    new[dst][:, s[mine] % SC] = v[:, mine]
+                    written[dst, s[mine] % SC] += 1
             sel[:, q], sel[:, q + H] = sl, sh
-            # survivor words: whole words of 32 butterflies, or a small
-            # block's partial word ORed into block 0's staging
+            # survivor words: whole words of 32 butterflies (one block: the
+            # runs its warps' lanes hold), or a small block's partial word
+            # ORed into block 0's staging
+            runs = (range(0, Hc, 32) if threads is None else
+                    [w * 32 + threads * i for w in range(threads // 32)
+                     for i in range(Hc // threads)])
             for base, bits in ((c * Hc, sl), (c * Hc + H, sh)):
-                for w0 in range(0, Hc, 32):
+                for w0 in runs:
                     chunk = bits[:, w0:w0 + 32].long()
                     ballot = (chunk << torch.arange(chunk.shape[1])).sum(1)
                     s0 = base + w0
@@ -215,3 +277,71 @@ def test_ownership_model_equals_plain_recursion(k, C, bm_dtype):
     assert torch.equal(words, packed)
     assert torch.equal(amax, torch.stack(amaxs, 1))
     assert torch.equal(pm, sigma)
+
+
+def _plain(llr, tr, bm_dtype):
+    sels, amaxs = [], []
+
+    def store(t, sel, sigma):
+        sels.append(sel)
+        amaxs.append(torch.argmax(sigma, dim=1))
+
+    sigma = acs_scan(llr, trellis=tr, L=llr.shape[1], radix=2, store=store,
+                     bm_dtype=bm_dtype)
+    return torch.stack(sels, 1), torch.stack(amaxs, 1), sigma
+
+
+@pytest.mark.parametrize("bm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("code", sorted(LARGE), ids=lambda c: f"k{c[0]}b{c[1]}")
+def test_one_block_model_equals_plain_recursion(code, bm_dtype):
+    """The one-block form (C = 1, ``large_threads`` threads) of the large
+    codes, run through 6 stages of 2 noisy frames: its exchange into its
+    own buffer is a partition of the states, its warps' survivor words of
+    the words, and its selectors, packed words, first maxima and final path
+    metrics equal acs_scan's, branch metrics from the butterfly table."""
+    tr = make_trellis(code[0], LARGE[code])
+    assert autotune.smem_mapping(tr)
+    T = autotune.large_threads(tr)
+    assert T % 32 == 0 and tr.num_states // 2 // T in (1, 2, 4, 8, 16)
+    rng = np.random.default_rng(code[0] * 10 + code[1])
+    F, L = 2, 6
+    llr = torch.from_numpy(
+        (1.0 - 2.0 * rng.integers(0, 2, (F, L, tr.beta))
+         + 0.8 * rng.standard_normal((F, L, tr.beta))).astype(np.float32))
+    want_sel, want_amax, sigma = _plain(llr, tr, bm_dtype)
+    sel, words, amax, pm = _cluster_model(llr, tr, 1, bm_dtype, threads=T)
+    assert torch.equal(sel, want_sel)
+    assert torch.equal(words, pack_bits(want_sel).long() & 0xFFFFFFFF)
+    assert torch.equal(amax, want_amax)
+    assert torch.equal(pm, sigma)
+
+
+@pytest.mark.parametrize("bm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("code", [(k, len(p)) for k, p in CODES.items()
+                                  if k < 16] + sorted(LARGE),
+                         ids=lambda c: f"k{c[0]}b{c[1]}")
+def test_butterfly_table_equals_compressed_table(code, bm_dtype):
+    """Every butterfly's four table metrics (``_edges``, as acs.cuh's
+    vit_quad and vit_edge0 build them) equal the plain version's
+    ``sgn * bm_half[idx]`` of the same edges, bit for bit, over a few
+    noisy stages."""
+    k, beta = code
+    tr = make_trellis(k, LARGE[code] if code in LARGE else CODES[k])
+    H = tr.num_states // 2
+    _, idx_p, sgn_p, signs_half = kernel_tables(tr)
+    idx = torch.as_tensor(np.stack(idx_p), dtype=torch.long)
+    sgn = torch.as_tensor(np.stack(sgn_p), dtype=torch.float32)
+    rng = np.random.default_rng(7 * k + beta)
+    x = torch.from_numpy((1.0 - 2.0 * rng.integers(0, 2, (4, beta))
+                          + 0.8 * rng.standard_normal((4, beta)))
+                         .astype(np.float32))
+    bm = signed_sum(x, signs_half).to(BM_DTYPES[bm_dtype]).float()
+    q = torch.arange(H)
+    e = _edges(x, tr, q, bm_dtype)
+    for h in (0, 1):
+        for p in (0, 1):
+            s = q + h * H
+            want = sgn[p, s] * bm[:, idx[p, s]]
+            got = e[..., h, p]
+            # equal as values, zeros of either sign alike
+            assert torch.equal(got, want), (h, p)

@@ -18,7 +18,17 @@ own ``build/kernels``); the two sides share only the inputs. Then:
 * B1 and B3 on the wide mapping at chip_smoke.py's ``WIDE_TIME`` rows
   (K=16, 17, 18 at 132 frames, K=7 beta=9 at 4224; main frame, packed,
   radix 4), each side planning its own mapping (since the cluster mapping,
-  a thread-block cluster a frame at 16 <= k <= 19).
+  a thread-block cluster a frame at 16 <= k <= 19);
+* B1 and B3 at chip_smoke.py's large codes (K=12, 13, 14, 15 and K=12
+  beta=8; main frame, packed, radix 4) at their ``LARGE_TIME_FRAMES`` and
+  at ``LARGE_FULL_FRAMES``, each side planning its own mapping (since the
+  one-block form of the cluster mapping at 12 <= k <= 15);
+* in this tree alone, B1 and B3 at K=11 (``TB_K11_FRAMES`` frames) on the
+  register mapping ("other") and forced on the one-block form ("tree");
+  and B1 at the large codes and frame counts where the planner keeps its
+  survivors on chip (``autotune.block_survivors_on_chip``: K=12 at 132 and
+  264 frames, K=13 at 132, K=12 beta=8 at 264) with them there ("tree")
+  and in the device-memory scratch ("other").
 
 Each pair runs in turns (other, tree, tree, other, ... over 4 rounds;
 CUDA events; the minimum per side) and must give equal outputs. Prints one
@@ -163,6 +173,74 @@ def main(argv=None) -> int:
                 radix=4))
             for s in sides}, 3)
         del wf
+
+    # B1 and B3 at the large codes, each side through its own planner
+    for code in cs.CODES:
+        if code[0] < cs.LARGE_K:
+            continue
+        tr = {s: d["trellis"].make_trellis(*code) for s, d in sides.items()}
+        for F in sorted({cs.LARGE_TIME_FRAMES[code[0]],
+                         cs.LARGE_FULL_FRAMES}):
+            lf = cs._frames(tr["tree"], spec, F, gen, torch.float32)
+            shape = f"K={code[0]} beta={len(code[1])} F={F}"
+            compare("viterbi_unified", shape, {
+                s: (lambda s=s: sides[s]["vu"].unified_decode_frames_cuda(
+                    lf, trellis=tr[s], **wkw))
+                for s in sides}, 3)
+            compare("viterbi_fwd", shape, {
+                s: (lambda s=s: sides[s]["vf"].forward_frames_cuda(
+                    lf, trellis=tr[s], frames_per_tile=1,
+                    pack_survivors=True, radix=4))
+                for s in sides}, 3)
+            del lf
+
+    # K=11: the register mapping ("other") against the one-block form
+    # forced ("tree"), both this tree's
+    t11 = mine["trellis"].make_trellis(*k11)
+    f11 = cs._frames(t11, spec, cs.TB_K11_FRAMES, gen, torch.float32)
+    u11, s11 = (autotune.plan_tiles(t11, spec, pack_survivors=True, radix=4,
+                                    unified=u, max_frames=cs.TB_K11_FRAMES,
+                                    device="cuda").frames_per_tile
+                for u in (True, False))
+    vu, vf = mine["vu"], mine["vf"]
+    for name, fn in (("viterbi_unified", lambda **o: vu
+                      .unified_decode_frames_cuda(
+                          f11, trellis=t11, **dict(wkw, frames_per_tile=u11),
+                          **o)),
+                     ("viterbi_fwd", lambda **o: vf.forward_frames_cuda(
+                         f11, trellis=t11, frames_per_tile=s11,
+                         pack_survivors=True, radix=4, **o))):
+        compare(name, f"K=11 F={cs.TB_K11_FRAMES} register (other) vs "
+                f"one-block forced (tree)",
+                {"other": fn, "tree": lambda fn=fn: fn(_block=True)}, 3)
+    del f11
+
+    # B1's survivors on chip ("tree", the planner's choice) against the
+    # scratch ("other"), where the planner keeps them on chip
+    rule = vu.block_survivors_on_chip
+
+    def scratch(fn):
+        vu.block_survivors_on_chip = lambda *a, **k: False
+        try:
+            return fn()
+        finally:
+            vu.block_survivors_on_chip = rule
+
+    for code, F in ((cs.CODES[7], 132), (cs.CODES[7], 264),
+                    (cs.CODES[8], 132), (cs.CODES[11], 264)):
+        tl = mine["trellis"].make_trellis(*code)
+        if not rule(tl, spec, pack_survivors=True, frames=F, device="cuda"):
+            raise AssertionError(f"K={tl.k} F={F}: the planner keeps B1's "
+                                 f"survivors off chip")
+        lf = cs._frames(tl, spec, F, gen, torch.float32)
+
+        def b1(lf=lf, tl=tl):
+            return vu.unified_decode_frames_cuda(lf, trellis=tl, **wkw)
+
+        compare("viterbi_unified", f"K={tl.k} beta={tl.beta} F={F} survivors "
+                f"in the scratch (other) vs on chip (tree)",
+                {"other": lambda b1=b1: scratch(b1), "tree": b1}, 5)
+        del lf
     args.json.parent.mkdir(parents=True, exist_ok=True)
     args.json.write_text(json.dumps({
         "device": torch.cuda.get_device_name(0), "rows": rows}, indent=1))
