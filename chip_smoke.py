@@ -12,16 +12,21 @@ non-zero:
 2. build   — nvcc builds every kernel of the paths from `kernels/csrc`, one
              process per source, all started together; prints the seconds
              and, for the two ACS kernels, the -Xptxas -v registers and
-             spills of every instantiation (registers per lane R x beta;
-             the large codes' one-block kernels per butterflies a thread;
-             the wide and cluster kernels), and the one-block kernels'
-             blocks resident an SM (cudaOccupancyMaxActiveBlocksPer-
-             Multiprocessor, autotune.H100_BLOCKS on an H100).
+             spills of every instantiation (registers per lane R x beta
+             2..8 and the run-time beta past it; the large codes'
+             one-block kernels per butterflies a thread, table and
+             per-edge sums; the wide and cluster kernels), and the
+             one-block kernels' blocks resident an SM at beta 2 and 9
+             (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+             autotune.H100_BLOCKS on an H100).
 3. parity  — each kernel's wrapper against its plain torch version on the
              card, exactly (torch.equal), over the codes K=3, 4 (beta=3),
              5, 6, 7, 9, 11 and the large codes K=12, 13, 14, 15 (beta=4)
              and K=12 beta=8 (the cluster mapping's one-block form: one
-             block a frame, path metrics in shared memory). Unified
+             block a frame, path metrics in shared memory), and the low
+             rates on the same mappings with beta at run time (K=5
+             beta=12, K=7 beta=9, 12, 16, K=9 beta=10, K=11 beta=9, K=12,
+             13, 15 beta=9). Unified
              kernel: the knob grid, bf16/f16 LLRs, frames too long for
              shared memory. Forward kernel: sel and amax over the same
              grid, both layouts. Traceback kernel: against the plain
@@ -31,11 +36,12 @@ non-zero:
              frame count. The block-parallel decode (block_frames > 1)
              through both kernels against the CPU's, and at full overlap
              against the unblocked decode. The wide mapping (every code
-             past k = 15 or beta = 8, k and beta at run time; at
-             16 <= k <= 19 one thread-block cluster of 2^(k-15) blocks a
-             frame, else one block a frame): K=16, 17, 18, 19, K=16
-             beta=3, K=7 beta=9 and 12, all three kernels over the same
-             knob grid and starts (every cluster size the planner picks).
+             past k = 15, k and beta at run time; at 16 <= k <= 19 one
+             thread-block cluster of 2^(k-15) blocks a frame, else one
+             block a frame): K=16, 17, 18, 19, K=16 beta=3 and 9, all
+             three kernels over the same knob grid and starts (every
+             cluster size the planner picks), and K=16 beta=2 and 9 off
+             a cluster (path metrics in device memory).
 4. main    — make_decoder(backend="kernel"), then
              make_decoder(backend="kernel_split"), each at full size: K=7,
              n = 2^22 bits, Eb/N0 = 3 dB, rates 1/2 and 3/4. Launch counts
@@ -49,7 +55,9 @@ non-zero:
              after), bits equal to the reference backend's; and the
              large codes' path the same way: Galileo's K=15 rate-1/4
              code at the main frame, 132 frames of its (n, 4) LLRs at
-             0 dB.
+             0 dB; and the low rates' path: K=7 rate 1/9 (the register
+             mapping with beta at run time), 4224 frames of its (n, 9)
+             LLRs at -5 dB.
 5. time    — each kernel at the main path's shape with CUDA events, beside
              its plain version and its bound; the unified kernel's knob
              sweep and its auto tile against tile 4 (must be within 2 %);
@@ -61,9 +69,12 @@ non-zero:
              bounds, with the one-block form's threads, resident blocks
              and where B1's survivors are;
              B1, B3 and the traceback on the wide mapping at K=16, 17,
-             18 and K=7 beta=9, beside their bounds and plain versions,
-             with the cluster size, the clusters resident and each
-             block's shared memory;
+             18, 19 and at the low rates (K=7 beta=9 and 16 and K=9
+             beta=10 at 4224 frames, K=11 beta=9 at 1056, K=13 beta=9
+             at 264, K=15 beta=9 at 132), beside their bounds and plain versions,
+             with the mapping: the cluster size, the clusters resident
+             and each block's shared memory, or the tile or threads and
+             the frames an SM;
              the whole split call against the
              whole unified call (median and quartiles over 20 rounds, and
              the host's dispatch time per call); plan_decode(measure=True)
@@ -192,8 +203,9 @@ non-zero:
 
 The line before the last is a JSON `kernels` line (with each kernel's
 launches on the main path, and ``launches_stream``/``launches_serve``/
-``launches_mesh`` on phases 7, 8 and 9, ``launches_wide`` and
-``launches_large`` on phase 4's K=16 and Galileo K=15 paths; B1's and
+``launches_mesh`` on phases 7, 8 and 9, ``launches_wide``,
+``launches_large`` and ``launches_lowrate`` on phase 4's K=16, Galileo
+K=15 and K=7 rate-1/9 paths; B1's and
 B3's ``large_codes`` times, the three kernels'
 ``wide_codes`` rows and the traceback's ``modes``); each kernel's bound
 comes from launch/roofline.py. The last line is the JSON `ok` line with the device.
@@ -252,30 +264,50 @@ PARITY_FRAMES = {False: 12, True: 4}
 #: an SM show.
 LARGE_TIME_FRAMES = {12: 264, 13: 264, 14: 132, 15: 132}
 LARGE_FULL_FRAMES = 1056
-#: The wide mapping's codes (k > 15 or beta > 8; k and beta at run time):
-#: K=16, 17, 18 at rate 1/2 and K=16 at rate 1/3 (a cluster of 2, 4, 8, 2
-#: blocks a frame, path metrics in the cluster's shared memory), K=7 at
-#: rates 1/9 and 1/12 (one block a frame), K=19 at rate 1/2 (a cluster of
-#: 16 where the card holds one, else the device-memory path); distinct
-#: polynomials with the top and bottom taps set (the cluster's one-metric
-#: butterfly table); then two K=16 codes on a cluster of 2 that take its
-#: other branch metrics: one polynomial without its bottom tap (the
-#: four-metric table) and rate 1/9 (per-edge sums).
+#: The wide mapping's codes (k > 15; k and beta at run time): K=16, 17, 18
+#: at rate 1/2 and K=16 at rate 1/3 (a cluster of 2, 4, 8, 2 blocks a
+#: frame, path metrics in the cluster's shared memory), K=19 at rate 1/2 (a
+#: cluster of 16 where the card holds one, else the device-memory path);
+#: distinct polynomials with the top and bottom taps set (the cluster's
+#: one-metric butterfly table); then two K=16 codes on a cluster of 2 that
+#: take its other branch metrics: one polynomial without its bottom tap
+#: (the four-metric table) and rate 1/9 (per-edge sums).
 WIDE_CODES = [(16, (0o135417, 0o163251)), (17, (0o247153, 0o365715)),
               (18, (0o523571, 0o634657)),
               (16, (0o135417, 0o163251, 0o117643)),
-              (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155,
-                   0o173)),
-              (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155,
-                   0o173, 0o103, 0o111, 0o125)),
               (19, (0o1234567, 0o1654321)),
               (16, (0o135417, 0o163250)),
               (16, (0o135417, 0o163251, 0o117643, 0o100001, 0o123457,
                     0o145673, 0o167011, 0o110101, 0o133333))]
+#: Rates below 1/8 at k <= 15 (the fast mappings with beta at run time: the
+#: register mapping to k = 11, the one-block form's per-edge sums past it):
+#: K=5 rate 1/12 (top taps only), K=7 at rates 1/9, 1/12 and 1/16, K=9
+#: rate 1/10, K=11 rate 1/9 (one polynomial without its bottom tap: four
+#: sums a butterfly), K=12, 13 and 15 at rate 1/9.
+LOW_RATE_CODES = [
+    (5, (0o21, 0o23, 0o25, 0o27, 0o31, 0o33, 0o35, 0o37, 0o20, 0o22, 0o24,
+         0o26)),
+    (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155, 0o173)),
+    (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155, 0o173,
+         0o103, 0o111, 0o125)),
+    (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155, 0o173,
+         0o103, 0o111, 0o125, 0o137, 0o141, 0o153, 0o163)),
+    (9, (0o561, 0o753, 0o711, 0o647, 0o525, 0o457, 0o673, 0o535, 0o743,
+         0o607)),
+    (11, (0o3345, 0o3613, 0o2011, 0o3777, 0o2525, 0o3131, 0o2663, 0o3455,
+          0o2002)),
+    (12, (0o4335, 0o5723, 0o6475, 0o7061, 0o4767, 0o5251, 0o6163, 0o7555,
+          0o4001)),
+    (13, (0o10533, 0o17661, 0o12345, 0o15473, 0o11111, 0o13577, 0o16243,
+          0o14101, 0o17017)),
+    (15, (0o46321, 0o51271, 0o63667, 0o70535, 0o41111, 0o57773, 0o62345,
+          0o77777, 0o40001))]
 #: Frames per wide parity call.
 WIDE_PARITY_FRAMES = 3
-#: Bytes of survivors (L x S x 8: pack_bits' int64 words) a plain version
-#: holds at a time in the wide timing rows: K=18 at 132 frames runs in 25.
+#: Bytes of survivors (L x S x 8: pack_bits' int64 words) and branch
+#: metrics (L x 2^(beta-1), twice) a plain version holds at a time in the
+#: wide timing rows: K=18 at 132 frames runs in 25, K=7 beta=16 at 4224 in
+#: 42.
 PLAIN_WIDE_BYTES = 1 << 33
 #: The wide main path: K=16 rate 1/2 at the main frame, one frame per SM.
 WIDE_MAIN_FRAMES = 132
@@ -283,14 +315,25 @@ WIDE_MAIN_FRAMES = 132
 #: frame, one frame per SM, at an Eb/N0 where its BER is not 0.
 LARGE_MAIN_FRAMES = 132
 LARGE_MAIN_EBN0_DB = 0.0
-#: The wide timing rows: (code, frames): K=16, 17, 18 at 132 frames (one
-#: frame a cluster of 2, 4, 8 blocks, the clusters resident taking frames
-#: in turn), K=7 beta=9 at 4224 (one wave of 32 one-warp blocks an SM).
+#: The low rates' main path: K=7 rate 1/9 at the main frame, 4224 frames
+#: (32 an SM), at an Eb/N0 where its BER is not 0 (nine symbols a bit).
+LOWRATE_MAIN_FRAMES = 4224
+LOWRATE_MAIN_EBN0_DB = -5.0
+#: The wide timing rows: (code, frames): K=16, 17, 18, 19 at 132 frames
+#: (one frame a cluster of 2, 4, 8, 16 blocks, the clusters resident taking
+#: frames in turn); and the low rates on the fast mappings: K=7 beta=9 and
+#: 16 and K=9 beta=10 at 4224 (32 and 17 frames an SM), K=11 beta=9 at
+#: 1056 (8 an SM), K=13 beta=9 at 264 (2) and K=15 beta=9 at 132 (1).
 WIDE_TIME = [(WIDE_CODES[0], 132), (WIDE_CODES[1], 132),
-             (WIDE_CODES[2], 132), (WIDE_CODES[4], 4224)]
+             (WIDE_CODES[2], 132), (WIDE_CODES[4], 132),
+             (LOW_RATE_CODES[1], 4224), (LOW_RATE_CODES[3], 4224),
+             (LOW_RATE_CODES[4], 4224), (LOW_RATE_CODES[5], 1056),
+             (LOW_RATE_CODES[7], 264), (LOW_RATE_CODES[8], 132)]
 DECODE_KERNELS = ("viterbi_unified_kernel", "viterbi_fwd_kernel",
                   "traceback_frames_kernel", "viterbi_unified_block_kernel",
-                  "viterbi_fwd_block_kernel", "viterbi_unified_wide_kernel",
+                  "viterbi_fwd_block_kernel",
+                  "viterbi_unified_block_pe_kernel",
+                  "viterbi_fwd_block_pe_kernel", "viterbi_unified_wide_kernel",
                   "viterbi_fwd_wide_kernel", "viterbi_unified_cluster_kernel",
                   "viterbi_fwd_cluster_kernel")
 
@@ -369,25 +412,35 @@ def _ptxas_spills(built, kernel: str) -> dict:
 
 def register_report(built, kernel: str, attrs) -> str:
     """Registers (cudaFuncGetAttributes) and ptxas spill stores of every
-    instantiation of one ACS kernel: per registers per lane R, beta 2..8;
-    then the large codes' one-block kernel (``<kernel>`` with ``_block``
-    before ``_kernel``), one instantiation per butterflies a thread NB, at
-    k = 12..15 (its registers do not depend on beta <= 8)."""
+    instantiation of one ACS kernel: per registers per lane R, beta 2..8
+    and the run-time beta (BETA = 0; "wide" where the kernel runs the
+    wide mapping instead); then the large codes' one-block
+    kernels (``<kernel>`` with ``_block`` before ``_kernel``: the table,
+    beta <= 8, whose registers do not depend on beta; ``_block_pe``: the
+    per-edge sums, beta 9), one instantiation per butterflies a thread NB,
+    at k = 12..15."""
     import ctypes
     from repro_torch.core.trellis import make_trellis
     from repro_torch.kernels import autotune
     block_kernel = kernel.replace("_kernel", "_block_kernel")
+    pe_kernel = kernel.replace("_kernel", "_block_pe_kernel")
     spills = _ptxas_spills(built, kernel)
+    unified = kernel.startswith("viterbi_unified")
     rows = []
     for k in (2, 7, 8, 9, 10, 11):
         R = max(1, (1 << (k - 1)) // 32)
         regs = []
-        for beta in range(2, 9):
+        for beta in range(2, 10):
+            if autotune.wide_mapping(make_trellis(k, ((1 << k) - 1,) * beta),
+                                     unified):
+                regs.append("wide")     # B3 at FWD_WIDE_K past beta = 8
+                continue
             out = (ctypes.c_int * 3)()
             if attrs(k, beta, out) != 0:
                 raise RuntimeError(f"{kernel} k={k} beta={beta}: no "
                                    f"function attributes")
-            regs.append(f"{out[0]}/{spills.get((R, beta), '?')}")
+            key = (R, beta if beta <= 8 else 0)     # BETA = 0: run time
+            regs.append(f"{out[0]}/{spills.get(key, '?')}")
         rows.append(f"R={R}: " + " ".join(regs))
     for k in (12, 13, 14, 15):
         regs = set()
@@ -399,12 +452,23 @@ def register_report(built, kernel: str, attrs) -> str:
             regs.add(out[0])
         T = autotune.large_threads(make_trellis(k, ((1 << k) - 1,) * 2))
         nb = (1 << (k - 2)) // T
+        low = make_trellis(k, ((1 << k) - 1,) * 9)
+        T9 = autotune.large_threads(low)
+        nb9 = (1 << (k - 2)) // T9
+        out = (ctypes.c_int * 3)()
+        if attrs(k, 9, out) != 0:
+            raise RuntimeError(f"{block_kernel} k={k} beta=9: no function "
+                               f"attributes")
         rows.append(f"k={k} {block_kernel} T={T} NB={nb}: "
                     f"{'/'.join(map(str, sorted(regs)))} registers, "
                     f"{_spill_of(built, block_kernel + f'ILi{nb}E')} bytes "
+                    f"spilled; {pe_kernel} (beta 9) T={T9} NB={nb9}: "
+                    f"{out[0]} registers, "
+                    f"{_spill_of(built, pe_kernel + f'ILi{nb9}E')} bytes "
                     f"spilled")
-    return (f"{kernel} registers/spilled bytes, beta 2..8 (R=1 serves "
-            f"k<=6; k=12..15: the one-block kernel): " + "; ".join(rows))
+    return (f"{kernel} registers/spilled bytes, beta 2..8 and run-time "
+            f"beta (R=1 serves k<=6; k=12..15: the one-block kernel): "
+            + "; ".join(rows))
 
 
 def _spill_of(built, function: str) -> str:
@@ -424,7 +488,7 @@ def _spill_of(built, function: str) -> str:
 def wide_register_report(built, kernel: str, attrs, cluster_attrs) -> str:
     """Registers (cudaFuncGetAttributes) and ptxas spill stores of the
     wide mapping's kernel (``<kernel>`` with ``_wide`` before ``_kernel``,
-    one instantiation for every code off a cluster: the K=7 beta=9 code's
+    one instantiation for every code off a cluster: a K=20 code's
     attributes) and of its cluster kernels (``_cluster``, per butterflies
     a thread NB and table or per-edge branch metrics; the attributes of
     K=16 beta=2 on 2 blocks and K=16 beta=9)."""
@@ -432,9 +496,9 @@ def wide_register_report(built, kernel: str, attrs, cluster_attrs) -> str:
     wide = kernel.replace("_kernel", "_wide_kernel")
     cl = kernel.replace("_kernel", "_cluster_kernel")
     out = (ctypes.c_int * 3)()
-    if attrs(7, 9, out) != 0:
+    if attrs(20, 2, out) != 0:
         raise RuntimeError(f"{wide}: no function attributes")
-    rows = [f"{wide} (codes past k=15 or beta=8 off a cluster): {out[0]} "
+    rows = [f"{wide} (codes past k=15 off a cluster): {out[0]} "
             f"registers, {_spill_of(built, wide)} bytes spilled, {out[2]} "
             f"threads a block at most"]
     regs = {}
@@ -477,10 +541,11 @@ def phase_build():
             getattr(lib, attrs + "_cluster_attrs")))
     from repro_torch.core.trellis import make_trellis
     from repro_torch.kernels import autotune
-    blocks = {name: {k: autotune.block_capacity(
-        make_trellis(k, ((1 << k) - 1,) * 2), "cuda", unified=unified)
+    blocks = {name + low: {k: autotune.block_capacity(
+        make_trellis(k, ((1 << k) - 1,) * beta), "cuda", unified=unified)
         for k in (12, 13, 14, 15)}
-        for name, unified in (("unified", True), ("split", False))}
+        for name, unified in (("unified", True), ("split", False))
+        for low, beta in (("", 2), ("_lowrate", 9))}
     log("build", f"one-block kernels' blocks resident an SM (the "
         f"recursion's shared memory; autotune.H100_BLOCKS on an H100): "
         f"{blocks}")
@@ -529,7 +594,7 @@ def phase_parity(gen):
              FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21),          # boundary
              FrameSpec(f=96, v1=12, v2=24, f0=24, v2s=20, start="fixed")]
     counts = {"unified": 0, "forward": 0, "traceback": 0}
-    for k, polys in CODES:
+    for k, polys in CODES + LOW_RATE_CODES:
         tr = make_trellis(k, polys)
         for spec in specs:
             frames = _frames(tr, spec, PARITY_FRAMES[k >= LARGE_K], gen,
@@ -566,7 +631,7 @@ def phase_parity(gen):
                             counts["traceback"] += 1
     # LLRs arriving in bf16/f16, a ragged frame count through ops' padding
     spec = FrameSpec(f=64, v1=16, v2=20, f0=16, v2s=20)
-    for k, polys in CODES:
+    for k, polys in CODES + LOW_RATE_CODES:
         tr = make_trellis(k, polys)
         for dtype in (torch.bfloat16, torch.float16):
             frames = _frames(tr, spec, 8, gen, dtype)
@@ -636,13 +701,15 @@ def phase_parity(gen):
     blocked = phase_blocked(gen)
     log("parity", f"kernel calls equal to the plain version: {counts} "
         f"(codes K=3, K=4 beta=3, K=5, K=6, K=7, K=9, K=11, K=12, K=13, "
-        f"K=15 beta=4, K=14, K=12 beta=8; pack x radix x layout x "
+        f"K=15 beta=4, K=14, K=12 beta=8; at run-time beta K=5 beta=12, "
+        f"K=7 beta=9, 12 and 16, K=9 beta=10, K=11 beta=9, K=12, 13, 15 "
+        f"beta=9; pack x radix x layout x "
         f"bm_dtype; serial, boundary, fixed; bf16/f16 LLRs; device-memory "
         f"survivors at K=7, K=11, K=13 and K=15; the traceback's staged and "
         f"direct chase at K=7 and K=11); split and unified ops with a "
         f"ragged F equal to the CPU for every code; {blocked}")
     log("parity", f"wide mapping, kernel calls equal to the plain version: "
-        f"{wide} (K=16, 17, 18, 19 beta=2, K=16 beta=3, K=7 beta=9 and 12, "
+        f"{wide} (K=16, 17, 18, 19 beta=2, K=16 beta=3, "
         f"K=16 without a bottom tap, K=16 beta=9; K=16 again off a "
         f"cluster, its path metrics in device memory; "
         f"pack x radix x layout x bm_dtype; serial, boundary, fixed)")
@@ -652,10 +719,11 @@ def phase_parity_wide(gen, specs):
     """The wide mapping's codes through the three kernels, each against
     its plain version (torch.equal) over the knob grid and the three
     starts, on the cluster the planner picks (every size from 2 to 16
-    that the card holds), and K=16 once more off a cluster (``_cluster=1``:
-    the path metrics in device memory, as every k >= 20 code and k = 16-19
-    on a card without the cluster run). Returns the calls by kernel and
-    by cluster."""
+    that the card holds), and K=16 at beta = 2 and 9 once more off a
+    cluster (``_cluster=1``: the path metrics in device memory, as every
+    k >= 20 code and k = 16-19 on a card without the cluster run; at
+    beta = 9 the wide kernel's per-edge sums). Returns the calls by kernel
+    and by cluster."""
     import torch
     from repro_torch.core.trellis import make_trellis
     from repro_torch.kernels import autotune
@@ -664,7 +732,7 @@ def phase_parity_wide(gen, specs):
     from repro_torch.kernels import viterbi_unified as vu
     counts = {"unified": 0, "forward": 0, "traceback": 0, "clusters": {}}
     for (k, polys), force in ([(code, None) for code in WIDE_CODES]
-                              + [(WIDE_CODES[0], 1)]):
+                              + [(WIDE_CODES[0], 1), (WIDE_CODES[-1], 1)]):
         tr = make_trellis(k, polys)
         if not autotune.wide_mapping(tr):
             raise AssertionError(f"K={k} beta={tr.beta} is not a wide code")
@@ -949,6 +1017,47 @@ def phase_main_large(gen):
         f"{autotune.block_grid(tr, LARGE_MAIN_FRAMES, 'cuda')} blocks "
         f"launched): n={n} ({LARGE_MAIN_FRAMES} frames of f=256) "
         f"Eb/N0={LARGE_MAIN_EBN0_DB} dB BER={ber(ref, bits):.3e}; kernel "
+        f"and kernel_split equal to the reference backend; launches "
+        f"{counts}; first calls {walls['kernel'] * 1e3:.1f} ms / "
+        f"{walls['kernel_split'] * 1e3:.1f} ms (host clock, after "
+        f"synchronize)")
+    return launches
+
+
+def lowrate_config(backend: str):
+    """The low rates' main path's configuration: the K=7 rate-1/9 code of
+    LOW_RATE_CODES at the paper's frame, unpunctured."""
+    import dataclasses
+    from repro_torch.core.trellis import make_trellis
+    return dataclasses.replace(main_config("1/2", backend),
+                               trellis=make_trellis(*LOW_RATE_CODES[1]))
+
+
+def phase_main_lowrate(gen):
+    """The low rates' main path: LOWRATE_MAIN_FRAMES frames of K=7 rate 1/9
+    (the register mapping with beta at run time) through
+    make_decoder(backend="kernel"), then "kernel_split", the launch counts
+    set to 0 just before each and read just after; the bits equal the
+    reference backend's. The received stream is the codeword's (n, 9)
+    symbols through the AWGN channel at LOWRATE_MAIN_EBN0_DB. Returns
+    {kernel: launches} of the backend that runs it."""
+    from repro_torch.channel.sim import awgn, ber, bpsk
+    from repro_torch.core.encoder import encode
+    from repro_torch.kernels import autotune
+    import torch
+    tr = lowrate_config("kernel").trellis
+    if autotune.wide_mapping(tr) or not autotune.low_rate(tr):
+        raise AssertionError(f"K={tr.k} beta={tr.beta} is not a low-rate "
+                             f"code on the fast mappings")
+    n = LOWRATE_MAIN_FRAMES * lowrate_config("kernel").spec.f
+    bits = torch.randint(0, 2, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    rx = awgn(bpsk(encode(bits, tr)), LOWRATE_MAIN_EBN0_DB, gen)  # (n, 9)
+    ref, launches, counts, walls = _code_path(lowrate_config, rx, n,
+                                              "K=7 rate 1/9")
+    log("main", f"K=7 rate 1/9 (register mapping, beta at run time): "
+        f"n={n} ({LOWRATE_MAIN_FRAMES} frames of f=256) "
+        f"Eb/N0={LOWRATE_MAIN_EBN0_DB} dB BER={ber(ref, bits):.3e}; kernel "
         f"and kernel_split equal to the reference backend; launches "
         f"{counts}; first calls {walls['kernel'] * 1e3:.1f} ms / "
         f"{walls['kernel_split'] * 1e3:.1f} ms (host clock, after "
@@ -1255,14 +1364,17 @@ def time_large_codes(gen):
 
 
 def time_wide_codes(gen):
-    """B1, B3 and the traceback on the wide mapping (WIDE_TIME: K=16, 17
-    and 18 at rate 1/2, K=7 at rate 1/9) at the main frame, packed, radix
-    4, lane: each equal to its plain version, then ms per launch in turns
-    (CUDA events) beside the plain version's (host clock, once) and the
-    bound, with the cluster (C blocks a frame, 1: none), the clusters (or
-    blocks) launched and resident, and each block's shared memory. Returns
-    {name: [{k, beta, F, cluster, grid, ms, plain_ms, bound_ms, bound_by},
-    ...]}."""
+    """B1, B3 and the traceback on the wide mapping and at the low rates
+    (WIDE_TIME: K=16, 17, 18 and 19 at rate 1/2 on clusters; K=7 at rates
+    1/9 and 1/16, K=11 rate 1/9 on the register mapping at run-time beta,
+    K=13 and 15 rate 1/9 on the one-block form's per-edge sums) at the main
+    frame, packed, radix 4, lane, the planner's tiles: each equal to its
+    plain version, then ms per launch in turns (CUDA events) beside the
+    plain version's (host clock, once) and the bound, with the mapping:
+    the cluster (C blocks a frame), the clusters launched and resident and
+    each block's shared memory; or the tile or threads, the frames
+    resident an SM, the registers. Returns {name: [{k, beta, F, mapping,
+    cluster, grid, ms, plain_ms, bound_ms, bound_by}, ...]}."""
     import torch
     from repro_torch.core.trellis import make_trellis
     from repro_torch.kernels import autotune
@@ -1275,15 +1387,22 @@ def time_wide_codes(gen):
     for code, F in WIDE_TIME:
         tr = make_trellis(*code)
         frames = _frames(tr, spec, F, gen, torch.float32)
+        plans = {u: autotune.plan_tiles(tr, spec, pack_survivors=True,
+                                        radix=4, unified=u, max_frames=F,
+                                        device="cuda")
+                 for u in (True, False)}
         kw = dict(trellis=tr, v1=20, f=256, v2=45, f0=32, v2s=45,
-                  frames_per_tile=1, pack_survivors=True, radix=4)
-        fkw = dict(trellis=tr, frames_per_tile=1, pack_survivors=True,
-                   radix=4)
+                  frames_per_tile=plans[True].frames_per_tile,
+                  pack_survivors=True, radix=4)
+        fkw = dict(trellis=tr, frames_per_tile=plans[False].frames_per_tile,
+                   pack_survivors=True, radix=4)
         tkw = dict(trellis=tr, v1=20, f=256, f0=32, v2s=45, packed=True)
-        # the plain versions keep every stage's (F, S) survivors: past
-        # k = 17 they run PLAIN_WIDE_BYTES of them at a time, frames being
-        # independent
-        n = max(1, PLAIN_WIDE_BYTES // (spec.frame_len * tr.num_states * 8))
+        # the plain versions keep every stage's (F, S) survivors and
+        # (F, half) branch metrics: past k = 17 or beta = 13 they run
+        # PLAIN_WIDE_BYTES of them at a time, frames being independent
+        half = 1 << (tr.beta - 1)
+        n = max(1, PLAIN_WIDE_BYTES // (spec.frame_len
+                                        * (tr.num_states + half) * 8))
 
         def chunked(fn, *xs):
             parts = [fn(*(x[i:i + n] for x in xs))
@@ -1319,28 +1438,55 @@ def time_wide_codes(gen):
             "viterbi_fwd": lambda: vf.forward_frames_cuda(frames, **fkw),
             "traceback_frames": lambda: tbf.traceback_frames_cuda(
                 sel, amax, **tkw)}, 3, rounds=2)
-        plan = autotune.plan_tiles(tr, spec, pack_survivors=True,
-                                   device="cuda")
+        plan = plans[True]
         C = autotune.wide_cluster(tr, "cuda")
-        grid = autotune.wide_grid(tr, F, "cuda")
-        resident = (autotune.cluster_capacity(tr, C, "cuda") if C > 1
-                    else autotune.wide_grid(tr, 1 << 30, "cuda"))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        if autotune.wide_mapping(tr):
+            mapping = f"cluster of {C}" if C > 1 else "wide"
+            grid = autotune.wide_grid(tr, F, "cuda")
+            resident = (autotune.cluster_capacity(tr, C, "cuda") if C > 1
+                        else autotune.wide_grid(tr, 1 << 30, "cuda"))
+            where = (f"cluster C={C}: {grid} clusters launched, {resident} "
+                     f"resident, {autotune.cluster_threads(tr, C)} threads "
+                     f"and {plan.smem_bytes} B smem a block, path metrics "
+                     f"in the cluster's shared memory" if C > 1 else
+                     f"no cluster: {grid} blocks launched, {resident} "
+                     f"resident, {autotune.wide_threads(tr)} threads and "
+                     f"{plan.smem_bytes} B smem a block, path metrics "
+                     f"in device memory")
+        elif autotune.smem_mapping(tr):
+            mapping = "one-block per-edge"
+            grid = min(F, plan.frames_per_sm * sms)
+            T = autotune.large_threads(tr)
+            where = (f"one-block form, per-edge sums: {T} threads of "
+                     f"{tr.num_states // 2 // T} butterflies, {grid} blocks "
+                     f"launched, B1 {plan.frames_per_sm} / B3 "
+                     f"{plans[False].frames_per_sm} blocks an SM, B1 "
+                     f"{plan.smem_bytes} B smem")
+        else:
+            mapping = "register run-time beta"
+            grid = -(-F // plan.frames_per_tile)
+            b3 = plans[False]
+            b3_grid = (autotune.wide_grid(tr, F, "cuda", unified=False,
+                                          cluster=1)
+                       if autotune.wide_mapping(tr, unified=False) else 0)
+            where = (f"register mapping at run-time beta: B1 tile "
+                     f"{plan.frames_per_tile} ({grid} blocks), "
+                     f"{plan.frames_per_sm} frames an SM, {plan.smem_bytes} "
+                     f"B smem; B3 "
+                     + (f"on the wide mapping, {b3_grid} blocks launched"
+                        if b3_grid else f"tile {b3.frames_per_tile}")
+                     + f", {b3.frames_per_sm} frames an SM, "
+                     f"{b3.registers} registers; LLR chunks "
+                     f"{autotune.llr_chunk_bytes(tr)} B a warp")
         for name in names:
             b = bound(name, spec, F, trellis=tr)
             out[name].append({"k": tr.k, "beta": tr.beta, "F": F,
-                              "cluster": C, "grid": grid, "ms": ms[name],
+                              "mapping": mapping, "cluster": C,
+                              "grid": grid, "ms": ms[name],
                               "plain_ms": plain_ms[name],
                               "bound_ms": b[0], "bound_by": b[1]})
-        where = (f"cluster C={C}: {grid} clusters launched, {resident} "
-                 f"resident, {autotune.cluster_threads(tr, C)} threads and "
-                 f"{plan.smem_bytes} B smem a block, path metrics in the "
-                 f"cluster's shared memory" if C > 1 else
-                 f"no cluster: {grid} blocks launched, {resident} resident, "
-                 f"{autotune.wide_threads(tr)} threads and {plan.smem_bytes}"
-                 f" B smem a block, path metrics "
-                 + ("on chip" if autotune.wide_pm_on_chip(tr)
-                    else "in device memory"))
-        log("time", f"wide mapping K={tr.k} beta={tr.beta} F={F} L="
+        log("time", f"{mapping} K={tr.k} beta={tr.beta} F={F} L="
             f"{spec.frame_len} ({where}, {plan.registers} registers): "
             + "; ".join(f"{n} {ms[n]:.4f} ms, plain {plain_ms[n]:.1f} ms, "
                         f"bound {out[n][-1]['bound_ms']:.4f} ms "
@@ -3196,6 +3342,7 @@ def main(argv=None) -> int:
     launches, frames, rx = phase_main(gen)
     wide_launches = phase_main_wide(gen)
     large_launches = phase_main_large(gen)
+    lowrate_launches = phase_main_lowrate(gen)
     entries, call_ms = phase_time(frames, rx, launches, gen)
     phase_profile(rx, call_ms)
     stream = phase_stream(gen)
@@ -3210,6 +3357,7 @@ def main(argv=None) -> int:
         entry["launches_mesh"] = mesh[entry["name"]]
         entry["launches_wide"] = wide_launches[entry["name"]]
         entry["launches_large"] = large_launches[entry["name"]]
+        entry["launches_lowrate"] = lowrate_launches[entry["name"]]
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:

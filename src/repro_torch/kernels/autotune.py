@@ -34,11 +34,18 @@ butterfly's shuffles and the max's redux). If no tile fits, the smallest
 is returned (``fits`` is false): the unified kernel then keeps its
 survivors in device memory.
 
-Codes 12 <= k <= 15 at beta <= 8 (``smem_mapping``) run the cluster
-mapping's one-block form (acs.cuh's ``VitCluster`` with no cluster): one
-frame a block of ``large_threads`` threads with the path metrics in shared
-memory, so their only tile is one frame and the block's shared memory
-counts the path metrics beside ``BLOCK_CORE_BYTES``. Their launch takes
+Rates below 1/8 (beta > ``MAX_BETA`` = 8) at k <= 11 run the same mapping
+with beta at run time (``low_rate``: acs.cuh's ``VitFrame<R, 0>``, one
+instantiation per R): each warp also stages its frames' LLRs a chunk at a
+time in shared memory (``llr_chunk_bytes``), and the CPU plans them with
+the registers of that form (``H100_REGISTERS``' ``*_lowrate`` counts).
+
+Codes 12 <= k <= 15 (``smem_mapping``) run the cluster mapping's
+one-block form (acs.cuh's ``VitCluster`` with no cluster; a butterfly
+table a stage at beta <= 8, per-edge sums past it): one frame a block of
+``large_threads`` threads with the path metrics in shared memory, so
+their only tile is one frame and the block's shared memory counts the
+path metrics beside ``BLOCK_CORE_BYTES``. Their launch takes
 ``block_grid`` blocks, the most that are resident at once
 (``block_capacity`` an SM: the card's
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, ``H100_BLOCKS`` on the
@@ -47,16 +54,14 @@ and traceback starts beside the path metrics where that costs no resident
 frame of the launch (``block_survivors_on_chip``), else in a device-memory
 scratch per block, so every such code has a plan that fits.
 
-``MAX_K`` = 15 and ``MAX_BETA`` = 8 are the edge of those two fast
-mappings. Every code past them (``wide_mapping``: k > 15, or beta > 8 at
-any k) runs the wide mapping: one frame a block of ``wide_threads`` (S/2
-clamped to 32..1024) threads, k and beta at run time, survivors in a
-device-memory scratch, path metrics in shared memory to k = 15
-(``wide_pm_on_chip``) and in the scratch past it. Its only tile is one
-frame and it always fits: a block's shared memory is a fixed core and, to
-k = 15, the path metrics (``WIDE_CORE_BYTES`` + 8 S). Its launch takes
-``wide_grid`` blocks, the most that are resident at once, and each block
-takes frames in turn, so the scratch is per block.
+``MAX_K`` = 15 is the edge of those two fast mappings. Every code past it
+(``wide_mapping``: k > 15) runs the wide mapping: one frame a block of
+``wide_threads`` (S/2 clamped to 32..1024) threads, k and beta at run
+time, survivors and path metrics in a device-memory scratch. Its only
+tile is one frame and it always fits: a block's shared memory is a fixed
+core (``WIDE_CORE_BYTES``). Its launch takes ``wide_grid`` blocks, the
+most that are resident at once, and each block takes frames in turn, so
+the scratch is per block.
 
 Codes 16 <= k <= 19 run the wide mapping on a thread-block cluster
 instead (``wide_cluster``: C = 2^(k-15) blocks a frame, acs.cuh's
@@ -94,11 +99,12 @@ __all__ = ["TilePlan", "DecodePlan", "DeviceLimits", "H100_LIMITS",
            "unified_smem_bytes", "split_smem_bytes", "candidate_tiles",
            "plan_tiles", "plan_decode", "measure_plan", "AUTO_LAYOUT",
            "BLOCK_THREADS", "lanes_per_frame", "max_frames_per_block",
-           "block_threads", "SMEM_MIN_K", "MAX_K", "MAX_BETA",
+           "block_threads", "SMEM_MIN_K", "MAX_K", "MAX_BETA", "FWD_WIDE_K",
            "smem_mapping", "wide_mapping", "wide_threads", "large_threads",
+           "low_rate", "llr_chunk_bytes",
            "BLOCK_CORE_BYTES", "H100_BLOCKS", "block_capacity",
-           "block_grid", "block_survivors_on_chip",
-           "wide_pm_on_chip", "wide_grid", "WIDE_CORE_BYTES", "H100_SMS",
+           "block_grid", "block_survivors_on_chip", "tile_survivors_on_chip",
+           "wide_grid", "WIDE_CORE_BYTES", "H100_SMS",
            "CLUSTER_MIN_K", "CLUSTER_MAX_K", "CLUSTER_CORE_BYTES",
            "H100_CLUSTERS", "cluster_size", "cluster_threads",
            "cluster_capacity", "wide_cluster"]
@@ -109,15 +115,26 @@ BLOCK_THREADS = 256
 #: Codes from this k on take the cluster mapping's one-block form: one
 #: block a frame, path metrics in shared memory (VIT_SMEM_MIN_K).
 SMEM_MIN_K = 12
-#: The largest code and the lowest rate the two fast mappings take
-#: (VIT_SMEM_MAX_K, VIT_MAX_BETA); past either the wide mapping runs.
+#: The largest code the two fast mappings take (VIT_SMEM_MAX_K); past it
+#: the wide mapping runs.
 MAX_K = 15
+#: The largest beta the register mapping instantiates per beta and the
+#: one-block form tabulates (VIT_MAX_BETA); past it both take beta at run
+#: time (``low_rate``).
 MAX_BETA = 8
-#: Threads of a one-block frame by k (acs.cuh vit_block_threads): the
-#: fastest of 128, 256 and 512 at eight frames an SM on an H100
-#: (tools/variant_turns.py --large; PERF.md); below k = 12, where only a
-#: test forces the form, 128; never more than the S/2 butterflies.
+#: The code whose forward kernel (B3) runs the wide mapping past beta = 8
+#: (csrc/viterbi_fwd.cu VIT_FWD_WIDE_K): there the register form's
+#: forward kernel (8 registers a lane) compiles each warp-collective with
+#: a divergent slow path and loses to the wide mapping (PERF.md).
+FWD_WIDE_K = 9
+#: Threads of a one-block frame by k (acs.cuh vit_block_threads): at
+#: beta <= 8 the fastest of 128, 256 and 512 at eight frames an SM on an
+#: H100 (tools/variant_turns.py --large; PERF.md); past it, where each
+#: butterfly sums its own terms, the fastest at one to eight frames an SM
+#: (tools/variant_turns.py --low-rate); below k = 12, where only a test
+#: forces the form, 128; never more than the S/2 butterflies.
 _LARGE_THREADS = {12: 256, 13: 128, 14: 256, 15: 512}
+_LOW_RATE_THREADS = {12: 256, 13: 512, 14: 512, 15: 512}
 #: Bytes of the one-block form's fixed shared memory (VIT_BLOCK_CORE_BYTES):
 #: the cluster core's layout with one block's partials: two stages'
 #: butterfly tables (2^8 float4 each), max and argmax partials of 32 warps,
@@ -148,29 +165,41 @@ CLUSTER_CORE_BYTES = (2 * 256 * 16 + 2 * 2 * 16 * 32 * 4 + 2 * 32 * 4
 _BM_DTYPES = ("float32", "bfloat16")
 
 
-def wide_mapping(trellis: Trellis) -> bool:
-    """Whether the kernels run ``trellis`` on the wide mapping: any code
-    past the fast mappings' ``MAX_K`` or ``MAX_BETA``."""
-    return trellis.k > MAX_K or trellis.beta > MAX_BETA
+def wide_mapping(trellis: Trellis, unified: bool = True) -> bool:
+    """Whether B1 (or, with ``unified=False``, B3) runs ``trellis`` on the
+    wide mapping: any code past the fast mappings' ``MAX_K``, at any beta
+    (acs.cuh vit_wide_code); for B3 also ``FWD_WIDE_K`` past beta = 8
+    (viterbi_fwd.cu fwd_wide_code)."""
+    return trellis.k > MAX_K or (not unified and trellis.k == FWD_WIDE_K
+                                 and low_rate(trellis))
 
 
 def smem_mapping(trellis: Trellis) -> bool:
     """Whether the kernels run ``trellis`` on the cluster mapping's
-    one-block form (12 <= k <= 15, beta <= 8)."""
+    one-block form (12 <= k <= 15, any beta)."""
     return trellis.k >= SMEM_MIN_K and not wide_mapping(trellis)
+
+
+def low_rate(trellis: Trellis) -> bool:
+    """Whether a fast mapping runs ``trellis`` with beta at run time
+    (beta > ``MAX_BETA``): the register mapping's ``VitFrame<R, 0>`` or
+    the one-block form's per-edge sums."""
+    return trellis.beta > MAX_BETA
+
+
+def llr_chunk_bytes(trellis: Trellis) -> int:
+    """Shared memory of one warp's LLR chunks in the register mapping at
+    a run-time beta (acs.cuh vit_llr_chunk_bytes): two chunks of 32 stage
+    rows of beta float32 rounded up to whole float4; 0 at beta <= 8."""
+    if not low_rate(trellis):
+        return 0
+    return 2 * 32 * (-(-trellis.beta // 4) * 4) * 4
 
 
 def wide_threads(trellis: Trellis) -> int:
     """Threads of one wide-mapping block: one a butterfly (S/2), at
     least a warp, at most 1024 (acs.cuh vit_wide_threads)."""
     return max(32, min(_WIDE_MAX_THREADS, trellis.num_states // 2))
-
-
-def wide_pm_on_chip(trellis: Trellis) -> bool:
-    """Whether the wide mapping keeps the path metrics in shared memory
-    (k <= 15: two buffers of at most 2^14 float32, 128 KB) rather than in
-    the block's device-memory scratch."""
-    return trellis.k <= MAX_K
 
 
 def cluster_size(trellis: Trellis) -> int:
@@ -191,9 +220,11 @@ def cluster_threads(trellis: Trellis, cluster: int) -> int:
 
 def large_threads(trellis: Trellis) -> int:
     """Threads of a one-block frame (acs.cuh vit_block_threads): 256, 128,
-    256 and 512 at k = 12..15 (4, 16, 16, 16 butterflies a thread), 128
-    below, at most S/2."""
-    return min(trellis.num_states // 2, _LARGE_THREADS.get(trellis.k, 128))
+    256 and 512 at k = 12..15 (4, 16, 16, 16 butterflies a thread) at
+    beta <= 8, 256, 512, 512, 512 (4, 4, 8, 16) past it, 128 below
+    k = 12, at most S/2."""
+    table = _LOW_RATE_THREADS if low_rate(trellis) else _LARGE_THREADS
+    return min(trellis.num_states // 2, table.get(trellis.k, 128))
 
 
 def lanes_per_frame(trellis: Trellis) -> int:
@@ -202,20 +233,21 @@ def lanes_per_frame(trellis: Trellis) -> int:
     return min(trellis.num_states, 32)
 
 
-def max_frames_per_block(trellis: Trellis) -> int:
+def max_frames_per_block(trellis: Trellis, unified: bool = True) -> int:
     """The thread cap: eight warps of ``32 // lanes_per_frame`` frames;
-    one frame for a large or wide code."""
-    if smem_mapping(trellis) or wide_mapping(trellis):
+    one frame for a large or wide code (of B3 with ``unified=False``)."""
+    if smem_mapping(trellis) or wide_mapping(trellis, unified):
         return 1
     return BLOCK_THREADS // 32 * (32 // lanes_per_frame(trellis))
 
 
 def block_threads(trellis: Trellis, frames_per_block: int,
-                  cluster: int = 1) -> int:
+                  cluster: int = 1, unified: bool = True) -> int:
     """Threads of a block of that many frames: whole warps; a large
-    code's block is ``large_threads``, a wide code's ``wide_threads``, or
-    ``cluster_threads`` in a cluster of ``cluster`` > 1 blocks."""
-    if wide_mapping(trellis):
+    code's block is ``large_threads``, a wide code's (of B3 with
+    ``unified=False``) ``wide_threads``, or ``cluster_threads`` in a
+    cluster of ``cluster`` > 1 blocks."""
+    if wide_mapping(trellis, unified):
         return (cluster_threads(trellis, cluster) if cluster > 1
                 else wide_threads(trellis))
     if smem_mapping(trellis):
@@ -246,25 +278,34 @@ H100_LIMITS = DeviceLimits(232448, 233472, 2048, 32, 1024, 65536)
 #: on an NVIDIA H100 80GB HBM3 (chip_smoke.py's build phase prints every
 #: instantiation's). The CPU plans every code with it; on the card the
 #: planner asks the kernels, whose counts grow with R and beta. The
-#: ``*_block`` counts are the one-block form's at k = 12 (its registers
-#: do not depend on beta), which the CPU reports for the codes
+#: ``*_lowrate`` counts are the register mapping's at a run-time beta (K=7
+#: beta=9), which the CPU reports for every code past beta = 8 at
+#: k <= 11. The ``*_block`` counts are the one-block form's at k = 12
+#: (its registers do not depend on beta <= 8; ``*_block_lowrate``: k = 12
+#: beta = 9, the per-edge sums), which the CPU reports for the codes
 #: 12 <= k <= 15 (their resident blocks are ``H100_BLOCKS``); the
 #: ``*_wide`` counts the wide mapping's (one instantiation for every code
 #: past them); the ``*_cluster`` counts its cluster kernels' at k = 16
 #: beta = 2 (512 threads a block, so at most 128 registers a thread).
-H100_REGISTERS = {"unified": 48, "split": 48, "unified_block": 64,
-                  "split_block": 64, "unified_wide": 64, "split_wide": 56,
-                  "unified_cluster": 128, "split_cluster": 128}
+H100_REGISTERS = {"unified": 48, "split": 48, "unified_lowrate": 64,
+                  "split_lowrate": 64, "unified_block": 64,
+                  "split_block": 64, "unified_block_lowrate": 64,
+                  "split_block_lowrate": 64, "unified_wide": 64,
+                  "split_wide": 62, "unified_cluster": 128,
+                  "split_cluster": 128}
 
 #: Blocks of the one-block kernels (k = 12..15, ``large_threads`` threads,
 #: the recursion's shared memory alone: the forward kernel's block, and
 #: B1's with its survivors in the scratch) an NVIDIA H100 80GB HBM3 keeps
 #: resident on one SM: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` on
-#: the card (chip_smoke.py's build phase prints it). What the CPU plans
-#: with; a block with more shared memory holds no more than the SM's shared
-#: memory allows beside it.
+#: the card (chip_smoke.py's build phase prints it); ``*_lowrate``: the
+#: per-edge sums' kernels past beta = 8. What the CPU plans with; a block
+#: with more shared memory holds no more than the SM's shared memory
+#: allows beside it.
 H100_BLOCKS = {"unified": {12: 4, 13: 4, 14: 2, 15: 1},
-               "split": {12: 4, 13: 4, 14: 2, 15: 1}}
+               "split": {12: 4, 13: 4, 14: 2, 15: 1},
+               "unified_lowrate": {12: 4, 13: 2, 14: 1, 15: 1},
+               "split_lowrate": {12: 4, 13: 2, 14: 1, 15: 1}}
 
 #: Clusters of C blocks of the cluster kernels (one 1024-thread block of
 #: 2^14 states an SM, k = 15 + log2 C) an NVIDIA H100 80GB HBM3 keeps
@@ -309,36 +350,44 @@ def _library(unified: bool):
 
 
 def kernel_registers(trellis: Trellis, *, unified: bool = True,
-                     device=None, cluster: int | None = None) -> int:
+                     device=None, cluster: int | None = None,
+                     wide: bool = False) -> int:
     """Registers per thread of the kernel instantiation that runs
     ``trellis`` (``device=None`` = ``"cuda"``: asked of the built kernel
     through ``cudaFuncGetAttributes``; the CPU takes ``H100_REGISTERS``,
     the main path's count, for every code of its mapping). ``cluster``
-    (default ``wide_cluster``'s) > 1 asks for the cluster kernel's."""
+    (default ``wide_cluster``'s) > 1 asks for the cluster kernel's;
+    ``wide`` for the wide kernel's off a cluster, whatever the code (a
+    forced launch)."""
     name = "unified" if unified else "split"
     dev = _resolve_device(device)
     if cluster is None:
         cluster = (wide_cluster(trellis, dev, unified=unified)
-                   if wide_mapping(trellis) else 1)
+                   if wide_mapping(trellis, unified) else 1)
+    wide = cluster <= 1 and (wide or wide_mapping(trellis, unified))
     if dev.type != "cuda":
-        return H100_REGISTERS[name + (
-            "_cluster" if cluster > 1 else
-            "_wide" if wide_mapping(trellis) else
-            "_block" if smem_mapping(trellis) else "")]
-    key = (name, trellis.k, trellis.beta, int(cluster))
+        if cluster > 1:
+            return H100_REGISTERS[name + "_cluster"]
+        if wide:
+            return H100_REGISTERS[name + "_wide"]
+        return H100_REGISTERS[name + ("_block" if smem_mapping(trellis)
+                                      else "")
+                              + ("_lowrate" if low_rate(trellis) else "")]
+    # the wide kernel is one instantiation, which any k >= 16 code asks for
+    k, beta = (max(trellis.k, 20), trellis.beta) if wide else \
+        (trellis.k, trellis.beta)
+    key = (name, k, beta, int(cluster))
     if key not in _registers:
         out = (ctypes.c_int * 3)()
         if cluster > 1:
             fn = f"viterbi_{'unified' if unified else 'fwd'}_cluster_attrs"
-            err = getattr(_library(unified), fn)(trellis.k, trellis.beta,
-                                                 int(cluster), out)
+            err = getattr(_library(unified), fn)(k, beta, int(cluster), out)
         else:
             fn = f"viterbi_{'unified' if unified else 'fwd'}_func_attrs"
-            err = getattr(_library(unified), fn)(trellis.k, trellis.beta,
-                                                 out)
+            err = getattr(_library(unified), fn)(k, beta, out)
         if err != 0:
-            raise RuntimeError(f"{fn}(k={trellis.k}, beta={trellis.beta}, "
-                               f"cluster={cluster}): CUDA error {err}")
+            raise RuntimeError(f"{fn}(k={k}, beta={beta}, cluster={cluster})"
+                               f": CUDA error {err}")
         _registers[key] = int(out[0])
     return _registers[key]
 
@@ -360,22 +409,24 @@ def block_capacity(trellis: Trellis, device=None, *, unified: bool = True,
     smem = core if smem is None else int(smem)
     if dev.type != "cuda":
         lim = H100_LIMITS
-        return min(H100_BLOCKS["unified" if unified else "split"][trellis.k],
+        name = (("unified" if unified else "split")
+                + ("_lowrate" if low_rate(trellis) else ""))
+        return min(H100_BLOCKS[name][trellis.k],
                    lim.smem_per_sm // (smem + lim.smem_reserved_per_block))
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    key = (unified, trellis.k, smem, index)
+    key = (unified, trellis.k, low_rate(trellis), smem, index)
     if key not in _blocks:
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
             if unified:
                 err = _library(True).viterbi_unified_block_occupancy(
-                    trellis.k, smem, ctypes.byref(out))
+                    trellis.k, trellis.beta, smem, ctypes.byref(out))
             elif smem != core:
                 raise ValueError(f"the forward kernel's block has {core} "
                                  f"bytes, not {smem}")
             else:
                 err = _library(False).viterbi_fwd_block_occupancy(
-                    trellis.k, ctypes.byref(out))
+                    trellis.k, trellis.beta, ctypes.byref(out))
         if err != 0:
             raise RuntimeError(f"block occupancy (k={trellis.k}, smem="
                                f"{smem}): CUDA error {err}")
@@ -423,6 +474,50 @@ def block_survivors_on_chip(trellis: Trellis, spec: FrameSpec, *,
     if frames is not None:
         want = min(want, int(frames))
     return sms * block_capacity(trellis, dev, smem=on) >= want
+
+
+_tile_residency: dict = {}
+
+
+def tile_survivors_on_chip(trellis: Trellis, spec: FrameSpec,
+                           frames_per_tile: int, *, pack_survivors: bool,
+                           frames: int | None = None, device=None,
+                           budget: int | None = None) -> bool:
+    """Whether B1's register mapping past beta = 8 (``low_rate``; the
+    planner and B1's wrapper ask only there) keeps a block's survivors and
+    starts in shared memory (else in a device-memory scratch per frame):
+    where a block of ``frames_per_tile`` frames holds them (``budget``,
+    default the card's limit) and the blocks that hold them keep as many
+    of the launch's ``frames`` (default: as many as the card holds)
+    resident at once as the blocks without them, ``block_survivors_on_chip``'s
+    rule: at K=11 rate 1/9 a packed frame's survivors (41 KB) leave 5
+    frames an SM where its registers leave 32. (At beta <= 8 they stay on
+    chip wherever they fit: the tile planner weighs their bytes.) The
+    resident frames are cached by everything but ``frames``."""
+    dev = _resolve_device(device)
+    fpb = int(frames_per_tile)
+    key = (trellis.k, trellis.beta, spec, fpb, bool(pack_survivors),
+           str(dev), budget)
+    if key not in _tile_residency:
+        limits = device_limits(dev)
+        on, _ = unified_smem_bytes(trellis, spec, fpb,
+                                   pack_survivors=pack_survivors)
+        off, _ = unified_smem_bytes(trellis, spec, fpb,
+                                    pack_survivors=pack_survivors,
+                                    scratch=True)
+        threads = block_threads(trellis, fpb)
+        regs = kernel_registers(trellis, unified=True, device=dev,
+                                cluster=1)
+        sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+               if dev.type == "cuda" else H100_SMS)
+        fits = on <= (limits.smem_per_block if budget is None
+                      else int(budget))
+        _tile_residency[key] = (
+            sms * _resident_frames(on, threads, fpb, regs, limits)
+            if fits else -1,
+            sms * _resident_frames(off, threads, fpb, regs, limits))
+    on, off = _tile_residency[key]
+    return on >= (off if frames is None else min(off, int(frames)))
 
 
 _clusters: dict = {}
@@ -490,7 +585,8 @@ def wide_grid(trellis: Trellis, frames: int, device=None, *,
            if dev.type == "cuda" else H100_SMS)
     per_sm = _resident_frames(
         _wide_smem(trellis, 1)[0], wide_threads(trellis), 1,
-        kernel_registers(trellis, unified=unified, device=dev, cluster=1),
+        kernel_registers(trellis, unified=unified, device=dev, cluster=1,
+                         wide=True),
         limits)
     return max(1, min(int(frames), sms * max(1, per_sm)))
 
@@ -553,7 +649,9 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     (``4 * ceil(S/32)`` bytes a stage) or one byte. Path metrics and branch
     metrics live in registers, so ``bm_dtype`` and ``radix`` change
     nothing, and the layout is not a shared-memory orientation on Hopper;
-    they are accepted so call sites can pass the whole configuration.
+    they are accepted so call sites can pass the whole configuration. Past
+    beta = 8 each warp also keeps its LLR chunks (``llr_chunk_bytes``)
+    ahead of the starts.
 
     A large code (``smem_mapping``: one frame a block) keeps its path
     metrics in two shared buffers of S float32 beside the one-block form's
@@ -577,7 +675,13 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     nsub = spec.f // f0
     fixed = spec.parallel_tb and spec.start == "fixed"
     row = 4 * W if pack_survivors else S
-    core = _large_smem(trellis)[1] if smem_mapping(trellis) else ()
+    if smem_mapping(trellis):
+        core = _large_smem(trellis)[1]
+    elif low_rate(trellis):
+        core = (("llr_chunks", block_threads(trellis, fpb) // 32
+                 * llr_chunk_bytes(trellis)),)
+    else:
+        core = ()
     breakdown = core + (
         ("traceback_starts",
          0 if fixed or scratch else -(-fpb * nsub * 4 // 16) * 16),
@@ -595,14 +699,13 @@ def _large_smem(trellis: Trellis):
 
 def _wide_smem(trellis: Trellis, cluster: int = 1):
     """(total_bytes, breakdown) of one wide-mapping block of either
-    kernel (acs.cuh vit_wide_smem_bytes), or, with ``cluster`` > 1, of
+    kernel (acs.cuh VIT_WIDE_CORE_BYTES), or, with ``cluster`` > 1, of
     one block of a cluster of that many (vit_cluster_smem_bytes)."""
     C = int(cluster)
     if C > 1:
         pm, core = 8 * trellis.num_states // C, CLUSTER_CORE_BYTES
     else:
-        pm = 8 * trellis.num_states if wide_pm_on_chip(trellis) else 0
-        core = WIDE_CORE_BYTES
+        pm, core = 0, WIDE_CORE_BYTES
     breakdown = (("path_metrics", pm), ("tables_and_partials", core),
                  ("traceback_starts", 0), ("sel_survivors", 0))
     return sum(b for _, b in breakdown), breakdown
@@ -616,26 +719,30 @@ def split_smem_bytes(trellis: Trellis, spec: FrameSpec,
     of ``csrc/viterbi_fwd.cu::fwd_smem``. Its path metrics live in
     registers and its survivors and argmax go to device memory; each warp
     stages one run of them (32 words and 32 argmax, 256 bytes) in shared
-    memory, whatever the knobs. A large code's block keeps the one-block
+    memory, whatever the knobs, and past beta = 8 its LLR chunks
+    (``llr_chunk_bytes``). A large code's block keeps the one-block
     form's path metrics, tables and partials instead, a wide code's the
     wide mapping's (on a cluster of ``cluster`` blocks, as
     ``unified_smem_bytes``)."""
     _check_knobs(layout, bm_dtype)
     del spec, pack_survivors, radix
-    if wide_mapping(trellis):
+    if wide_mapping(trellis, unified=False):
         return _wide_smem(trellis, cluster)
     if smem_mapping(trellis):
         return _large_smem(trellis)
     warps = block_threads(trellis, frames_per_tile) // 32
-    breakdown = (("run_buffers", warps * 256),)
-    return warps * 256, breakdown
+    breakdown = (("run_buffers", warps * 256),) + (
+        (("llr_chunks", warps * llr_chunk_bytes(trellis)),)
+        if low_rate(trellis) else ())
+    return sum(b for _, b in breakdown), breakdown
 
 
-def candidate_tiles(trellis: Trellis, max_frames: int | None = None):
+def candidate_tiles(trellis: Trellis, max_frames: int | None = None,
+                    unified: bool = True):
     """Powers of two from 1 up to the thread cap
-    ``max_frames_per_block``, and up to the smallest one that covers
-    ``max_frames``."""
-    cap = max_frames_per_block(trellis)
+    ``max_frames_per_block`` (of B1, or of B3 with ``unified=False``),
+    and up to the smallest one that covers ``max_frames``."""
+    cap = max_frames_per_block(trellis, unified)
     tiles = [1 << i for i in range(cap.bit_length()) if 1 << i <= cap]
     if max_frames is not None:
         cover = next((t for t in tiles if t >= max_frames), tiles[-1])
@@ -664,7 +771,8 @@ def _tile_at(trellis: Trellis, spec: FrameSpec, ft: int, *, unified: bool,
     large code's block is planned as the kernel runs it: B1's survivors
     in shared memory or the device-memory scratch by
     ``block_survivors_on_chip`` (for ``frames`` frames), its resident
-    blocks ``block_capacity``'s. A wide code's block is one of a cluster
+    blocks ``block_capacity``'s; on the register mapping past beta = 8 by
+    ``tile_survivors_on_chip``. A wide code's block is one of a cluster
     of ``cluster`` blocks (1: off a cluster): its bytes and its threads
     both."""
     model = unified_smem_bytes if unified else split_smem_bytes
@@ -683,8 +791,12 @@ def _tile_at(trellis: Trellis, spec: FrameSpec, ft: int, *, unified: bool,
         return TilePlan(int(ft), total, breakdown, budget,
                         "unified" if unified else "split", Layout(layout),
                         str(bm_dtype), False, resident, int(registers))
+    if unified and low_rate(trellis) and not wide_mapping(trellis):
+        kw["scratch"] = not tile_survivors_on_chip(
+            trellis, spec, ft, pack_survivors=pack_survivors, frames=frames,
+            device=device, budget=budget)
     total, breakdown = model(trellis, spec, ft, **kw, cluster=cluster)
-    threads = block_threads(trellis, ft, cluster)
+    threads = block_threads(trellis, ft, cluster, unified)
     resident = (_resident_frames(total, threads, ft, registers, limits)
                 if total <= budget else 0)
     return TilePlan(int(ft), total, breakdown, budget,
@@ -711,12 +823,12 @@ def plan_tiles(trellis: Trellis, spec: FrameSpec, *,
     _check_knobs(layout, bm_dtype)
     limits = device_limits(device)
     cluster = (wide_cluster(trellis, device, unified=unified)
-               if wide_mapping(trellis) else 1)
+               if wide_mapping(trellis, unified) else 1)
     registers = kernel_registers(trellis, unified=unified, device=device,
                                  cluster=cluster)
     budget = limits.smem_per_block if smem_budget is None else int(smem_budget)
     best = None
-    for ft in candidate_tiles(trellis, max_frames):
+    for ft in candidate_tiles(trellis, max_frames, unified):
         plan = _tile_at(trellis, spec, ft, unified=unified,
                         pack_survivors=pack_survivors, radix=radix,
                         layout=layout, bm_dtype=bm_dtype, budget=budget,
@@ -858,7 +970,7 @@ def _measure_candidates(trellis: Trellis, plan_spec: FrameSpec,
                  else Layout.LANE)
         tiles.append(_tile_at(trellis, plan_spec, ft0, layout=other,
                               **tile_kw))
-    cap = candidate_tiles(trellis)[-1]
+    cap = candidate_tiles(trellis, unified=unified)[-1]
     for ft in (ft0 // 2, ft0 * 2):
         if 1 <= ft <= cap:
             tiles.append(_tile_at(trellis, plan_spec, ft,

@@ -46,15 +46,21 @@
 //   a redux.sync min over the lanes' first hits.
 // Radix 4 is two exact radix-2 stages; here every stage runs the same code.
 //
+// Codes past beta = 8 (rates below 1/8) take the same mapping with beta at
+// run time (VitFrame<R, 0>, one instantiation per R): each butterfly's
+// encoder word in a register instead of 2 R beta sign registers, the
+// stage's LLRs staged a chunk at a time in the warp's shared memory and
+// read as broadcasts (vit_recursion_rt).
+//
 // Every code the plain version takes past the register mapping's k <= 11
-// or beta <= 8 takes one of two more mappings. VitWide (below): one block a
-// frame, k and beta at run time, for beta > 8 at any k and for k >= 20.
-// VitCluster (at the end): one thread-block cluster of C = 2^(k-15) blocks
-// a frame at 16 <= k <= 19, in VitWide's place where the card holds the
-// cluster, the path metrics in the cluster's shared memory, exchanged
-// through distributed shared memory; and its one-block form (C = 1, a
-// compile-time case) at 12 <= k <= 15 and beta <= 8, the path metrics in
-// the block's shared memory.
+// takes one of two more mappings. VitCluster (at the end): one thread-block
+// cluster of C = 2^(k-15) blocks a frame at 16 <= k <= 19, the path metrics
+// in the cluster's shared memory, exchanged through distributed shared
+// memory; and its one-block form (C = 1, a compile-time case) at
+// 12 <= k <= 15, the path metrics in the block's shared memory (a
+// butterfly table a stage at beta <= 8, per-edge sums of each butterfly's
+// encoder word past it). VitWide (below): one block a frame, k and beta at
+// run time, for k >= 20 and for k = 16-19 where the card holds no cluster.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,13 +69,16 @@
 #include <math.h>
 #include <stdint.h>
 
+// The largest beta the register mapping instantiates per beta and the
+// one-block and cluster forms tabulate (2^beta entries a stage); past it
+// they take beta at run time.
 #define VIT_MAX_BETA 8
 #define VIT_FULL 0xffffffffu
 // Most threads one block of either kernel runs (eight warps): nothing in the
 // recursion is block-wide, so a block is only a unit of scheduling.
 #define VIT_BLOCK_THREADS 256
-// The large codes: 12 <= k <= 15 (and beta <= 8) run VitCluster's one-block
-// form, one block a frame.
+// The large codes: 12 <= k <= 15 run VitCluster's one-block form, one
+// block a frame.
 #define VIT_SMEM_MIN_K 12
 #define VIT_SMEM_MAX_K 15
 
@@ -109,9 +118,10 @@ __device__ __forceinline__ int vit_key(int i) {
   return i ^ ((i >> 31) & 0x7fffffff);
 }
 
-// The lane's view of one frame: geometry, edge signs, path metrics.
-template <int R, int BETA>
-struct VitFrame {
+// The lane's view of one frame: geometry and path metrics, and the stage
+// step from each edge's branch metric (both forms of VitFrame below).
+template <int R>
+struct VitLanes {
   int P;              // lanes per frame
   int l;              // lane within the frame's segment (state s = P r + l)
   int segbase;        // first lane of the segment
@@ -119,19 +129,9 @@ struct VitFrame {
   unsigned lowmask;   // P low bits
   int src0, src1;     // lanes of the predecessors within the segment
   bool hi;            // l >= 16: predecessors in register 2r + 1
-  // Each edge sums its own terms, off the stage's critical path (the
-  // predecessor's metric joins in one add), by an fma chain over its
-  // terms' signs held as floats: 2 R beta registers, which spill past a
-  // few dozen and are still faster than sign bits negated term by term
-  // at every code tools/acs_variants.py timed.
-  float sg[R][2][BETA];  // sign of term b of edge p into state P r + l
   float sig[R];
 
-  // idx (2, S), sgn (2, S), signs_half (half, beta) as the wrapper passes
-  // them (kernels/tables.py).
-  __device__ __forceinline__ void init(int k, const int* idx, const float* sgn,
-                                       const float* signs_half) {
-    const int S = 1 << (k - 1);
+  __device__ __forceinline__ void init_lanes(int k) {
     const int lane = threadIdx.x & 31;
     P = vit_lanes_per_frame(k);
     l = lane & (P - 1);
@@ -142,18 +142,7 @@ struct VitFrame {
     src1 = src0 | 1;
     hi = l >= 16;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int s = P * r + l;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int h = idx[p * S + s];
-        const float e = sgn[p * S + s];
-#pragma unroll
-        for (int b = 0; b < BETA; ++b)
-          sg[r][p][b] = e * signs_half[h * BETA + b];       // +-1
-      }
-      sig[r] = 0.f;
-    }
+    for (int r = 0; r < R; ++r) sig[r] = 0.f;
   }
 
   // The segment's width and lanes and its cut of a ballot: compile-time for
@@ -166,27 +155,19 @@ struct VitFrame {
     return R >= 2 ? ballot : (ballot >> segbase) & lowmask;
   }
 
-  // Signed branch metric of edge p into state r from this stage's LLRs x.
-  __device__ __forceinline__ float bm(int r, int p, const float (&x)[BETA],
-                                      bool bf16) const {
-    float acc = __fmul_rn(sg[r][p][0], x[0]);
-#pragma unroll
-    for (int b = 1; b < BETA; ++b) acc = __fmaf_rn(sg[r][p][b], x[b], acc);
-    if (bf16) acc = __bfloat162float(__float2bfloat16_rn(acc));
-    return acc;
-  }
-
-  // One radix-2 stage: sig becomes this stage's normalised path metrics,
-  // words its survivor words (LANE word r of this frame, the same in every
-  // lane of the segment). Each register of sig is read by one butterfly
-  // pair only and each selector is balloted at once, so a lane holds about
-  // R path metrics, R sign words and R survivor words at a time.
-  __device__ __forceinline__ void step(const float (&x)[BETA], bool bf16,
-                                       unsigned (&words)[R]) {
+  // One radix-2 stage, bm(r, p) the metric of edge p into state P r + l:
+  // sig becomes this stage's normalised path metrics, words its survivor
+  // words (LANE word r of this frame, the same in every lane of the
+  // segment). Each register of sig is read by one butterfly pair only and
+  // each selector is balloted at once, so a lane holds about R path
+  // metrics and R survivor words at a time.
+  template <class BM>
+  __device__ __forceinline__ void acs_step(const BM& bm,
+                                           unsigned (&words)[R]) {
     float v[R];
     auto acs = [&](int r, float p0, float p1) {
-      const float c0 = __fadd_rn(p0, bm(r, 0, x, bf16));
-      const float c1 = __fadd_rn(p1, bm(r, 1, x, bf16));
+      const float c0 = __fadd_rn(p0, bm(r, 0));
+      const float c1 = __fadd_rn(p1, bm(r, 1));
       const bool sel = c1 >= c0;
       v[r] = sel ? c1 : c0;
       words[r] = cut(__ballot_sync(VIT_FULL, sel));
@@ -216,7 +197,7 @@ struct VitFrame {
     for (int r = 0; r < R; ++r) sig[r] = __fsub_rn(v[r], m);   // normalise
   }
 
-  // The first maximal state of the stage step() just ran: after the
+  // The first maximal state of the stage the last step ran: after the
   // normalisation sig is exactly 0 there and negative elsewhere (v - max
   // is 0 only for v == max; no flush to zero). Each lane's first hit, then
   // one redux.sync min over the segment.
@@ -226,6 +207,224 @@ struct VitFrame {
     for (int r = R - 1; r >= 0; --r)
       if (sig[r] == 0.f) a = lanes() * r + l;
     return __reduce_min_sync(mask(), a);
+  }
+};
+
+// The register mapping at a compile-time beta <= VIT_MAX_BETA: edge signs in
+// registers.
+template <int R, int BETA>
+struct VitFrame : VitLanes<R> {
+  // Each edge sums its own terms, off the stage's critical path (the
+  // predecessor's metric joins in one add), by an fma chain over its
+  // terms' signs held as floats: 2 R beta registers, which spill past a
+  // few dozen and are still faster than sign bits negated term by term
+  // at every code tools/acs_variants.py timed.
+  float sg[R][2][BETA];  // sign of term b of edge p into state P r + l
+
+  // idx (2, S), sgn (2, S), signs_half (half, beta) as the wrapper passes
+  // them (kernels/tables.py).
+  __device__ __forceinline__ void init(int k, const int* idx, const float* sgn,
+                                       const float* signs_half) {
+    const int S = 1 << (k - 1);
+    this->init_lanes(k);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int s = this->P * r + this->l;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int h = idx[p * S + s];
+        const float e = sgn[p * S + s];
+#pragma unroll
+        for (int b = 0; b < BETA; ++b)
+          sg[r][p][b] = e * signs_half[h * BETA + b];       // +-1
+      }
+    }
+  }
+
+  // Signed branch metric of edge p into state r from this stage's LLRs x.
+  __device__ __forceinline__ float bm(int r, int p, const float (&x)[BETA],
+                                      bool bf16) const {
+    float acc = __fmul_rn(sg[r][p][0], x[0]);
+#pragma unroll
+    for (int b = 1; b < BETA; ++b) acc = __fmaf_rn(sg[r][p][b], x[b], acc);
+    if (bf16) acc = __bfloat162float(__float2bfloat16_rn(acc));
+    return acc;
+  }
+
+  __device__ __forceinline__ void step(const float (&x)[BETA], bool bf16,
+                                       unsigned (&words)[R]) {
+    this->acs_step([&](int r, int p) { return bm(r, p, x, bf16); }, words);
+  }
+};
+
+// The encoder word of the edges out of state e2 / 2 (e2 even): bit b the
+// parity of e2 & g_b, the sign of term b of the edge from predecessor e2
+// (vit_wide_edges' s).
+__device__ __forceinline__ unsigned vit_encoder_word(unsigned e2,
+                                                     const int* polys,
+                                                     int beta) {
+  unsigned a = 0u;
+  for (int b = 0; b < beta; ++b)
+    a |= ((unsigned)__popc(e2 & (unsigned)polys[b]) & 1u) << b;
+  return a;
+}
+
+// The polynomials' taps at bit `bit` as a mask, bit b for g_b: bit 0 the
+// bottom taps (predecessor 2q + 1's edges flip them), bit k-1 the top taps
+// (state q + S/2's edges).
+__device__ __forceinline__ unsigned vit_tap_mask(int bit, int beta,
+                                                 const int* polys) {
+  unsigned m = 0u;
+  for (int b = 0; b < beta; ++b) m |= (((unsigned)polys[b] >> bit) & 1u) << b;
+  return m;
+}
+
+// Whether every one of the beta polynomials has both taps.
+__device__ __forceinline__ bool vit_all_taps(unsigned bot, unsigned top,
+                                             int beta) {
+  const unsigned all = beta >= 32 ? VIT_FULL : (1u << beta) - 1u;
+  return bot == all && top == all;
+}
+
+// The branch metrics of NE edges with encoder words w from one stage's
+// beta LLRs x (shared memory, 16-byte aligned, read four at a time, as
+// broadcasts): term b is x[b] with its sign bit flipped by bit b of the
+// word; in b order, the first term and then one rounded add per term
+// (vit_wide_edges' sums), rounded once to bf16 for bm_dtype bf16. By the
+// identity at the head of this file that is the plain version's
+// sgn * bm_half[idx].
+template <int NE>
+__device__ __forceinline__ void vit_word_sums(const unsigned (&w)[NE],
+                                              const float* x, int beta,
+                                              bool bf16, float (&e)[NE]) {
+#pragma unroll 1
+  for (int b0 = 0; b0 < beta; b0 += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(x + b0);
+    const int xs[4] = {__float_as_int(v.x), __float_as_int(v.y),
+                       __float_as_int(v.z), __float_as_int(v.w)};
+#pragma unroll
+    for (int i = 0; i < NE; ++i) {
+      const unsigned wi = w[i] >> b0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float t =
+            __int_as_float(xs[j] ^ (int)((wi << (31 - j)) & 0x80000000u));
+        if (b0 + j < beta) e[i] = b0 + j == 0 ? t : __fadd_rn(e[i], t);
+      }
+    }
+  }
+  if (bf16) {
+#pragma unroll
+    for (int i = 0; i < NE; ++i)
+      e[i] = __bfloat162float(__float2bfloat16_rn(e[i]));
+  }
+}
+
+// The four branch metrics e[h][p] of a butterfly (edge p from 2q + p into
+// q + h S/2) whose first edge has the encoder word a: the other edges flip
+// the bottom taps (predecessor 2q + 1) and the top taps (state q + S/2).
+// Where every polynomial has both (taps), edges 01 and 10 are edge 00's
+// negation and edge 11 edge 00 itself (negation commutes with each rounded
+// add and with the bf16 rounding; a zero may change sign, which no
+// comparison sees): one sum.
+__device__ __forceinline__ void vit_quad_word(unsigned a, unsigned bot,
+                                              unsigned top, bool taps,
+                                              const float* x, int beta,
+                                              bool bf16, float (&e)[2][2]) {
+  if (taps) {
+    const unsigned w[1] = {a};
+    float s[1];
+    vit_word_sums<1>(w, x, beta, bf16, s);
+    e[0][0] = e[1][1] = s[0];
+    e[0][1] = e[1][0] = -s[0];
+  } else {
+    const unsigned w[4] = {a, a ^ bot, a ^ top, a ^ bot ^ top};
+    float s[4];
+    vit_word_sums<4>(w, x, beta, bf16, s);
+    e[0][0] = s[0];
+    e[0][1] = s[1];
+    e[1][0] = s[2];
+    e[1][1] = s[3];
+  }
+}
+
+// The register mapping at a run-time beta (beta > VIT_MAX_BETA, one
+// instantiation per R): each butterfly's encoder word in a register, the
+// stage's LLRs in shared memory (vit_recursion_rt). For R >= 2 the lane's
+// butterfly i is its states in registers i and i + R/2 (the low state
+// 32 i + l and the high one S/2 above it, whose predecessors they share);
+// for R = 1 the lane holds one state of a butterfly, low or high. What
+// bounds it: beside the mapping's six operations a state, a lane's R/2
+// sums of beta terms a stage (2 R where a polynomial lacks a tap), three
+// instructions a term, and a shared-memory broadcast per four terms; the
+// words take R/2 registers where the signs took 2 R beta.
+template <int R>
+struct VitFrame<R, 0> : VitLanes<R> {
+  static constexpr int NQ = R >= 2 ? R / 2 : 1;
+  unsigned a[NQ];        // encoder word of butterfly i's first edge
+  unsigned bot, top;     // the polynomials' bottom and top taps
+  bool taps;             // every polynomial has both: one sum a butterfly
+  bool high;             // R = 1: the lane's state is a high one
+
+  __device__ __forceinline__ void init(int k, int beta, const int* polys) {
+    this->init_lanes(k);
+    const int H = 1 << (k - 2);
+    bot = vit_tap_mask(0, beta, polys);
+    top = vit_tap_mask(k - 1, beta, polys);
+    taps = vit_all_taps(bot, top, beta);
+    high = R == 1 && this->l >= H;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int q = R >= 2 ? 32 * i + this->l : (this->l & (H - 1));
+      a[i] = vit_encoder_word(2u * (unsigned)q, polys, beta);
+    }
+  }
+
+  // One radix-2 stage from the stage's beta LLRs x (shared memory): the
+  // edges' sums over their words first, then VitLanes' step. TAPS is
+  // `taps`, a constant of the frame that the recursion branches on once.
+  template <bool TAPS>
+  __device__ __forceinline__ void step(const float* x, int beta, bool bf16,
+                                       unsigned (&words)[R]) {
+    float e[R][2];
+    if constexpr (R == 1) {
+      const unsigned w0 = a[0] ^ (high ? top : 0u);
+      if constexpr (TAPS) {
+        const unsigned w[1] = {w0};
+        float s[1];
+        vit_word_sums<1>(w, x, beta, bf16, s);
+        e[0][0] = s[0];
+        e[0][1] = -s[0];
+      } else {
+        const unsigned w[2] = {w0, w0 ^ bot};
+        vit_word_sums<2>(w, x, beta, bf16, e[0]);
+      }
+    } else if constexpr (TAPS) {
+      float s[NQ];
+      vit_word_sums<NQ>(a, x, beta, bf16, s);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        e[i][0] = e[i + NQ][1] = s[i];
+        e[i][1] = e[i + NQ][0] = -s[i];
+      }
+    } else {
+      unsigned w[2 * R];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        w[2 * i] = a[i];
+        w[2 * i + 1] = a[i] ^ bot;
+        w[2 * (i + NQ)] = a[i] ^ top;
+        w[2 * (i + NQ) + 1] = a[i] ^ bot ^ top;
+      }
+      float s[2 * R];
+      vit_word_sums<2 * R>(w, x, beta, bf16, s);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        e[r][0] = s[2 * r];
+        e[r][1] = s[2 * r + 1];
+      }
+    }
+    this->acs_step([&](int r, int p) { return e[r][p]; }, words);
   }
 };
 
@@ -354,9 +553,119 @@ __device__ __forceinline__ void vit_recursion(VitFrame<R, BETA>& fr,
   }
 }
 
+// Floats of one stage's row in the run-time-beta form's LLR chunks: beta
+// rounded up to whole float4.
+__host__ __device__ inline int vit_llr_row(int beta) {
+  return (beta + 3) & ~3;
+}
+
+// Shared memory of one warp's LLR chunks in the run-time-beta form (none at
+// beta <= VIT_MAX_BETA): two chunks of 32 stage rows.
+__host__ __device__ inline long long vit_llr_chunk_bytes(int beta) {
+  return beta > VIT_MAX_BETA ? 2LL * 32 * vit_llr_row(beta) * 4 : 0;
+}
+
+// One segment's LLRs of the chunk of P stages from stage c0, as
+// vit_recursion_rt stages them: lane l loads the chunk's elements l,
+// l + P, ... (eight loads in flight) and stores element i to row i / beta,
+// term i % beta of dst, walking (i / beta, i % beta) from (u0, b0) by
+// (du, db); zeros past L and for an invalid frame. A function of its own,
+// so that no closure holds the frame's registers.
+__device__ __forceinline__ void vit_stage_llr_chunk(
+    const void* llr, int dtype, long long src, int P, int beta, int row,
+    int u0, int b0, int du, int db, int c0, int L, bool fvalid, float* dst) {
+  int u = u0, b = b0;
+#pragma unroll 1
+  for (int m = 0; m < beta; m += 8) {
+    float v[8];
+    int o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool ok = m + j < beta && fvalid && c0 + u < L;
+      v[j] = ok ? vit_load_llr(llr, dtype, src + (long long)P * (m + j))
+                : 0.f;
+      o[j] = u * row + b;
+      b += db;
+      u += du;
+      if (b >= beta) {
+        b -= beta;
+        ++u;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (m + j < beta) dst[o[j]] = v[j];
+  }
+}
+
+// vit_recursion at a run-time beta (VitFrame<R, 0>), with the same runs,
+// Store interface and zeros past L and for an invalid frame. The LLRs of
+// each chunk of P stages go to the warp's shared memory `buf` (two chunks
+// of 32 rows of vit_llr_row(beta) floats: stage c0 + u of the segment in
+// row segbase + u of chunk (c0 / P) & 1) one chunk ahead: the segment's
+// lanes load its P beta contiguous elements (lane l the elements l,
+// l + P, ..., eight loads in flight a lane) at the chunk's start, and each
+// stage reads its row as broadcasts. A __syncwarp at each chunk's start
+// publishes the chunk loaded during the last one and orders the last
+// one's reads before the next chunk's stores into its buffer.
+template <bool TAPS, int R, class Store>
+__device__ __forceinline__ void vit_recursion_rt_taps(
+    VitFrame<R, 0>& fr, const void* llr, int dtype, bool bf16,
+    long long frame_base, int L, bool fvalid, int beta, float* buf,
+    Store& st) {
+  const int P = fr.lanes();
+  const int run = R >= 2 ? 32 / R : P;
+  const int row = vit_llr_row(beta);
+  const int du = P / beta, db = P % beta;     // element i + P: (stage, term)
+  const int l = fr.l, u0 = l / beta, b0 = l % beta;
+  float* mine = buf + fr.segbase * row;
+  unsigned words[R];
+  vit_stage_llr_chunk(llr, dtype, frame_base + l, P, beta, row, u0, b0, du,
+                      db, 0, L, fvalid, mine);
+  for (int c0 = 0, h = 0; c0 < L; c0 += P, h ^= 1) {
+    __syncwarp();
+    if (c0 + P < L)
+      vit_stage_llr_chunk(llr, dtype,
+                          frame_base + (long long)(c0 + P) * beta + l, P,
+                          beta, row, u0, b0, du, db, c0 + P, L, fvalid,
+                          mine + (h ^ 1) * 32 * row);
+    const float* cur = mine + h * 32 * row;
+    for (int q = 0; q < R; ++q) {
+      const int t0 = c0 + q * run;
+      if (t0 >= L) break;
+      const int n = min(run, L - t0);
+#pragma unroll 1
+      for (int u = 0; u < n; ++u) {
+        fr.template step<TAPS>(cur + (q * run + u) * row, beta, bf16,
+                               words);
+        st.stage(t0 + u, u, words);
+      }
+      st.run_end(t0, n);
+    }
+  }
+}
+
+// One loop per value of the frame's taps, chosen once outside the stages,
+// so that no stage branches on it.
+template <int R, class Store>
+__device__ __forceinline__ void vit_recursion_rt(VitFrame<R, 0>& fr,
+                                                 const void* llr, int dtype,
+                                                 bool bf16,
+                                                 long long frame_base, int L,
+                                                 bool fvalid, int beta,
+                                                 float* buf, Store& st) {
+  if (fr.taps)
+    vit_recursion_rt_taps<true>(fr, llr, dtype, bf16, frame_base, L, fvalid,
+                                beta, buf, st);
+  else
+    vit_recursion_rt_taps<false>(fr, llr, dtype, bf16, frame_base, L, fvalid,
+                                 beta, buf, st);
+}
+
 // Calls F::template run<R, BETA>(a...) for the instantiation that serves
 // (k, beta): one per registers-per-lane R in {1, 2, 4, ..., 32} (k <= 11)
-// and per code rate 1/beta, beta in 2..8.
+// and per code rate 1/beta, beta in 2..8; BETA = 0 (beta at run time) for
+// every rate below 1/8.
 template <class F, int R, class... A>
 int vit_dispatch_beta(int beta, A... a) {
   switch (beta) {
@@ -366,7 +675,8 @@ int vit_dispatch_beta(int beta, A... a) {
     case 5: return F::template run<R, 5>(a...);
     case 6: return F::template run<R, 6>(a...);
     case 7: return F::template run<R, 7>(a...);
-    default: return F::template run<R, 8>(a...);
+    case 8: return F::template run<R, 8>(a...);
+    default: return F::template run<R, 0>(a...);
   }
 }
 
@@ -383,31 +693,30 @@ int vit_dispatch(int k, int beta, A... a) {
 }
 
 // ---------------------------------------------------------------------------
-// Every other code (k >= 16, or beta > 8 at any k): the wide mapping.
-// (Codes 16 <= k <= 19 run on a thread-block cluster instead where the card
-// holds one, and 12 <= k <= 15 at beta <= 8 on one block: VitCluster, after
-// it.)
+// Every other code (k >= 16): the wide mapping. (Codes 16 <= k <= 19 run
+// on a thread-block cluster instead where the card holds one: VitCluster,
+// after it.) Any code a test forces on it (the wrappers' _wide) runs too.
 //
 // Past k = 15 two buffers of S float32 path metrics outgrow a block's shared
-// memory (256 KB at k = 16, over the 227 KB a block can have), and past
-// beta = 8 VitCluster's butterfly table of 2^beta entries a stage outgrows
-// the byte that indexes it (and the register path's 2 R beta sign
-// registers). Those codes take a mapping instantiated once in each kernel
-// beside the others (so their instantiations do not change), which takes k
-// and beta at run time: per-(k, beta) templates would multiply the build
-// for codes that are rare.
+// memory (256 KB at k = 16, over the 227 KB a block can have). Those codes
+// take a mapping instantiated once in each kernel beside the others (so
+// their instantiations do not change), which takes k and beta at run time:
+// per-(k, beta) templates would multiply the build for codes that are rare.
+// (Until the register mapping and the one-block form took beta at run
+// time, every code past beta = 8 ran it too: at k <= 15 they are faster,
+// PERF.md.)
 //   * one block a frame, T = clamp(S/2, 32, 1024) threads (vit_wide_threads);
 //     thread t runs the butterflies q = t + T i, i < max(1, S/2 / T), each the
 //     states q and q + S/2 with the predecessors 2q and 2q + 1. A block
 //     takes frames blockIdx.x, + gridDim.x, ...: the wrapper sizes the grid
 //     to the blocks that are resident at once, so the device-memory scratch
 //     is per block, not per frame;
-//   * path metrics: two buffers of S float32, in the block's shared memory
-//     for k <= VIT_WIDE_SMEM_MAX_K and in its device-memory scratch past it,
-//     both read and written through one generic pointer. Stage t reads the
+//   * path metrics: two buffers of S float32 in the block's device-memory
+//     scratch (at every k: no code the planner routes here fits them in
+//     shared memory, and a forced code runs as those do). Stage t reads the
 //     old buffer (the predecessors 2q, 2q + 1 as one float2) and writes the
 //     new one; the stage's __syncthreads makes the writes visible to the
-//     block in either memory. The buffer holds the stage's metrics before
+//     block. The buffer holds the stage's metrics before
 //     the normalisation and the reader subtracts the max (the same __fsub_rn
 //     as the register path, taken when it is read);
 //   * branch metrics: each edge sums its own terms. Term b of the edge with
@@ -425,27 +734,27 @@ int vit_dispatch(int k, int beta, A... a) {
 //     the states before the high half) and ties: a redux per
 //     warp, the warps' partials through shared memory after the barrier.
 // What bounds it: the same six float operations a state and stage as the
-// other mappings, with beta adds per edge for the branch metrics; past
-// k = 15 each stage also moves 2 x 4 S bytes of path metrics through the L2
+// other mappings, with beta adds per edge for the branch metrics; each
+// stage also moves 2 x 4 S bytes of path metrics through the L2
 // cache (a block's 256 KB at k = 16 stay in the 50 MB L2 for 132 blocks).
 #define VIT_WIDE_MAX_THREADS 1024
 // Most beta the mapping takes (a warp loads a stage's terms; the plain
 // version's 2^beta-entry tables end far below).
 #define VIT_WIDE_MAX_BETA 32
-// Largest k whose path metrics the mapping keeps in shared memory (two
-// buffers of 2^14 float32, 128 KB); past it they go to device memory.
-#define VIT_WIDE_SMEM_MAX_K 15
 // Largest k: a state is an int (S = 2^30 states at k = 31).
 #define VIT_WIDE_MAX_K 31
 // The fixed part of the mapping's shared memory: warp partials [4][32] int,
 // the LLR buffer [2][VIT_WIDE_MAX_BETA] float, the polynomials
-// [VIT_WIDE_MAX_BETA] int; then the path metrics [2][S] float if on chip.
+// [VIT_WIDE_MAX_BETA] int: all of it (the path metrics are in device
+// memory).
 #define VIT_WIDE_CORE_BYTES (4 * 4 * 32 + 2 * 4 * VIT_WIDE_MAX_BETA + \
                              4 * VIT_WIDE_MAX_BETA)
 
-// Whether (k, beta) is outside the two fast mappings' domain.
+// Whether (k, beta) is outside the two fast mappings' domain (the register
+// mapping to k = 11 and the one-block form to k = 15, at every beta).
 __host__ __device__ inline bool vit_wide_code(int k, int beta) {
-  return k > VIT_SMEM_MAX_K || beta > VIT_MAX_BETA;
+  (void)beta;
+  return k > VIT_SMEM_MAX_K;
 }
 
 // Threads of one wide-mapping block: one a butterfly, at least a warp and
@@ -454,17 +763,6 @@ __host__ __device__ inline int vit_wide_threads(int k) {
   const long long h = 1LL << (k - 2);
   return h < 32 ? 32 : (h > VIT_WIDE_MAX_THREADS ? VIT_WIDE_MAX_THREADS
                                                  : (int)h);
-}
-
-// Whether the mapping keeps the path metrics of a k code in shared memory.
-__host__ __device__ inline bool vit_wide_pm_on_chip(int k) {
-  return k <= VIT_WIDE_SMEM_MAX_K;
-}
-
-// Dynamic shared memory of one wide-mapping block.
-__host__ __device__ inline long long vit_wide_smem_bytes(int k) {
-  return VIT_WIDE_CORE_BYTES +
-         (vit_wide_pm_on_chip(k) ? 8LL * (1LL << (k - 1)) : 0);
 }
 
 // The branch metrics of butterfly q of a k code with beta polynomials g
@@ -508,7 +806,7 @@ __device__ __forceinline__ void vit_wide_edges(int k, int beta,
 
 // One frame on one block. Shared memory at `sm` (16-byte aligned), laid
 // out as VIT_WIDE_CORE_BYTES says; the path metrics at `pm_global` (the
-// block's [2][S] float in device memory) or after the core.
+// block's [2][S] float in device memory).
 struct VitWide {
   int k, beta, S, H, T, nit;
   float* pm;
@@ -527,9 +825,7 @@ struct VitWide {
     red = reinterpret_cast<int*>(sm);
     sx = reinterpret_cast<float*>(sm + 4 * 4 * 32);
     g = reinterpret_cast<unsigned*>(sx + 2 * VIT_WIDE_MAX_BETA);
-    pm = pm_global != nullptr
-             ? pm_global
-             : reinterpret_cast<float*>(sm + VIT_WIDE_CORE_BYTES);
+    pm = pm_global;
     const int tid = threadIdx.x;
     if (tid < beta) g[tid] = (unsigned)polys[tid];
   }
@@ -714,7 +1010,10 @@ struct VitWideWords {
 //     memory, serves every butterfly through its byte a (in registers):
 //     one float4 a butterfly, or, where every polynomial has both taps,
 //     one float whose negation is two of the edges (vit_edge0). Past
-//     beta = 8 VitWide's per-edge sums (TBL = false). Both are
+//     beta = 8 (TBL = false) each butterfly sums its own terms from its
+//     encoder word, a register a butterfly computed once a launch
+//     (vit_quad_word: one sum where every polynomial has both taps, else
+//     four), the terms read as broadcasts from the LLR buffer. Both are
 //     vit_wide_edges' sums, the plain version's sgn * bm_half[idx];
 //   * survivors: each block's warps ballot 32 neighbouring butterflies, so
 //     packed they are packing.py's LANE words, contiguous ranges of words
@@ -729,14 +1028,15 @@ struct VitWideWords {
 // block leave a thread 128 registers for its 16 butterflies (1024 threads,
 // 64 registers, spilled and ran no faster).
 //
-// The one-block form (template CL = false): codes 12 <= k <= 15 at beta <= 8
-// (the large codes), one frame a block, with no cluster. The block owns all
+// The one-block form (template CL = false): codes 12 <= k <= 15 (the large
+// codes), one frame a block, with no cluster; the butterfly table at
+// beta <= 8, per-edge sums past it (TBL = false). The block owns all
 // S states (C = 1, Hc = S/2): the exchange is a store to its own shared
 // memory (new state q at q, q + S/2 at q + S/2 of the new buffer), the
 // cluster barrier one __syncthreads a stage (the survivor words are stored
 // before it), and the max and first-hit partials one block's warps'. The
-// butterfly table, the loads a butterfly ahead and the lazy normalisation
-// are the cluster's. T = vit_block_threads(k) threads of NB = S/2 / T
+// branch metrics, the loads a butterfly ahead and the lazy normalisation
+// are the cluster's. T = vit_block_threads(k, beta) threads of NB = S/2 / T
 // butterflies each (16 of 512 at k = 15, the cluster block's shape); the
 // kernels take frames blockIdx.x, + gridDim.x, ... on the blocks the card
 // keeps resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor), so that
@@ -778,18 +1078,22 @@ struct VitWideWords {
 // Least k the one-block form takes: S/2 >= 32 butterflies.
 #define VIT_BLOCK_MIN_K 7
 
-// Threads of a one-block frame of a k code (at most S/2): 256, 128, 256,
-// 512 at k = 12..15, the fastest of 128, 256 and 512 at eight frames an SM
-// on an H100 (tools/variant_turns.py --large; PERF.md); 128 below k = 12.
-__host__ __device__ inline int vit_block_threads(int k) {
+// Threads of a one-block frame of a (k, beta) code (at most S/2): at
+// beta <= 8 (the table) 256, 128, 256, 512 at k = 12..15, the fastest of
+// 128, 256 and 512 at eight frames an SM on an H100 (tools/variant_turns.py
+// --large; PERF.md); past it (per-edge sums, costlier a butterfly) 256,
+// 512, 512, 512 (tools/variant_turns.py --low-rate); 128 below k = 12.
+__host__ __device__ inline int vit_block_threads(int k, int beta) {
   const int h = 1 << (k - 2);
-  const int t = k == 12 || k == 14 ? 256 : k >= 15 ? 512 : 128;
+  const int t = k >= 15 || (beta > VIT_MAX_BETA && k >= 13) ? 512
+                : k == 12 || k == 14                       ? 256
+                                                           : 128;
   return h < t ? h : t;
 }
 
 // Butterflies a thread runs in the one-block form (NB).
-__host__ __device__ inline int vit_block_nb(int k) {
-  return (1 << (k - 2)) / vit_block_threads(k);
+__host__ __device__ inline int vit_block_nb(int k, int beta) {
+  return (1 << (k - 2)) / vit_block_threads(k, beta);
 }
 
 // Whether the one-block form takes a k code.
@@ -966,8 +1270,10 @@ struct VitCluster {
   float4* quad;          // [2][VIT_CLUSTER_QUADS] butterfly tables (TBL);
                          // with taps, slot s holds VIT_CLUSTER_QUADS floats
                          // (vit_edge0) at quad + s VIT_CLUSTER_QUADS
-  unsigned aw[(NB + 3) / 4];   // byte i: the encoder word of butterfly i's
-                               // first edge, its table entry (TBL)
+  // The encoder word of butterfly i's first edge: byte i, its table entry
+  // (TBL), or word i (per-edge sums)
+  unsigned aw[TBL ? (NB + 3) / 4 : NB];
+  unsigned bot, top;     // the polynomials' bottom and top taps (!TBL)
   int* rmax;             // [2][DIM][32] warp maxima (keys)
   int* rarg;             // [2][DIM][32] warp first hits
   unsigned* sw;          // [2][VIT_CLUSTER_WORDS] small-code words
@@ -1025,9 +1331,9 @@ struct VitCluster {
       arg_dst = rarg_s;
       sw_dst = 0u;
     }
+    if constexpr (TBL) {
 #pragma unroll
-    for (int w = 0; w < (NB + 3) / 4; ++w) aw[w] = 0u;
-    if (TBL) {
+      for (int w = 0; w < (NB + 3) / 4; ++w) aw[w] = 0u;
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
         const unsigned e2 = 2u * (unsigned)(c * Hc + tid + T * i);
@@ -1036,6 +1342,13 @@ struct VitCluster {
           a |= ((unsigned)__popc(e2 & (unsigned)polys[b]) & 1u) << b;
         aw[i >> 2] |= a << (8 * (i & 3));
       }
+    } else {
+      bot = vit_tap_mask(0, beta, polys);
+      top = vit_tap_mask(k - 1, beta, polys);
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        aw[i] = vit_encoder_word(2u * (unsigned)(c * Hc + tid + T * i),
+                                 polys, beta);
     }
     __syncthreads();          // the polynomials
   }
@@ -1185,7 +1498,8 @@ __device__ __forceinline__ void vit_cluster_recursion(
       if (valid) {
         const float p0 = __fsub_rn(pp.x, m);
         const float p1 = __fsub_rn(pp.y, m);
-        if (!TBL) vit_wide_edges(v.k, v.beta, v.g, q, x, bf16, e);
+        if (!TBL)
+          vit_quad_word(v.aw[i], v.bot, v.top, v.taps, x, beta, bf16, e);
         const float l0 = __fadd_rn(p0, e[0][0]);
         const float l1 = __fadd_rn(p1, e[0][1]);
         const float h0 = __fadd_rn(p0, e[1][0]);
@@ -1322,17 +1636,23 @@ int vit_dispatch_cluster(int k, int beta, int C, A... a) {
   }
 }
 
-// Calls F::template run_block<NB>(a...) for the one-block instantiation
-// that serves a k code: NB = vit_block_nb(k) butterflies a thread (beta <= 8:
-// the table).
+// Calls F::template run_block<NB, TBL>(a...) for the one-block
+// instantiation that serves (k, beta): NB = vit_block_nb(k, beta)
+// butterflies a thread, the compressed table for beta <= 8.
 template <class F, class... A>
-int vit_dispatch_block(int k, A... a) {
-  switch (vit_block_nb(k)) {
-    case 1: return F::template run_block<1>(a...);
-    case 2: return F::template run_block<2>(a...);
-    case 4: return F::template run_block<4>(a...);
-    case 8: return F::template run_block<8>(a...);
-    default: return F::template run_block<16>(a...);
+int vit_dispatch_block(int k, int beta, A... a) {
+  const bool tbl = beta <= VIT_MAX_BETA;
+  switch (vit_block_nb(k, beta)) {
+    case 1: return tbl ? F::template run_block<1, true>(a...)
+                       : F::template run_block<1, false>(a...);
+    case 2: return tbl ? F::template run_block<2, true>(a...)
+                       : F::template run_block<2, false>(a...);
+    case 4: return tbl ? F::template run_block<4, true>(a...)
+                       : F::template run_block<4, false>(a...);
+    case 8: return tbl ? F::template run_block<8, true>(a...)
+                       : F::template run_block<8, false>(a...);
+    default: return tbl ? F::template run_block<16, true>(a...)
+                        : F::template run_block<16, false>(a...);
   }
 }
 

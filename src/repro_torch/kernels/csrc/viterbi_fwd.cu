@@ -38,23 +38,31 @@
 // run the same loop (the wrapper checks it; the card never sees it); the
 // kernel inlines one loop per bm_dtype.
 //
-// Codes 12 <= k <= 15 (beta <= 8) run the one-block form of acs.cuh's
-// VitCluster instead, in a kernel of their own (viterbi_fwd_block_kernel):
-// one frame a block of vit_block_threads(k) threads, path metrics in shared
+// Rates below 1/8 (beta > 8) run the same mapping with beta at run time
+// (VitFrame<R, 0>): each butterfly's encoder word in a register, the LLRs
+// staged a chunk at a time in the warp's shared memory after the block's
+// run buffers; but K=9 (VIT_FWD_WIDE_K) past beta = 8 runs the wide
+// mapping below.
+//
+// Codes 12 <= k <= 15 run the one-block form of acs.cuh's VitCluster
+// instead, in kernels of their own (viterbi_fwd_block_kernel, the
+// butterfly table at beta <= 8; viterbi_fwd_block_pe_kernel, per-edge sums
+// past it): one frame a block
+// of vit_block_threads(k, beta) threads, path metrics in shared
 // memory, the grid the blocks the card keeps resident, each taking frames
 // in turn. It stores as the cluster kernel does: lane i of a warp the
 // survivor word of its butterfly run i, every thread its states' bytes
 // unpacked, warp 0 each stage's first maximal state, known during the next
 // stage.
 //
-// Every other code (k >= 16, or beta > 8) runs acs.cuh's wide mapping, in
-// a third kernel (viterbi_fwd_wide_kernel): one block a frame, k and beta
-// at run time, path metrics in shared memory to k = 15 and in a
-// device-memory scratch past it. It stores as the large-code kernel does
-// (packed: lane 0 of each warp its words; unpacked: every thread its
-// states' bytes; warp 0 the first maximal state). A block decodes frames
-// blockIdx.x, + gridDim.x, ...; its path-metric scratch is its own. Codes
-// 16 <= k <= 19 run it on a thread-block cluster instead (a fourth kernel,
+// Every other code (k >= 16, and K=9 past beta = 8) runs acs.cuh's wide
+// mapping, in a third kernel (viterbi_fwd_wide_kernel): one block a frame,
+// k and beta at run time, path metrics in a device-memory scratch. It
+// stores as the large-code kernel does (packed: lane 0 of each warp its
+// words; unpacked: every thread its states' bytes; warp 0 the first
+// maximal state). A block decodes frames blockIdx.x, + gridDim.x, ...;
+// its path-metric scratch is its own. Codes 16 <= k <= 19 run it on a
+// thread-block cluster instead (a fourth kernel,
 // viterbi_fwd_cluster_kernel, acs.cuh's VitCluster): one frame a cluster
 // of 2^(k-15) blocks, the path metrics in the cluster's shared memory,
 // each block storing its butterflies' survivors and block 0 each stage's
@@ -133,7 +141,10 @@ __global__ void __launch_bounds__(VIT_BLOCK_THREADS)
     viterbi_fwd_kernel(const FwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   VitFrame<R, BETA> fr;
-  fr.init(p.k, p.idx, p.sgn, p.signs_half);
+  if constexpr (BETA == 0)
+    fr.init(p.k, p.beta, p.polys);
+  else
+    fr.init(p.k, p.idx, p.sgn, p.signs_half);
   const int warp = threadIdx.x >> 5;
   const int fpw = 32 / fr.P;               // frames per warp
   const int lf = warp * fpw + fr.segbase / fr.P;
@@ -146,11 +157,23 @@ __global__ void __launch_bounds__(VIT_BLOCK_THREADS)
                        static_cast<int8_t*>(p.sel), p.amax + frame * p.L,
                        frame, p.F, p.L, 1 << (p.k - 1), p.pack, p.sublane,
                        fvalid};
-  const long long base = frame * p.L * BETA;
-  if (p.bf16_bm)          // one inlined loop per bm_dtype
-    vit_recursion(fr, p.llr, p.llr_dtype, true, base, p.L, fvalid, st);
-  else
-    vit_recursion(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid, st);
+  if constexpr (BETA == 0) {
+    const long long base = frame * p.L * p.beta;
+    float* buf = reinterpret_cast<float*>(
+        smem + (blockDim.x >> 5) * 256 + warp * vit_llr_chunk_bytes(p.beta));
+    if (p.bf16_bm)        // one inlined loop per bm_dtype
+      vit_recursion_rt(fr, p.llr, p.llr_dtype, true, base, p.L, fvalid,
+                       p.beta, buf, st);
+    else
+      vit_recursion_rt(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid,
+                       p.beta, buf, st);
+  } else {
+    const long long base = frame * p.L * BETA;
+    if (p.bf16_bm)        // one inlined loop per bm_dtype
+      vit_recursion(fr, p.llr, p.llr_dtype, true, base, p.L, fvalid, st);
+    else
+      vit_recursion(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid, st);
+  }
 }
 
 // ---- every other code: one frame a block, acs.cuh's VitWide -------------
@@ -245,12 +268,11 @@ __global__ void __launch_bounds__(VIT_CLUSTER_THREADS, 1)
 
 // The cluster kernel's work on one block, which takes frames blockIdx.x, +
 // gridDim.x, ....
-template <int NB>
-__global__ void __launch_bounds__(VIT_CLUSTER_THREADS)
-    viterbi_fwd_block_kernel(const FwdParams p) {
+template <int NB, bool TBL>
+__device__ __forceinline__ void fwd_block(const FwdParams& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = 1 << (p.k - 1);
-  VitCluster<NB, true, false> v;
+  VitCluster<NB, TBL, false> v;
   v.init(p.k, p.beta, p.polys, smem);
   for (long long frame = blockIdx.x; frame < p.F; frame += gridDim.x) {
     FwdWideStore st{static_cast<uint32_t*>(p.sel),
@@ -261,38 +283,65 @@ __global__ void __launch_bounds__(VIT_CLUSTER_THREADS)
   }
 }
 
+// The table (beta <= 8), one instantiation per NB.
+template <int NB>
+__global__ void __launch_bounds__(VIT_CLUSTER_THREADS)
+    viterbi_fwd_block_kernel(const FwdParams p) {
+  fwd_block<NB, true>(p);
+}
+
+// The per-edge sums (beta > 8): at most 4 butterflies a thread (k = 12, 13)
+// built for two blocks an SM (64 registers), else one.
+template <int NB>
+__global__ void __launch_bounds__(VIT_CLUSTER_THREADS, NB <= 4 ? 2 : 1)
+    viterbi_fwd_block_pe_kernel(const FwdParams p) {
+  fwd_block<NB, false>(p);
+}
+
+using BlockKernel = void (*)(const FwdParams);
+
+// The one-block kernel of NB butterflies a thread, table or per-edge sums.
+template <int NB, bool TBL>
+inline BlockKernel block_kernel() {
+  if constexpr (TBL)
+    return viterbi_fwd_block_kernel<NB>;
+  else
+    return viterbi_fwd_block_pe_kernel<NB>;
+}
+
 struct LaunchBlock {
-  template <int NB>
+  template <int NB, bool TBL>
   static int run_block(const FwdParams* p, int grid, cudaStream_t stream) {
     const long long smem = vit_block_smem_bytes(p->k);
     const cudaError_t err = cudaFuncSetAttribute(
-        viterbi_fwd_block_kernel<NB>,
+        block_kernel<NB, TBL>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    viterbi_fwd_block_kernel<NB>
-        <<<grid, vit_block_threads(p->k), (size_t)smem, stream>>>(*p);
+    block_kernel<NB, TBL>()<<<grid, vit_block_threads(p->k, p->beta),
+                             (size_t)smem, stream>>>(*p);
     return (int)cudaGetLastError();
   }
-  template <int NB>
-  static int run_block(int k, int* out) {
+  template <int NB, bool TBL>
+  static int run_block(int k, int beta, int* out) {
     const long long smem = vit_block_smem_bytes(k);
     cudaError_t err = cudaFuncSetAttribute(
-        viterbi_fwd_block_kernel<NB>,
+        block_kernel<NB, TBL>(),
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          out, viterbi_fwd_block_kernel<NB>, vit_block_threads(k),
-          (size_t)smem);
+          out, block_kernel<NB, TBL>(),
+          vit_block_threads(k, beta), (size_t)smem);
     if (err != cudaSuccess) (void)cudaGetLastError();
     return (int)err;
   }
 };
 
 struct AttrsBlock {
-  template <int NB>
+  template <int NB, bool TBL>
   static int run_block(int* out) {
     return vit_func_attrs(
-        reinterpret_cast<const void*>(viterbi_fwd_block_kernel<NB>), out);
+        reinterpret_cast<const void*>(block_kernel<NB, TBL>()),
+        out);
   }
 };
 
@@ -319,47 +368,69 @@ struct AttrsCluster {
   }
 };
 
+// The code whose forward kernel runs the wide mapping past beta = 8 (as
+// autotune.FWD_WIDE_K): at 8 registers a lane the run-time-beta form
+// compiles each warp-collective with a divergent slow path (BRA.DIV, where
+// the unified kernel's form has none) and loses to the wide mapping
+// (PERF.md), so it is not built.
+#define VIT_FWD_WIDE_K 9
+
+// Whether the forward kernel runs (k, beta) on the wide mapping.
+inline bool fwd_wide_code(int k, int beta) {
+  return vit_wide_code(k, beta) ||
+         (k == VIT_FWD_WIDE_K && beta > VIT_MAX_BETA);
+}
+
 // Shared memory of one block of fpb frames: each warp's run buffers, 32
-// words and 32 argmax; for a large code, the one-block form's path
-// metrics, tables and partials; for a wide code off a cluster, the wide
-// mapping's.
+// words and 32 argmax, then at beta > 8 each warp's LLR chunks; for a
+// large code, the one-block form's path metrics, tables and partials; for
+// a wide code off a cluster, the wide mapping's.
 inline long long fwd_smem(int k, int beta, int fpb) {
-  if (vit_wide_code(k, beta)) return vit_wide_smem_bytes(k);
+  if (fwd_wide_code(k, beta)) return VIT_WIDE_CORE_BYTES;
   if (k >= VIT_SMEM_MIN_K) return vit_block_smem_bytes(k);
   const int fpw = 32 / vit_lanes_per_frame(k);
-  return (long long)(fpb + fpw - 1) / fpw * 64 * 4;
+  return (long long)(fpb + fpw - 1) / fpw *
+         (64 * 4 + vit_llr_chunk_bytes(beta));
+}
+
+// Whether viterbi_fwd_kernel<R, BETA> is built: not where fwd_wide_code
+// sends every code it would serve.
+template <int R, int BETA>
+constexpr bool fwd_built() {
+  return !(BETA == 0 && R == (1 << (VIT_FWD_WIDE_K - 1)) / 32);
 }
 
 struct Launch {
   template <int R, int BETA>
   static int run(const FwdParams* p, cudaStream_t stream) {
-    const int fpw = 32 / vit_lanes_per_frame(p->k);
-    const int threads = (p->fpb + fpw - 1) / fpw * 32;
-    const int grid = (p->F + p->fpb - 1) / p->fpb;
-    viterbi_fwd_kernel<R, BETA>
-        <<<grid, threads, (size_t)fwd_smem(p->k, p->beta, p->fpb),
-           stream>>>(*p);
-    return (int)cudaGetLastError();
+    if constexpr (!fwd_built<R, BETA>()) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      const int fpw = 32 / vit_lanes_per_frame(p->k);
+      const int threads = (p->fpb + fpw - 1) / fpw * 32;
+      const int grid = (p->F + p->fpb - 1) / p->fpb;
+      viterbi_fwd_kernel<R, BETA>
+          <<<grid, threads, (size_t)fwd_smem(p->k, p->beta, p->fpb),
+             stream>>>(*p);
+      return (int)cudaGetLastError();
+    }
   }
 };
 
 struct Attrs {
   template <int R, int BETA>
   static int run(int* out) {
-    return vit_func_attrs(
-        reinterpret_cast<const void*>(viterbi_fwd_kernel<R, BETA>), out);
+    if constexpr (!fwd_built<R, BETA>())
+      return (int)cudaErrorInvalidValue;
+    else
+      return vit_func_attrs(
+          reinterpret_cast<const void*>(viterbi_fwd_kernel<R, BETA>), out);
   }
 };
 
 // Launches the wide kernel on `grid` blocks.
 inline int launch_wide(const FwdParams* p, int grid, cudaStream_t stream) {
-  const long long smem = vit_wide_smem_bytes(p->k);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        viterbi_fwd_wide_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const long long smem = VIT_WIDE_CORE_BYTES;
   viterbi_fwd_wide_kernel<<<grid, vit_wide_threads(p->k), (size_t)smem,
                             stream>>>(*p);
   return (int)cudaGetLastError();
@@ -382,24 +453,27 @@ long long viterbi_fwd_smem_bytes(int k, int beta, int fpb) {
 int viterbi_fwd_func_attrs(int k, int beta, int* out) {
   if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 || beta > VIT_WIDE_MAX_BETA)
     return (int)cudaErrorInvalidValue;
-  if (vit_wide_code(k, beta))
+  if (fwd_wide_code(k, beta))
     return vit_func_attrs(
         reinterpret_cast<const void*>(viterbi_fwd_wide_kernel), out);
-  if (k >= VIT_SMEM_MIN_K) return vit_dispatch_block<AttrsBlock>(k, out);
+  if (k >= VIT_SMEM_MIN_K)
+    return vit_dispatch_block<AttrsBlock>(k, beta, out);
   return vit_dispatch<Attrs>(k, beta, out);
 }
 
-// *out = the blocks of the one-block kernel that runs a k code the card
-// keeps resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// and out = its {numRegs, localSizeBytes, maxThreadsPerBlock}. Return 0 or
-// the CUDA error.
-int viterbi_fwd_block_occupancy(int k, int* out) {
-  if (!vit_block_ok(k)) return (int)cudaErrorInvalidValue;
-  return vit_dispatch_block<LaunchBlock>(k, k, out);
+// *out = the blocks of the one-block kernel that runs a (k, beta) code the
+// card keeps resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and out = its {numRegs,
+// localSizeBytes, maxThreadsPerBlock}. Return 0 or the CUDA error.
+int viterbi_fwd_block_occupancy(int k, int beta, int* out) {
+  if (!vit_block_ok(k) || beta < 2 || beta > VIT_WIDE_MAX_BETA)
+    return (int)cudaErrorInvalidValue;
+  return vit_dispatch_block<LaunchBlock>(k, beta, k, beta, out);
 }
-int viterbi_fwd_block_attrs(int k, int* out) {
-  if (!vit_block_ok(k)) return (int)cudaErrorInvalidValue;
-  return vit_dispatch_block<AttrsBlock>(k, out);
+int viterbi_fwd_block_attrs(int k, int beta, int* out) {
+  if (!vit_block_ok(k) || beta < 2 || beta > VIT_WIDE_MAX_BETA)
+    return (int)cudaErrorInvalidValue;
+  return vit_dispatch_block<AttrsBlock>(k, beta, out);
 }
 
 // *out = the clusters of C blocks of the cluster kernel that runs (k,
@@ -422,7 +496,7 @@ int viterbi_fwd_cluster_attrs(int k, int beta, int C, int* out) {
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
 // The wide mapping (every code outside the fast mappings' domain, or any
 // code with wide != 0, which the wrapper passes only to test the mapping)
-// takes `grid` blocks and, past k = 15, the path metrics in pm_global
+// takes `grid` blocks and the path metrics in pm_global
 // (grid of [2][S] float32); with cluster > 1 it runs on `grid` clusters of
 // that many blocks instead (no pm_global). The large codes (or any code the
 // one-block form takes, with block != 0, which the wrapper passes only to
@@ -435,7 +509,7 @@ int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
                        int bf16_bm, int fpb, int wide, int grid, int cluster,
                        int block, void* stream) {
   if (block && (wide || cluster > 1)) return (int)cudaErrorInvalidValue;
-  wide = wide || cluster > 1 || vit_wide_code(k, beta);
+  wide = wide || cluster > 1 || (!block && fwd_wide_code(k, beta));
   block = block || (!wide && k >= VIT_SMEM_MIN_K);
   if (k < 2 || k > VIT_WIDE_MAX_K || beta < 2 ||
       beta > VIT_WIDE_MAX_BETA || F < 1 || L < 1)
@@ -443,11 +517,11 @@ int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
   if (wide ? (polys == nullptr || grid < 1 ||
               (cluster > 1 ? (!vit_cluster_ok(k, cluster) ||
                               pm_global != nullptr)
-                           : (pm_global == nullptr) ==
-                                 !vit_wide_pm_on_chip(k)))
-      : block ? (!vit_block_ok(k) || beta > VIT_MAX_BETA ||
-                 polys == nullptr || grid < 1 || pm_global != nullptr)
-              : (fpb < 1 || fpb > vit_max_frames_per_block(k)))
+                           : pm_global == nullptr))
+      : block ? (!vit_block_ok(k) || polys == nullptr || grid < 1 ||
+                 pm_global != nullptr)
+              : (fpb < 1 || fpb > vit_max_frames_per_block(k) ||
+                 polys == nullptr))
     return (int)cudaErrorInvalidValue;
   FwdParams p;
   p.llr = llr;
@@ -473,7 +547,7 @@ int viterbi_fwd_launch(const void* llr, const void* idx, const void* sgn,
         static_cast<cudaStream_t>(stream));
   if (wide) return launch_wide(&p, grid, static_cast<cudaStream_t>(stream));
   if (block)
-    return vit_dispatch_block<LaunchBlock>(k, &p, grid,
+    return vit_dispatch_block<LaunchBlock>(k, beta, &p, grid,
                                            static_cast<cudaStream_t>(stream));
   return vit_dispatch<Launch>(k, beta, &p, static_cast<cudaStream_t>(stream));
 }

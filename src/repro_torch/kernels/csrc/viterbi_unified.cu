@@ -29,10 +29,17 @@
 // eight warps; a block is only a unit of scheduling. The kernel inlines
 // one loop per bm_dtype, so the f32 loop carries no bf16 rounding.
 //
-// Codes 12 <= k <= 15 (beta <= 8) run the one-block form of acs.cuh's
-// VitCluster instead, in a kernel of their own
-// (viterbi_unified_block_kernel, one instantiation per butterflies a thread
-// NB): one frame a block of vit_block_threads(k) threads, path metrics in
+// Rates below 1/8 (beta > 8) run the same mapping with beta at run time
+// (VitFrame<R, 0>, one instantiation per R): each butterfly's encoder word
+// in a register, the LLRs staged a chunk at a time in the warp's shared
+// memory, before the traceback starts and the survivors.
+//
+// Codes 12 <= k <= 15 run the one-block form of acs.cuh's VitCluster
+// instead, in kernels of their own (viterbi_unified_block_kernel, one
+// instantiation per butterflies a thread NB, with the butterfly table at
+// beta <= 8; viterbi_unified_block_pe_kernel with per-edge sums past it):
+// one frame a block of
+// vit_block_threads(k, beta) threads, path metrics in
 // shared memory, one __syncthreads a stage; the grid is the blocks the card
 // keeps resident, each taking frames in turn. The block keeps the frame's
 // survivors and starts in shared memory beside the path metrics or in a
@@ -40,11 +47,10 @@
 // autotune.block_survivors_on_chip). Phase 3 runs the frame's nsub cursors
 // on the block's threads.
 //
-// Every other code (k >= 16, or beta > 8) runs acs.cuh's wide mapping, in
-// a third kernel (viterbi_unified_wide_kernel): one block a frame, k and
-// beta at run time, path metrics in shared memory to k = 15 and in a
-// device-memory scratch past it, survivors and traceback starts always in
-// the device-memory scratch. A block decodes frames blockIdx.x, +
+// Every other code (k >= 16) runs acs.cuh's wide mapping, in a third
+// kernel (viterbi_unified_wide_kernel): one block a frame, k and
+// beta at run time, path metrics, survivors and traceback starts in a
+// device-memory scratch. A block decodes frames blockIdx.x, +
 // gridDim.x, ...; its scratch is its own, reused frame after frame. Codes
 // 16 <= k <= 19 run it on a thread-block cluster instead (a fourth kernel,
 // viterbi_unified_cluster_kernel, acs.cuh's VitCluster): one frame a
@@ -89,18 +95,22 @@ struct SmemLayout {
   long long am, sel, total;
 };
 
-// Shared-memory carve-up of one block of fpb frames: the traceback starts
+// Shared-memory carve-up of one block of fpb frames: at beta > 8 each
+// warp's LLR chunks (vit_llr_chunk_bytes), then the traceback starts
 // [fpb][nsub] int32 (none for start=fixed), padded to 16 bytes, then the
 // survivors [fpb][L][row] bytes, row = 4 * R packed (R = max(1, S/32)
 // words, stored as one vector per stage), S unpacked.
-__host__ __device__ inline SmemLayout smem_layout(int k, int L, int nsub,
-                                                  int pack, int start_fixed,
-                                                  int fpb, int global) {
+__host__ __device__ inline SmemLayout smem_layout(int k, int beta, int L,
+                                                  int nsub, int pack,
+                                                  int start_fixed, int fpb,
+                                                  int global) {
   const int S = 1 << (k - 1);
   const long long row = pack ? 4LL * vit_regs_per_lane(k) : S;
+  const int fpw = 32 / vit_lanes_per_frame(k);
   SmemLayout s;
-  s.am = 0;
-  s.sel = global || start_fixed ? 0 : ((long long)fpb * nsub * 4 + 15) & ~15LL;
+  s.am = (fpb + fpw - 1) / fpw * vit_llr_chunk_bytes(beta);
+  s.sel = s.am + (global || start_fixed
+                      ? 0 : ((long long)fpb * nsub * 4 + 15) & ~15LL);
   s.total = s.sel + (global ? 0 : (long long)fpb * L * row);
   return s;
 }
@@ -153,7 +163,10 @@ __global__ void __launch_bounds__(VIT_BLOCK_THREADS)
     viterbi_unified_kernel(const UnifiedParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   VitFrame<R, BETA> fr;
-  fr.init(p.k, p.idx, p.sgn, p.signs_half);
+  if constexpr (BETA == 0)
+    fr.init(p.k, p.beta, p.polys);
+  else
+    fr.init(p.k, p.idx, p.sgn, p.signs_half);
   const int S = 1 << (p.k - 1);
   const int P = fr.P;
   const int fpw = 32 / P;                  // frames per warp
@@ -164,8 +177,8 @@ __global__ void __launch_bounds__(VIT_BLOCK_THREADS)
   const bool fvalid = lf < p.fpb && frame < p.F;
   const long long row = p.pack ? 4LL * R : S;
   const int global = p.sel_global != nullptr;
-  const SmemLayout lay =
-      smem_layout(p.k, p.L, p.nsub, p.pack, p.start_fixed, p.fpb, global);
+  const SmemLayout lay = smem_layout(p.k, BETA ? BETA : p.beta, p.L, p.nsub,
+                                     p.pack, p.start_fixed, p.fpb, global);
   auto sel_of = [&](int lfr, long long fr_) -> unsigned char* {
     return global ? p.sel_global + fr_ * p.L * row
                   : smem + lay.sel + (long long)lfr * p.L * row;
@@ -184,11 +197,23 @@ __global__ void __launch_bounds__(VIT_BLOCK_THREADS)
       am_of(lf, frame), S, p.pack, p.nsub, p.f0, 0,
       p.start_fixed ? 0x7fffffff : p.v1 + p.f0 - 1 + p.v2s, global != 0,
       fvalid, fvalid && fr.l == 0};
-  const long long base = frame * p.L * BETA;
-  if (p.bf16_bm)          // one inlined loop per bm_dtype
-    vit_recursion(fr, p.llr, p.llr_dtype, true, base, p.L, fvalid, st);
-  else
-    vit_recursion(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid, st);
+  if constexpr (BETA == 0) {
+    const long long base = frame * p.L * p.beta;
+    float* buf = reinterpret_cast<float*>(
+        smem + warp * vit_llr_chunk_bytes(p.beta));
+    if (p.bf16_bm)        // one inlined loop per bm_dtype
+      vit_recursion_rt(fr, p.llr, p.llr_dtype, true, base, p.L, fvalid,
+                       p.beta, buf, st);
+    else
+      vit_recursion_rt(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid,
+                       p.beta, buf, st);
+  } else {
+    const long long base = frame * p.L * BETA;
+    if (p.bf16_bm)        // one inlined loop per bm_dtype
+      vit_recursion(fr, p.llr, p.llr_dtype, true, base, p.L, fvalid, st);
+    else
+      vit_recursion(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid, st);
+  }
   __syncwarp();                 // the warp's survivors and starts, visible
 
   // ---- phase 3: the warp's nsub cursors per frame, one per lane ----------
@@ -401,9 +426,8 @@ __host__ __device__ inline SmemLayout smem_layout_block(int k, int L,
 // device-memory scratch, stored as the wide kernel stores them; phase 3's
 // nsub cursors on the block's threads, after the recursion's closing
 // barrier. A block decodes frames blockIdx.x, + gridDim.x, ....
-template <int NB>
-__global__ void __launch_bounds__(VIT_CLUSTER_THREADS)
-    viterbi_unified_block_kernel(const UnifiedParams p) {
+template <int NB, bool TBL>
+__device__ __forceinline__ void unified_block(const UnifiedParams& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = 1 << (p.k - 1);
   const long long row = p.pack ? S / 8 : S;
@@ -414,7 +438,7 @@ __global__ void __launch_bounds__(VIT_CLUSTER_THREADS)
   unsigned char* sel = global ? p.sel_global + b * p.L * row : smem + lay.sel;
   int* am = global ? p.amax_global + b * p.nsub
                    : reinterpret_cast<int*>(smem + lay.am);
-  VitCluster<NB, true, false> v;
+  VitCluster<NB, TBL, false> v;
   v.init(p.k, p.beta, p.polys, smem);
   const int e_first = p.v1 + p.f0 - 1 + p.v2s;
   const int kshift = p.k - 2;
@@ -447,41 +471,69 @@ __global__ void __launch_bounds__(VIT_CLUSTER_THREADS)
   }
 }
 
-// Sets the one-block kernel's dynamic shared memory.
+// The table (beta <= 8), one instantiation per NB.
 template <int NB>
+__global__ void __launch_bounds__(VIT_CLUSTER_THREADS)
+    viterbi_unified_block_kernel(const UnifiedParams p) {
+  unified_block<NB, true>(p);
+}
+
+// The per-edge sums (beta > 8): at most 4 butterflies a thread (k = 12, 13)
+// built for two blocks an SM (64 registers; left free they take 91 and
+// keep one or two), else one.
+template <int NB>
+__global__ void __launch_bounds__(VIT_CLUSTER_THREADS, NB <= 4 ? 2 : 1)
+    viterbi_unified_block_pe_kernel(const UnifiedParams p) {
+  unified_block<NB, false>(p);
+}
+
+using BlockKernel = void (*)(const UnifiedParams);
+
+// The one-block kernel of NB butterflies a thread, table or per-edge sums.
+template <int NB, bool TBL>
+inline BlockKernel block_kernel() {
+  if constexpr (TBL)
+    return viterbi_unified_block_kernel<NB>;
+  else
+    return viterbi_unified_block_pe_kernel<NB>;
+}
+
+// Sets the one-block kernel's dynamic shared memory.
+template <int NB, bool TBL>
 inline cudaError_t block_smem_attr(long long smem) {
-  return cudaFuncSetAttribute(viterbi_unified_block_kernel<NB>,
+  return cudaFuncSetAttribute(block_kernel<NB, TBL>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
 struct LaunchBlock {
-  template <int NB>
+  template <int NB, bool TBL>
   static int run_block(const UnifiedParams* p, long long smem, int grid,
                        cudaStream_t stream) {
-    const cudaError_t err = block_smem_attr<NB>(smem);
+    const cudaError_t err = block_smem_attr<NB, TBL>(smem);
     if (err != cudaSuccess) return (int)err;
-    viterbi_unified_block_kernel<NB>
-        <<<grid, vit_block_threads(p->k), (size_t)smem, stream>>>(*p);
+    block_kernel<NB, TBL>()<<<grid, vit_block_threads(p->k, p->beta),
+                             (size_t)smem, stream>>>(*p);
     return (int)cudaGetLastError();
   }
-  template <int NB>
-  static int run_block(int k, long long smem, int* out) {
-    cudaError_t err = block_smem_attr<NB>(smem);
+  template <int NB, bool TBL>
+  static int run_block(int k, int beta, long long smem, int* out) {
+    cudaError_t err = block_smem_attr<NB, TBL>(smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          out, viterbi_unified_block_kernel<NB>, vit_block_threads(k),
-          (size_t)smem);
+          out, block_kernel<NB, TBL>(),
+          vit_block_threads(k, beta), (size_t)smem);
     if (err != cudaSuccess) (void)cudaGetLastError();
     return (int)err;
   }
 };
 
 struct AttrsBlock {
-  template <int NB>
+  template <int NB, bool TBL>
   static int run_block(int* out) {
     return vit_func_attrs(
-        reinterpret_cast<const void*>(viterbi_unified_block_kernel<NB>), out);
+        reinterpret_cast<const void*>(block_kernel<NB, TBL>()),
+        out);
   }
 };
 
@@ -519,13 +571,7 @@ struct Attrs {
 // Launches the wide kernel on `grid` blocks.
 inline int launch_wide(const UnifiedParams* p, int grid,
                        cudaStream_t stream) {
-  const long long smem = vit_wide_smem_bytes(p->k);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        viterbi_unified_wide_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const long long smem = VIT_WIDE_CORE_BYTES;
   viterbi_unified_wide_kernel<<<grid, vit_wide_threads(p->k), (size_t)smem,
                                 stream>>>(*p);
   return (int)cudaGetLastError();
@@ -535,10 +581,10 @@ inline int launch_wide(const UnifiedParams* p, int grid,
 // mapping's own; its survivors are always in the scratch).
 inline long long unified_smem(int k, int beta, int L, int nsub, int pack,
                               int start_fixed, int fpb, int global) {
-  if (vit_wide_code(k, beta)) return vit_wide_smem_bytes(k);
+  if (vit_wide_code(k, beta)) return VIT_WIDE_CORE_BYTES;
   if (k >= VIT_SMEM_MIN_K)
     return smem_layout_block(k, L, nsub, pack, start_fixed, global).total;
-  return smem_layout(k, L, nsub, pack, start_fixed, fpb, global).total;
+  return smem_layout(k, beta, L, nsub, pack, start_fixed, fpb, global).total;
 }
 
 }  // namespace
@@ -572,11 +618,12 @@ long long viterbi_cluster_smem_bytes(int k, int C) {
   return vit_cluster_ok(k, C) ? vit_cluster_smem_bytes(k, C) : -1;
 }
 
-// Threads of a one-block frame of a k code (the large codes' mapping), and
-// the dynamic shared memory of a block with its survivors in shared memory
-// (global_scratch 0) or in the scratch; -1 where the form does not take k.
-int viterbi_block_threads(int k) {
-  return vit_block_ok(k) ? vit_block_threads(k) : -1;
+// Threads of a one-block frame of a (k, beta) code (the large codes'
+// mapping), and the dynamic shared memory of a block with its survivors in
+// shared memory (global_scratch 0) or in the scratch; -1 where the form
+// does not take k.
+int viterbi_block_threads(int k, int beta) {
+  return vit_block_ok(k) ? vit_block_threads(k, beta) : -1;
 }
 long long viterbi_unified_block_smem_bytes(int k, int L, int nsub, int pack,
                                            int start_fixed,
@@ -587,20 +634,23 @@ long long viterbi_unified_block_smem_bytes(int k, int L, int nsub, int pack,
                          : -1;
 }
 
-// *out = the blocks of `smem` bytes of the one-block kernel that runs a k
-// code the card keeps resident on one SM
+// *out = the blocks of `smem` bytes of the one-block kernel that runs a
+// (k, beta) code the card keeps resident on one SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns 0 or the CUDA
 // error.
-int viterbi_unified_block_occupancy(int k, long long smem, int* out) {
-  if (!vit_block_ok(k)) return (int)cudaErrorInvalidValue;
-  return vit_dispatch_block<LaunchBlock>(k, k, smem, out);
+int viterbi_unified_block_occupancy(int k, int beta, long long smem,
+                                    int* out) {
+  if (!vit_block_ok(k) || beta < 2 || beta > VIT_WIDE_MAX_BETA)
+    return (int)cudaErrorInvalidValue;
+  return vit_dispatch_block<LaunchBlock>(k, beta, k, beta, smem, out);
 }
 
 // out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the one-block
-// kernel that runs a k code. Returns 0 or the CUDA error.
-int viterbi_unified_block_attrs(int k, int* out) {
-  if (!vit_block_ok(k)) return (int)cudaErrorInvalidValue;
-  return vit_dispatch_block<AttrsBlock>(k, out);
+// kernel that runs a (k, beta) code. Returns 0 or the CUDA error.
+int viterbi_unified_block_attrs(int k, int beta, int* out) {
+  if (!vit_block_ok(k) || beta < 2 || beta > VIT_WIDE_MAX_BETA)
+    return (int)cudaErrorInvalidValue;
+  return vit_dispatch_block<AttrsBlock>(k, beta, out);
 }
 
 // *out = the clusters of C blocks of the cluster kernel that runs (k,
@@ -629,7 +679,8 @@ int viterbi_unified_func_attrs(int k, int beta, int* out) {
   if (vit_wide_code(k, beta))
     return vit_func_attrs(
         reinterpret_cast<const void*>(viterbi_unified_wide_kernel), out);
-  if (k >= VIT_SMEM_MIN_K) return vit_dispatch_block<AttrsBlock>(k, out);
+  if (k >= VIT_SMEM_MIN_K)
+    return vit_dispatch_block<AttrsBlock>(k, beta, out);
   return vit_dispatch<Attrs>(k, beta, out);
 }
 
@@ -657,7 +708,7 @@ int viterbi_device_limits(int device, int* out) {
 // The wide mapping (every code outside the fast mappings' domain, or any
 // code with wide != 0, which the wrapper passes only to test the mapping)
 // takes `grid` blocks, survivors and starts in the scratch (grid of [L][row]
-// bytes and of [nsub] int32) and, past k = 15, the path metrics in pm_global
+// bytes and of [nsub] int32) and the path metrics in pm_global
 // (grid of [2][S] float32); with cluster > 1 it runs on `grid` clusters of
 // that many blocks instead (the scratch per cluster, no pm_global). The
 // large codes (or any code the one-block form takes, with block != 0, which
@@ -682,11 +733,11 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
   if (wide ? (sel_global == nullptr || polys == nullptr || grid < 1 ||
               (cluster > 1 ? (!vit_cluster_ok(k, cluster) ||
                               pm_global != nullptr)
-                           : (pm_global == nullptr) ==
-                                 !vit_wide_pm_on_chip(k)))
-      : block ? (!vit_block_ok(k) || beta > VIT_MAX_BETA ||
-                 polys == nullptr || grid < 1 || pm_global != nullptr)
-              : (fpb < 1 || fpb > vit_max_frames_per_block(k)))
+                           : pm_global == nullptr))
+      : block ? (!vit_block_ok(k) || polys == nullptr || grid < 1 ||
+                 pm_global != nullptr)
+              : (fpb < 1 || fpb > vit_max_frames_per_block(k) ||
+                 polys == nullptr))
     return (int)cudaErrorInvalidValue;
   UnifiedParams p;
   p.llr = llr;
@@ -720,7 +771,7 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
     return launch_wide(&p, grid, static_cast<cudaStream_t>(stream));
   if (block)
     return vit_dispatch_block<LaunchBlock>(
-        k, &p,
+        k, beta, &p,
         smem_layout_block(k, L, p.nsub, pack, start_fixed,
                           sel_global != nullptr)
             .total,

@@ -35,8 +35,7 @@ import torch
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
 from .autotune import (block_grid, max_frames_per_block, smem_mapping,
-                       wide_cluster, wide_grid, wide_mapping,
-                       wide_pm_on_chip)
+                       wide_cluster, wide_grid, wide_mapping)
 from .build import build
 from .packing import Layout, pack_bits, packed_width
 from .viterbi_unified import (_LLR_DTYPES, _check_cluster, device_polys,
@@ -64,9 +63,9 @@ def kernel_library():
         lib.viterbi_fwd_max_clusters.restype = i
         lib.viterbi_fwd_cluster_attrs.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.viterbi_fwd_cluster_attrs.restype = i
-        lib.viterbi_fwd_block_occupancy.argtypes = [i, ctypes.POINTER(i)]
+        lib.viterbi_fwd_block_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
         lib.viterbi_fwd_block_occupancy.restype = i
-        lib.viterbi_fwd_block_attrs.argtypes = [i, ctypes.POINTER(i)]
+        lib.viterbi_fwd_block_attrs.argtypes = [i, i, ctypes.POINTER(i)]
         lib.viterbi_fwd_block_attrs.restype = i
         lib._argtypes_set = True
     return built
@@ -114,18 +113,19 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     float32, bfloat16 or float16); raises on anything else or if the build
     or the launch fails. A block holds at most ``frames_per_tile`` and at
     most ``autotune.max_frames_per_block`` frames; a large code (12 <= k <=
-    15, beta <= 8) runs one frame a block at a time on the blocks resident
-    at once (``autotune.block_grid``); a code outside the fast mappings'
-    domain runs the wide mapping (one frame a block, the grid the blocks
-    resident at once, past k = 15 each block's path metrics in a
-    device-memory scratch; at 16 <= k <= 19 a cluster of 2^(k-15) blocks a
-    frame, path metrics in the cluster's shared memory, where the card
-    holds one). ``radix`` is checked as in JAX but has no effect on the
-    card: every stage is one exact radix-2 step, and the outputs are the
-    same for both. ``_wide`` runs any code on the wide mapping,
+    15) runs one frame a block at a time on the blocks resident at once
+    (``autotune.block_grid``); past beta = 8 both take beta at run time; a
+    code past k = 15, and K=9 past beta = 8 (``autotune.FWD_WIDE_K``),
+    runs the wide mapping (one frame a block, the grid the
+    blocks resident at once, each block's path metrics in a device-memory
+    scratch; at 16 <= k <= 19 a cluster of 2^(k-15) blocks a frame, path
+    metrics in the cluster's shared memory, where the card holds one).
+    ``radix`` is checked as in JAX but has no effect on the card: every
+    stage is one exact radix-2 step, and the outputs are the same for
+    both. ``_wide`` runs any code on the wide mapping,
     ``_cluster=C`` on a cluster of C blocks (1: on none), and ``_block`` on
-    the one-block form (7 <= k <= 15, beta <= 8), for the tests that hold
-    them against the other mappings."""
+    the one-block form (7 <= k <= 15), for the tests that hold them
+    against the other mappings."""
     lay = _check(frames, trellis, frames_per_tile, radix, layout, bm_dtype)
     _check_cluster(_cluster, _wide, _block)
     if not frames.is_cuda:
@@ -152,18 +152,20 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     if F == 0:
         return sel, amax
     lib = kernel_library().lib
-    wide = _wide or bool(_cluster) or wide_mapping(trellis)
+    wide = _wide or bool(_cluster) or (
+        not _block and wide_mapping(trellis, unified=False))
     block = not wide and (_block or smem_mapping(trellis))
     pm, C = None, 1
     if wide:
         C = _cluster or wide_cluster(trellis, dev, unified=False)
         fpb, grid = 1, wide_grid(trellis, F, dev, unified=False, cluster=C)
-        if C == 1 and not wide_pm_on_chip(trellis):
+        if C == 1:
             pm = torch.empty((grid, 2, S), dtype=torch.float32, device=dev)
     elif block:
         fpb, grid = 1, block_grid(trellis, F, dev, unified=False)
     else:
-        fpb, grid = min(frames_per_tile, max_frames_per_block(trellis), F), 0
+        fpb = min(frames_per_tile, max_frames_per_block(trellis, False), F)
+        grid = 0
     idx, sgn, signs_half = device_tables(trellis, dev)
     polys = device_polys(trellis, dev)
     with torch.cuda.device(dev):

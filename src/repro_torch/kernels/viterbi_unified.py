@@ -25,20 +25,22 @@ frame count must be a multiple of it, as in the JAX kernel) and the most
 frames one thread block decodes. The kernel runs one warp per frame (a
 segment of S lanes for S < 32), at most eight warps a block, so a block
 holds at most ``autotune.max_frames_per_block`` frames, and fewer when
-their survivors would overflow shared memory. Codes 12 <= k <= 15 (beta <=
-8) run one frame on a block of ``autotune.large_threads`` threads, path
-metrics in shared memory (``acs.cuh``'s ``VitCluster`` on one block): the
-grid is the blocks resident at once (``autotune.block_grid``), each taking
-frames in turn, the survivors in shared memory or in a device-memory
-scratch per block as ``autotune.block_survivors_on_chip`` says. Every
-other code the plain version
-takes (k > ``autotune.MAX_K`` = 15 or beta > ``MAX_BETA`` = 8) runs the
-wide mapping (``acs.cuh``'s ``VitWide``): one frame a block, k and beta at
-run time, survivors and traceback starts in a device-memory scratch of
-each block's, and past k = 15 the path metrics too; the grid is the
-blocks resident at once (``autotune.wide_grid``), each taking frames in
-turn. Codes 16 <= k <= 19 run it on a thread-block cluster of 2^(k-15)
-blocks a frame (``acs.cuh``'s ``VitCluster``, ``autotune.wide_cluster``),
+their survivors would overflow shared memory; past beta =
+``autotune.MAX_BETA`` = 8 the warp takes beta at run time and stages its
+LLRs in shared memory too (``autotune.low_rate``). Codes 12 <= k <= 15 run
+one frame on a block of ``autotune.large_threads`` threads, path metrics
+in shared memory (``acs.cuh``'s ``VitCluster`` on one block; per-edge
+branch metrics past beta = 8): the grid is the blocks resident at once
+(``autotune.block_grid``), each taking frames in turn, the survivors in
+shared memory or in a device-memory scratch per block as
+``autotune.block_survivors_on_chip`` says. Every other code the plain
+version takes (k > ``autotune.MAX_K`` = 15) runs the wide mapping
+(``acs.cuh``'s ``VitWide``): one frame a block, k and beta at run time,
+survivors and traceback starts in a device-memory scratch of each
+block's, and past k = 15 the path metrics too; the grid is the blocks
+resident at once (``autotune.wide_grid``), each taking frames in turn.
+Codes 16 <= k <= 19 run it on a thread-block cluster of 2^(k-15) blocks a
+frame (``acs.cuh``'s ``VitCluster``, ``autotune.wide_cluster``),
 the path metrics in the cluster's shared memory, the scratch per cluster;
 the device-memory path metrics are allocated only where the planner keeps
 the code off a cluster. Where the card cannot hold that scratch or that
@@ -56,8 +58,9 @@ from ..core.framed import FrameSpec
 from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
 from .autotune import (block_grid, block_survivors_on_chip, device_limits,
-                       max_frames_per_block, smem_mapping, wide_cluster,
-                       wide_grid, wide_mapping, wide_pm_on_chip)
+                       low_rate, max_frames_per_block, smem_mapping,
+                       tile_survivors_on_chip, wide_cluster, wide_grid,
+                       wide_mapping)
 from .build import build
 from .packing import Layout, extract_bit, pack_bits, packed_width
 from .tables import kernel_tables
@@ -100,14 +103,14 @@ def kernel_library():
         lib.viterbi_unified_cluster_attrs.argtypes = [i, i, i,
                                                       ctypes.POINTER(i)]
         lib.viterbi_unified_cluster_attrs.restype = i
-        lib.viterbi_block_threads.argtypes = [i]
+        lib.viterbi_block_threads.argtypes = [i, i]
         lib.viterbi_block_threads.restype = i
         lib.viterbi_unified_block_smem_bytes.argtypes = [i] * 6
         lib.viterbi_unified_block_smem_bytes.restype = ctypes.c_longlong
         lib.viterbi_unified_block_occupancy.argtypes = [
-            i, ctypes.c_longlong, ctypes.POINTER(i)]
+            i, i, ctypes.c_longlong, ctypes.POINTER(i)]
         lib.viterbi_unified_block_occupancy.restype = i
-        lib.viterbi_unified_block_attrs.argtypes = [i, ctypes.POINTER(i)]
+        lib.viterbi_unified_block_attrs.argtypes = [i, i, ctypes.POINTER(i)]
         lib.viterbi_unified_block_attrs.restype = i
         lib._argtypes_set = True
     return built
@@ -212,8 +215,8 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     have no effect on the card: every stage is one exact radix-2 step, and
     the bits are the same for both. ``_wide`` runs any code on the wide
     mapping, ``_cluster=C`` on a cluster of C blocks (1: on none), and
-    ``_block`` on the one-block form (7 <= k <= 15, beta <= 8), for the
-    tests that hold them against the other mappings."""
+    ``_block`` on the one-block form (7 <= k <= 15), for the tests that
+    hold them against the other mappings."""
     _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
            radix, layout, bm_dtype)
     _check_cluster(_cluster, _wide, _block)
@@ -243,7 +246,7 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
         C = _cluster or wide_cluster(trellis, dev)
         grid = nframes = wide_grid(trellis, F, dev, cluster=C)
         fpb, glob = 1, True
-        if C == 1 and not wide_pm_on_chip(trellis):
+        if C == 1:
             pm = torch.empty((grid, 2, S), dtype=torch.float32, device=dev)
     elif block:          # on chip, or a block's survivors and starts
         spec = FrameSpec(f=f, v1=v1, v2=v2, f0=f0, v2s=v2s, start=start)
@@ -262,7 +265,12 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
         while fpb and lib.viterbi_unified_smem_bytes(
                 k, beta, L, nsub, pack, fixed, fpb, 0) > limit:
             fpb -= 1
-        glob = fpb == 0                  # survivors too long for on-chip
+        # survivors too long for on-chip, or past beta = 8 costing
+        # resident frames
+        glob = fpb == 0 or low_rate(trellis) and not tile_survivors_on_chip(
+            trellis, FrameSpec(f=f, v1=v1, v2=v2, f0=f0, v2s=v2s,
+                               start=start), fpb,
+            pack_survivors=pack_survivors, frames=F, device=dev)
         if glob:
             fpb = cap
         nframes = -(-F // fpb) * fpb

@@ -492,17 +492,34 @@ def _rows(x: torch.Tensor) -> dict:
     return rows
 
 
+def _row_axes(rows: dict) -> tuple:
+    """The mesh axes that split the rows laid out as ``rows``: those a
+    weight applied to them sums its gradient over."""
+    return tuple(a for axes in rows.values() if axes is not None
+                 for a in (axes if isinstance(axes, tuple) else (axes,)))
+
+
+def _vocab_axes(rows: dict, n: int):
+    """The axes of a vocabulary dim of ``n`` beside rows laid out as
+    ``rows``: 'model' where it divides n evenly (``dctx.model_axes``),
+    unless the rows already take it (the sequence over 'model', fsdp's
+    sequence-parallel branch): a mesh axis shards one dim of a tensor."""
+    vax = dctx.model_axes(n)
+    return None if vax in _row_axes(rows) else vax
+
+
 def logits(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Over the whole padded vocabulary (padding columns included). On a
     mesh each rank's rows against its slice of the vocabulary over
-    'model', the weight made whole over the data axes: the rows'
-    gradient comes back as a partial sum over 'model', the weight's over
-    the batch axes. (Left to DTensor, the product with the weight's
+    'model' (the whole vocabulary where the sequence is over 'model'),
+    the weight made whole over the data axes: the rows' gradient comes
+    back as a partial sum over the vocabulary's axes, the weight's over
+    the rows' axes. (Left to DTensor, the product with the weight's
     data-sharded d_model can come out as a partial sum over the data axes
     with every rank holding the logits of the whole batch.)"""
     rows = _rows(x)
-    vax = dctx.model_axes(p["tok"].shape[0])
-    b = rows[0]
+    vax = _vocab_axes(rows, p["tok"].shape[0])
+    b = _row_axes(rows) or None
     out = [({**rows, x.ndim - 1: vax}, None)]
     if "head" not in p:
         return dctx.local(lambda x, t: x @ t.T, [(x, rows, vax),
@@ -518,7 +535,7 @@ def softmax_xent(lg: torch.Tensor, labels: torch.Tensor,
     over the kept labels plus a z-loss on the log-partition."""
     lg = lg.float()
     rows = _rows(lg)
-    vax = dctx.model_axes(lg.shape[-1])
+    vax = _vocab_axes(rows, lg.shape[-1])
     lay = {**rows, lg.ndim - 1: vax}
     # the log-partition as logsumexp computes it (max, then the log of the
     # sum of exp(lg - max)); on a mesh each rank reduces its vocabulary

@@ -10,7 +10,10 @@ Cases:
     and grad norm of 2 sharded AdamW steps, the first step's gradients
     laid out as their params and made whole, and the params after; the
     same under ``strategy="fsdp"`` on (2, 2) (weights over ('data',
-    'model') on their former data dim, the batch over both axes);
+    'model') on their former data dim, the batch over both axes), and
+    under fsdp on (2, 2) with a batch of 2 rows, which divides 'data' but
+    not ('data', 'model'), in the context launch/dryrun.py sets for it
+    (``activation_axes``: the sequence over 'model');
   * jax: the sharded loss and gradients on JAX's weights and batch;
   * accum: one accumulated step over 2 microbatches on (2, 2);
   * elastic: a step on (2, 2), a checkpoint, the next step there; the
@@ -38,6 +41,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.data import DataConfig, make_batch
+from repro_torch.distributed import ctx
 from repro_torch.distributed.compress import (compressed_grads, init_ef,
                                               make_compressed_train_step)
 from repro_torch.distributed.sharding import (param_shardings, place_cache,
@@ -57,6 +61,9 @@ SERVE_MESHES = [(2, 2), (1, 4)]
 DECODE_STEPS = 6
 ARCHS = ["qwen3_32b", "qwen3_moe_235b", "mamba2_2p7b"]
 LR = 1e-3
+#: Rows of the sequence-parallel case's batch: they divide the data axis
+#: of (2, 2) but not data x model.
+SEQ_ROWS = 2
 
 
 def cfg32(arch, attn_chunk=8):
@@ -66,8 +73,9 @@ def cfg32(arch, attn_chunk=8):
                                dtype="float32", attn_chunk=attn_chunk)
 
 
-def batches(arch, n=2):
-    return [make_batch(cfg32(arch), DataConfig(4, 16), s) for s in range(n)]
+def batches(arch, n=2, rows=4):
+    return [make_batch(cfg32(arch), DataConfig(rows, 16), s)
+            for s in range(n)]
 
 
 def init(cfg, mesh=None, strategy="tp"):
@@ -92,10 +100,11 @@ def first_grads(m, params, batch, mesh=None, strategy="tp"):
                          for n, g in grads.items()}
 
 
-def two_steps(arch, mesh=None, strategy="tp"):
-    """(first-step grads, [(loss, grad_norm)] x 2, final params)."""
+def two_steps(arch, mesh=None, strategy="tp", rows=4):
+    """(first-step grads, [(loss, grad_norm)] x 2, final params) over
+    batches of ``rows`` rows."""
     m, params = init(cfg32(arch), mesh, strategy)
-    bs = batches(arch)
+    bs = batches(arch, rows=rows)
     _, grads = first_grads(m, params, bs[0], mesh, strategy)
     opt = adamw(constant(LR))
     st = opt.init(params)
@@ -105,6 +114,27 @@ def two_steps(arch, mesh=None, strategy="tp"):
         params, st, met = step(params, st, b)
         mets.append((float(met["loss"]), float(met["grad_norm"])))
     return grads, mets, {n: _whole(p) for n, p in params.named_parameters()}
+
+
+def seq_steps(arch, mesh):
+    """``two_steps`` under fsdp on a batch of SEQ_ROWS rows, in the
+    activation context launch/dryrun.py's ``trace_step`` sets for such a
+    batch (``activation_axes``: the batch over 'data', the sequence over
+    'model'); the previous context restored after."""
+    from repro_torch.launch.dryrun import activation_axes
+    axes = {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
+    baxes, saxes, dsize = activation_axes(axes, SEQ_ROWS, "fsdp")
+    assert saxes == "model", (baxes, saxes)
+    prev = (ctx.get_batch_axes(), ctx.get_seq_axes(), ctx.get_data_size())
+    ctx.set_batch_axes(baxes)
+    ctx.set_seq_axes(saxes)
+    ctx.set_data_size(dsize)
+    try:
+        return two_steps(arch, mesh, "fsdp", rows=SEQ_ROWS)
+    finally:
+        ctx.set_batch_axes(prev[0])
+        ctx.set_seq_axes(prev[1])
+        ctx.set_data_size(prev[2])
 
 
 def collectives(arch, mesh):
@@ -227,6 +257,7 @@ def run(rank, world, store, out, jparams, jbatch, cbatch):
                     res[("collectives", arch)] = collectives(arch, mesh)
                     res[("parity_fsdp", arch)] = two_steps(arch, mesh,
                                                            "fsdp")
+                    res[("parity_seq", arch)] = seq_steps(arch, mesh)
             if shape == (2, 2):
                 res["jax"] = _jax_case(mesh, jparams, jbatch)
                 res["accum"] = accum_step(mesh)

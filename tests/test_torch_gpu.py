@@ -41,19 +41,35 @@ LARGE_CODES = [(12, (0o4335, 0o5723)), (13, (0o10533, 0o17661)),
                (14, (0o21645, 0o35661)),
                (12, (0o4335, 0o5723, 0o6475, 0o7061, 0o4767, 0o5251, 0o6163,
                      0o7555))]
-#: The wide mapping (every code past k = 15 or beta = 8; one block a
-#: frame, k and beta at run time): k = 16, 17, 18 at rate 1/2 (path metrics
-#: in device memory), k = 16 at rate 1/3, and k = 7 at rate 1/9 and k = 5
-#: at rate 1/12 (path metrics in shared memory), the codes of
+#: The wide mapping (every code past k = 15; a cluster of 2^(k-15) blocks
+#: a frame at k = 16-19, else one block, k and beta at run time): k = 16,
+#: 17, 18 at rate 1/2 and k = 16 at rate 1/3, codes of
 #: tests/test_torch_large_codes.py, which holds their plain versions
 #: against JAX.
 WIDE_CODES = [(16, (0o135417, 0o163251)), (17, (0o247153, 0o365715)),
               (18, (0o523571, 0o634657)),
-              (16, (0o135417, 0o163251, 0o117643)),
-              (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155,
-                   0o173)),
-              (5, (0o21, 0o23, 0o25, 0o27, 0o31, 0o33, 0o35, 0o37, 0o20,
-                   0o22, 0o24, 0o26))]
+              (16, (0o135417, 0o163251, 0o117643))]
+#: Rates below 1/8 at k <= 15 (the fast mappings with beta at run time:
+#: the register mapping to k = 11, the one-block form's per-edge sums
+#: past it): K=5 rate 1/12 (top taps only), K=7 rate 1/9 and 1/16, K=9
+#: rate 1/10, K=11 rate 1/9 (one polynomial without its bottom tap: four
+#: sums a butterfly), K=12, 13 and 15 at rate 1/9.
+LOW_RATE_CODES = [
+    (5, (0o21, 0o23, 0o25, 0o27, 0o31, 0o33, 0o35, 0o37, 0o20, 0o22, 0o24,
+         0o26)),
+    (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155, 0o173)),
+    (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155, 0o173,
+         0o103, 0o111, 0o125, 0o137, 0o141, 0o153, 0o163)),
+    (9, (0o561, 0o753, 0o711, 0o647, 0o525, 0o457, 0o673, 0o535, 0o743,
+         0o607)),
+    (11, (0o3345, 0o3613, 0o2011, 0o3777, 0o2525, 0o3131, 0o2663, 0o3455,
+          0o2002)),
+    (12, (0o4335, 0o5723, 0o6475, 0o7061, 0o4767, 0o5251, 0o6163, 0o7555,
+          0o4001)),
+    (13, (0o10533, 0o17661, 0o12345, 0o15473, 0o11111, 0o13577, 0o16243,
+          0o14101, 0o17017)),
+    (15, (0o46321, 0o51271, 0o63667, 0o70535, 0o41111, 0o57773, 0o62345,
+          0o77777, 0o40001))]
 
 
 @pytest.fixture
@@ -218,7 +234,8 @@ def test_split_path_goes_through_both_kernels(cuda):
     assert got.is_cuda and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("code", CODES + LARGE_CODES + WIDE_CODES)
+@pytest.mark.parametrize("code", CODES + LARGE_CODES + WIDE_CODES
+                         + LOW_RATE_CODES)
 def test_smem_models_equal_kernel_carve_up(cuda, code):
     """autotune's shared-memory models are the kernels' own numbers: the
     block of every mapping, and for 16 <= k <= 19 both the wide mapping's
@@ -227,14 +244,14 @@ def test_smem_models_equal_kernel_carve_up(cuda, code):
     on chip and in the scratch, and the blocks an SM holds of each (the
     card's occupancy query against the planner's model of threads, block
     slots, shared memory and the kernel's registers, and on an H100
-    against ``H100_BLOCKS``)."""
+    against ``H100_BLOCKS``, past beta = 8 its ``*_lowrate`` entries)."""
     tr = make_trellis(*code)
     ulib, flib = vu.kernel_library().lib, vf.kernel_library().lib
     C = autotune.wide_cluster(tr, "cuda") if autotune.wide_mapping(tr) else 1
     assert ulib.viterbi_cluster_size(tr.k) == autotune.cluster_size(tr)
     if autotune.smem_mapping(tr):
         T = autotune.large_threads(tr)
-        assert ulib.viterbi_block_threads(tr.k) == T == \
+        assert ulib.viterbi_block_threads(tr.k, tr.beta) == T == \
             autotune.block_threads(tr, 1)
         limits = autotune.device_limits("cuda")
         h100 = "H100" in torch.cuda.get_device_name(0)
@@ -247,7 +264,8 @@ def test_smem_models_equal_kernel_carve_up(cuda, code):
                                                     limits) >= 1
             if h100:
                 assert got == autotune.H100_BLOCKS[
-                    "unified" if unified else "split"][tr.k]
+                    ("unified" if unified else "split")
+                    + ("_lowrate" if autotune.low_rate(tr) else "")][tr.k]
         spec = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
         on, _ = autotune.unified_smem_bytes(tr, spec, 1, pack_survivors=True)
         assert on == ulib.viterbi_unified_block_smem_bytes(
@@ -258,7 +276,7 @@ def test_smem_models_equal_kernel_carve_up(cuda, code):
                     on, T, 1, autotune.kernel_registers(tr, device="cuda"),
                     limits)
     else:
-        assert ulib.viterbi_block_threads(tr.k) == (
+        assert ulib.viterbi_block_threads(tr.k, tr.beta) == (
             -1 if tr.k < 7 or tr.k > autotune.MAX_K
             else min(128, tr.num_states // 2))
     if C > 1:
@@ -304,11 +322,13 @@ def test_register_model_is_the_kernels(cuda, unified):
     """The planner's registers are the built kernels' (cudaFuncGetAttributes),
     and on an H100 the count the CPU plans with is the K=7 beta=2
     instantiation's (for the large codes' one-block kernels, whose
-    registers do not depend on beta, k=12's; no one-block kernel spills
-    past what PERF.md records; for the wide one, which is one
+    registers do not depend on beta <= 8, k=12's; no one-block kernel
+    spills past what PERF.md records; for the wide one, which is one
     instantiation, every wide code's off a cluster; for the cluster kernel
     its k = 16-19 beta <= 8 instantiations', which run 16 butterflies a
-    thread with the butterfly table)."""
+    thread with the butterfly table); past beta = 8 the register form's
+    K=7 beta=9 count and the one-block form's k=12 beta=9 count
+    (``*_lowrate``)."""
     lib = (vu if unified else vf).kernel_library().lib
     attrs = (lib.viterbi_unified_func_attrs if unified
              else lib.viterbi_fwd_func_attrs)
@@ -329,11 +349,28 @@ def test_register_model_is_the_kernels(cuda, unified):
             if autotune.smem_mapping(tr):        # the one-block kernel's
                 block = (ctypes.c_int * 3)()
                 assert (lib.viterbi_unified_block_attrs if unified
-                        else lib.viterbi_fwd_block_attrs)(k, block) == 0
+                        else lib.viterbi_fwd_block_attrs)(k, beta, block) == 0
                 assert list(block) == list(out)
                 if h100 and k == autotune.SMEM_MIN_K:
                     assert autotune.H100_REGISTERS[name + "_block"] == \
                         out[0]
+    for k, polys in LOW_RATE_CODES:
+        tr = make_trellis(k, polys)
+        out = (ctypes.c_int * 3)()
+        assert attrs(k, tr.beta, out) == 0
+        assert autotune.kernel_registers(tr, unified=unified,
+                                         device="cuda") == out[0]
+        assert out[2] >= autotune.block_threads(tr, 1)
+        if autotune.smem_mapping(tr):
+            block = (ctypes.c_int * 3)()
+            assert (lib.viterbi_unified_block_attrs if unified
+                    else lib.viterbi_fwd_block_attrs)(k, tr.beta, block) == 0
+            assert list(block) == list(out)
+        if h100 and (k, tr.beta) == (7, 9):
+            assert autotune.H100_REGISTERS[name + "_lowrate"] == out[0]
+        if h100 and (k, tr.beta) == (12, 9):
+            assert autotune.H100_REGISTERS[name + "_block_lowrate"] == \
+                out[0]
     cluster_attrs = (lib.viterbi_unified_cluster_attrs if unified
                      else lib.viterbi_fwd_cluster_attrs)
     for k, polys in WIDE_CODES:
@@ -666,11 +703,11 @@ def test_large_code_survivors_on_chip_and_in_scratch(cuda, monkeypatch,
 
 
 def test_codes_past_the_limits_are_refused(cuda):
-    """The codes past the fast mappings' limits (k > 15, beta > 8), which
-    the wrappers once refused, run the wide mapping: each kernel equals
-    its plain version (the unified bits, the forward sel and amax in both
-    layouts, the traceback on them) over pack x radix x bm_dtype and the
-    serial, boundary and fixed starts, and each launch is counted."""
+    """The codes past the fast mappings' limit (k > 15), which the wrappers
+    once refused, run the wide mapping: each kernel equals its plain
+    version (the unified bits, the forward sel and amax in both layouts,
+    the traceback on them) over pack x radix x bm_dtype and the serial,
+    boundary and fixed starts, and each launch is counted."""
     specs = [FrameSpec(f=32, v1=10, v2=11),
              FrameSpec(f=32, v1=10, v2=11, f0=8, v2s=11),
              FrameSpec(f=48, v1=6, v2=12, f0=12, v2s=10, start="fixed")]
@@ -715,6 +752,97 @@ def test_codes_past_the_limits_are_refused(cuda):
                                 before + 1
                             assert torch.equal(got, tbf.traceback_frames_plain(
                                 psel, pamax, **tkw)), (code, tkw)
+
+
+@pytest.mark.parametrize("code", LOW_RATE_CODES,
+                         ids=lambda c: f"k{c[0]}b{len(c[1])}")
+@pytest.mark.parametrize("spec", _SPECS)
+def test_low_rate_kernels_equal_plain(cuda, monkeypatch, code, spec):
+    """B1, B3 and the traceback kernel at rates below 1/8 (the register
+    mapping with beta at run time to k = 11, the one-block form's per-edge
+    sums at k = 12-15) against their plain versions: packed and not,
+    radix 2 and 4, f32 and bf16 branch metrics, both layouts; serial,
+    boundary and fixed starts; each launch counted. B1 also with its
+    survivors in the device-memory scratch (forced)."""
+    tr = make_trellis(*code)
+    assert autotune.low_rate(tr) and not autotune.wide_mapping(tr)
+    frames = _frames(code, spec, 8, 61, cuda)
+    kw = _kw(code, spec)
+    for pack in (False, True):
+        for radix in (2, 4):
+            for bm in ("float32", "bfloat16"):
+                ukw = dict(kw, frames_per_tile=4, pack_survivors=pack,
+                           radix=radix, bm_dtype=bm)
+                before = vu.unified_decode_frames_cuda.launches
+                got = vu.unified_decode_frames(frames, **ukw)
+                torch.cuda.synchronize()
+                assert vu.unified_decode_frames_cuda.launches == before + 1
+                want = vu.unified_decode_frames_plain(frames, **ukw)
+                assert torch.equal(got, want), (code, spec, pack, radix, bm)
+                with monkeypatch.context() as m:
+                    for name in ("tile_survivors_on_chip",
+                                 "block_survivors_on_chip"):
+                        m.setattr(vu, name, lambda *a, **k: False)
+                    assert torch.equal(vu.unified_decode_frames_cuda(
+                        frames, **ukw), want), (code, spec, pack, "scratch")
+                for layout in ("lane", "sublane"):
+                    fkw = dict(trellis=tr, frames_per_tile=4,
+                               pack_survivors=pack, radix=radix,
+                               layout=layout, bm_dtype=bm)
+                    before = vf.forward_frames_cuda.launches
+                    sel, amax = vf.forward_frames(frames, **fkw)
+                    assert vf.forward_frames_cuda.launches == before + 1
+                    psel, pamax = vf.forward_frames_plain(frames, **fkw)
+                    assert sel.dtype == psel.dtype
+                    assert torch.equal(sel, psel), (code, fkw)
+                    assert torch.equal(amax, pamax), (code, fkw)
+                    tkw = dict(trellis=tr, v1=spec.v1, f=spec.f, f0=kw["f0"],
+                               v2s=kw["v2s"], start=spec.start, packed=pack,
+                               layout=layout)
+                    assert torch.equal(tbf.traceback_frames(sel, amax, **tkw),
+                                       tbf.traceback_frames_plain(
+                                           psel, pamax, **tkw))
+
+
+@pytest.mark.parametrize("code", LOW_RATE_CODES,
+                         ids=lambda c: f"k{c[0]}b{len(c[1])}")
+def test_wide_mapping_equals_low_rate_forms(cuda, monkeypatch, code):
+    """The wide mapping forced (``_wide``), the one-block form's per-edge
+    sums forced below k = 12 (``_block``) and a forced cluster of 2 blocks
+    (its per-edge sums, ``_cluster``) equal the planner's run-time-beta
+    form, bits, sel and amax, over pack x radix x bm_dtype and both
+    layouts, on the planner's grid and on 3 blocks that take the frames in
+    turn."""
+    tr = make_trellis(*code)
+    spec = FrameSpec(f=64, v1=20, v2=21, f0=16, v2s=21)
+    frames = _frames(code, spec, 8, 33, cuda)
+    forced = [dict(_wide=True), dict(_cluster=2)] + (
+        [dict(_block=True)] if 7 <= tr.k < 12 else [])
+    for grid in (None, 3):
+        if grid is not None:
+            for mod in (vu, vf):
+                monkeypatch.setattr(mod, "wide_grid", lambda *a, **k: grid)
+                monkeypatch.setattr(mod, "block_grid", lambda *a, **k: grid)
+        for pack in (False, True):
+            for radix in (2, 4):
+                for bm in ("float32", "bfloat16"):
+                    kw = _kw(code, spec, frames_per_tile=4,
+                             pack_survivors=pack, radix=radix, bm_dtype=bm)
+                    want = vu.unified_decode_frames_cuda(frames, **kw)
+                    for force in forced:
+                        assert torch.equal(vu.unified_decode_frames_cuda(
+                            frames, **force, **kw), want), (force, kw)
+                    for layout in ("lane", "sublane"):
+                        fkw = dict(trellis=tr, frames_per_tile=4,
+                                   pack_survivors=pack, radix=radix,
+                                   layout=layout, bm_dtype=bm)
+                        want = vf.forward_frames_cuda(frames, **fkw)
+                        for force in forced:
+                            got = vf.forward_frames_cuda(frames, **force,
+                                                         **fkw)
+                            assert all(torch.equal(g, w)
+                                       for g, w in zip(got, want)), \
+                                (force, fkw)
 
 
 @pytest.mark.parametrize("code", [K7, LARGE_CODES[1], CODES[0],

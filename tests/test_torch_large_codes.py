@@ -1,19 +1,24 @@
-"""Codes past the fast mappings (k >= 16, or beta >= 9 at any k): the
-port's plain versions against the JAX package's kernels, on the CPU.
+"""Codes past the fast mappings' compile-time domain (k >= 16, or beta >= 9
+at any k): the port's plain versions against the JAX package's kernels,
+on the CPU.
 
-On the card these codes run the wide mapping of ``csrc/acs.cuh`` in both
-ACS kernels and the traceback kernel's direct chase;
-``tests/test_torch_gpu.py`` holds each to the plain versions here. The
+On the card the codes past k = 15 run the wide mapping of
+``csrc/acs.cuh`` in both ACS kernels, and the rates below 1/8 at k <= 15
+the fast mappings with beta at run time (the register mapping to k = 11,
+the one-block form's per-edge sums at k = 12-15); the traceback kernel
+chases them all. ``tests/test_torch_gpu.py`` holds each kernel to the
+plain versions here. The
 same numpy inputs, made from a seed, go through JAX's
 ``unified_decode_frames`` and ``forward_frames`` (the Pallas kernels in
 interpret mode, as the JAX tests run them), its ``core.traceback`` chases
 and its ``make_decoder``, and through their port counterparts on the CPU.
 Tolerance: exact (bits, sel and amax equal, with equal shapes and dtypes).
 
-Codes: k = 16 and 17 at rate 1/2, k = 16 at rate 1/3, k = 7 at rate 1/9
-and k = 5 at rate 1/12. Their polynomials are distinct and set the top
-and the bottom tap, except k = 5, which has only 8 such polynomials: its
-12 are distinct and set the top tap. Each JAX call runs in interpret mode
+Codes: k = 16 and 17 at rate 1/2, k = 16 at rate 1/3, k = 7 at rate 1/9,
+k = 5 at rate 1/12, k = 9 at rate 1/10 and k = 13 at rate 1/9. Their
+polynomials are distinct and set the top and the bottom tap, except
+k = 5, which has only 8 such polynomials: its 12 are distinct and set the
+top tap. Each JAX call runs in interpret mode
 (about a second at k = 16), so the knobs are spread over the calls: every
 unified call is compared with the port's plain version at pack x layout x
 radix, and bf16 branch metrics take one start of each code.
@@ -58,7 +63,11 @@ K7B9 = (7, (0o171, 0o133, 0o165, 0o117, 0o127, 0o135, 0o147, 0o155,
             0o173))
 K5B12 = (5, (0o21, 0o23, 0o25, 0o27, 0o31, 0o33, 0o35, 0o37, 0o20, 0o22,
              0o24, 0o26))
-CODES = [K16, K17, K16B3, K7B9, K5B12]
+K9B10 = (9, (0o561, 0o753, 0o711, 0o647, 0o525, 0o457, 0o673, 0o535,
+             0o743, 0o607))
+K13B9 = (13, (0o10533, 0o17661, 0o12345, 0o15473, 0o11111, 0o13577,
+              0o16243, 0o14101, 0o17017))
+CODES = [K16, K17, K16B3, K7B9, K5B12, K9B10, K13B9]
 #: serial, boundary and fixed starts
 SPECS = [FrameSpec(f=16, v1=8, v2=8),
          FrameSpec(f=16, v1=8, v2=8, f0=8, v2s=8),
@@ -95,16 +104,29 @@ def _same(got: torch.Tensor, want) -> None:
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_codes_are_past_the_fast_mappings():
-    for code in CODES:
-        tr = make_trellis(*code)
-        assert autotune.wide_mapping(tr) and len(set(tr.polys)) == tr.beta
-        assert all(g >> (tr.k - 1) == 1 for g in tr.polys)
-        if tr.k > 5:
-            assert all(g & 1 for g in tr.polys)
+@pytest.mark.parametrize("code", CODES)
+def test_codes_are_past_the_fast_mappings(code):
+    """Each code is past the fast mappings' compile-time domain: past
+    k = 15 it runs the wide mapping; past beta = 8 at k <= 15 a fast
+    mapping with beta at run time (the register mapping to k = 11, the
+    one-block form from k = 12), but B3 at K=9 (``FWD_WIDE_K``) the wide
+    mapping. Its polynomials are distinct and set the top tap, and past
+    k = 5 the bottom one."""
+    tr = make_trellis(*code)
+    assert len(set(tr.polys)) == tr.beta
+    assert tr.k > autotune.MAX_K or tr.beta > autotune.MAX_BETA
+    assert autotune.wide_mapping(tr) == (tr.k > autotune.MAX_K)
+    assert autotune.wide_mapping(tr, unified=False) == (
+        tr.k > autotune.MAX_K or tr.k == autotune.FWD_WIDE_K)
+    assert autotune.low_rate(tr) == (tr.beta > autotune.MAX_BETA)
+    assert autotune.smem_mapping(tr) == (
+        autotune.SMEM_MIN_K <= tr.k <= autotune.MAX_K)
+    assert all(g >> (tr.k - 1) == 1 for g in tr.polys)
+    if tr.k > 5:
+        assert all(g & 1 for g in tr.polys)
 
 
-@pytest.mark.parametrize("code", [K16, K17, K7B9, K5B12])
+@pytest.mark.parametrize("code", [K16, K17, K7B9, K5B12, K9B10, K13B9])
 def test_host_tables_equal_jax(code):
     """kernels/tables.py's host tables equal JAX's in-kernel ones: int32
     indices into a signs_half of (2^(beta-1), beta)."""
@@ -206,12 +228,17 @@ def test_make_decoder_equals_jax(code, backend):
 
 @pytest.mark.parametrize("unified", [True, False])
 def test_planner_plans_every_code(unified):
-    """plan_tiles returns a fitting plan of one frame for the wide codes
-    on the H100's limits, as JAX's planner returns one for any code; the
-    block is the wide mapping's core and, to k = 15, its path metrics; at
+    """plan_tiles returns a fitting plan for every code on the H100's
+    limits, as JAX's planner returns one for any code. Past k = 15 one frame
+    on the wide mapping: its core and, to k = 15, its path metrics; at
     16 <= k <= 19 one block of a cluster of C = 2^(k-15): the cluster core
-    and its 8 S / C bytes of path metrics."""
+    and its 8 S / C bytes of path metrics. Past beta = 8 at k <= 11 the
+    register mapping's tile with each warp's LLR chunks (B3 at K=9, one
+    frame on the wide mapping), at k = 12-15 one frame a block of the
+    one-block form, with the registers and resident blocks of their
+    run-time-beta kernels."""
     spec = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
+    name = "unified" if unified else "split"
     for code in CODES:
         tr = make_trellis(*code)
         plan = autotune.plan_tiles(tr, spec, pack_survivors=True,
@@ -220,27 +247,46 @@ def test_planner_plans_every_code(unified):
                                      JFrameSpec(**vars(spec)),
                                      pack_survivors=True, unified=unified)
         assert jplan.frames_per_tile >= 1
+        assert plan.fits and plan.frames_per_sm >= 1
+        assert plan.budget == autotune.H100_LIMITS.smem_per_block
         C = autotune.wide_cluster(tr, "cpu", unified=unified)
         assert C == (1 << (tr.k - 15) if 16 <= tr.k <= 19 else 1)
+        if not autotune.wide_mapping(tr, unified):
+            assert autotune.low_rate(tr) and autotune.llr_chunk_bytes(tr) \
+                == 2 * 32 * (-(-tr.beta // 4) * 4) * 4
+            if autotune.smem_mapping(tr):
+                assert plan.frames_per_tile == 1
+                assert plan.registers == \
+                    autotune.H100_REGISTERS[name + "_block_lowrate"]
+                assert plan.frames_per_sm == \
+                    autotune.H100_BLOCKS[name + "_lowrate"][tr.k]
+                assert autotune.block_threads(tr, 1) == \
+                    autotune.large_threads(tr)
+            else:
+                assert plan.registers == \
+                    autotune.H100_REGISTERS[name + "_lowrate"]
+                warps = autotune.block_threads(
+                    tr, plan.frames_per_tile) // 32
+                assert dict(plan.breakdown)["llr_chunks"] == \
+                    warps * autotune.llr_chunk_bytes(tr)
+                assert autotune.max_frames_per_block(tr) == \
+                    8 * (32 // min(32, tr.num_states))
+            continue
         if C > 1:
             pm, core = 8 * tr.num_states // C, autotune.CLUSTER_CORE_BYTES
         else:
-            pm = 8 * tr.num_states if tr.k <= autotune.MAX_K else 0
-            core = autotune.WIDE_CORE_BYTES
-        assert plan.frames_per_tile == 1 and plan.fits
-        assert plan.budget == autotune.H100_LIMITS.smem_per_block
+            pm, core = 0, autotune.WIDE_CORE_BYTES
+        assert plan.frames_per_tile == 1
         assert plan.smem_bytes == core + pm
         assert dict(plan.breakdown)["sel_survivors"] == 0
         assert plan.registers == autotune.H100_REGISTERS[
-            ("unified" if unified else "split")
-            + ("_cluster" if C > 1 else "_wide")]
-        assert plan.frames_per_sm >= 1
-        assert autotune.block_threads(tr, 1) == autotune.wide_threads(tr) \
-            == max(32, min(1024, tr.num_states // 2))
+            name + ("_cluster" if C > 1 else "_wide")]
+        assert autotune.block_threads(tr, 1, 1, unified) == \
+            autotune.wide_threads(tr) == max(32, min(1024, tr.num_states // 2))
         if C > 1:
             assert autotune.block_threads(tr, 1, C) == \
                 autotune.cluster_threads(tr, C) == 512
-        assert autotune.max_frames_per_block(tr) == 1
+        assert autotune.max_frames_per_block(tr, unified) == 1
         assert not autotune.smem_mapping(tr)
     # k = 16 on the H100: clusters of two 512-thread blocks, one an SM
     # pair, one frame a cluster; off a cluster one block an SM

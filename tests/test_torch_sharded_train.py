@@ -116,6 +116,12 @@ def single():
     return {arch: W.two_steps(arch) for arch in W.ARCHS}
 
 
+@pytest.fixture(scope="module")
+def single_seq():
+    """The same on the sequence-parallel case's batches of SEQ_ROWS."""
+    return {arch: W.two_steps(arch, rows=W.SEQ_ROWS) for arch in W.ARCHS}
+
+
 def _rel(a, b):
     return abs(a - b) / abs(b)
 
@@ -151,6 +157,28 @@ def test_two_fsdp_steps_equal_one_device(sharded, single, arch):
     dparam = max(np.abs(params[n] - w).max() for n, w in wparams.items())
     print(f"{arch} fsdp (2, 2): loss/grad norm {dloss:.2e}, grads "
           f"{dgrad:.2e} of each leaf's max, params {dparam:.2e}")
+    assert dloss <= REL and dgrad <= REL and dparam <= PARAM_ATOL
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_two_fsdp_steps_with_the_sequence_over_model_equal_one_device(
+        sharded, single_seq, arch):
+    """``strategy="fsdp"`` on (2, 2) with a batch of 2 rows, which divides
+    'data' but not data x model: the context the dry run sets for it
+    (``ctx.set_seq_axes("model")``, launch/dryrun.py ``activation_axes``),
+    the sequence over 'model', the weights gathered before their products;
+    the tolerances of test_two_sharded_steps_equal_one_device."""
+    grads, mets, params = sharded[("parity_seq", arch)]
+    wgrads, wmets, wparams = single_seq[arch]
+    assert sorted(grads) == sorted(wgrads) == sorted(params)
+    dloss = max(max(_rel(l, wl), _rel(g, wg))
+                for (l, g), (wl, wg) in zip(mets, wmets))
+    dgrad = max(np.abs(grads[n] - w).max() / np.abs(w).max()
+                for n, w in wgrads.items())
+    dparam = max(np.abs(params[n] - w).max() for n, w in wparams.items())
+    print(f"{arch} fsdp (2, 2), sequence over 'model': loss/grad norm "
+          f"{dloss:.2e}, grads {dgrad:.2e} of each leaf's max, params "
+          f"{dparam:.2e}")
     assert dloss <= REL and dgrad <= REL and dparam <= PARAM_ATOL
 
 

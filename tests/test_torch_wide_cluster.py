@@ -19,7 +19,8 @@ versions there. Here, without a card:
   against the JAX package's by test_torch_kernels.py) bit for bit;
 * the same model on one block (C = 1: the one-block form's exchange into
   its own buffer, ``large_threads`` threads whose warps store the survivor
-  words) at k = 12-15, beta 2 and 8, f32 and bf16 branch metrics.
+  words) at k = 12-15, beta 2, 8 and 9-10 (the per-edge sums past
+  beta = 8), f32 and bf16 branch metrics.
 
 Every model builds its branch metrics as the kernels do: a table of the
 four edges of each butterfly from its encoder word, summed term by term in
@@ -52,7 +53,9 @@ CODES = {8: (0o247, 0o371), 9: (0o561, 0o753), 10: (0o1167, 0o1545),
 #: of Galileo's K=15 polynomials at rate 1/2; at rate 1/8 the K=12 code of
 #: chip_smoke.py (both taps everywhere: one metric a butterfly) and, at
 #: k = 13-15, eight polynomials of which one lacks its bottom tap (four
-#: metrics a butterfly).
+#: metrics a butterfly); at rates 1/9 and 1/10 the per-edge sums' codes of
+#: tests/test_torch_low_rate.py (one polynomial without its bottom tap at
+#: K=13 rate 1/10).
 LARGE = {(12, 2): (0o4335, 0o5723), (13, 2): (0o10533, 0o17661),
          (14, 2): (0o21645, 0o35661), (15, 2): (0o46321, 0o51271),
          (12, 8): (0o4335, 0o5723, 0o6475, 0o7061, 0o4767, 0o5251, 0o6163,
@@ -62,7 +65,15 @@ LARGE = {(12, 2): (0o4335, 0o5723), (13, 2): (0o10533, 0o17661),
          (14, 8): (0o21645, 0o35661, 0o24567, 0o31235, 0o27771, 0o22223,
                    0o36541, 0o20002),
          (15, 8): (0o46321, 0o51271, 0o63667, 0o70535, 0o41111, 0o57773,
-                   0o62345, 0o77776)}
+                   0o62345, 0o77776),
+         (12, 9): (0o4335, 0o5723, 0o6475, 0o7061, 0o4767, 0o5251, 0o6163,
+                   0o7555, 0o4001),
+         (13, 9): (0o10533, 0o17661, 0o12345, 0o15473, 0o11111, 0o13577,
+                   0o16243, 0o14101, 0o17017),
+         (13, 10): (0o10533, 0o17661, 0o12345, 0o15473, 0o11111, 0o13577,
+                    0o16243, 0o14101, 0o17017, 0o10000),
+         (15, 9): (0o46321, 0o51271, 0o63667, 0o70535, 0o41111, 0o57773,
+                   0o62345, 0o77777, 0o40001)}
 
 
 @pytest.mark.parametrize("k", range(12, 22))
@@ -298,7 +309,8 @@ def test_one_block_model_equals_plain_recursion(code, bm_dtype):
     codes, run through 6 stages of 2 noisy frames: its exchange into its
     own buffer is a partition of the states, its warps' survivor words of
     the words, and its selectors, packed words, first maxima and final path
-    metrics equal acs_scan's, branch metrics from the butterfly table."""
+    metrics equal acs_scan's, branch metrics from the butterfly table
+    (per-edge sums past beta = 8, the same four metrics)."""
     tr = make_trellis(code[0], LARGE[code])
     assert autotune.smem_mapping(tr)
     T = autotune.large_threads(tr)

@@ -50,20 +50,22 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 OUT_DIR = ROOT / "build" / "variants"
 SOURCES = ("viterbi_unified.cu", "viterbi_fwd.cu")
-SPECIALISED = """  if (p.bf16_bm)          // one inlined loop per bm_dtype
-    vit_recursion(fr, p.llr, p.llr_dtype, true, base, p.L, fvalid, st);
-  else
-    vit_recursion(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid, st);
+SPECIALISED = """    if (p.bf16_bm)        // one inlined loop per bm_dtype
+      vit_recursion(fr, p.llr, p.llr_dtype, true, base, p.L, fvalid, st);
+    else
+      vit_recursion(fr, p.llr, p.llr_dtype, false, base, p.L, fvalid, st);
 """
-RUNTIME = ("  vit_recursion(fr, p.llr, p.llr_dtype, p.bf16_bm != 0, base, p.L,"
-           " fvalid, st);\n")
-# Every variant: beta = 2, 3 only, and R = 1, 2, 8, 16, 32 only.
+RUNTIME = ("    vit_recursion(fr, p.llr, p.llr_dtype, p.bf16_bm != 0, base, "
+           "p.L, fvalid, st);\n")
+# Every variant: beta = 2, 3 only (no run-time beta), and R = 1, 2, 8, 16,
+# 32 only.
 COMMON = [
     ("acs.cuh", """    case 4: return F::template run<R, 4>(a...);
     case 5: return F::template run<R, 5>(a...);
     case 6: return F::template run<R, 6>(a...);
     case 7: return F::template run<R, 7>(a...);
-    default: return F::template run<R, 8>(a...);""",
+    case 8: return F::template run<R, 8>(a...);
+    default: return F::template run<R, 0>(a...);""",
      "    default: return F::template run<R, 3>(a...);"),
     ("acs.cuh", "    case 4: return vit_dispatch_beta<F, 4>(beta, a...);\n",
      ""),

@@ -15,10 +15,13 @@ own ``build/kernels``); the two sides share only the inputs. Then:
   tree's planned tiles);
 * the split traceback (``traceback_frames_cuda``) at chip_smoke.py's
   ``TB_CASES``, on this tree's forward streams;
-* B1 and B3 on the wide mapping at chip_smoke.py's ``WIDE_TIME`` rows
-  (K=16, 17, 18 at 132 frames, K=7 beta=9 at 4224; main frame, packed,
-  radix 4), each side planning its own mapping (since the cluster mapping,
-  a thread-block cluster a frame at 16 <= k <= 19);
+* B1 and B3 at chip_smoke.py's ``WIDE_TIME`` rows (K=16, 17, 18, 19 at
+  132 frames on the wide mapping; the low rates K=7 beta=9 and 16 and
+  K=9 beta=10 at 4224, K=11 beta=9 at 1056, K=13 beta=9 at 264, K=15 beta=9 at 132;
+  main frame, packed, radix 4, this tree's planned tiles), each side
+  planning its own mapping (since the cluster mapping, a thread-block
+  cluster a frame at 16 <= k <= 19; since the run-time-beta forms, the
+  register mapping and the one-block form past beta = 8 at k <= 15);
 * B1 and B3 at chip_smoke.py's large codes (K=12, 13, 14, 15 and K=12
   beta=8; main frame, packed, radix 4) at their ``LARGE_TIME_FRAMES`` and
   at ``LARGE_FULL_FRAMES``, each side planning its own mapping (since the
@@ -163,13 +166,17 @@ def main(argv=None) -> int:
         tr = {s: d["trellis"].make_trellis(*code) for s, d in sides.items()}
         wf = cs._frames(tr["tree"], spec, F, gen, torch.float32)
         shape = f"K={code[0]} beta={len(code[1])} F={F}"
+        ut, st = (autotune.plan_tiles(tr["tree"], spec, pack_survivors=True,
+                                      radix=4, unified=u, max_frames=F,
+                                      device="cuda").frames_per_tile
+                  for u in (True, False))
         compare("viterbi_unified", shape, {
             s: (lambda s=s: sides[s]["vu"].unified_decode_frames_cuda(
-                wf, trellis=tr[s], **wkw))
+                wf, trellis=tr[s], **dict(wkw, frames_per_tile=ut)))
             for s in sides}, 3)
         compare("viterbi_fwd", shape, {
             s: (lambda s=s: sides[s]["vf"].forward_frames_cuda(
-                wf, trellis=tr[s], frames_per_tile=1, pack_survivors=True,
+                wf, trellis=tr[s], frames_per_tile=st, pack_survivors=True,
                 radix=4))
             for s in sides}, 3)
         del wf
