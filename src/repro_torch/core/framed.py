@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from ..obs.profiled import span_tracer
 from .decoder import viterbi_forward
 from .traceback import parallel_traceback, serial_traceback
 from .trellis import Trellis
@@ -97,13 +98,15 @@ def _windows(x: torch.Tensor, starts: torch.Tensor, length: int,
 
 def frame_llr(llr: torch.Tensor, spec: FrameSpec) -> torch.Tensor:
     """(n, beta) -> (F, L, beta) overlapping frames, zero-padded at edges
-    (zero LLR is metric-neutral, like a depunctured erasure)."""
-    n, _ = llr.shape
-    F = spec.num_frames(n)
-    pad_r = F * spec.f + spec.v2 - n
-    padded = torch.nn.functional.pad(llr, (0, 0, spec.v1, pad_r))
-    starts = torch.arange(F, device=llr.device) * spec.f
-    return _windows(padded, starts, spec.frame_len, 0)
+    (zero LLR is metric-neutral, like a depunctured erasure). Runs under
+    the ``decode.frame`` span."""
+    with span_tracer().span("decode.frame"):
+        n, _ = llr.shape
+        F = spec.num_frames(n)
+        pad_r = F * spec.f + spec.v2 - n
+        padded = torch.nn.functional.pad(llr, (0, 0, spec.v1, pad_r))
+        starts = torch.arange(F, device=llr.device) * spec.f
+        return _windows(padded, starts, spec.frame_len, 0)
 
 
 def decode_frame(llr_frame: torch.Tensor, trellis: Trellis,

@@ -18,9 +18,11 @@ versions.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
+from ..obs.profiled import span_tracer
 from .framed import FrameSpec, decode_frame, frame_llr
 from .puncture import check_alignment, depuncture
 from .sanitize import LLR_CLIP as _LLR_CLIP
@@ -140,23 +142,35 @@ def make_frame_decoder(cfg: DecoderConfig, device=None):
 def make_decoder(cfg: DecoderConfig, device=None):
     """Returns decode(stream, n) -> (n,) int32 bits on ``device``
     (``None`` = ``"cuda"``). ``stream`` is the punctured soft-symbol stream
-    (m,) for rate != 1/2, or (n, beta) LLRs; numpy or torch."""
+    (m,) for rate != 1/2, or (n, beta) LLRs; numpy or torch.
+
+    Each call runs under a ``decode`` span (attribute ``call``, the
+    decoder's sequence number of the call), with ``decode.copy_in``,
+    ``decode.sanitize``, ``decode.depuncture`` and ``frame_llr``'s
+    ``decode.frame`` inside it, and the frame decoder's spans after."""
     from ..kernels.ops import resolve_device
     dev = resolve_device(device)
     decode_frames = make_frame_decoder(cfg, dev)
 
+    calls = itertools.count()
+
     def decode(stream, n: int) -> torch.Tensor:
-        stream = torch.as_tensor(stream).to(dev)
-        # input hardening (core.sanitize): NaN/Inf -> neutral zero,
-        # |llr| > clip -> ±clip; the identity on clean in-range inputs
-        stream = torch.where(torch.isfinite(stream), stream,
-                             torch.zeros_like(stream)
-                             ).clamp(-_LLR_CLIP, _LLR_CLIP)
-        if cfg.rate != "1/2":
-            llr = depuncture(stream, cfg.rate, n)
-        else:
-            llr = stream if stream.ndim == 2 else stream.reshape(n, -1)
-        bits = decode_frames(frame_llr(llr, cfg.spec))        # (F, f)
-        return bits.reshape(-1)[:n]
+        trace = span_tracer()
+        with trace.span("decode", call=next(calls)):
+            with trace.span("decode.copy_in"):
+                stream = torch.as_tensor(stream).to(dev)
+            # input hardening (core.sanitize): NaN/Inf -> neutral zero,
+            # |llr| > clip -> ±clip; the identity on clean in-range inputs
+            with trace.span("decode.sanitize"):
+                stream = torch.where(torch.isfinite(stream), stream,
+                                     torch.zeros_like(stream)
+                                     ).clamp(-_LLR_CLIP, _LLR_CLIP)
+            if cfg.rate != "1/2":
+                with trace.span("decode.depuncture"):
+                    llr = depuncture(stream, cfg.rate, n)
+            else:
+                llr = stream if stream.ndim == 2 else stream.reshape(n, -1)
+            bits = decode_frames(frame_llr(llr, cfg.spec))    # (F, f)
+            return bits.reshape(-1)[:n]
 
     return decode

@@ -22,11 +22,13 @@ kernel tiles; the tile plan itself is per card and does not change.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
 from ..core.pipeline import DecoderConfig
 from ..kernels.ops import resolve_device
+from ..obs.profiled import span_tracer
 
 __all__ = ["FrameMesh", "frame_mesh", "make_sharded_frame_decoder"]
 
@@ -83,7 +85,14 @@ def make_sharded_frame_decoder(cfg: DecoderConfig,
     F is padded with zero frames to a multiple of the mesh size (the
     padding's bits are dropped). Shard i is frames [i F'/n, (i+1) F'/n) and
     runs through ``PLAN_CACHE.frame_decoder(cfg, device=devices[i])``, so
-    every backend shards the same way."""
+    every backend shards the same way.
+
+    Each call runs under a ``shard`` span (attribute ``call``, the
+    decoder's sequence number of the call): ``shard.out`` (the padding and
+    the copies out of the home card), one ``shard.decode`` a card
+    (attribute ``card``; the card's frame decoder runs inside it) and
+    ``shard.gather`` (the waits on the cards' events and the copies
+    back)."""
     from ..serve.plan_cache import PLAN_CACHE
     mesh = frame_mesh() if mesh is None else mesh
     if not isinstance(mesh, FrameMesh):
@@ -91,38 +100,50 @@ def make_sharded_frame_decoder(cfg: DecoderConfig,
     home, n = mesh.home, mesh.size
     local = [PLAN_CACHE.frame_decoder(cfg, device=d) for d in mesh.devices]
 
+    calls = itertools.count()
+
     def decode_frames(frames) -> torch.Tensor:
-        frames = torch.as_tensor(frames).to(home)
-        F = frames.shape[0]
-        if n == 1 or F == 0:
-            return local[0](frames)
-        Fp = -(-F // n) * n
-        if Fp != F:
-            frames = torch.nn.functional.pad(frames, (0, 0, 0, 0, 0, Fp - F))
-        per = Fp // n
-        # three passes, so no card waits on another's decode: every copy
-        # out of the home card is queued on its stream before the home
-        # card's own shard, and the home stream waits on the shards only
-        # after every launch
-        shards = [frames[i * per:(i + 1) * per].to(dev, non_blocking=True)
-                  for i, dev in enumerate(mesh.devices)]
-        launched = []
-        for dev, fn, shard in zip(mesh.devices, local, shards):
-            if dev.type != "cuda":
-                launched.append((fn(shard), None))
-                continue
-            with torch.cuda.device(dev):
-                bits = fn(shard)
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(dev))
-            launched.append((bits, done))
-        bits = launched[0][0]
-        out = torch.empty((Fp,) + tuple(bits.shape[1:]), dtype=bits.dtype,
-                          device=home)
-        for i, (bits, done) in enumerate(launched):
-            if done is not None:
-                torch.cuda.current_stream(home).wait_event(done)
-            out[i * per:(i + 1) * per].copy_(bits, non_blocking=True)
-        return out[:F]
+        trace = span_tracer()
+        with trace.span("shard", call=next(calls)):
+            with trace.span("shard.out"):
+                frames = torch.as_tensor(frames).to(home)
+                F = frames.shape[0]
+                if n > 1 and F > 0:
+                    Fp = -(-F // n) * n
+                    if Fp != F:
+                        frames = torch.nn.functional.pad(
+                            frames, (0, 0, 0, 0, 0, Fp - F))
+                    per = Fp // n
+                    # three passes, so no card waits on another's decode:
+                    # every copy out of the home card is queued on its
+                    # stream before the home card's own shard, and the home
+                    # stream waits on the shards only after every launch
+                    shards = [frames[i * per:(i + 1) * per].to(
+                        dev, non_blocking=True)
+                        for i, dev in enumerate(mesh.devices)]
+            if n == 1 or F == 0:
+                with trace.span("shard.decode", card=0):
+                    return local[0](frames)
+            launched = []
+            for card, (dev, fn, shard) in enumerate(zip(mesh.devices, local,
+                                                        shards)):
+                with trace.span("shard.decode", card=card):
+                    if dev.type != "cuda":
+                        launched.append((fn(shard), None))
+                        continue
+                    with torch.cuda.device(dev):
+                        bits = fn(shard)
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(dev))
+                    launched.append((bits, done))
+            with trace.span("shard.gather"):
+                bits = launched[0][0]
+                out = torch.empty((Fp,) + tuple(bits.shape[1:]),
+                                  dtype=bits.dtype, device=home)
+                for i, (bits, done) in enumerate(launched):
+                    if done is not None:
+                        torch.cuda.current_stream(home).wait_event(done)
+                    out[i * per:(i + 1) * per].copy_(bits, non_blocking=True)
+                return out[:F]
 
     return decode_frames

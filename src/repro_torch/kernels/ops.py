@@ -1,10 +1,12 @@
 """Public decode call over the kernels: port of ``repro.kernels.ops``.
 
-Validates the frames, applies the intra-frame block reframe/merge,
-resolves ``frames_per_tile="auto"`` through the tile planner
-(kernels/autotune.py, for the kernel that will run), encodes the serial
-traceback as one subframe (``f0=f, v2s=v2``), records a ``kernel_trace``
-event, pads the frame count to the tile and dispatches:
+Validates the frames, resolves ``frames_per_tile="auto"`` through the
+tile planner (kernels/autotune.py, for the kernel that will run; the
+``decode.plan`` span), moves the frames to the device, applies the
+intra-frame block reframe and pads the frame count to the tile (the
+``decode.pad`` span), encodes the serial traceback as one subframe
+(``f0=f, v2s=v2``) and dispatches under the ``decode.kernel`` span, whose
+attributes are the launch's knobs:
 
 * ``unified=True``  — the unified kernel: survivors never leave the chip;
 * ``unified=False`` — the split path, the prior-work baseline: the forward
@@ -17,7 +19,7 @@ import torch
 
 from ..core.framed import FrameSpec, merge_blocks, reframe_blocks
 from ..core.trellis import Trellis
-from ..obs.tracer import get_tracer
+from ..obs.profiled import span_tracer
 from .autotune import plan_tiles
 from .packing import Layout
 from .traceback_frames import traceback_frames
@@ -66,7 +68,7 @@ def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
     kernel, whose survivors stay on chip. ``interpret`` is a TPU knob,
     recorded and without effect here."""
     dev = resolve_device(device)
-    frames = torch.as_tensor(frames).to(dev)
+    frames = torch.as_tensor(frames)
     spec.validate()
     if frames.ndim != 3:
         raise ValueError(
@@ -83,59 +85,62 @@ def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
     if not frames.dtype.is_floating_point:
         raise ValueError(
             f"frames must be floating-point LLRs, got dtype {frames.dtype}")
-    if frames.dtype == torch.float64:      # the kernel reads f32/bf16/f16
-        frames = frames.to(torch.float32)
     F_in = frames.shape[0]
     if block_frames < 1:
         raise ValueError(f"block_frames must be >= 1, got {block_frames}")
-    if block_frames > 1:
-        sub = spec.blocked(block_frames, overlap)
-        frames = reframe_blocks(frames, spec, block_frames, overlap)
-        spec = sub
+    sub = spec.blocked(block_frames, overlap) if block_frames > 1 else spec
     lay = Layout(layout)
+    trace = span_tracer()
     if frames_per_tile == "auto":
-        frames_per_tile = plan_tiles(
-            trellis, spec, pack_survivors=pack_survivors, radix=radix,
-            unified=unified, layout=lay, bm_dtype=bm_dtype,
-            max_frames=frames.shape[0], device=dev).frames_per_tile
+        with trace.span("decode.plan"):
+            frames_per_tile = plan_tiles(
+                trellis, sub, pack_survivors=pack_survivors, radix=radix,
+                unified=unified, layout=lay, bm_dtype=bm_dtype,
+                max_frames=F_in * block_frames, device=dev).frames_per_tile
+    with trace.span("decode.pad"):
+        frames = frames.to(dev)
+        if frames.dtype == torch.float64:  # the kernel reads f32/bf16/f16
+            frames = frames.to(torch.float32)
+        if block_frames > 1:
+            frames = reframe_blocks(frames, spec, block_frames, overlap)
+        padded, F = _pad_frames(frames.contiguous(), frames_per_tile)
+    spec = sub
     # serial traceback == one subframe spanning the kept region
     f0 = spec.f0 if spec.parallel_tb else spec.f
     v2s = spec.v2s if spec.parallel_tb else spec.v2
     start = spec.start if spec.parallel_tb else "boundary"
 
-    # PyTorch runs eagerly, so unlike the JAX package (one event per XLA
-    # compile) this records every call, under the same names.
-    trace = get_tracer()
-    trace.event("kernel_trace", kernel="unified" if unified else "split",
-                frames=int(frames.shape[0]),
-                frames_per_tile=int(frames_per_tile), layout=lay.value,
-                bm_dtype=str(bm_dtype), radix=int(radix),
-                pack_survivors=bool(pack_survivors),
-                block_frames=int(block_frames), overlap=int(overlap),
-                interpret=bool(interpret), device=str(dev))
-    trace.count("kernel_traces")
-
-    padded, F = _pad_frames(frames.contiguous(), frames_per_tile)
-    if unified:
-        bits = unified_decode_frames(
-            padded, trellis=trellis, v1=spec.v1, f=spec.f, v2=spec.v2,
-            f0=f0, v2s=v2s, start=start, frames_per_tile=frames_per_tile,
-            pack_survivors=pack_survivors, radix=radix, layout=lay.value,
-            bm_dtype=bm_dtype)[:F]
-    else:
-        sel, amax = forward_frames(
-            padded, trellis=trellis, frames_per_tile=frames_per_tile,
-            pack_survivors=pack_survivors, radix=radix, layout=lay.value,
-            bm_dtype=bm_dtype)
-        # the device-memory round trip; the sublane stream keeps frames on
-        # the trailing axis
-        if lay is Layout.SUBLANE:
-            sel = sel[..., :F]
+    # the launch's knobs, built only for a tracer that keeps them
+    knobs = dict(
+        kernel="unified" if unified else "split", frames=int(F),
+        frames_per_tile=int(frames_per_tile), layout=lay.value,
+        bm_dtype=str(bm_dtype), radix=int(radix),
+        pack_survivors=bool(pack_survivors), block_frames=int(block_frames),
+        overlap=int(overlap), interpret=bool(interpret),
+        device=str(dev)) if trace.enabled else {}
+    with trace.span("decode.kernel", **knobs):
+        if unified:
+            bits = unified_decode_frames(
+                padded, trellis=trellis, v1=spec.v1, f=spec.f, v2=spec.v2,
+                f0=f0, v2s=v2s, start=start,
+                frames_per_tile=frames_per_tile,
+                pack_survivors=pack_survivors, radix=radix,
+                layout=lay.value, bm_dtype=bm_dtype)[:F]
         else:
-            sel = sel[:F]
-        bits = traceback_frames(
-            sel, amax[:F], trellis=trellis, v1=spec.v1, f=spec.f, f0=f0,
-            v2s=v2s, start=start, packed=pack_survivors, layout=lay.value)
+            sel, amax = forward_frames(
+                padded, trellis=trellis, frames_per_tile=frames_per_tile,
+                pack_survivors=pack_survivors, radix=radix,
+                layout=lay.value, bm_dtype=bm_dtype)
+            # the device-memory round trip; the sublane stream keeps frames
+            # on the trailing axis
+            if lay is Layout.SUBLANE:
+                sel = sel[..., :F]
+            else:
+                sel = sel[:F]
+            bits = traceback_frames(
+                sel, amax[:F], trellis=trellis, v1=spec.v1, f=spec.f, f0=f0,
+                v2s=v2s, start=start, packed=pack_survivors,
+                layout=lay.value)
     if block_frames > 1:
         bits = merge_blocks(bits, block_frames)       # (F_in, f)
         assert bits.shape[0] == F_in

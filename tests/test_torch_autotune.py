@@ -381,7 +381,7 @@ def test_auto_tile_in_ops_is_the_planners():
                                       device="cpu")
         finally:
             obs.set_tracer(prev)
-        (ev,) = [s for s in tracer.spans() if s.name == "kernel_trace"]
+        (ev,) = [s for s in tracer.spans() if s.name == "decode.kernel"]
         assert ev.attrs["frames_per_tile"] == plan_tiles(
             k5, spec, pack_survivors=True, radix=4, unified=unified,
             max_frames=6, **CPU).frames_per_tile == 4

@@ -494,7 +494,7 @@ def test_split_kernel_trace_event():
         _split(torch.zeros((3, spec.frame_len, 2)), K7, spec)
     finally:
         obs.set_tracer(prev)
-    (ev,) = [s for s in tracer.spans() if s.name == "kernel_trace"]
+    (ev,) = [s for s in tracer.spans() if s.name == "decode.kernel"]
     assert ev.attrs["kernel"] == "split" and ev.attrs["frames"] == 3
 
 
