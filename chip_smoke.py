@@ -47,9 +47,11 @@ non-zero:
              n = 2^22 bits, Eb/N0 = 3 dB, rates 1/2 and 3/4. Launch counts
              are set to 0 just before each path and read just after (split:
              one forward and one traceback launch per call, no unified
-             launch); the bits must equal backend="reference" on the same
-             LLRs (and the split bits the unified bits), and the rate-1/2
-             BER must be below 1e-3. Then the wide path: K=16 rate
+             launch; both: one framing-kernel launch per call, which clips
+             too at rate 1/2); the bits must equal backend="reference" on
+             the same LLRs (plain torch clip and framing: no framing-kernel
+             launch), and the split bits the unified bits, and the
+             rate-1/2 BER must be below 1e-3. Then the wide path: K=16 rate
              1/2 at the main frame, 132 frames, through both kernel
              backends (counts set to 0 just before each and read just
              after), bits equal to the reference backend's; and the
@@ -59,7 +61,14 @@ non-zero:
              mapping with beta at run time), 4224 frames of its (n, 9)
              LLRs at -5 dB.
 5. time    — each kernel at the main path's shape with CUDA events, beside
-             its plain version and its bound; the unified kernel's knob
+             its plain version and its bound; the clip-and-frame kernel
+             (frame_llr.cu) on the main path's LLRs, poisoned with NaN,
+             +-Inf, values past the clip and -0.0, clip on and off: bit
+             for bit against its plain version (ATen's isfinite, where,
+             clamp, pad and index), in turns with it, beside its bytes
+             bound (LLRs read once, frames written once, at 3.35 TB/s),
+             and the same at the benchmark cells' calls (2^24 x 2, 2^26 x
+             2 clip off, 2^20 x 4); the unified kernel's knob
              sweep and its auto tile against tile 4 (must be within 2 %);
              the split path's layouts; the traceback's staged and direct
              chases in turns, at K=7 (lane and sublane, packed, unpacked,
@@ -92,7 +101,7 @@ non-zero:
              one-wave chunk (the plan's resident frames per SM x SMs),
              then n = 2^18 at the planner's default chunk. Launch counts
              set to 0 just before each run and read just after: B1 once
-             per chunk, nothing else. Bits must equal make_decoder on the
+             per chunk, nothing else (the stream frames on its own). Bits must equal make_decoder on the
              card. Prints Mb/s and the host ms per chunk by phase
              (framing, copy in, dispatch, drain). Then the no-sync check:
              behind a spinning kernel, just after chunk i+1 is dispatched
@@ -201,14 +210,16 @@ non-zero:
              machine has too few cards for prints a line saying so.
              `python3 chip_smoke.py --sharded` runs this phase alone.
 
-The line before the last is a JSON `kernels` line (with each kernel's
-launches on the main path, and ``launches_stream``/``launches_serve``/
+The line before the last is a JSON `kernels` line (B1, B3, the traceback
+and the clip-and-frame kernel, with each kernel's launches on the main
+path, and ``launches_stream``/``launches_serve``/
 ``launches_mesh`` on phases 7, 8 and 9, ``launches_wide``,
 ``launches_large`` and ``launches_lowrate`` on phase 4's K=16, Galileo
 K=15 and K=7 rate-1/9 paths; B1's and
 B3's ``large_codes`` times, the three kernels'
-``wide_codes`` rows and the traceback's ``modes``); each kernel's bound
-comes from launch/roofline.py. The last line is the JSON `ok` line with the device.
+``wide_codes`` rows, the traceback's ``modes`` and the framing kernel's
+``cells``); each decode kernel's bound comes from launch/roofline.py, the
+framing kernel's from its bytes over the same HBM rate. The last line is the JSON `ok` line with the device.
 """
 from __future__ import annotations
 
@@ -517,12 +528,14 @@ def wide_register_report(built, kernel: str, attrs, cluster_attrs) -> str:
 
 
 def phase_build():
+    from repro_torch.kernels import framing
     from repro_torch.kernels import traceback_frames as tbf
     from repro_torch.kernels import viterbi_fwd as vf
     from repro_torch.kernels import viterbi_unified as vu
     libs = {"viterbi_unified_kernel": vu.kernel_library,
             "viterbi_fwd_kernel": vf.kernel_library,
-            "traceback_frames_kernel": tbf.kernel_library}
+            "traceback_frames_kernel": tbf.kernel_library,
+            "frame_llr_kernel": framing.kernel_library}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         futures = {k: pool.submit(fn) for k, fn in libs.items()}
@@ -834,12 +847,14 @@ def main_config(rate: str, backend: str):
 
 
 def _counters():
+    from repro_torch.kernels import framing
     from repro_torch.kernels import traceback_frames as tbf
     from repro_torch.kernels import viterbi_fwd as vf
     from repro_torch.kernels import viterbi_unified as vu
     return {"viterbi_unified": vu.unified_decode_frames_cuda,
             "viterbi_fwd": vf.forward_frames_cuda,
-            "traceback_frames": tbf.traceback_frames_cuda}
+            "traceback_frames": tbf.traceback_frames_cuda,
+            "frame_llr": framing.frame_llr_cuda}
 
 
 def _drive(backend, streams):
@@ -876,14 +891,23 @@ def phase_main(gen):
     unified, ucounts, uwall = _drive("kernel", streams)
     if ucounts["viterbi_unified"] < 1:
         raise AssertionError("the main path never launched viterbi_unified")
+    if ucounts["frame_llr"] != len(streams):
+        raise AssertionError(f"kernel path launches {ucounts}: expected one "
+                             f"frame_llr launch per call")
     split, scounts, swall = _drive("kernel_split", streams)
-    want = {"viterbi_unified": 0, "viterbi_fwd": 2, "traceback_frames": 2}
+    want = {"viterbi_unified": 0, "viterbi_fwd": 2, "traceback_frames": 2,
+            "frame_llr": 2}
     if scounts != want:
         raise AssertionError(f"split path launches {scounts}, expected "
-                             f"{want} (one forward and one traceback launch "
-                             f"per call, no unified launch)")
+                             f"{want} (one forward, one traceback and one "
+                             f"framing launch per call, no unified launch)")
+    framing_fn = _counters()["frame_llr"]
     for rate, (bits, rx) in streams.items():
+        before = framing_fn.launches
         ref = make_decoder(main_config(rate, "reference"), "cuda")(rx, N_BITS)
+        if framing_fn.launches != before:
+            raise AssertionError(f"rate {rate}: the reference backend "
+                                 f"launched the framing kernel")
         for name, out in (("kernel", unified[rate]),
                           ("kernel_split", split[rate])):
             if not (out.shape == (N_BITS,) and out.dtype == torch.int32):
@@ -907,7 +931,8 @@ def phase_main(gen):
     frames = frame_llr(depuncture(rx, "1/2", N_BITS), spec).contiguous()
     launches = {"viterbi_unified": ucounts["viterbi_unified"],
                 "viterbi_fwd": scounts["viterbi_fwd"],
-                "traceback_frames": scounts["traceback_frames"]}
+                "traceback_frames": scounts["traceback_frames"],
+                "frame_llr": ucounts["frame_llr"]}
     return launches, frames, rx
 
 
@@ -934,8 +959,9 @@ def _code_path(config, rx, n, label):
     then "kernel_split", the launch counts set to 0 just before each call
     and read just after; both equal to the reference backend's bits, B1
     launched once by the first and B3 and the traceback once each by the
-    second. Returns (the reference bits, {kernel: launches} of the backend
-    that runs it, first-call walls by backend)."""
+    second, the framing kernel once by each. Returns (the reference bits,
+    {kernel: launches} of the backend that runs it, first-call walls by
+    backend)."""
     import torch
     from repro_torch.core.pipeline import make_decoder
     ref = make_decoder(config("reference"), "cuda")(rx, n)
@@ -958,15 +984,16 @@ def _code_path(config, rx, n, label):
         if not torch.equal(out, ref):
             raise AssertionError(f"{label} {backend} != reference backend")
     want = {"kernel": {"viterbi_unified": 1, "viterbi_fwd": 0,
-                       "traceback_frames": 0},
+                       "traceback_frames": 0, "frame_llr": 1},
             "kernel_split": {"viterbi_unified": 0, "viterbi_fwd": 1,
-                             "traceback_frames": 1}}
+                             "traceback_frames": 1, "frame_llr": 1}}
     if counts != want:
         raise AssertionError(f"{label} launches {counts}, expected {want}")
     return ref, {"viterbi_unified": counts["kernel"]["viterbi_unified"],
                  "viterbi_fwd": counts["kernel_split"]["viterbi_fwd"],
                  "traceback_frames": counts["kernel_split"][
-                     "traceback_frames"]}, counts, walls
+                     "traceback_frames"],
+                 "frame_llr": counts["kernel"]["frame_llr"]}, counts, walls
 
 
 def phase_main_wide(gen):
@@ -1497,6 +1524,86 @@ def time_wide_codes(gen):
     return out
 
 
+#: The benchmark cells' calls of the framing kernel: (cell, n, beta, clip)
+#: at the main frame in float32 (k7_r12_mesh4 frames on its home card).
+FRAMING_CELLS = [("k7_r12_batch", 1 << 24, 2, True),
+                 ("k7_r12_mesh4", 1 << 26, 2, False),
+                 ("galileo_k15_batch", 1 << 20, 4, True)]
+#: The values planted in the framing kernel's LLRs.
+FRAMING_PLANTED = [float("nan"), float("inf"), -float("inf"), 2e6, -2e6,
+                   1e6, -1e6, -0.0]
+
+
+def _framing_row(x, clip: bool):
+    """The framing kernel on (n, beta) float32 LLRs ``x`` at the main frame,
+    a few thousand of them poisoned: bit for bit against its plain
+    version, then both timed in turns (min of 4 rounds of 20 launches,
+    CUDA events), beside the bytes bound."""
+    import torch
+    from repro_torch.core.sanitize import LLR_CLIP
+    from repro_torch.kernels import framing
+    from repro_torch.launch.roofline import kernel_bound
+    spec = main_config("1/2", "kernel").spec
+    n, beta = x.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + n)
+    idx = torch.randint(0, x.numel(), (4096,), generator=gen, device="cuda")
+    poison = torch.tensor(FRAMING_PLANTED, device="cuda")
+    x.view(-1)[idx] = poison[torch.arange(idx.numel(), device="cuda")
+                             % poison.numel()]
+    c = LLR_CLIP if clip else None
+    got = framing.frame_llr_cuda(x, spec, c)
+    want = framing.frame_llr_plain(x, spec, c)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"frame_llr ({n}, {beta}) clip={clip}: kernel "
+                             f"!= plain version")
+    del got, want
+    ms = _interleaved({"kernel": lambda: framing.frame_llr_cuda(x, spec, c),
+                       "plain": lambda: framing.frame_llr_plain(x, spec, c)},
+                      20, rounds=4)
+    nbytes = (x.numel() + spec.num_frames(n) * spec.frame_len * beta) * 4
+    bound_ms, bound_by = kernel_bound(nbytes, 0)
+    return {"n": n, "beta": beta, "clip": clip, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes}
+
+
+def _framing_line(what, r):
+    return (f"{what} ({r['n']}, {r['beta']}) clip "
+            f"{'on' if r['clip'] else 'off'}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms ({r['plain_ms'] / r['ms']:.1f}x), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB; "
+            f"{r['ms'] / r['bound_ms']:.2f}x the bound, "
+            f"{r['bytes'] / r['ms'] / 1e6:.0f} GB/s)")
+
+
+def time_framing(rx_half, launches):
+    """The clip-and-frame kernel on the main path's rate-1/2 LLRs, clip on
+    and off, then at the benchmark cells' calls: each bit for bit against
+    its plain version and timed beside it and its bytes bound. Returns the
+    kernels line's entry (the main path's clip-on row, ``cells`` the
+    rest)."""
+    import torch
+    rows = [_framing_row(rx_half.reshape(N_BITS, 2).clone(), clip)
+            for clip in (True, False)]
+    for r in rows:
+        log("time", _framing_line("frame_llr main path", r))
+    cells = []
+    for name, n, beta, clip in FRAMING_CELLS:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + n + beta)
+        x = 3 * torch.randn((n, beta), generator=gen, device="cuda")
+        cells.append(dict(_framing_row(x, clip), cell=name))
+        log("time", _framing_line(f"frame_llr {name}", cells[-1]))
+        del x
+    main = rows[0]
+    return {"name": "frame_llr", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/frame_llr.cu",
+            "replaces": None, "launches": launches["frame_llr"],
+            "max_abs_err": 0, "parity": "equal", "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "clip_off": rows[1], "cells": cells}
+
+
 def time_end_to_end(rx_half):
     """The paper's unified vs split comparison: whole make_decoder calls on
     the same card. E2E_ROUNDS rounds in turns (kernel, split, split,
@@ -1582,6 +1689,7 @@ def phase_time(frames, rx_half, launches, gen):
     """Returns the kernels' JSON entries and the whole calls' ms."""
     unified = time_unified(frames, launches)
     split = time_split(frames, launches)
+    framing = time_framing(rx_half, launches)
     large = time_large_codes(gen)
     unified["large_codes"] = large["viterbi_unified"]
     split["fwd"]["large_codes"] = large["viterbi_fwd"]
@@ -1590,7 +1698,7 @@ def phase_time(frames, rx_half, launches, gen):
         entry["wide_codes"] = wide[entry["name"]]
     calls = time_end_to_end(rx_half)
     time_planner(frames)
-    return [unified, split["fwd"], split["tb"]], calls
+    return [unified, split["fwd"], split["tb"], framing], calls
 
 
 def phase_profile(rx_half, call_ms):
@@ -1792,7 +1900,7 @@ def phase_stream(gen):
                 cfg, rx_host, n, chunk, rng)
             chunks = host["chunks"]
             if counts != {"viterbi_unified": chunks, "viterbi_fwd": 0,
-                          "traceback_frames": 0}:
+                          "traceback_frames": 0, "frame_llr": 0}:
                 raise AssertionError(f"stream rate {rate} {label}: launches "
                                      f"{counts} for {chunks} chunks")
             if not (bits.shape == (n,) and np.array_equal(bits, want)):
@@ -1931,7 +2039,7 @@ def phase_serve(gen):
     if any(faults.values()):
         raise AssertionError(f"serve: fault counters {faults} in a clean run")
     if counts != {"viterbi_unified": tot["launches"], "viterbi_fwd": 0,
-                  "traceback_frames": 0}:
+                  "traceback_frames": 0, "frame_llr": 0}:
         raise AssertionError(f"serve: launches {counts}, server "
                              f"{tot['launches']}")
     programs = {(r.attrs["bucket"], r.attrs["frames"])
@@ -2032,7 +2140,8 @@ def phase_serve(gen):
     counts = _read_counts(counters)
     launches = srv.metrics.totals()["launches"]
     if counts != {"viterbi_unified": 0, "viterbi_fwd": launches,
-                  "traceback_frames": launches} or len(srv.buckets()) != 1:
+                  "traceback_frames": launches, "frame_llr": 0} or len(
+                      srv.buckets()) != 1:
         raise AssertionError(f"kernel_split bucket: launches {counts}, "
                              f"server {launches}")
     for k, v in counts.items():
@@ -2054,7 +2163,8 @@ def _add(total, counts):
 
 
 def _b1_only(counts, n, what):
-    want = {"viterbi_unified": n, "viterbi_fwd": 0, "traceback_frames": 0}
+    want = {"viterbi_unified": n, "viterbi_fwd": 0, "traceback_frames": 0,
+            "frame_llr": 0}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 

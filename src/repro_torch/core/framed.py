@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from ..kernels import framing
 from ..obs.profiled import span_tracer
 from .decoder import viterbi_forward
 from .traceback import parallel_traceback, serial_traceback
@@ -88,25 +89,19 @@ class FrameSpec:
         return sub
 
 
-def _windows(x: torch.Tensor, starts: torch.Tensor, length: int,
-             dim: int) -> torch.Tensor:
-    """Gather windows ``x[starts[i] : starts[i]+length]`` along ``dim``;
-    the window axis replaces ``dim`` as (len(starts), length)."""
-    idx = starts[:, None] + torch.arange(length, device=x.device)[None, :]
-    return x.movedim(dim, 0)[idx].movedim((0, 1), (dim, dim + 1))
-
-
-def frame_llr(llr: torch.Tensor, spec: FrameSpec) -> torch.Tensor:
+def frame_llr(llr: torch.Tensor, spec: FrameSpec, clip: float | None = None,
+              *, plain: bool = False) -> torch.Tensor:
     """(n, beta) -> (F, L, beta) overlapping frames, zero-padded at edges
-    (zero LLR is metric-neutral, like a depunctured erasure). Runs under
-    the ``decode.frame`` span."""
+    (zero LLR is metric-neutral, like a depunctured erasure), the LLRs
+    clipped first when ``clip`` is given (``core.sanitize``'s rule). Runs
+    under the ``decode.frame`` span: on a CUDA tensor one launch of the
+    framing kernel, on the CPU, or with ``plain`` (the reference backend's
+    receiver call) on any device, its plain version (``kernels.framing``).
+    """
     with span_tracer().span("decode.frame"):
-        n, _ = llr.shape
-        F = spec.num_frames(n)
-        pad_r = F * spec.f + spec.v2 - n
-        padded = torch.nn.functional.pad(llr, (0, 0, spec.v1, pad_r))
-        starts = torch.arange(F, device=llr.device) * spec.f
-        return _windows(padded, starts, spec.frame_len, 0)
+        if llr.is_cuda and not plain:
+            return framing.frame_llr_cuda(llr, spec, clip)
+        return framing.frame_llr_plain(llr, spec, clip)
 
 
 def decode_frame(llr_frame: torch.Tensor, trellis: Trellis,
@@ -135,7 +130,8 @@ def reframe_blocks(frames: torch.Tensor, spec: FrameSpec, block_frames: int,
     pad_r = max(0, ov - spec.v2)
     padded = torch.nn.functional.pad(frames, (0, 0, pad_l, pad_r))
     starts = pad_l + spec.v1 - ov + torch.arange(B, device=frames.device) * fb
-    blocks = _windows(padded, starts, fb + 2 * ov, 1)   # (F, B, Lb, beta)
+    # (F, B, Lb, beta)
+    blocks = framing.windows(padded, starts, fb + 2 * ov, 1)
     return blocks.reshape(F * B, fb + 2 * ov, frames.shape[2])
 
 

@@ -145,12 +145,26 @@ def make_decoder(cfg: DecoderConfig, device=None):
     (m,) for rate != 1/2, or (n, beta) LLRs; numpy or torch.
 
     Each call runs under a ``decode`` span (attribute ``call``, the
-    decoder's sequence number of the call), with ``decode.copy_in``,
-    ``decode.sanitize``, ``decode.depuncture`` and ``frame_llr``'s
-    ``decode.frame`` inside it, and the frame decoder's spans after."""
+    decoder's sequence number of the call), with ``decode.copy_in``, the
+    clip, the depuncture and the framing inside it, and the frame
+    decoder's spans after. On the card at rate 1/2 the kernel backends
+    clip and frame in one launch of the framing kernel under
+    ``decode.frame``; on the CPU, at punctured rates (where the clip comes
+    before the depuncture) and in the reference backend, the clip runs
+    under ``decode.sanitize``, the depuncture under ``decode.depuncture``
+    and ``frame_llr`` under ``decode.frame``, the reference backend's
+    in plain torch on any device.
+    """
+    from ..kernels import framing
     from ..kernels.ops import resolve_device
     dev = resolve_device(device)
     decode_frames = make_frame_decoder(cfg, dev)
+    # input hardening (core.sanitize): NaN/Inf -> neutral zero,
+    # |llr| > clip -> ±clip; the identity on clean in-range inputs. On the
+    # card at rate 1/2 the kernel backends' framing kernel clips as it
+    # frames; the reference backend keeps the plain torch ops.
+    plain = cfg.backend == "reference"
+    fused = dev.type == "cuda" and cfg.rate == "1/2" and not plain
 
     calls = itertools.count()
 
@@ -159,18 +173,17 @@ def make_decoder(cfg: DecoderConfig, device=None):
         with trace.span("decode", call=next(calls)):
             with trace.span("decode.copy_in"):
                 stream = torch.as_tensor(stream).to(dev)
-            # input hardening (core.sanitize): NaN/Inf -> neutral zero,
-            # |llr| > clip -> ±clip; the identity on clean in-range inputs
-            with trace.span("decode.sanitize"):
-                stream = torch.where(torch.isfinite(stream), stream,
-                                     torch.zeros_like(stream)
-                                     ).clamp(-_LLR_CLIP, _LLR_CLIP)
+            if not fused:
+                with trace.span("decode.sanitize"):
+                    stream = framing.clip_llr_plain(stream, _LLR_CLIP)
             if cfg.rate != "1/2":
                 with trace.span("decode.depuncture"):
                     llr = depuncture(stream, cfg.rate, n)
             else:
                 llr = stream if stream.ndim == 2 else stream.reshape(n, -1)
-            bits = decode_frames(frame_llr(llr, cfg.spec))    # (F, f)
+            frames = frame_llr(llr, cfg.spec, _LLR_CLIP if fused else None,
+                               plain=plain)
+            bits = decode_frames(frames)    # (F, f)
             return bits.reshape(-1)[:n]
 
     return decode

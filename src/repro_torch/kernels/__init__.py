@@ -9,9 +9,9 @@ launch.
 """
 import importlib
 
-_SUBMODULES = ("acs", "autotune", "block", "build", "ops", "packing", "ref",
-               "tables", "traceback_frames", "tunedb", "viterbi_fwd",
-               "viterbi_unified")
+_SUBMODULES = ("acs", "autotune", "block", "build", "framing", "ops",
+               "packing", "ref", "tables", "traceback_frames", "tunedb",
+               "viterbi_fwd", "viterbi_unified")
 
 
 def __getattr__(name):

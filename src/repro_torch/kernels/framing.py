@@ -1,0 +1,130 @@
+"""The receiver call's clip and framing: (n, beta) LLRs -> (F, L, beta)
+overlapping frames, zero-padded at the stream's edges, the LLRs clipped on
+the way when a ``clip`` is given (NaN and +-Inf -> 0, the rest clamped to
++-clip, as ``core.sanitize`` states the rule).
+
+In the JAX package these are jnp ops that XLA fuses (the clip in
+``repro.core.pipeline.make_decoder``, ``repro.core.framed.frame_llr``).
+Here one CUDA kernel (``csrc/frame_llr.cu``, whose head note gives the
+design) reads each LLR once and writes each framed LLR once:
+
+* ``frame_llr_cuda`` checks, allocates the frames, launches on the current
+  stream, raises on any failure and counts ``.launches``;
+* ``frame_llr_plain`` is the plain torch version: ``clip_llr_plain`` (ATen's
+  isfinite, where and clamp) and then the edge padding and the gather.
+
+``repro_torch.core.framed.frame_llr`` picks between them by the tensor's
+device, under the ``decode.frame`` span: a CUDA tensor takes the kernel,
+with no fallback.
+
+The kernel equals the plain version bit for bit in float32, float64,
+float16 and bfloat16; the frames keep the input's dtype.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .build import build
+
+__all__ = ["frame_llr_cuda", "frame_llr_plain", "clip_llr_plain", "windows",
+           "kernel_library", "DTYPES"]
+
+SOURCE = "frame_llr.cu"
+#: The dtypes the kernel takes, by the code its C interface names them.
+DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
+          torch.bfloat16: 3}
+
+
+def kernel_library():
+    """Build (at first use) and load the kernel; returns build.Built."""
+    built = build(SOURCE)
+    lib = built.lib
+    if not getattr(lib, "_argtypes_set", False):
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.frame_llr_launch.argtypes = [vp, vp, i, ll, i, ll, i, i, i, i,
+                                         ctypes.c_double, ctypes.c_double,
+                                         vp]
+        lib.frame_llr_launch.restype = i
+        lib._argtypes_set = True
+    return built
+
+
+def windows(x: torch.Tensor, starts: torch.Tensor, length: int,
+            dim: int) -> torch.Tensor:
+    """Gather windows ``x[starts[i] : starts[i]+length]`` along ``dim``;
+    the window axis replaces ``dim`` as (len(starts), length)."""
+    idx = starts[:, None] + torch.arange(length, device=x.device)[None, :]
+    return x.movedim(dim, 0)[idx].movedim((0, 1), (dim, dim + 1))
+
+
+def clip_llr_plain(x: torch.Tensor, clip: float) -> torch.Tensor:
+    """NaN/Inf -> neutral zero, |x| > clip -> +-clip; the identity on clean
+    in-range inputs. A float dtype clamps to the bounds as it holds them,
+    which gives what ATen's clamp on the card gives (it compares in float
+    and rounds back) and lets float16 clip on the CPU, whose clamp refuses
+    a bound past the dtype's range."""
+    lo, hi = (_bounds(x.dtype, float(clip)) if x.dtype.is_floating_point
+              else (-clip, clip))
+    return torch.where(torch.isfinite(x), x, torch.zeros_like(x)
+                       ).clamp(lo, hi)
+
+
+def frame_llr_plain(llr: torch.Tensor, spec,
+                    clip: float | None = None) -> torch.Tensor:
+    """(n, beta) -> (F, L, beta) frames of ``spec`` (a ``FrameSpec``),
+    clipped first when ``clip`` is given."""
+    if clip is not None:
+        llr = clip_llr_plain(llr, clip)
+    n, _ = llr.shape
+    F = spec.num_frames(n)
+    pad_r = F * spec.f + spec.v2 - n
+    padded = torch.nn.functional.pad(llr, (0, 0, spec.v1, pad_r))
+    starts = torch.arange(F, device=llr.device) * spec.f
+    return windows(padded, starts, spec.frame_len, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _bounds(dtype: torch.dtype, clip: float) -> tuple[float, float]:
+    """The clip's bounds as ``dtype`` holds them (float16 rounds 1e6 to
+    inf), which is what ATen's clamp compares with."""
+    b = torch.tensor([-clip, clip], dtype=dtype).double()
+    return float(b[0]), float(b[1])
+
+
+def frame_llr_cuda(llr: torch.Tensor, spec,
+                   clip: float | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream. The kernel reads the
+    stream as one run, so a non-contiguous tensor is copied contiguous
+    first."""
+    if not llr.is_cuda:
+        raise ValueError(f"llr must lie on a CUDA device, got {llr.device}")
+    if llr.ndim != 2:
+        raise ValueError(f"llr must be (n, beta), got {llr.ndim}-D "
+                         f"{tuple(llr.shape)}")
+    if llr.dtype not in DTYPES:
+        raise ValueError(f"the framing kernel takes "
+                         f"{sorted(map(str, DTYPES))}, got {llr.dtype}")
+    llr = llr.contiguous()
+    n, beta = llr.shape
+    F = spec.num_frames(n)
+    L = spec.frame_len
+    out = torch.empty((F, L, beta), dtype=llr.dtype, device=llr.device)
+    if out.numel() == 0:
+        return out
+    lo, hi = (0.0, 0.0) if clip is None else _bounds(llr.dtype, float(clip))
+    lib = kernel_library().lib
+    with torch.cuda.device(llr.device):
+        stream = torch.cuda.current_stream(llr.device).cuda_stream
+        err = lib.frame_llr_launch(
+            llr.data_ptr(), out.data_ptr(), DTYPES[llr.dtype], n, beta, F,
+            spec.f, spec.v1, L, int(clip is not None), lo, hi, stream)
+    if err != 0:
+        raise RuntimeError(f"frame_llr launch failed: CUDA error {err}")
+    frame_llr_cuda.launches += 1
+    return out
+
+
+frame_llr_cuda.launches = 0
