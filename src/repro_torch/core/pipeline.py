@@ -146,9 +146,10 @@ def make_decoder(cfg: DecoderConfig, device=None):
 
     Each call runs under a ``decode`` span (attribute ``call``, the
     decoder's sequence number of the call), with ``decode.copy_in``, the
-    clip, the depuncture and the framing inside it, and the frame
-    decoder's spans after. On the card at rate 1/2 the kernel backends
-    clip and frame in one launch of the framing kernel under
+    clip, the depuncture (attributes ``rate``, the pattern's name, and
+    ``symbols``, the received stream's length) and the framing inside it,
+    and the frame decoder's spans after. On the card at rate 1/2 the
+    kernel backends clip and frame in one launch of the framing kernel under
     ``decode.frame``; on the CPU, at punctured rates (where the clip comes
     before the depuncture) and in the reference backend, the clip runs
     under ``decode.sanitize``, the depuncture under ``decode.depuncture``
@@ -177,7 +178,8 @@ def make_decoder(cfg: DecoderConfig, device=None):
                 with trace.span("decode.sanitize"):
                     stream = framing.clip_llr_plain(stream, _LLR_CLIP)
             if cfg.rate != "1/2":
-                with trace.span("decode.depuncture"):
+                with trace.span("decode.depuncture", rate=cfg.rate,
+                                symbols=int(stream.shape[0])):
                     llr = depuncture(stream, cfg.rate, n)
             else:
                 llr = stream if stream.ndim == 2 else stream.reshape(n, -1)
