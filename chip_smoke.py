@@ -48,9 +48,11 @@ non-zero:
              are set to 0 just before each path and read just after (split:
              one forward and one traceback launch per call, no unified
              launch; both: one framing-kernel launch per call, which clips
-             too at rate 1/2); the bits must equal backend="reference" on
-             the same LLRs (plain torch clip and framing: no framing-kernel
-             launch), and the split bits the unified bits, and the
+             too: the rate-1/2 kernel's at rate 1/2, the punctured kernel's,
+             which also depunctures and pads to the tile, at rate 3/4); the
+             bits must equal backend="reference" on the same LLRs (plain
+             torch clip, depuncture and framing: no framing-kernel launch),
+             and the split bits the unified bits, and the
              rate-1/2 BER must be below 1e-3. Then the wide path: K=16 rate
              1/2 at the main frame, 132 frames, through both kernel
              backends (counts set to 0 just before each and read just
@@ -68,7 +70,10 @@ non-zero:
              clamp, pad and index), in turns with it, beside its bytes
              bound (LLRs read once, frames written once, at 3.35 TB/s),
              and the same at the benchmark cells' calls (2^24 x 2, 2^26 x
-             2 clip off, 2^20 x 4); the unified kernel's knob
+             2 clip off, 2^20 x 4); the punctured framing kernel at the
+             k7_r34_batch call (2^24 stages at rate 3/4, padded to tile
+             64), bit for bit against its plain version and the ATen chain
+             it replaces, in turns with both; the unified kernel's knob
              sweep and its auto tile against tile 4 (must be within 2 %);
              the split path's layouts; the traceback's staged and direct
              chases in turns, at K=7 (lane and sublane, packed, unpacked,
@@ -210,8 +215,9 @@ non-zero:
              machine has too few cards for prints a line saying so.
              `python3 chip_smoke.py --sharded` runs this phase alone.
 
-The line before the last is a JSON `kernels` line (B1, B3, the traceback
-and the clip-and-frame kernel, with each kernel's launches on the main
+The line before the last is a JSON `kernels` line (B1, B3, the traceback,
+the clip-and-frame kernel and the punctured framing kernel, with each
+kernel's launches on the main
 path, and ``launches_stream``/``launches_serve``/
 ``launches_mesh`` on phases 7, 8 and 9, ``launches_wide``,
 ``launches_large`` and ``launches_lowrate`` on phase 4's K=16, Galileo
@@ -854,7 +860,8 @@ def _counters():
     return {"viterbi_unified": vu.unified_decode_frames_cuda,
             "viterbi_fwd": vf.forward_frames_cuda,
             "traceback_frames": tbf.traceback_frames_cuda,
-            "frame_llr": framing.frame_llr_cuda}
+            "frame_llr": framing.frame_llr_cuda,
+            "frame_punctured": framing.frame_punctured_cuda}
 
 
 def _drive(backend, streams):
@@ -891,21 +898,22 @@ def phase_main(gen):
     unified, ucounts, uwall = _drive("kernel", streams)
     if ucounts["viterbi_unified"] < 1:
         raise AssertionError("the main path never launched viterbi_unified")
-    if ucounts["frame_llr"] != len(streams):
+    if (ucounts["frame_llr"], ucounts["frame_punctured"]) != (1, 1):
         raise AssertionError(f"kernel path launches {ucounts}: expected one "
-                             f"frame_llr launch per call")
+                             f"frame_llr launch at rate 1/2 and one "
+                             f"frame_punctured launch at rate 3/4")
     split, scounts, swall = _drive("kernel_split", streams)
     want = {"viterbi_unified": 0, "viterbi_fwd": 2, "traceback_frames": 2,
-            "frame_llr": 2}
+            "frame_llr": 1, "frame_punctured": 1}
     if scounts != want:
         raise AssertionError(f"split path launches {scounts}, expected "
                              f"{want} (one forward, one traceback and one "
                              f"framing launch per call, no unified launch)")
-    framing_fn = _counters()["frame_llr"]
+    framing_fns = [_counters()[k] for k in ("frame_llr", "frame_punctured")]
     for rate, (bits, rx) in streams.items():
-        before = framing_fn.launches
+        before = [fn.launches for fn in framing_fns]
         ref = make_decoder(main_config(rate, "reference"), "cuda")(rx, N_BITS)
-        if framing_fn.launches != before:
+        if [fn.launches for fn in framing_fns] != before:
             raise AssertionError(f"rate {rate}: the reference backend "
                                  f"launched the framing kernel")
         for name, out in (("kernel", unified[rate]),
@@ -932,7 +940,8 @@ def phase_main(gen):
     launches = {"viterbi_unified": ucounts["viterbi_unified"],
                 "viterbi_fwd": scounts["viterbi_fwd"],
                 "traceback_frames": scounts["traceback_frames"],
-                "frame_llr": ucounts["frame_llr"]}
+                "frame_llr": ucounts["frame_llr"],
+                "frame_punctured": ucounts["frame_punctured"]}
     return launches, frames, rx
 
 
@@ -984,16 +993,20 @@ def _code_path(config, rx, n, label):
         if not torch.equal(out, ref):
             raise AssertionError(f"{label} {backend} != reference backend")
     want = {"kernel": {"viterbi_unified": 1, "viterbi_fwd": 0,
-                       "traceback_frames": 0, "frame_llr": 1},
+                       "traceback_frames": 0, "frame_llr": 1,
+                       "frame_punctured": 0},
             "kernel_split": {"viterbi_unified": 0, "viterbi_fwd": 1,
-                             "traceback_frames": 1, "frame_llr": 1}}
+                             "traceback_frames": 1, "frame_llr": 1,
+                             "frame_punctured": 0}}
     if counts != want:
         raise AssertionError(f"{label} launches {counts}, expected {want}")
     return ref, {"viterbi_unified": counts["kernel"]["viterbi_unified"],
                  "viterbi_fwd": counts["kernel_split"]["viterbi_fwd"],
                  "traceback_frames": counts["kernel_split"][
                      "traceback_frames"],
-                 "frame_llr": counts["kernel"]["frame_llr"]}, counts, walls
+                 "frame_llr": counts["kernel"]["frame_llr"],
+                 "frame_punctured": counts["kernel"]["frame_punctured"]}, \
+        counts, walls
 
 
 def phase_main_wide(gen):
@@ -1576,12 +1589,67 @@ def _framing_line(what, r):
             f"{r['bytes'] / r['ms'] / 1e6:.0f} GB/s)")
 
 
+#: The benchmark cell of the punctured framing kernel: (cell, n, rate, B1's
+#: tile), float32 at the rate-3/4 frame.
+PUNCTURED_CELL = ("k7_r34_batch", 1 << 24, "3/4", 64)
+
+
+def _punctured_row():
+    """The punctured framing kernel at the k7_r34_batch call (2^24 stages
+    at rate 3/4 in float32, a few thousand symbols poisoned, the frames
+    padded to the tile): bit for bit against its plain version and the ATen
+    chain it replaces on the card (the clip, the depuncture, the rate-1/2
+    framing kernel with its clip off and the pad to the tile), then the
+    three timed in turns (min of 4 rounds of 20 launches, CUDA events),
+    beside the bytes bound."""
+    import torch
+    from repro_torch.channel.sim import channel
+    from repro_torch.core.puncture import depuncture
+    from repro_torch.core.sanitize import LLR_CLIP
+    from repro_torch.kernels import framing, ops
+    from repro_torch.launch.roofline import kernel_bound
+    cell, n, rate, tile = PUNCTURED_CELL
+    spec = main_config(rate, "kernel").spec
+    gen = torch.Generator(device="cuda").manual_seed(SEED + n + 3)
+    _, x = channel(gen, n, EBN0_DB, rate)
+    idx = torch.randint(0, x.numel(), (4096,), generator=gen, device="cuda")
+    poison = torch.tensor(FRAMING_PLANTED, device="cuda")
+    x[idx] = poison[torch.arange(idx.numel(), device="cuda")
+                    % poison.numel()]
+    rows = ops.tile_rows(spec.num_frames(n), tile)
+
+    def kernel():
+        return framing.frame_punctured_cuda(x, rate, n, spec, LLR_CLIP, rows)
+
+    def plain():
+        return framing.frame_punctured_plain(x, rate, n, spec, LLR_CLIP, rows)
+
+    def chain():
+        llr = depuncture(framing.clip_llr_plain(x, LLR_CLIP), rate, n)
+        return ops._pad_frames(framing.frame_llr_cuda(llr, spec), tile)[0]
+    got = kernel()
+    for name, fn in (("plain version", plain), ("ATen chain", chain)):
+        if not torch.equal(got.view(torch.int32), fn().view(torch.int32)):
+            raise AssertionError(f"frame_punctured {cell}: kernel != "
+                                 f"{name}")
+    del got
+    ms = _interleaved({"kernel": kernel, "plain": plain, "chain": chain},
+                      20, rounds=4)
+    nbytes = (x.numel() + rows * spec.frame_len * 2) * 4
+    bound_ms, bound_by = kernel_bound(nbytes, 0)
+    return {"cell": cell, "n": n, "rate": rate, "rows": rows,
+            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "chain_ms": ms["chain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes}
+
+
 def time_framing(rx_half, launches):
     """The clip-and-frame kernel on the main path's rate-1/2 LLRs, clip on
     and off, then at the benchmark cells' calls: each bit for bit against
-    its plain version and timed beside it and its bytes bound. Returns the
-    kernels line's entry (the main path's clip-on row, ``cells`` the
-    rest)."""
+    its plain version and timed beside it and its bytes bound; then the
+    punctured framing kernel at the k7_r34_batch call. Returns the kernels
+    line's two entries (the rate-1/2 kernel's main-path clip-on row,
+    ``cells`` the rest; the punctured kernel's cell row)."""
     import torch
     rows = [_framing_row(rx_half.reshape(N_BITS, 2).clone(), clip)
             for clip in (True, False)]
@@ -1595,13 +1663,26 @@ def time_framing(rx_half, launches):
         log("time", _framing_line(f"frame_llr {name}", cells[-1]))
         del x
     main = rows[0]
-    return {"name": "frame_llr", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/frame_llr.cu",
-            "replaces": None, "launches": launches["frame_llr"],
-            "max_abs_err": 0, "parity": "equal", "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
-            "clip_off": rows[1], "cells": cells}
+    p = _punctured_row()
+    log("time", f"frame_punctured {p['cell']} ({p['n']} stages, rate "
+        f"{p['rate']}, {p['rows']} rows): {p['ms']:.4f} ms, ATen chain "
+        f"{p['chain_ms']:.4f} ms ({p['chain_ms'] / p['ms']:.1f}x), plain "
+        f"{p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
+        f"({p['bytes'] / 1e6:.1f} MB; {p['bound_ms'] / p['ms']:.1%} of the "
+        f"bound, {p['bytes'] / p['ms'] / 1e6:.0f} GB/s)")
+    source = "src/repro_torch/kernels/csrc/frame_llr.cu"
+    return [{"name": "frame_llr", "route": "cuda", "source": source,
+             "replaces": None, "launches": launches["frame_llr"],
+             "max_abs_err": 0, "parity": "equal", "ms": main["ms"],
+             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+             "bound_by": main["bound_by"], "library_ms": None,
+             "clip_off": rows[1], "cells": cells},
+            {"name": "frame_punctured", "route": "cuda", "source": source,
+             "replaces": None, "launches": launches["frame_punctured"],
+             "max_abs_err": 0, "parity": "equal", "ms": p["ms"],
+             "plain_ms": p["plain_ms"], "chain_ms": p["chain_ms"],
+             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+             "library_ms": None, "cells": [p]}]
 
 
 def time_end_to_end(rx_half):
@@ -1689,7 +1770,7 @@ def phase_time(frames, rx_half, launches, gen):
     """Returns the kernels' JSON entries and the whole calls' ms."""
     unified = time_unified(frames, launches)
     split = time_split(frames, launches)
-    framing = time_framing(rx_half, launches)
+    framing = time_framing(rx_half, launches)       # two entries
     large = time_large_codes(gen)
     unified["large_codes"] = large["viterbi_unified"]
     split["fwd"]["large_codes"] = large["viterbi_fwd"]
@@ -1698,7 +1779,7 @@ def phase_time(frames, rx_half, launches, gen):
         entry["wide_codes"] = wide[entry["name"]]
     calls = time_end_to_end(rx_half)
     time_planner(frames)
-    return [unified, split["fwd"], split["tb"], framing], calls
+    return [unified, split["fwd"], split["tb"], *framing], calls
 
 
 def phase_profile(rx_half, call_ms):
@@ -1900,7 +1981,8 @@ def phase_stream(gen):
                 cfg, rx_host, n, chunk, rng)
             chunks = host["chunks"]
             if counts != {"viterbi_unified": chunks, "viterbi_fwd": 0,
-                          "traceback_frames": 0, "frame_llr": 0}:
+                          "traceback_frames": 0, "frame_llr": 0,
+                          "frame_punctured": 0}:
                 raise AssertionError(f"stream rate {rate} {label}: launches "
                                      f"{counts} for {chunks} chunks")
             if not (bits.shape == (n,) and np.array_equal(bits, want)):
@@ -2039,7 +2121,8 @@ def phase_serve(gen):
     if any(faults.values()):
         raise AssertionError(f"serve: fault counters {faults} in a clean run")
     if counts != {"viterbi_unified": tot["launches"], "viterbi_fwd": 0,
-                  "traceback_frames": 0, "frame_llr": 0}:
+                  "traceback_frames": 0, "frame_llr": 0,
+                  "frame_punctured": 0}:
         raise AssertionError(f"serve: launches {counts}, server "
                              f"{tot['launches']}")
     programs = {(r.attrs["bucket"], r.attrs["frames"])
@@ -2140,7 +2223,8 @@ def phase_serve(gen):
     counts = _read_counts(counters)
     launches = srv.metrics.totals()["launches"]
     if counts != {"viterbi_unified": 0, "viterbi_fwd": launches,
-                  "traceback_frames": launches, "frame_llr": 0} or len(
+                  "traceback_frames": launches, "frame_llr": 0,
+                  "frame_punctured": 0} or len(
                       srv.buckets()) != 1:
         raise AssertionError(f"kernel_split bucket: launches {counts}, "
                              f"server {launches}")
@@ -2164,7 +2248,7 @@ def _add(total, counts):
 
 def _b1_only(counts, n, what):
     want = {"viterbi_unified": n, "viterbi_fwd": 0, "traceback_frames": 0,
-            "frame_llr": 0}
+            "frame_llr": 0, "frame_punctured": 0}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 

@@ -115,11 +115,11 @@ def _build_frame_decoder(cfg: DecoderConfig, device: torch.device):
     elif cfg.backend in ("kernel", "kernel_split"):
         from ..kernels import ops as kops
 
-        def decode_frames(frames):
+        def decode_frames(frames, frames_per_tile=cfg.frames_per_tile):
             return kops.viterbi_decode_frames(
                 frames, cfg.trellis, cfg.spec,
                 unified=cfg.backend == "kernel",
-                frames_per_tile=cfg.frames_per_tile,
+                frames_per_tile=frames_per_tile,
                 pack_survivors=cfg.pack_survivors, radix=cfg.radix,
                 layout=cfg.layout, bm_dtype=cfg.bm_dtype,
                 block_frames=bf, overlap=ov, interpret=cfg.interpret,
@@ -146,38 +146,67 @@ def make_decoder(cfg: DecoderConfig, device=None):
 
     Each call runs under a ``decode`` span (attribute ``call``, the
     decoder's sequence number of the call), with ``decode.copy_in``, the
-    clip, the depuncture (attributes ``rate``, the pattern's name, and
-    ``symbols``, the received stream's length) and the framing inside it,
-    and the frame decoder's spans after. On the card at rate 1/2 the
-    kernel backends clip and frame in one launch of the framing kernel under
-    ``decode.frame``; on the CPU, at punctured rates (where the clip comes
-    before the depuncture) and in the reference backend, the clip runs
-    under ``decode.sanitize``, the depuncture under ``decode.depuncture``
-    and ``frame_llr`` under ``decode.frame``, the reference backend's
-    in plain torch on any device.
+    clip, the depuncture and the framing inside it, and the frame
+    decoder's spans after. On the card the kernel backends clip and frame
+    in one launch under ``decode.frame``: at rate 1/2 the framing kernel's;
+    at punctured rates the punctured framing kernel's, which depunctures
+    too (attributes ``rate``, the pattern's name, and ``symbols``, the
+    received stream's length) and writes the frames already padded to the
+    tile, planned first under ``decode.plan``. On the CPU and in the
+    reference backend the clip runs under ``decode.sanitize``, the
+    depuncture under ``decode.depuncture`` (the same attributes) and
+    ``frame_llr`` under ``decode.frame``, the reference backend's in plain
+    torch on any device.
     """
     from ..kernels import framing
-    from ..kernels.ops import resolve_device
-    dev = resolve_device(device)
+    from ..kernels import ops as kops
+    from ..kernels.block import resolve_block
+    dev = kops.resolve_device(device)
     decode_frames = make_frame_decoder(cfg, dev)
     # input hardening (core.sanitize): NaN/Inf -> neutral zero,
     # |llr| > clip -> ±clip; the identity on clean in-range inputs. On the
-    # card at rate 1/2 the kernel backends' framing kernel clips as it
-    # frames; the reference backend keeps the plain torch ops.
+    # card the kernel backends' framing kernels clip as they frame; the
+    # reference backend keeps the plain torch ops.
     plain = cfg.backend == "reference"
-    fused = dev.type == "cuda" and cfg.rate == "1/2" and not plain
+    fused = dev.type == "cuda" and not plain
+    punctured = cfg.rate != "1/2"
+    # the punctured kernel pads to the tile unless blocks are reframed
+    pad_rows = punctured and resolve_block(
+        cfg.trellis, cfg.spec, cfg.block_frames, cfg.overlap)[0] == 1
 
     calls = itertools.count()
+
+    def frame_punctured(stream, n):
+        """(m,) stream -> frames padded to the tile, and the tile."""
+        F = cfg.spec.num_frames(n)
+        tile, rows = cfg.frames_per_tile, F
+        if pad_rows:
+            if tile == "auto":
+                tile = kops.plan_frames_per_tile(
+                    cfg.trellis, cfg.spec, F,
+                    unified=cfg.backend == "kernel",
+                    pack_survivors=cfg.pack_survivors, radix=cfg.radix,
+                    layout=cfg.layout, bm_dtype=cfg.bm_dtype, device=dev)
+            rows = kops.tile_rows(F, tile)
+        with span_tracer().span("decode.frame", rate=cfg.rate,
+                                symbols=int(stream.shape[0])):
+            return framing.frame_punctured_cuda(stream, cfg.rate, n,
+                                                cfg.spec, _LLR_CLIP,
+                                                rows), tile
 
     def decode(stream, n: int) -> torch.Tensor:
         trace = span_tracer()
         with trace.span("decode", call=next(calls)):
             with trace.span("decode.copy_in"):
                 stream = torch.as_tensor(stream).to(dev)
+            if fused and punctured:
+                frames, tile = frame_punctured(stream, n)
+                bits = decode_frames(frames, frames_per_tile=tile)
+                return bits.reshape(-1)[:n]
             if not fused:
                 with trace.span("decode.sanitize"):
                     stream = framing.clip_llr_plain(stream, _LLR_CLIP)
-            if cfg.rate != "1/2":
+            if punctured:
                 with trace.span("decode.depuncture", rate=cfg.rate,
                                 symbols=int(stream.shape[0])):
                     llr = depuncture(stream, cfg.rate, n)

@@ -17,7 +17,19 @@ design) reads each LLR once and writes each framed LLR once:
 device, under the ``decode.frame`` span: a CUDA tensor takes the kernel,
 with no fallback.
 
-The kernel equals the plain version bit for bit in float32, float64,
+At punctured rates the receiver call on the card runs a second kernel of
+the same source, with its own entry point: the (m,) soft-symbol stream in,
+the frames out, clipped, depunctured through the pattern's ``rank_table``
+and padded with zero rows to B1's tile, in one launch:
+
+* ``frame_punctured_cuda`` checks, allocates, launches, raises on any
+  failure and counts ``.launches``;
+* ``frame_punctured_plain`` is its plain version, the same definition in
+  torch ops. The receiver call on the CPU and in the reference backend
+  keeps the chain it replaces on the card: ``clip_llr_plain``,
+  ``core.puncture.depuncture`` and ``frame_llr_plain``.
+
+Both kernels equal their plain versions bit for bit in float32, float64,
 float16 and bfloat16; the frames keep the input's dtype.
 """
 from __future__ import annotations
@@ -27,9 +39,11 @@ import functools
 
 import torch
 
+from ..core.puncture import PATTERNS, check_alignment
 from .build import build
 
 __all__ = ["frame_llr_cuda", "frame_llr_plain", "clip_llr_plain", "windows",
+           "frame_punctured_cuda", "frame_punctured_plain", "rank_table",
            "kernel_library", "DTYPES"]
 
 SOURCE = "frame_llr.cu"
@@ -48,6 +62,10 @@ def kernel_library():
                                          ctypes.c_double, ctypes.c_double,
                                          vp]
         lib.frame_llr_launch.restype = i
+        lib.frame_punctured_launch.argtypes = [
+            vp, vp, i, ll, ll, i, ll, ll, i, i, i, i, i, vp,
+            ctypes.c_double, ctypes.c_double, vp]
+        lib.frame_punctured_launch.restype = i
         lib._argtypes_set = True
     return built
 
@@ -128,3 +146,114 @@ def frame_llr_cuda(llr: torch.Tensor, spec,
 
 
 frame_llr_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def rank_table(name: str) -> tuple[int, tuple[int, ...]]:
+    """The punctured pattern ``name``'s table: the symbols a period keeps,
+    and at ``t * beta + b`` (phase t of the period, output b) the rank of
+    that symbol among the period's kept ones in the order they are sent
+    (stage by stage, output by output), -1 where the pattern drops it."""
+    pattern = PATTERNS[name]
+    beta, period = pattern.shape
+    table, kept = [], 0
+    for t in range(period):
+        for b in range(beta):
+            table.append(kept if pattern[b, t] else -1)
+            kept += int(pattern[b, t])
+    return kept, tuple(table)
+
+
+@functools.lru_cache(maxsize=None)
+def _c_table(name: str):
+    _, table = rank_table(name)
+    return (ctypes.c_byte * len(table))(*table)
+
+
+def _punctured_rows(stream: torch.Tensor, name: str, n: int, spec,
+                    rows: int | None) -> tuple[int, int]:
+    """Checks the stream's length against n stages of ``name``; returns
+    (F, rows): the frames that hold stages and the rows written."""
+    kept, table = rank_table(name)
+    beta, period = PATTERNS[name].shape
+    q, r = divmod(n, period)
+    want = q * kept + sum(k >= 0 for k in table[:r * beta])
+    if stream.ndim != 1 or stream.shape[0] != want:
+        raise ValueError(f"stream length {tuple(stream.shape)} != expected "
+                         f"({want},) for {n} stages at rate {name}")
+    check_alignment(spec.f, spec.v1, spec.v2, name)
+    F = spec.num_frames(n)
+    rows = F if rows is None else int(rows)
+    if rows < F:
+        raise ValueError(f"rows={rows} < the {F} frames of {n} stages")
+    return F, rows
+
+
+def frame_punctured_plain(stream: torch.Tensor, name: str, n: int, spec,
+                          clip: float, rows: int | None = None
+                          ) -> torch.Tensor:
+    """The punctured receiver call's clip, depuncture, framing and padding
+    by their definition: (m,) soft symbols of n stages at rate ``name`` ->
+    (rows, L, beta) frames of ``spec`` (``rows=None``: the F frames),
+
+        s = m*f - v1 + j,  t = s mod period,
+        out[m, j, b] = g(stream[(s div period)*kept + rank[t*beta + b]])
+                       where 0 <= s < n, m < F and the pattern keeps (b, t),
+                     = 0 otherwise,
+
+    g the clip (``clip_llr_plain``); the frames keep the stream's dtype.
+    The kernel's plain version; the receiver call on the CPU keeps the
+    chain ``clip_llr_plain`` -> ``depuncture`` -> ``frame_llr_plain``."""
+    F, rows = _punctured_rows(stream, name, n, spec, rows)
+    kept, table = rank_table(name)
+    beta, period = PATTERNS[name].shape
+    dev = stream.device
+    x = torch.cat([clip_llr_plain(stream, clip), stream.new_zeros(1)])
+    m = torch.arange(rows, device=dev)[:, None, None]
+    s = m * spec.f - spec.v1 + torch.arange(spec.frame_len,
+                                            device=dev)[None, :, None]
+    b = torch.arange(beta, device=dev)[None, None, :]
+    rank = torch.tensor(table, device=dev)[s.remainder(period) * beta + b]
+    src = s.div(period, rounding_mode="floor") * kept + rank
+    keep = (m < F) & (s >= 0) & (s < n) & (rank >= 0)
+    return x[torch.where(keep, src, stream.shape[0])]
+
+
+def frame_punctured_cuda(stream: torch.Tensor, name: str, n: int, spec,
+                         clip: float, rows: int | None = None
+                         ) -> torch.Tensor:
+    """Launch the punctured framing kernel on the current stream: one read
+    of the (m,) soft symbols, one write of the (rows, L, beta) frames,
+    rows F.. zero (the tile's padding). A non-contiguous stream is copied
+    contiguous first."""
+    if not stream.is_cuda:
+        raise ValueError(f"stream must lie on a CUDA device, got "
+                         f"{stream.device}")
+    if stream.dtype not in DTYPES:
+        raise ValueError(f"the framing kernel takes "
+                         f"{sorted(map(str, DTYPES))}, got {stream.dtype}")
+    F, rows = _punctured_rows(stream, name, n, spec, rows)
+    stream = stream.contiguous()
+    beta, period = PATTERNS[name].shape
+    kept, _ = rank_table(name)
+    L = spec.frame_len
+    out = torch.empty((rows, L, beta), dtype=stream.dtype,
+                      device=stream.device)
+    if out.numel() == 0:
+        return out
+    lo, hi = _bounds(stream.dtype, float(clip))
+    lib = kernel_library().lib
+    with torch.cuda.device(stream.device):
+        cs = torch.cuda.current_stream(stream.device).cuda_stream
+        err = lib.frame_punctured_launch(
+            stream.data_ptr(), out.data_ptr(), DTYPES[stream.dtype],
+            stream.shape[0], n, beta, F, rows, spec.f, spec.v1, L, period,
+            kept, _c_table(name), lo, hi, cs)
+    if err != 0:
+        raise RuntimeError(f"frame_punctured launch failed: CUDA error "
+                           f"{err}")
+    frame_punctured_cuda.launches += 1
+    return out
+
+
+frame_punctured_cuda.launches = 0

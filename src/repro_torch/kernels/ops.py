@@ -4,9 +4,11 @@ Validates the frames, resolves ``frames_per_tile="auto"`` through the
 tile planner (kernels/autotune.py, for the kernel that will run; the
 ``decode.plan`` span), moves the frames to the device, applies the
 intra-frame block reframe and pads the frame count to the tile (the
-``decode.pad`` span), encodes the serial traceback as one subframe
-(``f0=f, v2s=v2``) and dispatches under the ``decode.kernel`` span, whose
-attributes are the launch's knobs:
+``decode.pad`` span; a caller that frames already padded plans first with
+``plan_frames_per_tile`` and passes the tile, as the punctured receiver
+call on the card does, and then there is nothing to pad), encodes the
+serial traceback as one subframe (``f0=f, v2s=v2``) and dispatches
+under the ``decode.kernel`` span, whose attributes are the launch's knobs:
 
 * ``unified=True``  — the unified kernel: survivors never leave the chip;
 * ``unified=False`` — the split path, the prior-work baseline: the forward
@@ -26,7 +28,8 @@ from .traceback_frames import traceback_frames
 from .viterbi_fwd import forward_frames
 from .viterbi_unified import unified_decode_frames
 
-__all__ = ["viterbi_decode_frames", "resolve_device"]
+__all__ = ["viterbi_decode_frames", "resolve_device", "plan_frames_per_tile",
+           "tile_rows"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -40,9 +43,28 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def plan_frames_per_tile(trellis: Trellis, spec: FrameSpec, frames: int, *,
+                         unified: bool, pack_survivors: bool, radix: int,
+                         layout, bm_dtype: str, device) -> int:
+    """The tile planner's frames per block for a launch over ``frames``
+    frames of ``spec`` (``layout`` a ``Layout`` or its name), under the
+    ``decode.plan`` span."""
+    with span_tracer().span("decode.plan"):
+        return plan_tiles(
+            trellis, spec, pack_survivors=pack_survivors, radix=radix,
+            unified=unified, layout=Layout(layout), bm_dtype=bm_dtype,
+            max_frames=frames, device=device).frames_per_tile
+
+
+def tile_rows(frames: int, tile: int) -> int:
+    """The rows a launch over ``frames`` frames decodes: the next multiple
+    of the tile."""
+    return -(-frames // tile) * tile
+
+
 def _pad_frames(frames: torch.Tensor, tile: int):
     F = frames.shape[0]
-    Fp = -(-F // tile) * tile
+    Fp = tile_rows(F, tile)
     if Fp != F:
         frames = torch.nn.functional.pad(frames, (0, 0, 0, 0, 0, Fp - F))
     return frames, F
@@ -92,11 +114,10 @@ def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
     lay = Layout(layout)
     trace = span_tracer()
     if frames_per_tile == "auto":
-        with trace.span("decode.plan"):
-            frames_per_tile = plan_tiles(
-                trellis, sub, pack_survivors=pack_survivors, radix=radix,
-                unified=unified, layout=lay, bm_dtype=bm_dtype,
-                max_frames=F_in * block_frames, device=dev).frames_per_tile
+        frames_per_tile = plan_frames_per_tile(
+            trellis, sub, F_in * block_frames, unified=unified,
+            pack_survivors=pack_survivors, radix=radix, layout=lay,
+            bm_dtype=bm_dtype, device=dev)
     with trace.span("decode.pad"):
         frames = frames.to(dev)
         if frames.dtype == torch.float64:  # the kernel reads f32/bf16/f16

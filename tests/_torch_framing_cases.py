@@ -1,6 +1,7 @@
-"""Cases shared by the framing kernel's CPU and card tests
-(tests/test_torch_framing.py, tests/test_torch_gpu_framing.py); imports no
-JAX.
+"""Cases shared by the framing kernels' CPU and card tests
+(tests/test_torch_framing.py, tests/test_torch_gpu_framing.py and, for the
+punctured receiver call, tests/test_torch_punctured_framing.py and
+tests/test_torch_gpu_punctured.py); imports no JAX.
 
 ``llr_case`` makes an (n, beta) LLR stream with NaN, +-Inf, +-2e6, +-1e6
 and -0.0 planted on the first and last rows of every frame's window and of
@@ -10,12 +11,22 @@ clamp, then the frame windows written out from their definition (row
 ``m*f - v1 + j`` of the stream, zero past either end). ``bits`` views a
 float tensor as the integers of its bits, so that -0.0 and the payload of
 a NaN count.
+
+The punctured cases: ``PUNCTURED`` names each rate's frame (the
+k7_r34_batch cell's at rate 3/4), ``punctured_length`` a stream of n
+stages with each tail ``n % period`` and two short ones, ``symbols_case``
+the (m,) soft symbols of n stages with the same values planted, and
+``todays_punctured_frames`` the receiver call's chain as it ran on the
+card before the punctured kernel: ``clip_llr_plain``, ``depuncture``,
+``frame_llr_plain``, then zero rows up to ``rows``.
 """
 import numpy as np
 import torch
 
 from repro_torch.core.framed import FrameSpec
+from repro_torch.core.puncture import PATTERNS, depuncture
 from repro_torch.core.sanitize import LLR_CLIP
+from repro_torch.kernels import framing
 
 DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64]
 _CELL = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
@@ -76,3 +87,53 @@ def todays_frames(x: torch.Tensor, spec: FrameSpec,
 
 def bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(_BITS[t.element_size()])
+
+
+#: Each punctured rate's frame: multiples of the period, and at rate 3/4
+#: the 802.11 cell's (portbench/configs/wifi_k7_r34.json).
+PUNCTURED = {"2/3": FrameSpec(f=256, v1=20, v2=46, f0=32, v2s=46),
+             "3/4": FrameSpec(f=252, v1=21, v2=45, f0=42, v2s=45)}
+#: (rate, length): every tail n % period, then n < f and n < v1.
+PUNCTURED_LENGTHS = [(rate, f"tail{t}") for rate in PUNCTURED
+                     for t in range(PATTERNS[rate].shape[1])] + [
+    (rate, kind) for rate in PUNCTURED for kind in ("below_f", "below_v1")]
+
+
+def punctured_length(rate: str, kind: str) -> int:
+    spec, period = PUNCTURED[rate], PATTERNS[rate].shape[1]
+    if kind.startswith("tail"):
+        return 5 * spec.f + 7 * period + int(kind[4:])
+    return stream_length(spec, kind)
+
+
+def symbols(rate: str, n: int) -> int:
+    """The soft symbols the pattern keeps of n stages."""
+    pattern = PATTERNS[rate]
+    return int(np.tile(pattern, (1, -(-n // pattern.shape[1]))).T[:n].sum())
+
+
+def symbols_case(rate: str, n: int, dtype: torch.dtype,
+                 seed: int = 0) -> torch.Tensor:
+    """(m,) soft symbols with the values of PLANTED on the first symbol of
+    the first and last stages of each frame's window and kept stages, and
+    on every 17th symbol."""
+    spec = PUNCTURED[rate]
+    rng = np.random.default_rng(seed)
+    m = symbols(rate, n)
+    x = 3.0 * rng.standard_normal(m)
+    stages = [s for k in range(spec.num_frames(n)) for s in
+              (k * spec.f - spec.v1, k * spec.f - spec.v1 + spec.frame_len - 1,
+               k * spec.f, k * spec.f + spec.f - 1) if 0 <= s < n]
+    at = [symbols(rate, s) for s in stages] + list(range(0, m, 17))
+    for i, a in enumerate(a for a in at if a < m):
+        x[a] = PLANTED[i % len(PLANTED)]
+    return torch.from_numpy(x).to(dtype)
+
+
+def todays_punctured_frames(x: torch.Tensor, rate: str, n: int,
+                            rows: int | None = None) -> torch.Tensor:
+    spec = PUNCTURED[rate]
+    frames = framing.frame_llr_plain(
+        depuncture(framing.clip_llr_plain(x, LLR_CLIP), rate, n), spec)
+    extra = 0 if rows is None else rows - frames.shape[0]
+    return torch.nn.functional.pad(frames, (0, 0, 0, 0, 0, extra))

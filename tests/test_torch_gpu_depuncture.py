@@ -1,8 +1,9 @@
 """The receiver call's depuncture on the card: equal to the definition by a
 flat index over the stages at a deployment's size, no host-to-device copy
-under ``decode.depuncture``, and a rate-3/4 ``make_decoder`` call's bits
-equal to its reference backend's. The CPU tests are
-``tests/test_torch_depuncture.py``.
+under ``decode.depuncture`` (the reference backend's; the kernel
+backends' punctured kernel is tests/test_torch_gpu_punctured.py), and a
+rate-3/4 ``make_decoder`` call's bits equal to its reference backend's.
+The CPU tests are ``tests/test_torch_depuncture.py``.
 
 Marked ``gpu``: each test asks its fixture for a card and skips without
 one. Run on the card with ``pytest -m gpu tests/test_torch_gpu_depuncture.py``.
@@ -68,21 +69,24 @@ def _inside(host, span):
 
 
 def test_a_rate_34_call_copies_nothing_in_under_decode_depuncture(cuda):
-    """A rate-3/4 call on a stream that is on the card: under
-    ``decode.depuncture`` no host tensor is moved to the card (no
-    ``aten::_to_copy``) and the device work queued is a few slice copies
-    and fills, a count set by the pattern and not by n; the call's device
-    operations hold no host-to-device copy (where the profiler kept them:
-    in a process that has run many kernels it can drop a short session's
-    device records)."""
+    """A rate-3/4 call on a stream that is on the card. The reference
+    backend's (the kernel backends depuncture inside the punctured framing
+    kernel, with no ``decode.depuncture``): under ``decode.depuncture`` no
+    host tensor is moved to the card (no ``aten::_to_copy``) and the device
+    work queued is a few slice copies and fills, a count set by the pattern
+    and not by n. The kernel backend's: the call's device operations hold
+    no host-to-device copy (where the profiler kept them: in a process
+    that has run many kernels it can drop a short profile's device
+    records)."""
     n = 1 << 22
     gen = torch.Generator(device=cuda).manual_seed(11)
     _, rx = channel(gen, n, 5.0, rate="3/4")
-    decode = make_decoder(DecoderConfig(spec=SPEC34, rate="3/4",
-                                        backend="kernel"), cuda)
-    want = decode(rx, n)                                # builds, plans
+    decode = {b: make_decoder(DecoderConfig(spec=SPEC34, rate="3/4",
+                                            backend=b), cuda)
+              for b in ("reference", "kernel")}
+    want = decode["reference"](rx, n)                   # builds, plans
     got = []
-    dev, host = _profiled(lambda: got.append(decode(rx, n)))
+    _, host = _profiled(lambda: got.append(decode["reference"](rx, n)))
     assert torch.equal(got[0], want)
     inner = _inside(host, "decode.depuncture")
     assert "aten::_to_copy" not in inner, inner
@@ -90,6 +94,8 @@ def test_a_rate_34_call_copies_nothing_in_under_decode_depuncture(cuda):
         ("cudaLaunch", "cudaMemcpy", "cudaMemset"))]
     period, beta = pun.PATTERNS["3/4"].shape[1], 2
     assert 1 <= len(launches) <= 2 * period * beta, inner
+    assert torch.equal(decode["kernel"](rx, n), want)
+    dev, _ = _profiled(lambda: decode["kernel"](rx, n))
     assert not [s for s in dev if "HtoD" in s], dev
 
 
