@@ -19,7 +19,7 @@ from .decoder import viterbi_forward
 from .traceback import parallel_traceback, serial_traceback
 from .trellis import Trellis
 
-__all__ = ["FrameSpec", "frame_llr", "decode_frame", "framed_decode",
+__all__ = ["FrameSpec", "frame_received", "frame_llr", "decode_frame", "framed_decode",
            "reframe_blocks", "merge_blocks"]
 
 
@@ -89,19 +89,52 @@ class FrameSpec:
         return sub
 
 
+def frame_received(stream: torch.Tensor, n: int, spec: FrameSpec,
+                   rate: str = "1/2", clip: float | None = None,
+                   rows: int | None = None, *,
+                   plain: bool = False) -> torch.Tensor:
+    """The receiver call's front end: the received stream of n stages ->
+    (rows, L, beta) overlapping frames, zero-padded at the stream's edges
+    (zero LLR is metric-neutral, like a depunctured erasure), clipped
+    first when ``clip`` is given (``core.sanitize``'s rule). ``stream`` is
+    (n, beta) LLRs or their flat (n * beta,) view at rate 1/2, else the
+    (m,) punctured soft symbols, depunctured on the way; ``rows`` (punctured
+    rates only; ``None``: the F frames) pads with zero rows to a tile.
+
+    On a CUDA tensor, unless ``plain``: one launch of the framing kernel
+    under ``decode.frame`` (the punctured kernel needs a ``clip``).
+    Otherwise the plain versions (``kernels.framing``): the clip under
+    ``decode.sanitize``, then the framing under ``decode.frame``. At
+    punctured rates ``decode.frame`` records ``rate``, the pattern's name,
+    and ``symbols``, the stream's length."""
+    trace = span_tracer()
+    punctured = rate != "1/2"
+    attrs = dict(rate=rate, symbols=int(stream.shape[0])) if punctured \
+        else {}
+    if not punctured:
+        if rows is not None:
+            raise ValueError("rows pads the frames of punctured rates only")
+        stream = stream if stream.ndim == 2 else stream.reshape(n, -1)
+    if stream.is_cuda and not plain:
+        with trace.span("decode.frame", **attrs):
+            if punctured:
+                return framing.frame_punctured_cuda(stream, rate, n, spec,
+                                                    clip, rows)
+            return framing.frame_llr_cuda(stream, spec, clip)
+    if clip is not None:
+        with trace.span("decode.sanitize"):
+            stream = framing.clip_llr_plain(stream, clip)
+    with trace.span("decode.frame", **attrs):
+        if punctured:
+            return framing.frame_punctured_plain(stream, rate, n, spec,
+                                                 rows=rows)
+        return framing.frame_llr_plain(stream, spec)
+
+
 def frame_llr(llr: torch.Tensor, spec: FrameSpec, clip: float | None = None,
               *, plain: bool = False) -> torch.Tensor:
-    """(n, beta) -> (F, L, beta) overlapping frames, zero-padded at edges
-    (zero LLR is metric-neutral, like a depunctured erasure), the LLRs
-    clipped first when ``clip`` is given (``core.sanitize``'s rule). Runs
-    under the ``decode.frame`` span: on a CUDA tensor one launch of the
-    framing kernel, on the CPU, or with ``plain`` (the reference backend's
-    receiver call) on any device, its plain version (``kernels.framing``).
-    """
-    with span_tracer().span("decode.frame"):
-        if llr.is_cuda and not plain:
-            return framing.frame_llr_cuda(llr, spec, clip)
-        return framing.frame_llr_plain(llr, spec, clip)
+    """(n, beta) -> (F, L, beta) frames: ``frame_received`` at rate 1/2."""
+    return frame_received(llr, llr.shape[0], spec, clip=clip, plain=plain)
 
 
 def decode_frame(llr_frame: torch.Tensor, trellis: Trellis,

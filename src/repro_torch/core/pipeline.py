@@ -1,8 +1,12 @@
 """End-to-end decode API, the paper's receiver path: port of
 ``repro.core.pipeline``.
 
-clip -> depuncture -> frame -> decode -> stitch. ``make_frame_decoder``
-exposes the frames -> bits core with one backend dispatch:
+clip, depuncture and frame -> decode -> stitch. ``make_decoder`` takes one
+path at every rate and on every device: ``core.framed.frame_received``, the
+one front end, turns the received stream into frames (a kernel launch on
+the card, its plain version elsewhere), and the frame decoder decodes
+them. ``make_frame_decoder`` exposes the frames -> bits core with one
+backend dispatch, and alone knows the tile:
 
 * ``reference`` — the plain torch reference decoder;
 * ``kernel`` — the unified CUDA kernel (survivors on chip);
@@ -23,8 +27,8 @@ import itertools
 import torch
 
 from ..obs.profiled import span_tracer
-from .framed import FrameSpec, decode_frame, frame_llr
-from .puncture import check_alignment, depuncture
+from .framed import FrameSpec, decode_frame, frame_received
+from .puncture import check_alignment
 from .sanitize import LLR_CLIP as _LLR_CLIP
 from .trellis import STD_K7, Trellis
 
@@ -106,32 +110,49 @@ def _build_frame_decoder(cfg: DecoderConfig, device: torch.device):
         # kernels, so kernel and reference stay bit-identical
         sub = cfg.spec.blocked(bf, ov) if bf > 1 else cfg.spec
 
-        def decode_frames(frames):
+        def decode_frames(frames, frames_per_tile=None):   # no tile here
             frames = torch.as_tensor(frames).to(device)
             if bf > 1:
                 frames = reframe_blocks(frames, cfg.spec, bf, ov)
             bits = decode_frame(frames, cfg.trellis, sub, cfg.renorm_every)
             return merge_blocks(bits, bf) if bf > 1 else bits
+
+        def tiling(F):
+            return F, cfg.frames_per_tile
     elif cfg.backend in ("kernel", "kernel_split"):
         from ..kernels import ops as kops
+        knobs = dict(unified=cfg.backend == "kernel",
+                     pack_survivors=cfg.pack_survivors, radix=cfg.radix,
+                     layout=cfg.layout, bm_dtype=cfg.bm_dtype)
 
         def decode_frames(frames, frames_per_tile=cfg.frames_per_tile):
             return kops.viterbi_decode_frames(
                 frames, cfg.trellis, cfg.spec,
-                unified=cfg.backend == "kernel",
-                frames_per_tile=frames_per_tile,
-                pack_survivors=cfg.pack_survivors, radix=cfg.radix,
-                layout=cfg.layout, bm_dtype=cfg.bm_dtype,
-                block_frames=bf, overlap=ov, interpret=cfg.interpret,
-                device=device)
+                frames_per_tile=frames_per_tile, block_frames=bf,
+                overlap=ov, interpret=cfg.interpret, device=device, **knobs)
+
+        def tiling(F):
+            tile = cfg.frames_per_tile
+            if bf > 1:          # the block reframe pads after the framing
+                return F, tile
+            if tile == "auto":
+                tile = kops.plan_frames_per_tile(cfg.trellis, cfg.spec, F,
+                                                 device=device, **knobs)
+            return kops.tile_rows(F, tile), tile
     else:
         raise ValueError(cfg.backend)
+    decode_frames.tiling = tiling
     return decode_frames
 
 
 def make_frame_decoder(cfg: DecoderConfig, device=None):
     """Returns decode_frames(frames (F, L, beta)) -> (F, f) int32 bits on
-    ``device`` (``None`` = ``"cuda"``). Memoized per (cfg, device) in the
+    ``device`` (``None`` = ``"cuda"``). ``decode_frames.tiling(F)`` gives
+    the (rows, tile) a launch over F frames decodes, for a caller that
+    frames straight into the tile's rows and passes the tile back as
+    ``frames_per_tile``: the planned tile (``decode.plan``) and its
+    multiple of rows for the kernel backends without block reframing, F
+    rows and ``cfg.frames_per_tile`` otherwise. Memoized per (cfg, device) in the
     process-global plan cache (serve.plan_cache), as in the JAX package:
     every caller, the stream and serve layers included, gets the same
     closure."""
@@ -145,76 +166,35 @@ def make_decoder(cfg: DecoderConfig, device=None):
     (m,) for rate != 1/2, or (n, beta) LLRs; numpy or torch.
 
     Each call runs under a ``decode`` span (attribute ``call``, the
-    decoder's sequence number of the call), with ``decode.copy_in``, the
-    clip, the depuncture and the framing inside it, and the frame
-    decoder's spans after. On the card the kernel backends clip and frame
-    in one launch under ``decode.frame``: at rate 1/2 the framing kernel's;
-    at punctured rates the punctured framing kernel's, which depunctures
-    too (attributes ``rate``, the pattern's name, and ``symbols``, the
-    received stream's length) and writes the frames already padded to the
-    tile, planned first under ``decode.plan``. On the CPU and in the
-    reference backend the clip runs under ``decode.sanitize``, the
-    depuncture under ``decode.depuncture`` (the same attributes) and
-    ``frame_llr`` under ``decode.frame``, the reference backend's in plain
-    torch on any device.
+    decoder's sequence number of the call), with ``decode.copy_in`` and
+    ``core.framed.frame_received``'s spans inside it (the clip and the
+    framing: one kernel launch under ``decode.frame`` on the card in the
+    kernel backends, else ``decode.sanitize`` and then ``decode.frame``),
+    and the frame decoder's spans after. At punctured rates the frame
+    decoder's ``tiling`` plans the tile first (``decode.plan``), and the
+    frames are written already padded to it; at rate 1/2 the frame decoder
+    plans after the framing launch, which it overlaps on the card.
     """
-    from ..kernels import framing
     from ..kernels import ops as kops
-    from ..kernels.block import resolve_block
     dev = kops.resolve_device(device)
     decode_frames = make_frame_decoder(cfg, dev)
     # input hardening (core.sanitize): NaN/Inf -> neutral zero,
-    # |llr| > clip -> ±clip; the identity on clean in-range inputs. On the
-    # card the kernel backends' framing kernels clip as they frame; the
-    # reference backend keeps the plain torch ops.
+    # |llr| > clip -> ±clip; the identity on clean in-range inputs. The
+    # reference backend keeps the plain torch ops on every device.
     plain = cfg.backend == "reference"
-    fused = dev.type == "cuda" and not plain
-    punctured = cfg.rate != "1/2"
-    # the punctured kernel pads to the tile unless blocks are reframed
-    pad_rows = punctured and resolve_block(
-        cfg.trellis, cfg.spec, cfg.block_frames, cfg.overlap)[0] == 1
-
     calls = itertools.count()
-
-    def frame_punctured(stream, n):
-        """(m,) stream -> frames padded to the tile, and the tile."""
-        F = cfg.spec.num_frames(n)
-        tile, rows = cfg.frames_per_tile, F
-        if pad_rows:
-            if tile == "auto":
-                tile = kops.plan_frames_per_tile(
-                    cfg.trellis, cfg.spec, F,
-                    unified=cfg.backend == "kernel",
-                    pack_survivors=cfg.pack_survivors, radix=cfg.radix,
-                    layout=cfg.layout, bm_dtype=cfg.bm_dtype, device=dev)
-            rows = kops.tile_rows(F, tile)
-        with span_tracer().span("decode.frame", rate=cfg.rate,
-                                symbols=int(stream.shape[0])):
-            return framing.frame_punctured_cuda(stream, cfg.rate, n,
-                                                cfg.spec, _LLR_CLIP,
-                                                rows), tile
 
     def decode(stream, n: int) -> torch.Tensor:
         trace = span_tracer()
         with trace.span("decode", call=next(calls)):
             with trace.span("decode.copy_in"):
                 stream = torch.as_tensor(stream).to(dev)
-            if fused and punctured:
-                frames, tile = frame_punctured(stream, n)
-                bits = decode_frames(frames, frames_per_tile=tile)
-                return bits.reshape(-1)[:n]
-            if not fused:
-                with trace.span("decode.sanitize"):
-                    stream = framing.clip_llr_plain(stream, _LLR_CLIP)
-            if punctured:
-                with trace.span("decode.depuncture", rate=cfg.rate,
-                                symbols=int(stream.shape[0])):
-                    llr = depuncture(stream, cfg.rate, n)
-            else:
-                llr = stream if stream.ndim == 2 else stream.reshape(n, -1)
-            frames = frame_llr(llr, cfg.spec, _LLR_CLIP if fused else None,
-                               plain=plain)
-            bits = decode_frames(frames)    # (F, f)
+            rows, tile = None, cfg.frames_per_tile
+            if cfg.rate != "1/2":
+                rows, tile = decode_frames.tiling(cfg.spec.num_frames(n))
+            frames = frame_received(stream, n, cfg.spec, cfg.rate,
+                                    _LLR_CLIP, rows, plain=plain)
+            bits = decode_frames(frames, frames_per_tile=tile)  # (rows, f)
             return bits.reshape(-1)[:n]
 
     return decode

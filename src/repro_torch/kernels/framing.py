@@ -13,24 +13,21 @@ design) reads each LLR once and writes each framed LLR once:
 * ``frame_llr_plain`` is the plain torch version: ``clip_llr_plain`` (ATen's
   isfinite, where and clamp) and then the edge padding and the gather.
 
-``repro_torch.core.framed.frame_llr`` picks between them by the tensor's
-device, under the ``decode.frame`` span: a CUDA tensor takes the kernel,
-with no fallback.
-
-At punctured rates the receiver call on the card runs a second kernel of
-the same source, with its own entry point: the (m,) soft-symbol stream in,
-the frames out, clipped, depunctured through the pattern's ``rank_table``
-and padded with zero rows to B1's tile, in one launch:
+At punctured rates a second kernel of the same source, with its own entry
+point, takes the (m,) soft-symbol stream in and writes the frames out,
+clipped, depunctured through the pattern's ``rank_table`` and padded with
+zero rows to B1's tile, in one launch:
 
 * ``frame_punctured_cuda`` checks, allocates, launches, raises on any
   failure and counts ``.launches``;
 * ``frame_punctured_plain`` is its plain version, the same definition in
-  torch ops. The receiver call on the CPU and in the reference backend
-  keeps the chain it replaces on the card: ``clip_llr_plain``,
-  ``core.puncture.depuncture`` and ``frame_llr_plain``.
+  torch ops.
 
-Both kernels equal their plain versions bit for bit in float32, float64,
-float16 and bfloat16; the frames keep the input's dtype.
+``repro_torch.core.framed.frame_received``, the receiver call's one front
+end, picks between each kernel and its plain version by the tensor's
+device, under the ``decode.frame`` span: a CUDA tensor takes the kernel,
+with no fallback. Both kernels equal their plain versions bit for bit in
+float32, float64, float16 and bfloat16; the frames keep the input's dtype.
 """
 from __future__ import annotations
 
@@ -148,32 +145,36 @@ def frame_llr_cuda(llr: torch.Tensor, spec,
 frame_llr_cuda.launches = 0
 
 
-@functools.lru_cache(maxsize=None)
 def rank_table(name: str) -> tuple[int, tuple[int, ...]]:
     """The punctured pattern ``name``'s table: the symbols a period keeps,
     and at ``t * beta + b`` (phase t of the period, output b) the rank of
     that symbol among the period's kept ones in the order they are sent
-    (stage by stage, output by output), -1 where the pattern drops it."""
-    pattern = PATTERNS[name]
-    beta, period = pattern.shape
+    (stage by stage, output by output), -1 where the pattern drops it.
+    Cached by the pattern's contents, so a changed ``PATTERNS`` entry is
+    seen by the next call."""
+    return _rank_table(tuple(map(tuple, PATTERNS[name].tolist())))
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_table(mask: tuple) -> tuple[int, tuple[int, ...]]:
     table, kept = [], 0
-    for t in range(period):
-        for b in range(beta):
-            table.append(kept if pattern[b, t] else -1)
-            kept += int(pattern[b, t])
+    for t in range(len(mask[0])):
+        for row in mask:
+            table.append(kept if row[t] else -1)
+            kept += int(row[t])
     return kept, tuple(table)
 
 
 @functools.lru_cache(maxsize=None)
-def _c_table(name: str):
-    _, table = rank_table(name)
+def _c_table(table: tuple):
     return (ctypes.c_byte * len(table))(*table)
 
 
 def _punctured_rows(stream: torch.Tensor, name: str, n: int, spec,
-                    rows: int | None) -> tuple[int, int]:
+                    rows: int | None) -> tuple[int, int, int, tuple]:
     """Checks the stream's length against n stages of ``name``; returns
-    (F, rows): the frames that hold stages and the rows written."""
+    (F, rows, kept, table): the frames that hold stages, the rows written
+    and the pattern's ``rank_table``."""
     kept, table = rank_table(name)
     beta, period = PATTERNS[name].shape
     q, r = divmod(n, period)
@@ -186,11 +187,11 @@ def _punctured_rows(stream: torch.Tensor, name: str, n: int, spec,
     rows = F if rows is None else int(rows)
     if rows < F:
         raise ValueError(f"rows={rows} < the {F} frames of {n} stages")
-    return F, rows
+    return F, rows, kept, table
 
 
 def frame_punctured_plain(stream: torch.Tensor, name: str, n: int, spec,
-                          clip: float, rows: int | None = None
+                          clip: float | None = None, rows: int | None = None
                           ) -> torch.Tensor:
     """The punctured receiver call's clip, depuncture, framing and padding
     by their definition: (m,) soft symbols of n stages at rate ``name`` ->
@@ -201,14 +202,15 @@ def frame_punctured_plain(stream: torch.Tensor, name: str, n: int, spec,
                        where 0 <= s < n, m < F and the pattern keeps (b, t),
                      = 0 otherwise,
 
-    g the clip (``clip_llr_plain``); the frames keep the stream's dtype.
-    The kernel's plain version; the receiver call on the CPU keeps the
-    chain ``clip_llr_plain`` -> ``depuncture`` -> ``frame_llr_plain``."""
-    F, rows = _punctured_rows(stream, name, n, spec, rows)
-    kept, table = rank_table(name)
+    g the clip (``clip_llr_plain``), or the identity when ``clip`` is None;
+    the frames keep the stream's dtype. The kernel's plain version, and the
+    receiver call's on the CPU and in the reference backend."""
+    F, rows, kept, table = _punctured_rows(stream, name, n, spec, rows)
     beta, period = PATTERNS[name].shape
     dev = stream.device
-    x = torch.cat([clip_llr_plain(stream, clip), stream.new_zeros(1)])
+    if clip is not None:
+        stream = clip_llr_plain(stream, clip)
+    x = torch.cat([stream, stream.new_zeros(1)])
     m = torch.arange(rows, device=dev)[:, None, None]
     s = m * spec.f - spec.v1 + torch.arange(spec.frame_len,
                                             device=dev)[None, :, None]
@@ -232,10 +234,9 @@ def frame_punctured_cuda(stream: torch.Tensor, name: str, n: int, spec,
     if stream.dtype not in DTYPES:
         raise ValueError(f"the framing kernel takes "
                          f"{sorted(map(str, DTYPES))}, got {stream.dtype}")
-    F, rows = _punctured_rows(stream, name, n, spec, rows)
+    F, rows, kept, table = _punctured_rows(stream, name, n, spec, rows)
     stream = stream.contiguous()
     beta, period = PATTERNS[name].shape
-    kept, _ = rank_table(name)
     L = spec.frame_len
     out = torch.empty((rows, L, beta), dtype=stream.dtype,
                       device=stream.device)
@@ -248,7 +249,7 @@ def frame_punctured_cuda(stream: torch.Tensor, name: str, n: int, spec,
         err = lib.frame_punctured_launch(
             stream.data_ptr(), out.data_ptr(), DTYPES[stream.dtype],
             stream.shape[0], n, beta, F, rows, spec.f, spec.v1, L, period,
-            kept, _c_table(name), lo, hi, cs)
+            kept, _c_table(table), lo, hi, cs)
     if err != 0:
         raise RuntimeError(f"frame_punctured launch failed: CUDA error "
                            f"{err}")

@@ -5,10 +5,11 @@ tile planner (kernels/autotune.py, for the kernel that will run; the
 ``decode.plan`` span), moves the frames to the device, applies the
 intra-frame block reframe and pads the frame count to the tile (the
 ``decode.pad`` span; a caller that frames already padded plans first with
-``plan_frames_per_tile`` and passes the tile, as the punctured receiver
-call on the card does, and then there is nothing to pad), encodes the
-serial traceback as one subframe (``f0=f, v2s=v2``) and dispatches
-under the ``decode.kernel`` span, whose attributes are the launch's knobs:
+``plan_frames_per_tile`` and passes the tile, as the frame decoder's
+``tiling`` does for the punctured receiver call, and then there is nothing
+to pad), encodes the serial traceback as one subframe (``f0=f, v2s=v2``)
+and dispatches under the ``decode.kernel`` span, whose attributes are the
+launch's knobs:
 
 * ``unified=True``  — the unified kernel: survivors never leave the chip;
 * ``unified=False`` — the split path, the prior-work baseline: the forward

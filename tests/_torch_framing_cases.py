@@ -17,8 +17,9 @@ k7_r34_batch cell's at rate 3/4), ``punctured_length`` a stream of n
 stages with each tail ``n % period`` and two short ones, ``symbols_case``
 the (m,) soft symbols of n stages with the same values planted, and
 ``todays_punctured_frames`` the receiver call's chain as it ran on the
-card before the punctured kernel: ``clip_llr_plain``, ``depuncture``,
-``frame_llr_plain``, then zero rows up to ``rows``.
+card before the punctured kernel: ``clip_llr_plain`` (unless ``clip`` is
+False), ``depuncture``, ``frame_llr_plain``, then zero rows up to
+``rows``.
 """
 import numpy as np
 import torch
@@ -131,9 +132,11 @@ def symbols_case(rate: str, n: int, dtype: torch.dtype,
 
 
 def todays_punctured_frames(x: torch.Tensor, rate: str, n: int,
-                            rows: int | None = None) -> torch.Tensor:
+                            rows: int | None = None,
+                            clip: bool = True) -> torch.Tensor:
     spec = PUNCTURED[rate]
-    frames = framing.frame_llr_plain(
-        depuncture(framing.clip_llr_plain(x, LLR_CLIP), rate, n), spec)
+    if clip:
+        x = framing.clip_llr_plain(x, LLR_CLIP)
+    frames = framing.frame_llr_plain(depuncture(x, rate, n), spec)
     extra = 0 if rows is None else rows - frames.shape[0]
     return torch.nn.functional.pad(frames, (0, 0, 0, 0, 0, extra))

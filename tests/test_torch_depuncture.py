@@ -1,11 +1,12 @@
 """The receiver call's depuncture (repro_torch.core.puncture.depuncture), on
 the CPU.
 
-``depuncture`` writes the stream into the (n, beta) grid through the
-period's kept positions, a table of at most period * beta entries: it must
-equal the definition by a flat index of every kept position over the n
-stages, bit for bit, in every dtype, for n below one period and for n
-that is not a multiple of it, and build no such index. The JAX parity of
+``depuncture`` writes the stream into the (n, beta) grid in one indexed
+store at the positions the pattern keeps: it must equal the definition by
+a flat index of every kept position over the n stages, bit for bit, in
+every dtype, for n below one period and for n that is not a multiple of
+it. The receiver call depunctures inside its framing and records the rate
+and the symbols on ``decode.frame``. The JAX parity of
 the same function is ``tests/test_torch_core.py::
 test_puncture_depuncture_equal``; the card's check is
 ``tests/test_torch_gpu_depuncture.py``.
@@ -77,21 +78,6 @@ def test_depuncture_of_a_view_of_a_larger_tensor(view, n):
     assert torch.equal(pun.depuncture(stream, "3/4", n), want)
 
 
-@pytest.mark.parametrize("name", ["2/3", "3/4"])
-def test_depuncture_builds_no_index_over_the_stages(name, monkeypatch):
-    n = 100_000
-    stream = _stream(name, n, torch.float32, seed=7)
-    want = index_definition(stream, name, n)
-    real = pun._keep_idx
-
-    def one_period_at_most(m, pattern):
-        if m > pattern.shape[1]:
-            raise AssertionError(f"an index over {m} stages")
-        return real(m, pattern)
-    monkeypatch.setattr(pun, "_keep_idx", one_period_at_most)
-    assert torch.equal(pun.depuncture(stream, name, n), want)
-
-
 @pytest.mark.parametrize("delta", [-1, 1])
 def test_depuncture_refuses_a_stream_of_the_wrong_length(delta):
     n = 3001
@@ -117,6 +103,7 @@ def test_make_decoder_records_the_rate_and_the_symbols(tracer, backend):
                                      backend=backend), "cpu")
     bits = dec(stream, n)
     assert bits.shape == (n,)
-    (span,) = [r for r in tracer.spans() if r.name == "decode.depuncture"]
+    assert "decode.depuncture" not in [r.name for r in tracer.spans()]
+    (span,) = [r for r in tracer.spans() if r.name == "decode.frame"]
     assert span.parent == "decode"
     assert span.attrs == {"rate": "3/4", "symbols": kept_count("3/4", n)}

@@ -1,8 +1,7 @@
-"""The receiver call's depuncture on the card: equal to the definition by a
-flat index over the stages at a deployment's size, no host-to-device copy
-under ``decode.depuncture`` (the reference backend's; the kernel
-backends' punctured kernel is tests/test_torch_gpu_punctured.py), and a
-rate-3/4 ``make_decoder`` call's bits equal to its reference backend's.
+"""The depuncture on the card: equal to the definition by a flat index
+over the stages at a deployment's size, and a rate-3/4 ``make_decoder``
+call's bits equal to its reference backend's (the receiver call's
+punctured framing kernel is tests/test_torch_gpu_punctured.py).
 The CPU tests are ``tests/test_torch_depuncture.py``.
 
 Marked ``gpu``: each test asks its fixture for a card and skips without
@@ -13,8 +12,6 @@ import importlib
 
 import pytest
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.channel.sim import channel
 from repro_torch.core.framed import FrameSpec
@@ -46,57 +43,6 @@ def test_depuncture_on_the_card_equals_the_index_definition(cuda, extra):
     assert got.device.type == "cuda" and got.shape == (n, 2)
     assert torch.equal(got.view(torch.uint8),
                        index_definition(stream, "3/4", n).view(torch.uint8))
-
-
-def _profiled(fn):
-    """The device operations' names and the host events of ``fn()``."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.events()
-    return ([e.name for e in events if e.device_type == DeviceType.CUDA],
-            [e for e in events if e.device_type == DeviceType.CPU])
-
-
-def _inside(host, span):
-    """The host events inside the one host event named ``span``."""
-    (outer,) = [e for e in host if e.name == span]
-    lo, hi = outer.time_range.start, outer.time_range.end
-    return [e.name for e in host if e is not outer
-            and lo <= e.time_range.start and e.time_range.end <= hi]
-
-
-def test_a_rate_34_call_copies_nothing_in_under_decode_depuncture(cuda):
-    """A rate-3/4 call on a stream that is on the card. The reference
-    backend's (the kernel backends depuncture inside the punctured framing
-    kernel, with no ``decode.depuncture``): under ``decode.depuncture`` no
-    host tensor is moved to the card (no ``aten::_to_copy``) and the device
-    work queued is a few slice copies and fills, a count set by the pattern
-    and not by n. The kernel backend's: the call's device operations hold
-    no host-to-device copy (where the profiler kept them: in a process
-    that has run many kernels it can drop a short profile's device
-    records)."""
-    n = 1 << 22
-    gen = torch.Generator(device=cuda).manual_seed(11)
-    _, rx = channel(gen, n, 5.0, rate="3/4")
-    decode = {b: make_decoder(DecoderConfig(spec=SPEC34, rate="3/4",
-                                            backend=b), cuda)
-              for b in ("reference", "kernel")}
-    want = decode["reference"](rx, n)                   # builds, plans
-    got = []
-    _, host = _profiled(lambda: got.append(decode["reference"](rx, n)))
-    assert torch.equal(got[0], want)
-    inner = _inside(host, "decode.depuncture")
-    assert "aten::_to_copy" not in inner, inner
-    launches = [s for s in inner if s.startswith(
-        ("cudaLaunch", "cudaMemcpy", "cudaMemset"))]
-    period, beta = pun.PATTERNS["3/4"].shape[1], 2
-    assert 1 <= len(launches) <= 2 * period * beta, inner
-    assert torch.equal(decode["kernel"](rx, n), want)
-    dev, _ = _profiled(lambda: decode["kernel"](rx, n))
-    assert not [s for s in dev if "HtoD" in s], dev
 
 
 def test_a_rate_34_call_equals_the_reference_backend(cuda):

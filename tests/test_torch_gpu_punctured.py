@@ -110,7 +110,8 @@ def test_kernel_equals_plain_at_the_cell(cuda):
 def test_kernel_backend_equals_the_reference_backend_at_the_cell(cuda):
     """k7_r34_batch's call, poisoned: the kernel backend (one launch of the
     punctured kernel, none of the rate-1/2 one) decodes the reference
-    backend's bits (the plain chain on the card, no framing launch)."""
+    backend's bits (``frame_punctured_plain`` on the card, no framing
+    launch)."""
     rx = _cell_stream(cuda, 2)
     got, launches = {}, {}
     for backend in ("kernel", "reference"):

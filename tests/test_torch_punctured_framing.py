@@ -10,8 +10,9 @@ up to the tile's multiple) at rates 2/3 and 3/4, for every tail
 ``n % period`` and streams shorter than a frame, in every dtype the kernel
 takes with NaN, +-Inf, values past the clip and -0.0 planted, and on a
 stream that is a view of a larger tensor; and the JAX package's
-depuncture and framing on the same inputs. Frames padded to the tile
-decode the bits of the unpadded call.
+depuncture and framing on the same inputs. ``make_decoder`` on the CPU
+runs it into the tile's rows and decodes the reference backend's bits,
+and a changed pattern is seen by its next call.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,10 @@ from repro.core import FrameSpec as JFrameSpec
 from repro.core.framed import frame_llr as jframe_llr
 from repro.core.puncture import depuncture as jdepuncture
 
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import obs
+from repro_torch.core.framed import frame_received
 from repro_torch.core.pipeline import DecoderConfig, make_decoder, \
     make_frame_decoder
 from repro_torch.core.puncture import PATTERNS, _keep_idx
@@ -67,6 +72,17 @@ def test_plain_reads_a_view_of_a_larger_tensor(rate, view):
                                         .num_frames(n))
     want = todays_punctured_frames(x.clone(), rate, n, got.shape[0])
     assert torch.equal(bits(got), bits(want))
+
+
+def test_plain_without_the_clip_equals_the_chain_without_it():
+    rate = "3/4"
+    n = punctured_length(rate, "tail2")
+    x = symbols_case(rate, n, torch.float32, seed=5)
+    got = framing.frame_punctured_plain(x, rate, n, PUNCTURED[rate])
+    want = todays_punctured_frames(x, rate, n, clip=False)
+    assert torch.equal(bits(got), bits(want))
+    assert not torch.equal(bits(got), bits(todays_punctured_frames(x, rate,
+                                                                   n)))
 
 
 _JAX_DTYPES = {torch.float32: jnp.float32, torch.float64: jnp.float64}
@@ -128,6 +144,8 @@ def test_a_two_dimensional_stream_and_too_few_rows_raise():
                                       F - 1)
     with pytest.raises(ValueError, match="CUDA device"):
         framing.frame_punctured_cuda(x, rate, n, PUNCTURED[rate], LLR_CLIP)
+    with pytest.raises(ValueError, match="punctured rates only"):
+        frame_received(torch.zeros(n, 2), n, PUNCTURED[rate], rows=F)
 
 
 @pytest.mark.parametrize("F,tile,rows", [
@@ -139,22 +157,54 @@ def test_tile_rows(F, tile, rows):
 
 @pytest.mark.parametrize("rate", list(PUNCTURED))
 def test_frames_padded_to_the_tile_decode_the_same_bits(rate):
-    """What the receiver call does on the card: plan the tile for F frames,
-    frame into the tile's multiple of rows, decode them all at that tile,
-    keep the first n bits; equal to the reference backend's call."""
+    """The receiver call on the CPU takes the card's order: plan the tile
+    for F frames, frame into the tile's multiple of rows, decode them all
+    at that tile with nothing padded under ``decode.pad``, keep the first
+    n bits; equal to the reference backend's call."""
     from _torch_parity import rx
     spec = PUNCTURED[rate]
     n = 4 * spec.f + 5                      # 5 frames, an odd count
     x = torch.from_numpy(rx(n, rate, seed=9))
     cfg = DecoderConfig(spec=spec, rate=rate, backend="kernel")
     F = spec.num_frames(n)
-    tile = ops.plan_frames_per_tile(
-        cfg.trellis, spec, F, unified=True, pack_survivors=True, radix=4,
-        layout="lane", bm_dtype="float32", device="cpu")
-    rows = ops.tile_rows(F, tile)
-    assert rows > F
-    frames = framing.frame_punctured_plain(x, rate, n, spec, LLR_CLIP, rows)
-    got = make_frame_decoder(cfg, "cpu")(frames, frames_per_tile=tile)
-    assert got.shape == (rows, spec.f)
+    rows, tile = make_frame_decoder(cfg, "cpu").tiling(F)
+    assert rows == ops.tile_rows(F, tile) and rows > F
+    decode = make_decoder(cfg, "cpu")
+    tracer = obs.ProfiledTracer()
+    prev = obs.set_tracer(tracer)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            got = decode(x, n)
+    finally:
+        obs.set_tracer(prev)
+    (kern,) = [r for r in tracer.spans() if r.name == "decode.kernel"]
+    assert kern.attrs["frames"] == rows
+    assert kern.attrs["frames_per_tile"] == tile
+    padded = [e.name for e in prof.events() if _under(e, "decode.pad")
+              and e.name in ("aten::constant_pad_nd", "aten::pad")]
+    assert padded == []
     want = make_decoder(DecoderConfig(spec=spec, rate=rate), "cpu")(x, n)
-    assert torch.equal(got.reshape(-1)[:n], want)
+    assert got.shape == (n,) and torch.equal(got, want)
+
+
+def _under(ev, name):
+    while ev.cpu_parent is not None:
+        ev = ev.cpu_parent
+        if ev.name == name:
+            return True
+    return False
+
+
+@pytest.mark.parametrize("rate", list(PUNCTURED))
+def test_a_changed_pattern_is_seen_by_the_next_call(rate, monkeypatch):
+    """The pattern's rank table is keyed on its contents: after one call,
+    a pattern with its rows swapped changes the next call's bits."""
+    from _torch_parity import rx
+    spec = PUNCTURED[rate]
+    n = 4 * spec.f + 5
+    x = torch.from_numpy(rx(n, rate, seed=10))
+    decode = make_decoder(DecoderConfig(spec=spec, rate=rate,
+                                        backend="kernel"), "cpu")
+    first = decode(x, n)
+    monkeypatch.setitem(PATTERNS, rate, PATTERNS[rate][::-1].copy())
+    assert not torch.equal(decode(x, n), first)

@@ -1,7 +1,7 @@
 """The decode path's spans (repro_torch.obs.profiled), on the CPU.
 
 ``make_decoder`` calls run under ``decode`` with ``decode.copy_in``,
-``decode.sanitize``, ``decode.depuncture``, ``decode.frame``,
+``decode.sanitize``, ``decode.frame``,
 ``decode.plan``, ``decode.pad`` and ``decode.kernel`` inside; a sharded
 call under ``shard`` with ``shard.out``, a ``shard.decode`` a card and
 ``shard.gather``. ``ProfiledTracer`` puts them into a running
@@ -84,6 +84,8 @@ def test_make_decoder_spans_nest_under_decode(tracer_set, backend):
 
 
 def test_a_punctured_call_runs_under_decode_depuncture(tracer_set):
+    """The depuncture runs inside ``decode.frame``, which records the
+    rate; there is no ``decode.depuncture`` span."""
     from _torch_parity import rx
     n = 63 * 4
     dec = make_decoder(DecoderConfig(spec=SPEC34, rate="3/4",
@@ -91,7 +93,10 @@ def test_a_punctured_call_runs_under_decode_depuncture(tracer_set):
     t = tracer_set(obs.Tracer())
     dec(rx(n, "3/4", seed=1), n)
     names = [r.name for r in t.spans()]
-    assert "decode.depuncture" in names
+    assert "decode.depuncture" not in names
+    assert set(names) == {"decode"} | DECODE
+    (frame,) = [r for r in t.spans() if r.name == "decode.frame"]
+    assert frame.attrs["rate"] == "3/4"
     assert {r.parent for r in t.spans() if r.name.startswith("decode.")} \
         == {"decode"}
 
