@@ -15,7 +15,9 @@ non-zero:
              spills of every instantiation (registers per lane R x beta
              2..8 and the run-time beta past it; the large codes'
              one-block kernels per butterflies a thread, table and
-             per-edge sums; the wide and cluster kernels), and the
+             per-edge sums; the wide and cluster kernels; B1's thread
+             mapping's, registers, local bytes and spills per k and
+             beta), and the
              one-block kernels' blocks resident an SM at beta 2 and 9
              (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
              autotune.H100_BLOCKS on an H100).
@@ -53,7 +55,9 @@ non-zero:
              bits must equal backend="reference" on the same LLRs (plain
              torch clip, depuncture and framing: no framing-kernel launch),
              and the split bits the unified bits, and the
-             rate-1/2 BER must be below 1e-3. Then the wide path: K=16 rate
+             rate-1/2 BER must be below 1e-3; every B1 launch of the K=7
+             path (16,384 frames) must run on the thread mapping
+             (``mapping_launches``). Then the wide path: K=16 rate
              1/2 at the main frame, 132 frames, through both kernel
              backends (counts set to 0 just before each and read just
              after), bits equal to the reference backend's; and the
@@ -75,7 +79,11 @@ non-zero:
              64), bit for bit against its plain version and the ATen chain
              it replaces, in turns with both; the unified kernel's knob
              sweep and its auto tile against tile 4 (must be within 2 %);
-             the split path's layouts; the traceback's staged and direct
+             B1 at K=7 on the thread mapping against the warp mapping,
+             both forced, in turns, at the main shape, the K=7 cells'
+             calls, a stream chunk (64 frames), a server batch (4,096)
+             and the card's threshold (8,448), beside the mapping the
+             launch takes unforced; the split path's layouts; the traceback's staged and direct
              chases in turns, at K=7 (lane and sublane, packed, unpacked,
              serial) and K=11 (4096 frames), beside the shape rule's pick
              and the bound; B1 and B3 at K=12, 13, 14, 15 and K=12 beta=8
@@ -101,10 +109,12 @@ non-zero:
              kernels: clip, depuncture, frame gather, pad) of the call.
 7. stream  — stream_decode's path (make_stream_decoder, push, flush) at
              K=7, rates 1/2 and 3/4 (the main path's frames), n = 2^24
-             bits pushed in seeded random slices of 1-64 kbit (raw
-             symbols at rate 3/4, so slices cut puncturing periods), at the
-             one-wave chunk (the plan's resident frames per SM x SMs),
-             then n = 2^18 at the planner's default chunk. Launch counts
+             bits or the power of two that spans STREAM_WAVES chunks
+             (2^26 on the thread mapping), pushed in seeded random slices
+             of 1-64 kbit (raw symbols at rate 3/4, so slices cut
+             puncturing periods), at the one-wave chunk (the plan's
+             resident frames per SM x SMs), then n = 2^18 at the
+             planner's default chunk. Launch counts
              set to 0 just before each run and read just after: B1 once
              per chunk, nothing else (the stream frames on its own). Bits must equal make_decoder on the
              card. Prints Mb/s and the host ms per chunk by phase
@@ -352,7 +362,8 @@ DECODE_KERNELS = ("viterbi_unified_kernel", "viterbi_fwd_kernel",
                   "viterbi_unified_block_pe_kernel",
                   "viterbi_fwd_block_pe_kernel", "viterbi_unified_wide_kernel",
                   "viterbi_fwd_wide_kernel", "viterbi_unified_cluster_kernel",
-                  "viterbi_fwd_cluster_kernel")
+                  "viterbi_fwd_cluster_kernel",
+                  "viterbi_unified_thread_kernel")
 
 
 def log(phase: str, msg: str) -> None:
@@ -533,6 +544,26 @@ def wide_register_report(built, kernel: str, attrs, cluster_attrs) -> str:
     return "; ".join(rows)
 
 
+def thread_register_report(built, attrs) -> str:
+    """Registers (cudaFuncGetAttributes), local bytes and ptxas spill
+    stores of B1's thread mapping (viterbi_unified_thread_kernel<K,
+    BETA>), per k and beta it takes."""
+    import ctypes
+    from repro_torch.kernels import autotune
+    rows = []
+    for k in range(autotune.THREAD_MIN_K, autotune.THREAD_MAX_K + 1):
+        for beta in range(2, autotune.THREAD_MAX_BETA + 1):
+            out = (ctypes.c_int * 3)()
+            if attrs(k, beta, out) != 0:
+                raise RuntimeError(f"thread kernel k={k} beta={beta}: no "
+                                   f"function attributes")
+            spill = _spill_of(built, f"viterbi_unified_thread_kernelILi{k}"
+                                     f"ELi{beta}E")
+            rows.append(f"k={k} beta={beta}: {out[0]}/{out[1]}/{spill}")
+    return ("viterbi_unified_thread_kernel registers/local bytes/spilled "
+            "bytes: " + "; ".join(rows))
+
+
 def phase_build():
     from repro_torch.kernels import framing
     from repro_torch.kernels import traceback_frames as tbf
@@ -558,6 +589,9 @@ def phase_build():
         log("build", wide_register_report(
             built[kernel], kernel, getattr(lib, attrs + "_func_attrs"),
             getattr(lib, attrs + "_cluster_attrs")))
+        if attrs == "viterbi_unified":
+            log("build", thread_register_report(
+                built[kernel], lib.viterbi_unified_thread_attrs))
     from repro_torch.core.trellis import make_trellis
     from repro_torch.kernels import autotune
     blocks = {name + low: {k: autotune.block_capacity(
@@ -875,6 +909,9 @@ def _drive(backend, streams):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    mapping = counters["viterbi_unified"].mapping_launches
+    for m in mapping:
+        mapping[m] = 0
     t0 = time.perf_counter()
     decoded = {rate: decoders[rate](rx, N_BITS)
                for rate, (_, rx) in streams.items()}
@@ -898,6 +935,12 @@ def phase_main(gen):
     unified, ucounts, uwall = _drive("kernel", streams)
     if ucounts["viterbi_unified"] < 1:
         raise AssertionError("the main path never launched viterbi_unified")
+    mapping = dict(_counters()["viterbi_unified"].mapping_launches)
+    if mapping["thread"] != ucounts["viterbi_unified"] or \
+            sum(mapping.values()) != mapping["thread"]:
+        raise AssertionError(f"the K=7 main path's B1 launches by mapping "
+                             f"{mapping}: expected every one on the thread "
+                             f"mapping")
     if (ucounts["frame_llr"], ucounts["frame_punctured"]) != (1, 1):
         raise AssertionError(f"kernel path launches {ucounts}: expected one "
                              f"frame_llr launch at rate 1/2 and one "
@@ -930,6 +973,7 @@ def phase_main(gen):
             f"kernel and kernel_split equal to the reference backend")
         if rate == "1/2" and not b < BER_LIMIT:
             raise AssertionError(f"rate 1/2 BER {b} >= {BER_LIMIT}")
+    log("main", f"backend=kernel B1 launches by mapping {mapping}")
     log("main", f"backend=kernel launches {ucounts}, both rates in "
         f"{uwall * 1e3:.1f} ms; backend=kernel_split launches {scounts}, "
         f"both rates in {swall * 1e3:.1f} ms (host clock, after synchronize, "
@@ -1174,12 +1218,75 @@ def time_unified(frames, launches):
     log("time", f"ms per launch by knob (auto tile "
         f"{auto.frames_per_tile} unless named; packed, radix 4, f32 bm, "
         f"parallel traceback): {sweep}")
+    thread_vs_warp(frames)
     return {"name": "viterbi_unified", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/viterbi_unified.cu",
             "replaces": "src/repro/kernels/viterbi_unified.py:199",
             "launches": launches["viterbi_unified"], "max_abs_err": err,
             "parity": "equal", "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+#: B1 at K=7 on the thread mapping against the warp mapping: the main
+#: shape, the K=7 cells' calls, and the launches of the stream's default
+#: chunk, of the server's full batch and at the card's threshold (code,
+#: frames, frame geometry).
+THREAD_ROWS = [("main", CODES[4], 16384,
+                dict(v1=20, f=256, v2=45, f0=32, v2s=45)),
+               ("k7_r12_batch", CODES[4], 65536,
+                dict(v1=20, f=256, v2=45, f0=32, v2s=45)),
+               ("k7_r34_batch", (7, (0o133, 0o171)), 66624,
+                dict(v1=21, f=252, v2=45, f0=42, v2s=45)),
+               ("stream chunk", CODES[4], 64,
+                dict(v1=20, f=256, v2=45, f0=32, v2s=45)),
+               ("serve batch", CODES[4], 4096,
+                dict(v1=20, f=256, v2=45, f0=32, v2s=45)),
+               ("threshold", CODES[4], 8448,
+                dict(v1=20, f=256, v2=45, f0=32, v2s=45))]
+#: The warp mapping's tile at K=7 (the planner's before the thread
+#: mapping took K=7) and the thread mapping's (one warp of frames).
+WARP_TILE = 2
+THREAD_TILE = 32
+
+
+def thread_vs_warp(main_frames):
+    """B1 forced onto the thread mapping (``_thread``) against the warp
+    mapping (``_warp``), in turns, at THREAD_ROWS, beside the mapping the
+    launch takes unforced (``autotune.b1_mapping`` by its frame count);
+    the bits equal."""
+    import torch
+    from repro_torch.core.framed import FrameSpec
+    from repro_torch.core.trellis import make_trellis
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import viterbi_unified as vu
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for label, code, F, geometry in THREAD_ROWS:
+        tr = make_trellis(*code)
+        spec = FrameSpec(**geometry)
+        frames = (main_frames if label == "main" else
+                  _frames(tr, spec, F, gen, torch.float32))
+        plan = autotune.plan_tiles(tr, spec, pack_survivors=True, radix=4,
+                                   max_frames=F, device="cuda")
+        takes = autotune.b1_mapping(tr, frames=F, device="cuda")
+        kw = dict(geometry, trellis=tr, pack_survivors=True, radix=4)
+        fns = {"thread": lambda: vu.unified_decode_frames_cuda(
+                   frames, frames_per_tile=THREAD_TILE, _thread=True, **kw),
+               "warp": lambda: vu.unified_decode_frames_cuda(
+                   frames, frames_per_tile=WARP_TILE, _warp=True, **kw)}
+        if not torch.equal(fns["thread"](), fns["warp"]()):
+            raise AssertionError(f"{label}: the thread mapping != the warp "
+                                 f"mapping")
+        ms = _interleaved(fns, 5, rounds=4)
+        log("time", f"viterbi_unified K=7 {label} F={F} (polys "
+            f"{tuple(oct(g) for g in code[1])}): thread mapping tile "
+            f"{THREAD_TILE} {ms['thread']:.4f} ms vs warp mapping tile "
+            f"{WARP_TILE} {ms['warp']:.4f} ms "
+            f"({ms['thread'] / ms['warp'] - 1:+.1%}; min of 4 rounds of 5, "
+            f"in turns); unforced the launch takes the {takes} mapping "
+            f"(planned tile {plan.frames_per_tile}, {plan.registers} "
+            f"registers, {plan.frames_per_sm} resident frames/SM)")
+        if label != "main":
+            del frames
 
 
 def time_split(frames, launches):
@@ -1824,6 +1931,9 @@ def phase_profile(rx_half, call_ms):
 
 
 STREAM_BITS = 1 << 24
+#: One-wave chunks the one-wave stream run spans at least, so that the
+#: double-buffered dispatch runs through several of them.
+STREAM_WAVES = 6
 STREAM_SMALL_BITS = 1 << 18
 SERVE_BITS = 1 << 16
 SERVE_SESSIONS = (192, 64)              # rate 1/2, rate 3/4
@@ -1876,7 +1986,8 @@ def device_busy(fn):
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or not ev.self_device_time_total:
             continue
-        kind = ("B1" if "viterbi_unified_kernel" in ev.key else
+        kind = ("B1" if "viterbi_unified_kernel" in ev.key
+                or "viterbi_unified_thread_kernel" in ev.key else
                 "copy_in" if "HtoD" in ev.key else
                 "copy_out" if "DtoH" in ev.key else "other")
         busy[kind] += ev.self_device_time_total / 1e3
@@ -1936,13 +2047,19 @@ def _no_sync_check(cfg, rx_host, chunk, mesh=None):
                               device="cuda", mesh=mesh)
     src = rx_host.reshape(-1, 2)
     need = 2 * chunk * cfg.spec.f + cfg.spec.v2
+    t0 = time.perf_counter()
     dec.push(src[:chunk * cfg.spec.f])          # builds the programs
     dec.flush()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(5e8))                 # ~0.25 s of spinning
-    t0 = time.perf_counter()
+    warm = time.perf_counter() - t0
+    # the two chunks' windows are cut on the host before the spin: at a
+    # one-wave chunk of the thread mapping (38,016 frames) that takes
+    # seconds and is not the dispatch path; the spin (at least ~0.25 s)
+    # outlasts twice a warm chunk's push, dispatch and drain
     dec._ctx.append(src[:need])
     w0, w1 = dec._ctx.take_windows()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(max(5e8, 2 * warm * 2e9)))
+    t0 = time.perf_counter()
     dec._dispatch(w0)
     dec._dispatch(w1)
     host = (time.perf_counter() - t0) * 1e3
@@ -1971,7 +2088,8 @@ def phase_stream(gen):
     for rate in ("1/2", "3/4"):
         cfg = main_config(rate, "kernel")
         wave, plan = one_wave_chunk(cfg)
-        for n, chunk, label in ((STREAM_BITS, wave, "one wave"),
+        waves = 1 << (STREAM_WAVES * wave * cfg.spec.f - 1).bit_length()
+        for n, chunk, label in ((max(STREAM_BITS, waves), wave, "one wave"),
                                 (STREAM_SMALL_BITS, plan.chunk_frames,
                                  "default")):
             _, rx = channel(gen, n, EBN0_DB, rate)

@@ -34,7 +34,22 @@ butterfly's shuffles and the max's redux). If no tile fits, the smallest
 is returned (``fits`` is false): the unified kernel then keeps its
 survivors in device memory.
 
-Rates below 1/8 (beta > ``MAX_BETA`` = 8) at k <= 11 run the same mapping
+B1 runs the codes 3 <= k <= 7 at beta <= 3 (``thread_mapping``) on its
+thread mapping instead wherever a launch's frames fill the card
+(``THREAD_MIN_FRAMES_PER_SM`` an SM; below that the planner and the
+wrapper both keep the warp mapping, ``warp=True`` in the models): one
+thread a frame, so a block of ``frames_per_tile``
+threads (``lanes_per_frame`` 1, ``max_frames_per_block`` 256), all S path
+metrics in the thread's registers (``H100_REGISTERS["unified_thread"]``),
+and the survivors in a ring of ``thread_ring_slots`` stages of
+``thread_ring_words`` words a frame in the block's shared memory
+(``unified_smem_bytes``' ``survivor_ring``; ``pack_survivors`` changes
+nothing there), beside each warp's two LLR chunks (``thread_llr_bytes``).
+A tile whose rings do not fit does not fit; where one frame's does not
+(no tile fits), B1's wrapper runs the code on the warp mapping and its
+device-memory scratch. ``b1_mapping`` names the mapping a code runs on.
+
+Rates below 1/8 (beta > ``MAX_BETA`` = 8) at k <= 11 run the warp mapping
 with beta at run time (``low_rate``: acs.cuh's ``VitFrame<R, 0>``, one
 instantiation per R): each warp also stages its frames' LLRs a chunk at a
 time in shared memory (``llr_chunk_bytes``), and the CPU plans them with
@@ -81,6 +96,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 import time
 
@@ -99,6 +115,10 @@ __all__ = ["TilePlan", "DecodePlan", "DeviceLimits", "H100_LIMITS",
            "unified_smem_bytes", "split_smem_bytes", "candidate_tiles",
            "plan_tiles", "plan_decode", "measure_plan", "AUTO_LAYOUT",
            "BLOCK_THREADS", "lanes_per_frame", "max_frames_per_block",
+           "THREAD_MIN_K", "THREAD_MAX_K", "THREAD_MAX_BETA",
+           "thread_mapping", "b1_mapping", "thread_ring_slots",
+           "thread_ring_words", "THREAD_CHUNK",
+           "thread_llr_bytes",
            "block_threads", "SMEM_MIN_K", "MAX_K", "MAX_BETA", "FWD_WIDE_K",
            "smem_mapping", "wide_mapping", "wide_threads", "large_threads",
            "low_rate", "llr_chunk_bytes",
@@ -118,6 +138,18 @@ SMEM_MIN_K = 12
 #: The largest code the two fast mappings take (VIT_SMEM_MAX_K); past it
 #: the wide mapping runs.
 MAX_K = 15
+#: B1's thread mapping (viterbi_unified.cu VIT_THREAD_MIN_K, _MAX_K,
+#: _MAX_BETA): one thread a frame for THREAD_MIN_K <= k <= THREAD_MAX_K at
+#: beta <= THREAD_MAX_BETA.
+THREAD_MIN_K = 3
+THREAD_MAX_K = 7
+THREAD_MAX_BETA = 3
+#: Frames an SM from which a launch takes the thread mapping: one
+#: thread's serial chain puts a floor of about 0.2 ms under a K=7 launch
+#: of the main frame, which the warp mapping beats until the frames fill
+#: the card (in turns on an H100: 4.2x faster at 64 frames, 1.9x at
+#: 4,096, even at 8,192, 1.8x slower at 16,384; PERF.md §6).
+THREAD_MIN_FRAMES_PER_SM = 64
 #: The largest beta the register mapping instantiates per beta and the
 #: one-block form tabulates (VIT_MAX_BETA); past it both take beta at run
 #: time (``low_rate``).
@@ -227,23 +259,108 @@ def large_threads(trellis: Trellis) -> int:
     return min(trellis.num_states // 2, table.get(trellis.k, 128))
 
 
-def lanes_per_frame(trellis: Trellis) -> int:
-    """Lanes of a warp one frame's path metrics take: ``min(S, 32)`` (a
-    large code's frame takes a whole block of such warps)."""
+def thread_mapping(trellis: Trellis, unified: bool = True,
+                   frames: int | None = None, device=None) -> bool:
+    """Whether B1 runs ``trellis`` on the thread mapping (one thread a
+    frame, all its path metrics in the thread's registers): THREAD_MIN_K
+    <= k <= THREAD_MAX_K at beta <= THREAD_MAX_BETA (viterbi_unified.cu
+    vit_thread_code), and, given a launch's ``frames``, where they fill
+    the card: THREAD_MIN_FRAMES_PER_SM an SM of ``device``'s, the frames
+    counted in whole blocks of the warp mapping, so that the planner
+    (before the padding to its tile) and B1's wrapper (after it) agree.
+    B3 (``unified=False``) never does."""
+    if not (unified and THREAD_MIN_K <= trellis.k <= THREAD_MAX_K
+            and 2 <= trellis.beta <= THREAD_MAX_BETA):
+        return False
+    if frames is None:
+        return True
+    cap = max_frames_per_block(trellis, warp=True)
+    return (-(-int(frames) // cap) * cap
+            >= THREAD_MIN_FRAMES_PER_SM * _sm_count(device))
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device=None) -> int:
+    """The card's SMs, queried once per device; ``H100_SMS`` for the
+    CPU."""
+    dev = _resolve_device(device)
+    if dev.type != "cuda":
+        return H100_SMS
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
+def b1_mapping(trellis: Trellis, unified: bool = True,
+               frames: int | None = None, device=None) -> str:
+    """The mapping B1 (or, with ``unified=False``, B3) runs ``trellis``
+    on, by k and beta and a launch's ``frames`` (``thread_mapping``):
+    "thread", "warp" (the register mapping), "block" (the one-block form,
+    12 <= k <= 15), "cluster" or "wide" (past k = 15, on a cluster where
+    the card holds one)."""
+    if thread_mapping(trellis, unified, frames, device):
+        return "thread"
+    if wide_mapping(trellis, unified):
+        return "cluster" if cluster_size(trellis) > 1 else "wide"
+    return "block" if smem_mapping(trellis) else "warp"
+
+
+def thread_ring_slots(f0: int, v2s: int) -> int:
+    """Stages of the thread mapping's survivor ring: a traceback start's
+    f0 + v2s (vit_thread_slots)."""
+    return int(f0) + int(v2s)
+
+
+#: Stages of one LLR chunk the thread mapping stages in shared memory
+#: (VIT_THREAD_CHUNK).
+THREAD_CHUNK = 8
+
+
+def thread_llr_bytes(trellis: Trellis, frames_per_tile: int) -> int:
+    """Shared memory of a thread-mapping block's LLR chunks: two a warp,
+    each 32 rows of ``THREAD_CHUNK`` stages as float32 plus two words
+    (vit_thread_chunk_words)."""
+    warps = -(-int(frames_per_tile) // 32)
+    return warps * 2 * 32 * (THREAD_CHUNK * trellis.beta + 2) * 4
+
+
+def thread_ring_words(trellis: Trellis) -> int:
+    """32-bit survivor words a stage of the thread mapping: one per 32
+    states (vit_thread_words)."""
+    return packed_width(trellis.num_states)
+
+
+def lanes_per_frame(trellis: Trellis, unified: bool = True,
+                    warp: bool = False) -> int:
+    """Lanes of a warp one frame's path metrics take: one on B1's thread
+    mapping, else ``min(S, 32)`` (a large code's frame takes a whole
+    block of such warps). ``warp``: on the warp mapping, wherever B1
+    runs the code there."""
+    if thread_mapping(trellis, unified and not warp):
+        return 1
     return min(trellis.num_states, 32)
 
 
-def max_frames_per_block(trellis: Trellis, unified: bool = True) -> int:
+def max_frames_per_block(trellis: Trellis, unified: bool = True,
+                         warp: bool = False) -> int:
     """The thread cap: eight warps of ``32 // lanes_per_frame`` frames;
-    one frame for a large or wide code (of B3 with ``unified=False``)."""
+    one frame for a large or wide code (of B3 with ``unified=False``).
+    ``warp``: the register (warp) mapping's cap."""
     if smem_mapping(trellis) or wide_mapping(trellis, unified):
         return 1
-    return BLOCK_THREADS // 32 * (32 // lanes_per_frame(trellis))
+    return BLOCK_THREADS // 32 * (32 // lanes_per_frame(
+        trellis, unified and not warp))
 
 
 def block_threads(trellis: Trellis, frames_per_block: int,
-                  cluster: int = 1, unified: bool = True) -> int:
-    """Threads of a block of that many frames: whole warps; a large
+                  cluster: int = 1, unified: bool = True,
+                  warp: bool = False) -> int:
+    """Threads of a block of that many frames: whole warps (one thread a
+    frame on the thread mapping; ``warp``: on the warp mapping); a large
     code's block is ``large_threads``, a wide code's (of B3 with
     ``unified=False``) ``wide_threads``, or ``cluster_threads`` in a
     cluster of ``cluster`` > 1 blocks."""
@@ -252,7 +369,9 @@ def block_threads(trellis: Trellis, frames_per_block: int,
                 else wide_threads(trellis))
     if smem_mapping(trellis):
         return large_threads(trellis)
-    fpw = 32 // lanes_per_frame(trellis)
+    if thread_mapping(trellis, unified and not warp):
+        return int(frames_per_block)
+    fpw = 32 // lanes_per_frame(trellis, unified, warp)
     return -(-int(frames_per_block) // fpw) * 32
 
 
@@ -286,8 +405,12 @@ H100_LIMITS = DeviceLimits(232448, 233472, 2048, 32, 1024, 65536)
 #: 12 <= k <= 15 (their resident blocks are ``H100_BLOCKS``); the
 #: ``*_wide`` counts the wide mapping's (one instantiation for every code
 #: past them); the ``*_cluster`` counts its cluster kernels' at k = 16
-#: beta = 2 (512 threads a block, so at most 128 registers a thread).
-H100_REGISTERS = {"unified": 48, "split": 48, "unified_lowrate": 64,
+#: beta = 2 (512 threads a block, so at most 128 registers a thread);
+#: ``unified_thread`` B1's thread mapping's at K=7 beta=2, which the CPU
+#: reports for every code of that mapping (``unified`` stays the warp
+#: mapping's, which B1 runs K=7 on only where a test forces it).
+H100_REGISTERS = {"unified": 48, "unified_thread": 133, "split": 48,
+                  "unified_lowrate": 64,
                   "split_lowrate": 64, "unified_block": 64,
                   "split_block": 64, "unified_block_lowrate": 64,
                   "split_block_lowrate": 64, "unified_wide": 64,
@@ -351,35 +474,43 @@ def _library(unified: bool):
 
 def kernel_registers(trellis: Trellis, *, unified: bool = True,
                      device=None, cluster: int | None = None,
-                     wide: bool = False) -> int:
+                     wide: bool = False, warp: bool = False) -> int:
     """Registers per thread of the kernel instantiation that runs
     ``trellis`` (``device=None`` = ``"cuda"``: asked of the built kernel
     through ``cudaFuncGetAttributes``; the CPU takes ``H100_REGISTERS``,
     the main path's count, for every code of its mapping). ``cluster``
     (default ``wide_cluster``'s) > 1 asks for the cluster kernel's;
     ``wide`` for the wide kernel's off a cluster, whatever the code (a
-    forced launch)."""
+    forced launch); ``warp`` for the warp mapping's, at a code of the
+    thread mapping."""
     name = "unified" if unified else "split"
     dev = _resolve_device(device)
     if cluster is None:
         cluster = (wide_cluster(trellis, dev, unified=unified)
                    if wide_mapping(trellis, unified) else 1)
     wide = cluster <= 1 and (wide or wide_mapping(trellis, unified))
+    thread = (not wide and cluster <= 1
+              and thread_mapping(trellis, unified and not warp))
     if dev.type != "cuda":
         if cluster > 1:
             return H100_REGISTERS[name + "_cluster"]
         if wide:
             return H100_REGISTERS[name + "_wide"]
+        if thread:
+            return H100_REGISTERS["unified_thread"]
         return H100_REGISTERS[name + ("_block" if smem_mapping(trellis)
                                       else "")
                               + ("_lowrate" if low_rate(trellis) else "")]
     # the wide kernel is one instantiation, which any k >= 16 code asks for
     k, beta = (max(trellis.k, 20), trellis.beta) if wide else \
         (trellis.k, trellis.beta)
-    key = (name, k, beta, int(cluster))
+    key = (name, k, beta, int(cluster), thread)
     if key not in _registers:
         out = (ctypes.c_int * 3)()
-        if cluster > 1:
+        if thread:
+            fn = "viterbi_unified_thread_attrs"
+            err = _library(True).viterbi_unified_thread_attrs(k, beta, out)
+        elif cluster > 1:
             fn = f"viterbi_{'unified' if unified else 'fwd'}_cluster_attrs"
             err = getattr(_library(unified), fn)(k, beta, int(cluster), out)
         else:
@@ -640,7 +771,7 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
                        frames_per_tile: int, *, pack_survivors: bool = False,
                        radix: int = 2, layout=Layout.LANE,
                        bm_dtype: str = "float32", scratch: bool = False,
-                       cluster: int = 1):
+                       cluster: int = 1, warp: bool = False):
     """(total_bytes, breakdown) of one unified-kernel block: the carve-up of
     ``csrc/viterbi_unified.cu::smem_layout``. Each frame keeps its
     traceback starts (one int32 state per subframe, the block's padded to
@@ -659,6 +790,12 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     ``scratch=True`` is the kernel's device-memory survivor scratch:
     survivors and traceback starts leave shared memory.
 
+    A code of the thread mapping (``thread_mapping``) keeps its survivor
+    ring and each warp's LLR chunks; it has no scratch, so ``scratch=True``
+    there is the warp mapping's block, which B1 runs such a code on where
+    one frame's ring does not fit, as it does where the launch's frames
+    do not fill the card (``warp``).
+
     A wide code (``wide_mapping``) keeps its survivors and starts in the
     scratch always: its block is the mapping's fixed core and, to k = 15,
     the path metrics (``spec`` is not read); in a cluster of ``cluster``
@@ -668,6 +805,14 @@ def unified_smem_bytes(trellis: Trellis, spec: FrameSpec,
     del radix
     if wide_mapping(trellis):
         return _wide_smem(trellis, cluster)
+    if thread_mapping(trellis) and not (scratch or warp):
+        f0, v2s = _geometry(spec)
+        ring = (4 * thread_ring_slots(f0, v2s) * thread_ring_words(trellis)
+                * int(frames_per_tile))
+        breakdown = (("survivor_ring", -(-ring // 16) * 16),
+                     ("llr_chunks", thread_llr_bytes(trellis,
+                                                     frames_per_tile)))
+        return sum(b for _, b in breakdown), breakdown
     S = trellis.num_states
     W = packed_width(S)
     fpb = int(frames_per_tile)
@@ -730,7 +875,7 @@ def split_smem_bytes(trellis: Trellis, spec: FrameSpec,
         return _wide_smem(trellis, cluster)
     if smem_mapping(trellis):
         return _large_smem(trellis)
-    warps = block_threads(trellis, frames_per_tile) // 32
+    warps = block_threads(trellis, frames_per_tile, unified=False) // 32
     breakdown = (("run_buffers", warps * 256),) + (
         (("llr_chunks", warps * llr_chunk_bytes(trellis)),)
         if low_rate(trellis) else ())
@@ -738,11 +883,12 @@ def split_smem_bytes(trellis: Trellis, spec: FrameSpec,
 
 
 def candidate_tiles(trellis: Trellis, max_frames: int | None = None,
-                    unified: bool = True):
+                    unified: bool = True, warp: bool = False):
     """Powers of two from 1 up to the thread cap
-    ``max_frames_per_block`` (of B1, or of B3 with ``unified=False``),
-    and up to the smallest one that covers ``max_frames``."""
-    cap = max_frames_per_block(trellis, unified)
+    ``max_frames_per_block`` (of B1, or of B3 with ``unified=False``;
+    ``warp``: of B1's warp mapping), and up to the smallest one that
+    covers ``max_frames``."""
+    cap = max_frames_per_block(trellis, unified, warp)
     tiles = [1 << i for i in range(cap.bit_length()) if 1 << i <= cap]
     if max_frames is not None:
         cover = next((t for t in tiles if t >= max_frames), tiles[-1])
@@ -756,9 +902,10 @@ def _resident_frames(smem: int, threads: int, fpb: int, registers: int,
     shared memory (with the runtime's reserve) and registers (allocated
     per warp in units of 256)."""
     regs_per_warp = -(-registers * 32 // 256) * 256
-    blocks = min(limits.threads_per_sm // threads, limits.blocks_per_sm,
+    warps = -(-threads // 32)
+    blocks = min(limits.threads_per_sm // (warps * 32), limits.blocks_per_sm,
                  limits.smem_per_sm // (smem + limits.smem_reserved_per_block),
-                 limits.regs_per_sm // regs_per_warp // (threads // 32))
+                 limits.regs_per_sm // regs_per_warp // warps)
     return blocks * fpb
 
 
@@ -766,8 +913,9 @@ def _tile_at(trellis: Trellis, spec: FrameSpec, ft: int, *, unified: bool,
              pack_survivors: bool, radix: int, layout, bm_dtype: str,
              budget: int, limits: DeviceLimits, registers: int,
              cluster: int = 1, device=None,
-             frames: int | None = None) -> TilePlan:
-    """The TilePlan of one tile under the kernel's footprint model. A
+             frames: int | None = None, warp: bool = False) -> TilePlan:
+    """The TilePlan of one tile under the kernel's footprint model
+    (``warp``: B1's warp mapping at a code of the thread mapping). A
     large code's block is planned as the kernel runs it: B1's survivors
     in shared memory or the device-memory scratch by
     ``block_survivors_on_chip`` (for ``frames`` frames), its resident
@@ -795,8 +943,10 @@ def _tile_at(trellis: Trellis, spec: FrameSpec, ft: int, *, unified: bool,
         kw["scratch"] = not tile_survivors_on_chip(
             trellis, spec, ft, pack_survivors=pack_survivors, frames=frames,
             device=device, budget=budget)
+    if warp:
+        kw["warp"] = True
     total, breakdown = model(trellis, spec, ft, **kw, cluster=cluster)
-    threads = block_threads(trellis, ft, cluster, unified)
+    threads = block_threads(trellis, ft, cluster, unified, warp)
     resident = (_resident_frames(total, threads, ft, registers, limits)
                 if total <= budget else 0)
     return TilePlan(int(ft), total, breakdown, budget,
@@ -818,22 +968,43 @@ def plan_tiles(trellis: Trellis, spec: FrameSpec, *,
     smallest; the smallest candidate when none fits. ``max_frames`` caps
     the tile near the frame count. ``unified=False`` budgets the forward
     kernel of the split path. ``device=None`` is ``"cuda"`` (its limits
-    are queried; raises without a card); the CPU plans for the H100."""
+    are queried; raises without a card); the CPU plans for the H100. A
+    code of B1's thread mapping is planned on the warp mapping where
+    ``max_frames`` do not fill the card (``thread_mapping``). The search
+    runs once per shape and card (``_best_tile``)."""
     spec.validate()
     _check_knobs(layout, bm_dtype)
-    limits = device_limits(device)
-    cluster = (wide_cluster(trellis, device, unified=unified)
+    dev = _resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    limits = device_limits(dev)
+    cluster = (wide_cluster(trellis, dev, unified=unified)
                if wide_mapping(trellis, unified) else 1)
-    registers = kernel_registers(trellis, unified=unified, device=device,
-                                 cluster=cluster)
+    warp = (thread_mapping(trellis, unified) and not thread_mapping(
+        trellis, unified, max_frames, dev))
+    registers = kernel_registers(trellis, unified=unified, device=dev,
+                                 cluster=cluster, warp=warp)
     budget = limits.smem_per_block if smem_budget is None else int(smem_budget)
+    return _best_tile(trellis, spec, bool(pack_survivors), int(radix),
+                      Layout(layout), str(bm_dtype), budget, limits,
+                      registers, cluster, dev, max_frames, bool(unified),
+                      warp)
+
+
+@functools.lru_cache(maxsize=1024)
+def _best_tile(trellis, spec, pack_survivors, radix, layout, bm_dtype,
+               budget, limits, registers, cluster, device, max_frames,
+               unified, warp) -> TilePlan:
+    """``plan_tiles``' search over the candidate tiles, cached by every
+    input its footprint and residency models read (the card's limits and
+    the kernel's registers among them)."""
     best = None
-    for ft in candidate_tiles(trellis, max_frames, unified):
+    for ft in candidate_tiles(trellis, max_frames, unified, warp):
         plan = _tile_at(trellis, spec, ft, unified=unified,
                         pack_survivors=pack_survivors, radix=radix,
                         layout=layout, bm_dtype=bm_dtype, budget=budget,
                         limits=limits, registers=registers, cluster=cluster,
-                        device=device, frames=max_frames)
+                        device=device, frames=max_frames, warp=warp)
         if best is None or plan.frames_per_sm > best.frames_per_sm:
             best = plan
         if not plan.fits:                    # footprints grow with the tile
@@ -961,16 +1132,18 @@ def _measure_candidates(trellis: Trellis, plan_spec: FrameSpec,
     model's choice."""
     tiles = [analytic.tile]
     ft0 = analytic.tile.frames_per_tile
+    warp = (thread_mapping(trellis, unified) and not thread_mapping(
+        trellis, unified, frames, device))
     tile_kw = dict(unified=unified, pack_survivors=pack_survivors,
                    radix=radix, bm_dtype=bm_dtype, budget=budget,
                    limits=limits, registers=analytic.tile.registers,
-                   device=device, frames=frames)
+                   device=device, frames=frames, warp=warp)
     if layout == "auto":
         other = (Layout.SUBLANE if analytic.tile.layout is Layout.LANE
                  else Layout.LANE)
         tiles.append(_tile_at(trellis, plan_spec, ft0, layout=other,
                               **tile_kw))
-    cap = candidate_tiles(trellis, unified=unified)[-1]
+    cap = candidate_tiles(trellis, unified=unified, warp=warp)[-1]
     for ft in (ft0 // 2, ft0 * 2):
         if 1 <= ft <= cap:
             tiles.append(_tile_at(trellis, plan_spec, ft,

@@ -4,7 +4,12 @@
 // CUDA counterpart of repro.kernels.acs.acs_scan (the JAX package's shared
 // Pallas body) and of the plain torch acs_scan in repro_torch/kernels/acs.py.
 // The unified kernel and the split path's forward kernel both include this
-// header, so the two kernels run one recursion and cannot drift apart.
+// header and run its recursions, with one exception: at 3 <= k <= 7 and
+// beta <= 3 the unified kernel runs its own thread mapping (one thread a
+// frame, viterbi_unified.cu's VitThread) in launches that fill the card,
+// so at K=7 the two kernels no longer share a recursion there; the
+// forward kernel keeps VitFrame. Both are held bit for bit to the plain
+// version.
 //
 // Mapping. One warp holds a frame's S = 2^(k-1) path metrics in registers:
 // state s = 32 r + l lies in lane l, register r < R = S / 32 (S >= 32).

@@ -15,7 +15,12 @@
 // max's redux, ballots, survivor bookkeeping besides the six operations) and
 // by how many frames are resident to hide each stage's dependent chain.
 //
-// Design. One warp per frame (32 / S frames per warp for S < 32), with the
+// Design. Codes 3 <= k <= 7 at beta <= 3 run the thread mapping
+// (viterbi_unified_thread_kernel, VitThread below: one thread a frame, all
+// its path metrics in the thread's registers) in launches whose frames
+// fill the card (the wrapper's choice: autotune.thread_mapping), and the
+// warp mapping in smaller ones. Every other code to k = 11:
+// one warp per frame (32 / S frames per warp for S < 32), with the
 // path metrics in registers: acs.cuh's VitFrame, shared with the forward
 // kernel. Nothing in the stage loop is block-wide: no __syncthreads, no
 // shared-memory path metrics. The LLRs come 32 stages at a time, one stage
@@ -587,6 +592,437 @@ inline long long unified_smem(int k, int beta, int L, int nsub, int pack,
   return smem_layout(k, beta, L, nsub, pack, start_fixed, fpb, global).total;
 }
 
+// ---- 3 <= k <= 7 at beta <= VIT_THREAD_MAX_BETA: one thread a frame -------
+//
+// The thread mapping. One thread holds all S = 2^(k-1) path metrics of its
+// frame in registers, so a stage is arithmetic in one thread: no shuffle,
+// no ballot, no redux. The butterfly of predecessors (2j, 2j+1) into
+// states (j, j + S/2) writes its two results into the registers that held
+// its inputs (state s then lies in register s rotated left by one bit of
+// k - 1), and the stage ends by putting every state back in its own
+// register, a permutation the compiler resolves: the loop body is one
+// stage. (Unrolling the k - 1 stages after which the rotation returns by
+// itself ran no faster, with five times the code and twice the
+// registers: PERF.md.)
+//
+// Branch metrics: the stage's 2^(beta-1) half metrics, summed in b order
+// exactly as VitFrame::bm sums them (the first term, then one rounded add
+// or subtract a term: the fma by +-1 of the plain version), rounded once
+// to bf16 for bm_dtype bf16. Edge p into state s takes sgn_p[s] *
+// bm_half[idx_p[s]] as sum_h coef[p][s][h] * bm_half[h], a multiply and
+// an fma chain whose coefficients (kernel parameters) are +-1 at
+// h = idx_p[s] and 0 elsewhere: every other term is an exact zero, so the
+// sum is the one signed metric, exactly, for every code of the launch.
+// Where every polynomial has both taps (taps) edges 01 and 10 are edge
+// 00's negation and edge 11 edge 00 itself (acs.cuh's vit_quad_word): one
+// metric a butterfly.
+//
+// LLRs: each warp stages its frames' LLRs in shared memory a chunk of
+// VIT_THREAD_CHUNK stages ahead with cp.async, so that its copies are runs
+// of consecutive stages of a few frames (a load of each thread's own
+// frame touched 32 lines a warp; PERF.md); a stage's LLRs are then one
+// shared-memory read a thread, a stage ahead.
+//
+// Survivors: each stage's decisions as packing.py's LANE words (state s at
+// bit s % 32 of word s / 32), W = 1 or 2 words, in a ring of Z = f0 + v2s
+// stages laid out [Z][W][frames] in the block's shared memory, so that a
+// warp stores whole rows. At each traceback start the thread traces back
+// at once; the ring holds the start's f0 + v2s stages. The wrapper shrinks
+// the block until its ring fits; where one frame's does not (a serial
+// traceback of tens of thousands of stages), the code runs on the warp
+// mapping, whose survivors then go to its device-memory scratch.
+//
+// What bounds it: per state and stage two candidate adds, a compare, a
+// select, a predicated or of the decision bit, the max's fmaxf and the
+// normalising subtract, and per butterfly its metric: the FP32 and integer
+// pipes, not the shuffle pipe; then each start's serial traceback.
+#define VIT_THREAD_MIN_K 3
+#define VIT_THREAD_MAX_K 7
+#define VIT_THREAD_MAX_BETA 3
+#define VIT_THREAD_MAX_S (1 << (VIT_THREAD_MAX_K - 1))
+#define VIT_THREAD_MAX_HALF (1 << (VIT_THREAD_MAX_BETA - 1))
+// Stages of one LLR chunk.
+#define VIT_THREAD_CHUNK 8
+
+// Whether the thread mapping takes (k, beta).
+__host__ __device__ inline bool vit_thread_code(int k, int beta) {
+  return k >= VIT_THREAD_MIN_K && k <= VIT_THREAD_MAX_K && beta >= 2 &&
+         beta <= VIT_THREAD_MAX_BETA;
+}
+
+// Survivor words a stage (W) and ring slots (Z) of the thread mapping.
+__host__ __device__ inline int vit_thread_words(int k) {
+  return k > 6 ? 2 : 1;
+}
+__host__ __device__ inline int vit_thread_slots(int f0, int v2s) {
+  return f0 + v2s;
+}
+
+// 32-bit words of one frame's LLR chunk in shared memory: the chunk as
+// float32, and two words that spread the frames over the banks.
+__host__ __device__ inline int vit_thread_chunk_words(int beta) {
+  return VIT_THREAD_CHUNK * beta + 2;
+}
+
+// Shared memory of a block of fpb frames: the survivor ring, padded to 16
+// bytes, then each warp's two LLR chunks.
+__host__ __device__ inline long long vit_thread_ring_bytes(int k, int f0,
+                                                           int v2s, int fpb) {
+  return (4LL * vit_thread_slots(f0, v2s) * vit_thread_words(k) * fpb + 15) &
+         ~15LL;
+}
+__host__ __device__ inline long long vit_thread_smem_bytes(int k, int beta,
+                                                           int f0, int v2s,
+                                                           int fpb) {
+  return vit_thread_ring_bytes(k, f0, v2s, fpb) +
+         (fpb + 31) / 32 * 2LL * 32 * vit_thread_chunk_words(beta) * 4;
+}
+
+struct ThreadParams {
+  const void* llr;       // (F, L, beta) f32 | bf16 | f16
+  int* out;              // (F, f) decoded bits
+  int F, L, v1, f, f0, v2s, Z;
+  int llr_dtype, start_fixed, bf16_bm, taps;
+  // Edge p into state s: sum_h coef[p][s][h] * bm_half[h].
+  float coef[2][VIT_THREAD_MAX_S][VIT_THREAD_MAX_HALF];
+};
+
+// The register of state s after the stage's butterflies: s rotated left by
+// one bit of k - 1.
+template <int K>
+__host__ __device__ constexpr int vit_thread_reg(int s) {
+  return ((s << 1) | (s >> (K - 2))) & ((1 << (K - 1)) - 1);
+}
+
+__device__ __forceinline__ void vit_cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void vit_cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void vit_cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void vit_cp_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// One warp's LLR chunk c into its buffer `buf` (a shared address): the nf
+// frames from frame0, each a run of VIT_THREAD_CHUNK stages (fewer at the
+// frame's end), copied in granules of 8 bytes where a stage is a multiple
+// of 8 bytes, else 4, granule g of the warp by lane g % nl.
+template <int BETA>
+__device__ __forceinline__ void vit_thread_stage(const ThreadParams& p,
+                                                 int esize, long long frame0,
+                                                 int nf, int c, uint32_t buf,
+                                                 int lane, int nl) {
+  const int sb = BETA * esize;                    // bytes a stage
+  const int G = sb % 8 == 0 ? 8 : 4;
+  const int ng = VIT_THREAD_CHUNK * sb / G;       // granules a frame
+  const int t0 = c * VIT_THREAD_CHUNK;
+  const int nstage = min(VIT_THREAD_CHUNK, p.L - t0);
+  const int nbytes = nstage * sb;
+  const char* src = static_cast<const char*>(p.llr) +
+                    ((frame0 * p.L + t0) * BETA) * (long long)esize;
+  const long long fbytes = (long long)p.L * sb;
+#pragma unroll 1
+  for (int g = lane; g < nf * ng; g += nl) {
+    const int fi = g / ng, off = (g - fi * ng) * G;
+    if (off >= nbytes || frame0 + fi >= p.F) continue;
+    const uint32_t dst =
+        buf + (uint32_t)(fi * vit_thread_chunk_words(BETA) * 4 + off);
+    if (G == 8)
+      vit_cp_async8(dst, src + fi * fbytes + off);
+    else
+      vit_cp_async4(dst, src + fi * fbytes + off);
+  }
+}
+
+// One stage's beta LLRs from a staged chunk (s: the frame's row, stage u's
+// first byte), as float32.
+template <int BETA>
+__device__ __forceinline__ void vit_thread_read(const unsigned char* s,
+                                                int dtype,
+                                                float (&x)[BETA]) {
+  if (dtype == VIT_F32) {
+    if constexpr (BETA == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(s);
+      x[0] = v.x;
+      x[1] = v.y;
+    } else {
+#pragma unroll
+      for (int b = 0; b < BETA; ++b)
+        x[b] = reinterpret_cast<const float*>(s)[b];
+    }
+  } else if (dtype == VIT_BF16) {
+#pragma unroll
+    for (int b = 0; b < BETA; ++b)
+      x[b] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(s)[b]);
+  } else {
+#pragma unroll
+    for (int b = 0; b < BETA; ++b)
+      x[b] = __half2float(reinterpret_cast<const __half*>(s)[b]);
+  }
+}
+
+template <int K, int BETA, bool TAPS>
+struct VitThread {
+  static constexpr int S = 1 << (K - 1);
+  static constexpr int H = 1 << (BETA - 1);
+  static constexpr int W = S > 32 ? 2 : 1;
+  float pm[S];
+
+  // Edge p into state s from the stage's half metrics.
+  __device__ __forceinline__ static float edge(const ThreadParams& p, int e,
+                                               int s, const float (&bm)[H]) {
+    float m = __fmul_rn(p.coef[e][s][0], bm[0]);
+#pragma unroll
+    for (int h = 1; h < H; ++h) m = __fmaf_rn(p.coef[e][s][h], bm[h], m);
+    return m;
+  }
+
+  // One level of the max's tree: m[i] = max(m[i], m[i + N]), i < N.
+  template <int N>
+  __device__ __forceinline__ static void halve(float (&m)[S / 2]) {
+    if constexpr (N >= 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) m[i] = fmaxf(m[i], m[i + N]);
+    }
+  }
+
+  // One stage from its LLRs x: the path metrics, normalised, each state
+  // in its own register again, and the survivor words w.
+  __device__ __forceinline__ void step(const ThreadParams& p,
+                                       const float (&x)[BETA], bool bf16,
+                                       unsigned (&w)[W]) {
+    float bm[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      float acc = x[0];
+#pragma unroll
+      for (int b = 1; b < BETA; ++b)
+        acc = (h >> (BETA - 1 - b)) & 1 ? __fsub_rn(acc, x[b])
+                                        : __fadd_rn(acc, x[b]);
+      bm[h] = bf16 ? __bfloat162float(__float2bfloat16_rn(acc)) : acc;
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) w[i] = 0u;
+#pragma unroll
+    for (int j = 0; j < S / 2; ++j) {
+      const float a = pm[2 * j], b = pm[2 * j + 1];
+      float c00, c01, c10, c11;
+      if constexpr (TAPS) {
+        const float m = edge(p, 0, j, bm);
+        c00 = __fadd_rn(a, m);
+        c01 = __fsub_rn(b, m);
+        c10 = __fsub_rn(a, m);
+        c11 = __fadd_rn(b, m);
+      } else {
+        c00 = __fadd_rn(a, edge(p, 0, j, bm));
+        c01 = __fadd_rn(b, edge(p, 1, j, bm));
+        c10 = __fadd_rn(a, edge(p, 0, j + S / 2, bm));
+        c11 = __fadd_rn(b, edge(p, 1, j + S / 2, bm));
+      }
+      const bool s0 = c01 >= c00, s1 = c11 >= c10;    // ties: predecessor 1
+      pm[2 * j] = s0 ? c01 : c00;                      // state j
+      pm[2 * j + 1] = s1 ? c11 : c10;                  // state j + S/2
+      if (s0) w[0] |= 1u << j;
+      if (s1) w[W - 1] |= 1u << (W == 2 ? j : j + S / 2);
+    }
+    float m[S / 2];
+#pragma unroll
+    for (int i = 0; i < S / 2; ++i) m[i] = fmaxf(pm[i], pm[i + S / 2]);
+    halve<S / 4>(m);
+    halve<S / 8>(m);
+    halve<S / 16>(m);
+    halve<S / 32>(m);
+    halve<S / 64>(m);
+    float nx[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s)                              // normalise
+      nx[s] = __fsub_rn(pm[vit_thread_reg<K>(s)], m[0]);
+#pragma unroll
+    for (int s = 0; s < S; ++s) pm[s] = nx[s];
+  }
+
+  // The first maximal state: the least s whose normalised metric is 0
+  // (v - max is 0 only for v == max).
+  __device__ __forceinline__ int first_max() const {
+    int a = 0;
+#pragma unroll
+    for (int s = S - 1; s >= 0; --s)
+      if (pm[s] == 0.f) a = s;
+    return a;
+  }
+
+  // One start's traceback from ring slot `slot` (its stage) over the
+  // f0 + v2s stages before it: v2s stages to converge, then the
+  // subframe's f0 bits, last first, into its row from o (the subframe's
+  // first bit), four at a time where the rows allow (vec), whereafter o
+  // is the next subframe's first bit.
+  __device__ __forceinline__ static void traceback(const ThreadParams& p,
+                                                   int state, int slot,
+                                                   const uint32_t* ring,
+                                                   long long stride,
+                                                   bool valid, bool vec,
+                                                   int*& o) {
+    // the bit of `state`, then one stage back; a stage's words are read
+    // whatever the state, so the reads of the next stages need not wait
+    // for it
+    auto back = [&]() {
+      const int bit = state >> (K - 2);
+      const uint32_t* row = ring + (long long)slot * W * stride;
+      unsigned next;
+      if constexpr (W == 2) {
+        const unsigned long long v =
+            (unsigned long long)row[stride] << 32 | row[0];
+        next = (unsigned)(v >> state) & 1u;
+      } else {
+        next = (row[0] >> state) & 1u;
+      }
+      state = ((state << 1) & (S - 1)) | (int)next;
+      slot = slot ? slot - 1 : p.Z - 1;
+      return bit;
+    };
+    int r = 0;
+#pragma unroll 1
+    for (; r + 4 <= p.v2s; r += 4) {
+      back();
+      back();
+      back();
+      back();
+    }
+#pragma unroll 1
+    for (; r < p.v2s; ++r) back();
+    if (vec) {
+#pragma unroll 1
+      for (int i = p.f0 - 4; i >= 0; i -= 4) {
+        const int b3 = back(), b2 = back(), b1 = back(), b0 = back();
+        if (valid)
+          *reinterpret_cast<int4*>(o + i) = make_int4(b0, b1, b2, b3);
+      }
+    } else {
+#pragma unroll 1
+      for (int i = p.f0 - 1; i >= 0; --i) {
+        const int b = back();
+        if (valid) o[i] = b;
+      }
+    }
+    o += p.f0;
+  }
+
+  // The frame's recursion through its last traceback start (stage
+  // v1 + f + v2s - 1), one stage a loop iteration: the warp's LLR chunks
+  // staged one ahead in `llr` (two buffers), each stage's words into the
+  // ring, each start traced back at once.
+  __device__ __forceinline__ void run(const ThreadParams& p, long long frame,
+                                      bool valid, uint32_t* ring,
+                                      long long stride,
+                                      const unsigned char* llr, int lane,
+                                      int nl, unsigned mask) {
+    const bool bf16 = p.bf16_bm != 0;
+    const int esize = p.llr_dtype == VIT_F32 ? 4 : 2;
+    const int cw = vit_thread_chunk_words(BETA) * 4;    // a frame's row
+    const int bufb = 32 * cw;                          // a buffer
+    const uint32_t sllr = static_cast<uint32_t>(__cvta_generic_to_shared(llr));
+    const long long frame0 = frame - lane;
+    const int last = p.v1 + p.f + p.v2s;
+    const int nchunk = (last + VIT_THREAD_CHUNK - 1) / VIT_THREAD_CHUNK;
+    int next_e = p.v1 + p.f0 - 1 + p.v2s;
+    int* o = p.out + frame * p.f;               // the next subframe's bits
+    const bool vec = p.f % 4 == 0 && p.f0 % 4 == 0;
+    vit_thread_stage<BETA>(p, esize, frame0, nl, 0, sllr, lane, nl);
+    vit_cp_commit();
+    vit_cp_wait();
+    __syncwarp(mask);
+    if (nchunk > 1)
+      vit_thread_stage<BETA>(p, esize, frame0, nl, 1, sllr + bufb, lane, nl);
+    vit_cp_commit();
+    float x[BETA];
+    vit_thread_read<BETA>(llr + lane * cw, p.llr_dtype, x);
+#pragma unroll
+    for (int s = 0; s < S; ++s) pm[s] = 0.f;
+    int slot = 0;
+#pragma unroll 1
+    for (int t = 0; t < last; ++t) {
+      const int tn = t + 1, c = tn / VIT_THREAD_CHUNK;
+      float xn[BETA];
+      if ((tn & (VIT_THREAD_CHUNK - 1)) == 0 && tn < last) {
+        vit_cp_wait();                   // chunk c is in; c - 1 is read
+        __syncwarp(mask);
+        if (c + 1 < nchunk)
+          vit_thread_stage<BETA>(p, esize, frame0, nl, c + 1,
+                                 sllr + ((c + 1) & 1) * bufb, lane, nl);
+        vit_cp_commit();
+      }
+      vit_thread_read<BETA>(
+          llr + (c & 1) * bufb + lane * cw +
+              (tn & (VIT_THREAD_CHUNK - 1)) * BETA * esize,
+          p.llr_dtype, xn);
+      unsigned w[W];
+      step(p, x, bf16, w);
+      uint32_t* row = ring + (long long)slot * W * stride;
+#pragma unroll
+      for (int i = 0; i < W; ++i) row[i * stride] = w[i];
+      if (t == next_e) {
+        traceback(p, p.start_fixed ? 0 : first_max(), slot, ring, stride,
+                  valid, vec, o);
+        next_e = next_e + p.f0 < last ? next_e + p.f0 : 0x7fffffff;
+      }
+      slot = slot + 1 == p.Z ? 0 : slot + 1;
+#pragma unroll
+      for (int b = 0; b < BETA; ++b) x[b] = xn[b];
+    }
+  }
+};
+
+template <int K, int BETA>
+__global__ void __launch_bounds__(VIT_BLOCK_THREADS)
+    viterbi_unified_thread_kernel(const __grid_constant__ ThreadParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long frame = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nl = min(32, (int)blockDim.x - warp * 32);   // the warp's lanes
+  const unsigned mask = nl == 32 ? VIT_FULL : (1u << nl) - 1u;
+  const unsigned char* llr =
+      smem + vit_thread_ring_bytes(K, p.f0, p.v2s, blockDim.x) +
+      warp * 2LL * 32 * vit_thread_chunk_words(BETA) * 4;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem) + threadIdx.x;
+  const long long stride = blockDim.x;
+  const bool valid = frame < p.F;
+  if (p.taps) {
+    VitThread<K, BETA, true> fr;
+    fr.run(p, frame, valid, ring, stride, llr, lane, nl, mask);
+  } else {
+    VitThread<K, BETA, false> fr;
+    fr.run(p, frame, valid, ring, stride, llr, lane, nl, mask);
+  }
+}
+
+using ThreadKernel = void (*)(const ThreadParams);
+
+// The thread kernel of a (k, beta) code the mapping takes, else null.
+template <int K>
+inline ThreadKernel thread_kernel_beta(int beta) {
+  switch (beta) {
+    case 2: return viterbi_unified_thread_kernel<K, 2>;
+    case 3: return viterbi_unified_thread_kernel<K, 3>;
+    default: return nullptr;
+  }
+}
+inline ThreadKernel thread_kernel(int k, int beta) {
+  switch (k) {
+    case 3: return thread_kernel_beta<3>(beta);
+    case 4: return thread_kernel_beta<4>(beta);
+    case 5: return thread_kernel_beta<5>(beta);
+    case 6: return thread_kernel_beta<6>(beta);
+    case 7: return thread_kernel_beta<7>(beta);
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -780,6 +1216,75 @@ int viterbi_unified_launch(const void* llr, const void* idx, const void* sgn,
                                       fpb, sel_global != nullptr);
   return vit_dispatch<Launch>(k, beta, &p, smem,
                               static_cast<cudaStream_t>(stream));
+}
+
+// Whether B1's thread mapping takes (k, beta): 1 or 0.
+int viterbi_thread_code(int k, int beta) { return vit_thread_code(k, beta); }
+
+// Ring slots of the thread mapping's survivors, and the dynamic shared
+// memory of a block of fpb frames (its survivor ring and LLR chunks); -1
+// where the mapping does not take (k, beta).
+int viterbi_thread_slots(int f0, int v2s) { return vit_thread_slots(f0, v2s); }
+long long viterbi_unified_thread_smem_bytes(int k, int beta, int f0, int v2s,
+                                            int fpb) {
+  return vit_thread_code(k, beta)
+             ? vit_thread_smem_bytes(k, beta, f0, v2s, fpb)
+             : -1;
+}
+
+// out = {numRegs, localSizeBytes, maxThreadsPerBlock} of the thread
+// mapping's instantiation for (k, beta). Returns 0 or the CUDA error.
+int viterbi_unified_thread_attrs(int k, int beta, int* out) {
+  const ThreadKernel kern = thread_kernel(k, beta);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  return vit_func_attrs(reinterpret_cast<const void*>(kern), out);
+}
+
+// Launches the thread mapping on `stream`: blocks of fpb frames (one
+// thread each), coef the host's [2][S][2^(beta-1)] edge coefficients,
+// taps != 0 where every polynomial has both taps; the survivor ring of
+// Z = f0 + v2s stages in the block's shared memory, which the caller sizes
+// fpb to fit. Returns cudaGetLastError() (0 = ok).
+int viterbi_unified_thread_launch(const void* llr, const float* coef,
+                                  void* out, int F, int L,
+                                  int beta, int k, int v1, int f, int f0,
+                                  int v2s, int llr_dtype, int start_fixed,
+                                  int bf16_bm, int taps, int fpb,
+                                  void* stream) {
+  const ThreadKernel kern = thread_kernel(k, beta);
+  if (kern == nullptr || coef == nullptr || F < 1 || fpb < 1 ||
+      fpb > VIT_BLOCK_THREADS || f0 < 1 || f % f0 != 0 || v2s < 0 ||
+      L < v1 + f + v2s)
+    return (int)cudaErrorInvalidValue;
+  ThreadParams p;
+  p.llr = llr;
+  p.out = static_cast<int*>(out);
+  p.F = F;
+  p.L = L;
+  p.v1 = v1;
+  p.f = f;
+  p.f0 = f0;
+  p.v2s = v2s;
+  p.Z = vit_thread_slots(f0, v2s);
+  p.llr_dtype = llr_dtype;
+  p.start_fixed = start_fixed;
+  p.bf16_bm = bf16_bm;
+  p.taps = taps;
+  const int S = 1 << (k - 1), H = 1 << (beta - 1);
+  for (int e = 0; e < 2; ++e)
+    for (int s = 0; s < VIT_THREAD_MAX_S; ++s)
+      for (int h = 0; h < VIT_THREAD_MAX_HALF; ++h)
+        p.coef[e][s][h] =
+            s < S && h < H ? coef[(e * S + s) * H + h] : 0.f;
+  const long long smem = vit_thread_smem_bytes(k, beta, f0, v2s, fpb);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = (F + fpb - 1) / fpb;
+  kern<<<grid, fpb, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

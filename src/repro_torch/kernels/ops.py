@@ -9,7 +9,9 @@ intra-frame block reframe and pads the frame count to the tile (the
 ``tiling`` does for the punctured receiver call, and then there is nothing
 to pad), encodes the serial traceback as one subframe (``f0=f, v2s=v2``)
 and dispatches under the ``decode.kernel`` span, whose attributes are the
-launch's knobs:
+launch's knobs and ``mapping``, the mapping the decode kernel ran on as
+its wrapper recorded it (``autotune.b1_mapping``'s names: "thread",
+"warp", "block", "cluster" or "wide"; "plain" off the card):
 
 * ``unified=True``  — the unified kernel: survivors never leave the chip;
 * ``unified=False`` — the split path, the prior-work baseline: the forward
@@ -26,8 +28,8 @@ from ..obs.profiled import span_tracer
 from .autotune import plan_tiles
 from .packing import Layout
 from .traceback_frames import traceback_frames
-from .viterbi_fwd import forward_frames
-from .viterbi_unified import unified_decode_frames
+from .viterbi_fwd import forward_frames, forward_frames_cuda
+from .viterbi_unified import unified_decode_frames, unified_decode_frames_cuda
 
 __all__ = ["viterbi_decode_frames", "resolve_device", "plan_frames_per_tile",
            "tile_rows"]
@@ -69,6 +71,17 @@ def _pad_frames(frames: torch.Tensor, tile: int):
     if Fp != F:
         frames = torch.nn.functional.pad(frames, (0, 0, 0, 0, 0, Fp - F))
     return frames, F
+
+
+def _launched_mapping(frames: torch.Tensor, unified: bool):
+    """The mapping the decode kernel just ran ``frames`` on, as its
+    wrapper recorded it; "plain" off the card, None for no frames."""
+    if not frames.is_cuda:
+        return "plain"
+    if not frames.shape[0]:
+        return None
+    return (unified_decode_frames_cuda if unified
+            else forward_frames_cuda).last_mapping
 
 
 def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
@@ -140,7 +153,7 @@ def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
         pack_survivors=bool(pack_survivors), block_frames=int(block_frames),
         overlap=int(overlap), interpret=bool(interpret),
         device=str(dev)) if trace.enabled else {}
-    with trace.span("decode.kernel", **knobs):
+    with trace.span("decode.kernel", **knobs) as span:
         if unified:
             bits = unified_decode_frames(
                 padded, trellis=trellis, v1=spec.v1, f=spec.f, v2=spec.v2,
@@ -163,6 +176,8 @@ def viterbi_decode_frames(frames, trellis: Trellis, spec: FrameSpec, *,
                 sel, amax[:F], trellis=trellis, v1=spec.v1, f=spec.f, f0=f0,
                 v2s=v2s, start=start, packed=pack_survivors,
                 layout=lay.value)
+        if trace.enabled:
+            span.set(mapping=_launched_mapping(padded, unified))
     if block_frames > 1:
         bits = merge_blocks(bits, block_frames)       # (F_in, f)
         assert bits.shape[0] == F_in

@@ -180,10 +180,15 @@ def forward_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     if err != 0:
         raise RuntimeError(f"viterbi_fwd launch failed: CUDA error {err}")
     forward_frames_cuda.launches += 1
+    forward_frames_cuda.last_mapping = ("cluster" if C > 1 else "wide" if wide
+                                        else "block" if block else "warp")
     return sel, amax
 
 
 forward_frames_cuda.launches = 0
+#: The mapping of the last launch (autotune.b1_mapping's names; None
+#: before the first).
+forward_frames_cuda.last_mapping = None
 
 
 def forward_frames_plain(frames: torch.Tensor, *, trellis: Trellis,

@@ -4,7 +4,10 @@
 The paper's central idea: branch metrics, ACS and traceback in ONE kernel,
 so the survivor matrix lives in on-chip memory and never touches device
 memory. On Hopper it lives in shared memory and the path metrics in
-registers, one warp per frame (``csrc/viterbi_unified.cu`` and
+registers: one thread a frame at 3 <= k <= 7 and beta <= 3 where the
+launch's frames fill the card (the thread mapping,
+``autotune.thread_mapping``), one warp a frame at the other codes to
+k = 11 and at smaller launches (``csrc/viterbi_unified.cu`` and
 ``csrc/acs.cuh``, whose head notes give the design).
 
 Three functions:
@@ -15,14 +18,22 @@ Three functions:
 * ``unified_decode_frames_cuda`` — the kernel's wrapper. It checks the
   inputs, allocates the output (and, for frames too long for shared
   memory, a device-memory survivor scratch) and launches on the current
-  stream. ``unified_decode_frames_cuda.launches`` counts its launches.
+  stream. ``unified_decode_frames_cuda.launches`` counts its launches,
+  ``.mapping_launches`` the same by mapping (``autotune.b1_mapping``'s
+  names), and ``.last_mapping`` names the mapping of the last launch.
 * ``unified_decode_frames_plain`` — the same arithmetic in plain torch
   (``acs.acs_scan``, ``packing``), on any device; the CPU path, and what
   the kernel is held against on the card.
 
 Frames per thread block. ``frames_per_tile`` is the padding granule (the
 frame count must be a multiple of it, as in the JAX kernel) and the most
-frames one thread block decodes. The kernel runs one warp per frame (a
+frames one thread block decodes. On the thread mapping a block is one
+thread a frame, at most ``autotune.max_frames_per_block`` (256), with
+each frame's survivors in a ring of ``autotune.thread_ring_slots`` stages
+in the block's shared memory, and fewer frames where their rings would
+overflow it; where one frame's ring does not fit, the code runs on the
+warp mapping and its device-memory scratch. Otherwise the kernel runs
+one warp per frame (a
 segment of S lanes for S < 32), at most eight warps a block, so a block
 holds at most ``autotune.max_frames_per_block`` frames, and fewer when
 their survivors would overflow shared memory; past beta =
@@ -59,8 +70,8 @@ from ..core.trellis import Trellis
 from .acs import BM_DTYPES, acs_scan
 from .autotune import (block_grid, block_survivors_on_chip, device_limits,
                        low_rate, max_frames_per_block, smem_mapping,
-                       tile_survivors_on_chip, wide_cluster, wide_grid,
-                       wide_mapping)
+                       thread_mapping, tile_survivors_on_chip, wide_cluster,
+                       wide_grid, wide_mapping)
 from .build import build
 from .packing import Layout, extract_bit, pack_bits, packed_width
 from .tables import kernel_tables
@@ -112,6 +123,16 @@ def kernel_library():
         lib.viterbi_unified_block_occupancy.restype = i
         lib.viterbi_unified_block_attrs.argtypes = [i, i, ctypes.POINTER(i)]
         lib.viterbi_unified_block_attrs.restype = i
+        lib.viterbi_thread_code.argtypes = [i, i]
+        lib.viterbi_thread_code.restype = i
+        lib.viterbi_thread_slots.argtypes = [i, i]
+        lib.viterbi_thread_slots.restype = i
+        lib.viterbi_unified_thread_smem_bytes.argtypes = [i] * 5
+        lib.viterbi_unified_thread_smem_bytes.restype = ctypes.c_longlong
+        lib.viterbi_unified_thread_attrs.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.viterbi_unified_thread_attrs.restype = i
+        lib.viterbi_unified_thread_launch.argtypes = [vp] * 3 + [i] * 13 + [vp]
+        lib.viterbi_unified_thread_launch.restype = i
         lib._argtypes_set = True
     return built
 
@@ -208,7 +229,8 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
                                bm_dtype: str = "float32",
                                _wide: bool = False,
                                _cluster: int | None = None,
-                               _block: bool = False) -> torch.Tensor:
+                               _block: bool = False, _warp: bool = False,
+                               _thread: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel on ``frames`` (a contiguous CUDA tensor of
     float32, bfloat16 or float16); raises on anything else or if the build
     or the launch fails. ``radix`` and ``layout`` are checked as in JAX but
@@ -216,10 +238,15 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     the bits are the same for both. ``_wide`` runs any code on the wide
     mapping, ``_cluster=C`` on a cluster of C blocks (1: on none), and
     ``_block`` on the one-block form (7 <= k <= 15), for the tests that
-    hold them against the other mappings."""
+    hold them against the other mappings; ``_warp`` runs a code of the
+    thread mapping on the warp mapping, and ``_thread`` on the thread
+    mapping whatever the frame count (``autotune.thread_mapping`` takes
+    it only where the frames fill the card)."""
     _check(frames, trellis, v1, f, v2, f0, v2s, start, frames_per_tile,
            radix, layout, bm_dtype)
     _check_cluster(_cluster, _wide, _block)
+    if _warp and _thread:
+        raise ValueError("_warp and _thread exclude each other")
     if not frames.is_cuda:
         raise ValueError(f"frames must lie on a CUDA device, got "
                          f"{frames.device}")
@@ -241,6 +268,12 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     row = 4 * packed_width(S) if pack else S
     wide = _wide or bool(_cluster) or wide_mapping(trellis)
     block = not wide and (_block or smem_mapping(trellis))
+    if not (wide or block or _warp) and thread_mapping(
+            trellis, frames=None if _thread else F, device=dev):
+        out = _launch_thread(frames, trellis, v1, f, f0, v2s, fixed,
+                             frames_per_tile, bm_dtype)
+        if out is not None:
+            return out
     pm, C = None, 1
     if wide:             # a block's (a cluster's) survivors and starts
         C = _cluster or wide_cluster(trellis, dev)
@@ -260,7 +293,8 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
     else:
         grid = 0
         limit = device_limits(dev).smem_per_block
-        cap = min(frames_per_tile, max_frames_per_block(trellis), F)
+        cap = min(frames_per_tile, max_frames_per_block(trellis, warp=True),
+                  F)
         fpb = cap
         while fpb and lib.viterbi_unified_smem_bytes(
                 k, beta, L, nsub, pack, fixed, fpb, 0) > limit:
@@ -294,11 +328,84 @@ def unified_decode_frames_cuda(frames: torch.Tensor, *, trellis: Trellis,
             int(block), stream)
     if err != 0:
         raise RuntimeError(f"viterbi_unified launch failed: CUDA error {err}")
-    unified_decode_frames_cuda.launches += 1
+    _count("cluster" if C > 1 else "wide" if wide else
+           "block" if block else "warp")
     return out
 
 
+def _count(mapping: str) -> None:
+    unified_decode_frames_cuda.launches += 1
+    unified_decode_frames_cuda.mapping_launches[mapping] += 1
+    unified_decode_frames_cuda.last_mapping = mapping
+
+
 unified_decode_frames_cuda.launches = 0
+#: Launches by the mapping they ran on (autotune.b1_mapping's names).
+unified_decode_frames_cuda.mapping_launches = dict.fromkeys(
+    ("thread", "warp", "block", "cluster", "wide"), 0)
+#: The mapping of the last launch (None before the first).
+unified_decode_frames_cuda.last_mapping = None
+
+
+def thread_coefficients(trellis: Trellis) -> np.ndarray:
+    """The thread mapping's edge coefficients, (2, S, 2^(beta-1)) float32:
+    edge p into state s has the metric sum_h coef[p, s, h] * bm_half[h],
+    coef[p, s, idx_p[s]] = sgn_p[s] and 0 elsewhere (kernels/tables.py)."""
+    _, idx_p, sgn_p, _ = kernel_tables(trellis)
+    half = 1 << (trellis.beta - 1)
+    coef = np.zeros((2, trellis.num_states, half), dtype=np.float32)
+    for p in (0, 1):
+        coef[p, np.arange(trellis.num_states), idx_p[p]] = sgn_p[p]
+    return coef
+
+
+def both_taps(trellis: Trellis) -> bool:
+    """Whether every polynomial has its bottom and top taps (bits 0 and
+    k - 1): then a butterfly's four edges are one metric and its
+    negation."""
+    top = 1 << (trellis.k - 1)
+    return all(g & 1 and g & top for g in trellis.polys)
+
+
+def _thread_tables(trellis: Trellis):
+    key = ("thread", trellis.k, trellis.polys)
+    if key not in _tables:
+        coef = np.ascontiguousarray(thread_coefficients(trellis))
+        _tables[key] = (coef, int(both_taps(trellis)))
+    return _tables[key]
+
+
+def _launch_thread(frames, trellis, v1, f, f0, v2s, fixed, frames_per_tile,
+                   bm_dtype):
+    """B1's thread mapping: blocks of ``frames_per_tile`` frames (at most
+    ``autotune.max_frames_per_block``), halved until their survivor rings
+    fit the block's shared memory; None, launching nothing, where one
+    frame's does not."""
+    lib = kernel_library().lib
+    dev = frames.device
+    F, L, _ = frames.shape
+    k, beta = trellis.k, trellis.beta
+    limit = device_limits(dev).smem_per_block
+    fpb = min(frames_per_tile, max_frames_per_block(trellis), F)
+    while fpb and lib.viterbi_unified_thread_smem_bytes(
+            k, beta, f0, v2s, fpb) > limit:
+        fpb //= 2
+    if not fpb:
+        return None
+    coef, taps = _thread_tables(trellis)
+    out = torch.empty((F, f), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.viterbi_unified_thread_launch(
+            frames.data_ptr(), coef.ctypes.data, out.data_ptr(), F, L,
+            beta, k, v1, f, f0, v2s,
+            _LLR_DTYPES[frames.dtype], fixed, int(bm_dtype == "bfloat16"),
+            taps, fpb, stream)
+    if err != 0:
+        raise RuntimeError(f"viterbi_unified thread launch failed: CUDA "
+                           f"error {err}")
+    _count("thread")
+    return out
 
 
 def unified_decode_frames_plain(frames: torch.Tensor, *, trellis: Trellis,

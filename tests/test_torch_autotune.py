@@ -45,6 +45,13 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 SPEC = FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45)
 CPU = dict(device="cpu")
 K9 = make_trellis(9, (0o753, 0o561))
+#: K=7 at rate 1/4: past the thread mapping's beta (autotune.THREAD_MAX_BETA),
+#: so B1 keeps the warp mapping, whose model the K=7 cases below held
+#: before the thread mapping took the rate-1/2 code (same states, same
+#: registers on the CPU, no LLR staging at beta <= 8).
+K7_WARP = make_trellis(7, (0o171, 0o133, 0o165, 0o117))
+#: K=5 at rate 1/4 on the warp mapping, likewise (two frames a warp).
+K5_WARP = make_trellis(5, (0o23, 0o35, 0o25, 0o37))
 
 
 def _reg_warps(kernel):
@@ -53,15 +60,36 @@ def _reg_warps(kernel):
     return 65536 // (-(-H100_REGISTERS[kernel] * 32 // 256) * 256)
 
 
+#: One warp's two LLR chunks at rate 1/2 on the thread mapping: 32 rows of
+#: eight stages of two float32 and two words.
+_LLR_CHUNKS = 2 * 32 * (8 * 2 + 2) * 4
+
+
+def _thread_resident(trellis, spec, ft):
+    """Frames of B1's thread mapping resident an SM at tile ``ft`` (one
+    thread a frame): blocks limited by threads, block slots, shared memory
+    (the ring, with the runtime's 1 KB a block) and registers (a block of
+    fewer than 32 threads still takes a warp's)."""
+    ring = unified_smem_bytes(trellis, spec, ft)[0]
+    warps = -(-ft // 32)
+    return ft * min(2048 // (32 * warps), 32, 233472 // (ring + 1024),
+                    _reg_warps("unified_thread") // warps)
+
+
 # ---- tests/test_autotune.py ------------------------------------------------
 
 def test_footprint_matches_kernel_scratch():
-    """The sel term is the kernel's survivor carve-up: one byte per state
-    unpacked, one bit packed (8x less at S=64); the rest is
-    knob-independent."""
-    L, FT, S = SPEC.frame_len, 4, STD_K7.num_states
-    _, plain = unified_smem_bytes(STD_K7, SPEC, FT)
-    _, packed = unified_smem_bytes(STD_K7, SPEC, FT, pack_survivors=True)
+    """The warp mapping's sel term is the kernel's survivor carve-up: one
+    byte per state unpacked, one bit packed (8x less at S=64); the rest is
+    knob-independent. The thread mapping (K=7 rate 1/2) keeps a ring of
+    LANE words whatever pack says."""
+    L, FT, S = SPEC.frame_len, 4, K7_WARP.num_states
+    ring = unified_smem_bytes(STD_K7, SPEC, FT)
+    assert ring == unified_smem_bytes(STD_K7, SPEC, FT, pack_survivors=True)
+    assert dict(ring[1]) == {"survivor_ring": FT * 77 * 2 * 4,
+                             "llr_chunks": _LLR_CHUNKS}
+    _, plain = unified_smem_bytes(K7_WARP, SPEC, FT)
+    _, packed = unified_smem_bytes(K7_WARP, SPEC, FT, pack_survivors=True)
     d_plain, d_packed = dict(plain), dict(packed)
     assert d_plain["sel_survivors"] == L * FT * S
     assert d_packed["sel_survivors"] == L * FT * (S // 32) * 4
@@ -72,11 +100,16 @@ def test_footprint_matches_kernel_scratch():
 
 
 def test_footprint_scales_linearly_in_ft():
-    """The unified block's shared memory grows with its frames, the
+    """The unified block's shared memory grows with its frames (on the
+    thread mapping its ring does, beside a warp's LLR chunks), the
     forward block's with its warps (one 256-byte run buffer each)."""
-    t2, _ = unified_smem_bytes(STD_K7, SPEC, 2)
-    t8, _ = unified_smem_bytes(STD_K7, SPEC, 8)
+    t2, _ = unified_smem_bytes(K7_WARP, SPEC, 2)
+    t8, _ = unified_smem_bytes(K7_WARP, SPEC, 8)
     assert t8 == 4 * t2
+    r2 = dict(unified_smem_bytes(STD_K7, SPEC, 2)[1])
+    r8 = dict(unified_smem_bytes(STD_K7, SPEC, 8)[1])
+    assert r8["survivor_ring"] == 4 * r2["survivor_ring"]
+    assert r8["llr_chunks"] == r2["llr_chunks"] == _LLR_CHUNKS
     s2, _ = split_smem_bytes(STD_K7, SPEC, 2)
     s8, _ = split_smem_bytes(STD_K7, SPEC, 8)
     assert s8 == 4 * s2 == 8 * 256
@@ -86,8 +119,8 @@ def test_packed_plan_is_deeper():
     """On Hopper the packed plan holds more resident frames per SM (the
     unpacked survivors fill the SM's shared memory first; the packed ones
     leave the registers to bound it)."""
-    plain = plan_tiles(STD_K7, SPEC, **CPU)
-    packed = plan_tiles(STD_K7, SPEC, pack_survivors=True, **CPU)
+    plain = plan_tiles(K7_WARP, SPEC, **CPU)
+    packed = plan_tiles(K7_WARP, SPEC, pack_survivors=True, **CPU)
     assert plain.frames_per_sm == 10          # 233472 // (20576 + 1024)
     # one warp a frame; 48 registers a thread: 65536 // 1536 = 42 warps,
     # so tile 1 stops at the 32 block slots, tile 2 takes 21 blocks of 2,
@@ -97,23 +130,84 @@ def test_packed_plan_is_deeper():
     assert packed.registers == H100_REGISTERS["unified"] == 48
     assert packed.frames_per_sm > plain.frames_per_sm
     assert packed.fits and packed.budget == H100_LIMITS.smem_per_block
+    # the thread mapping (K=7 rate 1/2): pack changes nothing; a warp of
+    # frames a block, its ring (19,712 B) and LLR chunks (4,608 B) in
+    # shared memory, as many blocks as those and the registers allow
+    t_plain = plan_tiles(STD_K7, SPEC, **CPU)
+    t_packed = plan_tiles(STD_K7, SPEC, pack_survivors=True, **CPU)
+    assert t_plain == t_packed
+    assert t_packed.frames_per_tile == 32
+    assert t_packed.smem_bytes == 32 * 77 * 2 * 4 + _LLR_CHUNKS == 24320
+    assert t_packed.registers == H100_REGISTERS["unified_thread"]
+    assert t_packed.frames_per_sm == _thread_resident(STD_K7, SPEC, 32) \
+        == 32 * min(233472 // (24320 + 1024), _reg_warps("unified_thread"))
+
+
+def test_plan_search_runs_once_per_shape(monkeypatch):
+    """plan_tiles weighs the tiles once per shape and card: a second call
+    returns the first call's plan without weighing a tile; a changed
+    input (the budget, the kernel's registers) weighs them again."""
+    weighed = []
+    tile_at = autotune._tile_at
+    monkeypatch.setattr(autotune, "_tile_at",
+                        lambda *a, **k: weighed.append(1) or tile_at(*a, **k))
+    autotune._best_tile.cache_clear()
+    p = plan_tiles(STD_K7, SPEC, max_frames=65536, **CPU)
+    n = len(weighed)
+    assert n == len(candidate_tiles(STD_K7, 65536))
+    assert plan_tiles(STD_K7, SPEC, max_frames=65536, **CPU) is p
+    assert len(weighed) == n
+    plan_tiles(STD_K7, SPEC, max_frames=65536, smem_budget=50000, **CPU)
+    assert len(weighed) > n
+    n = len(weighed)
+    monkeypatch.setitem(H100_REGISTERS, "unified_thread", 255)
+    q = plan_tiles(STD_K7, SPEC, max_frames=65536, **CPU)
+    assert len(weighed) > n and q.registers == 255
+    assert q.frames_per_sm < p.frames_per_sm
 
 
 def test_plan_respects_budget_and_floor():
     # a tiny budget still yields the smallest candidate (kernel must run)
-    p = plan_tiles(STD_K7, SPEC, smem_budget=1, **CPU)
+    p = plan_tiles(K7_WARP, SPEC, smem_budget=1, **CPU)
     assert p.frames_per_tile == 1 and not p.fits and p.frames_per_sm == 0
     # whatever the budget, the tile stops at the thread cap
-    p = plan_tiles(STD_K7, SPEC, pack_survivors=True, smem_budget=1 << 30,
+    p = plan_tiles(K7_WARP, SPEC, pack_survivors=True, smem_budget=1 << 30,
                    **CPU)
-    assert p.frames_per_tile <= autotune.max_frames_per_block(STD_K7) == 8
+    assert p.frames_per_tile <= autotune.max_frames_per_block(K7_WARP) == 8
     assert 0 < p.utilization() < 1
+    # the thread mapping under a budget of a warp's LLR chunks and four
+    # frames' rings: the tile stops at four frames; under one short of a
+    # single frame's ring the smallest tile, which does not fit (B1's
+    # wrapper then runs the warp mapping and its scratch); its cap is 256
+    ring = 77 * 2 * 4                          # f0 + v2s stages, 2 words
+    p = plan_tiles(STD_K7, SPEC, smem_budget=_LLR_CHUNKS + 4 * ring, **CPU)
+    assert p.fits and p.frames_per_tile == 4 and p.frames_per_sm > 0
+    assert dict(p.breakdown) == {"survivor_ring": 4 * ring,
+                                 "llr_chunks": _LLR_CHUNKS}
+    p = plan_tiles(STD_K7, SPEC, smem_budget=_LLR_CHUNKS + ring - 16, **CPU)
+    assert p.frames_per_tile == 1 and not p.fits and p.frames_per_sm == 0
+    p = plan_tiles(STD_K7, SPEC, smem_budget=1, **CPU)
+    assert p.frames_per_tile == 1 and not p.fits and p.frames_per_sm == 0
+    p = plan_tiles(STD_K7, SPEC, smem_budget=1 << 30, **CPU)
+    assert p.frames_per_tile <= autotune.max_frames_per_block(STD_K7) == 256
 
 
 def test_plan_caps_at_stream_length():
-    """K=5 (two frames a warp) needs blocks of more than one frame to fill
-    the SM beyond its 32 block slots; one frame caps the tile at 1."""
-    k5 = make_trellis(5, (0o23, 0o35))
+    """K=5 on the warp mapping (two frames a warp) needs blocks of more
+    than one frame to fill the SM beyond its 32 block slots; one frame
+    caps the tile at 1. K=5 rate 1/2 takes the thread mapping only where
+    the frames fill the card: one frame is planned on the warp mapping,
+    like the rate-1/4 code; with no frame count, the thread mapping."""
+    t5 = make_trellis(5, (0o23, 0o35))
+    p = plan_tiles(t5, SPEC, pack_survivors=True, max_frames=1, **CPU)
+    assert p.frames_per_tile == 1 and p.frames_per_sm == 32
+    assert p.registers == H100_REGISTERS["unified"]
+    p = plan_tiles(t5, SPEC, pack_survivors=True, **CPU)
+    best = max(_thread_resident(t5, SPEC, ft) for ft in candidate_tiles(t5))
+    assert p.frames_per_sm == best
+    assert p.frames_per_tile == min(ft for ft in candidate_tiles(t5)
+                                    if _thread_resident(t5, SPEC, ft) == best)
+    k5 = K5_WARP
     p = plan_tiles(k5, SPEC, pack_survivors=True, **CPU)
     # 42 warps of registers (48 a thread) hold 84 frames: tile 2 (one
     # warp) stops at 32 blocks = 64 frames, tile 4 (two warps) takes
@@ -142,18 +236,33 @@ def test_smem_model_is_the_kernel_carve_up():
     kernels' own arithmetic (csrc/*.cu smem_layout / fwd_smem), term by
     term; tests/test_torch_gpu.py holds it to the compiled kernels."""
     L, FT = SPEC.frame_len, 3
-    _, bd = unified_smem_bytes(STD_K7, SPEC, FT, pack_survivors=True)
+    _, bd = unified_smem_bytes(K7_WARP, SPEC, FT, pack_survivors=True)
     assert dict(bd) == {"traceback_starts": 96,   # 3 x 8 int32, 16-aligned
                         "sel_survivors": FT * L * 2 * 4}
     fixed = dataclasses.replace(SPEC, start="fixed")
-    assert dict(unified_smem_bytes(STD_K7, fixed, FT)[1])[
+    assert dict(unified_smem_bytes(K7_WARP, fixed, FT)[1])[
         "traceback_starts"] == 0
     serial = FrameSpec(f=256, v1=20, v2=45)        # one subframe per frame
-    assert dict(unified_smem_bytes(STD_K7, serial, FT)[1])[
+    assert dict(unified_smem_bytes(K7_WARP, serial, FT)[1])[
         "traceback_starts"] == 16                  # 3 x 1 int32, padded
-    k4 = make_trellis(4, (0o13, 0o15, 0o17))       # S=8: one padded word
-    _, bd = unified_smem_bytes(k4, SPEC, FT, pack_survivors=True)
+    w4 = make_trellis(4, (0o13, 0o15, 0o17, 0o11))  # S=8: one padded word
+    _, bd = unified_smem_bytes(w4, SPEC, FT, pack_survivors=True)
     assert dict(bd)["sel_survivors"] == FT * L * 4
+    # the thread mapping's ring: a start's f0 + v2s stages (77), padded
+    # to 16 bytes, then a warp's two LLR chunks; the starts stay in
+    # registers, so a fixed start changes nothing; serial: f + v2 stages
+    assert dict(unified_smem_bytes(STD_K7, SPEC, FT)[1]) == {
+        "survivor_ring": -(-FT * 77 * 2 * 4 // 16) * 16,
+        "llr_chunks": _LLR_CHUNKS}
+    assert unified_smem_bytes(STD_K7, fixed, FT) == \
+        unified_smem_bytes(STD_K7, SPEC, FT)
+    assert dict(unified_smem_bytes(STD_K7, serial, FT)[1]) == {
+        "survivor_ring": -(-FT * 301 * 2 * 4 // 16) * 16,
+        "llr_chunks": _LLR_CHUNKS}
+    k4 = make_trellis(4, (0o13, 0o15, 0o17))       # S=8: one padded word
+    assert dict(unified_smem_bytes(k4, SPEC, FT, pack_survivors=True)[1]) \
+        == {"survivor_ring": -(-FT * 77 * 4 // 16) * 16,
+            "llr_chunks": 2 * 32 * (8 * 3 + 2) * 4}
     _, bd = split_smem_bytes(K9, SPEC, FT)          # a warp per frame
     assert dict(bd) == {"run_buffers": FT * 256}
     _, bd = split_smem_bytes(k4, SPEC, FT)          # 4 frames a warp
@@ -165,12 +274,13 @@ def test_lane_packing_evaporates_under_mosaic():
     its full ratio (one bit for a byte) in both layouts, and the layout
     changes no shared memory."""
     for layout in ("lane", "sublane"):
-        _, p = unified_smem_bytes(STD_K7, SPEC, 4, pack_survivors=True,
+        _, p = unified_smem_bytes(K7_WARP, SPEC, 4, pack_survivors=True,
                                   layout=layout)
-        _, u = unified_smem_bytes(STD_K7, SPEC, 4, layout=layout)
+        _, u = unified_smem_bytes(K7_WARP, SPEC, 4, layout=layout)
         assert dict(u)["sel_survivors"] == 8 * dict(p)["sel_survivors"]
-    assert unified_smem_bytes(STD_K7, SPEC, 4, layout="lane") == \
-        unified_smem_bytes(STD_K7, SPEC, 4, layout="sublane")
+    for code in (K7_WARP, STD_K7):
+        assert unified_smem_bytes(code, SPEC, 4, layout="lane") == \
+            unified_smem_bytes(code, SPEC, 4, layout="sublane")
 
 
 def test_sublane_plan_doubles_frames_at_equal_budget():
@@ -179,10 +289,14 @@ def test_sublane_plan_doubles_frames_at_equal_budget():
     layouts (on the TPU it was the sublane layout that kept packing's
     compression)."""
     for layout in ("lane", "sublane"):
-        packed = plan_tiles(STD_K7, SPEC, pack_survivors=True, radix=4,
+        packed = plan_tiles(K7_WARP, SPEC, pack_survivors=True, radix=4,
                             layout=layout, **CPU)
-        plain = plan_tiles(STD_K7, SPEC, radix=4, layout=layout, **CPU)
+        plain = plan_tiles(K7_WARP, SPEC, radix=4, layout=layout, **CPU)
         assert packed.fits and packed.frames_per_sm >= 2 * plain.frames_per_sm
+        # the thread mapping keeps LANE words either way
+        assert plan_tiles(STD_K7, SPEC, pack_survivors=True, radix=4,
+                          layout=layout, **CPU) == plan_tiles(
+            STD_K7, SPEC, radix=4, layout=layout, **CPU)
 
 
 def test_split_model_is_smaller_and_plans_deeper():
@@ -190,18 +304,21 @@ def test_split_model_is_smaller_and_plans_deeper():
     scratch): smaller at every tile, more resident frames than unpacked
     unified survivors, and it fits a budget one unified frame exceeds."""
     for ft in (1, 4, 8):
-        u, _ = unified_smem_bytes(STD_K7, SPEC, ft, pack_survivors=True)
-        s, bd = split_smem_bytes(STD_K7, SPEC, ft, pack_survivors=True)
+        u, _ = unified_smem_bytes(K7_WARP, SPEC, ft, pack_survivors=True)
+        s, bd = split_smem_bytes(K7_WARP, SPEC, ft, pack_survivors=True)
         assert s < u
         assert {n for n, _ in bd} == {"run_buffers"}
-    pu = plan_tiles(STD_K7, SPEC, **CPU)
-    ps = plan_tiles(STD_K7, SPEC, unified=False, **CPU)
+        # B3 keeps the warp mapping at K=7 rate 1/2
+        assert split_smem_bytes(STD_K7, SPEC, ft) == \
+            split_smem_bytes(K7_WARP, SPEC, ft)
+    pu = plan_tiles(K7_WARP, SPEC, **CPU)
+    ps = plan_tiles(K7_WARP, SPEC, unified=False, **CPU)
     assert ps.kernel == "split" and pu.kernel == "unified"
     assert ps.frames_per_sm > pu.frames_per_sm
     budget = 2048           # under one packed unified frame (2584 B)
-    pu = plan_tiles(STD_K7, SPEC, pack_survivors=True, smem_budget=budget,
+    pu = plan_tiles(K7_WARP, SPEC, pack_survivors=True, smem_budget=budget,
                     **CPU)
-    ps = plan_tiles(STD_K7, SPEC, pack_survivors=True, smem_budget=budget,
+    ps = plan_tiles(K7_WARP, SPEC, pack_survivors=True, smem_budget=budget,
                     unified=False, **CPU)
     assert not pu.fits and ps.fits and ps.frames_per_sm > 0
 
@@ -238,17 +355,25 @@ def test_plan_decode_full_plan():
 
 def test_candidates_lift_the_256_cap():
     """Hopper counterpart: candidates are the powers of two up to the
-    thread cap, eight warps of 32 // min(S, 32) frames (64 at K=3, 16 at
-    K=5, 8 from K=6 on, K=11 too), capped at the smallest that covers
-    max_frames."""
-    assert candidate_tiles(make_trellis(3, (0o7, 0o5)))[-1] == 64
-    assert candidate_tiles(make_trellis(5, (0o23, 0o35)))[-1] == 16
-    assert candidate_tiles(STD_K7) == [1, 2, 4, 8]
+    thread cap: on the warp mapping eight warps of 32 // min(S, 32) frames
+    (64 at K=3, 16 at K=5, 8 from K=6 on, K=11 too), on B1's thread
+    mapping 256 (one thread a frame, K=3..7 at rate 1/2), capped at the
+    smallest that covers max_frames."""
+    assert candidate_tiles(make_trellis(3, (0o7, 0o5, 0o7, 0o5)))[-1] == 64
+    assert candidate_tiles(K5_WARP)[-1] == 16
+    assert candidate_tiles(K7_WARP) == [1, 2, 4, 8]
+    assert candidate_tiles(make_trellis(3, (0o7, 0o5)))[-1] == 256
+    assert candidate_tiles(make_trellis(5, (0o23, 0o35)))[-1] == 256
+    assert candidate_tiles(STD_K7) == [1 << i for i in range(9)]
+    assert candidate_tiles(STD_K7, unified=False) == [1, 2, 4, 8]
     assert candidate_tiles(K9)[-1] == 8
     k11 = make_trellis(11, (0o3345, 0o3613))
     assert candidate_tiles(k11) == [1, 2, 4, 8]
+    assert candidate_tiles(K7_WARP, max_frames=3) == [1, 2, 4]
+    assert candidate_tiles(K7_WARP, max_frames=300) == [1, 2, 4, 8]
     assert candidate_tiles(STD_K7, max_frames=3) == [1, 2, 4]
-    assert candidate_tiles(STD_K7, max_frames=300) == [1, 2, 4, 8]
+    assert candidate_tiles(STD_K7, max_frames=300) == [1 << i
+                                                       for i in range(9)]
 
 
 def test_kernel_runs_beyond_256_frames_per_tile():
@@ -382,9 +507,12 @@ def test_auto_tile_in_ops_is_the_planners():
         finally:
             obs.set_tracer(prev)
         (ev,) = [s for s in tracer.spans() if s.name == "decode.kernel"]
+        # six frames do not fill the card: B1 keeps the warp mapping, as
+        # B3 does, four frames a block
         assert ev.attrs["frames_per_tile"] == plan_tiles(
             k5, spec, pack_survivors=True, radix=4, unified=unified,
             max_frames=6, **CPU).frames_per_tile == 4
+        assert ev.attrs["mapping"] == "plain"         # no launch off the card
 
 
 def test_device_limits_need_a_card_unless_cpu(monkeypatch):

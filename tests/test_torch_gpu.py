@@ -294,6 +294,7 @@ def test_smem_models_equal_kernel_carve_up(cuda, code):
     specs = [FrameSpec(f=64, v1=20, v2=21),
              FrameSpec(f=256, v1=20, v2=45, f0=32, v2s=45),
              FrameSpec(f=96, v1=12, v2=24, f0=24, v2s=20, start="fixed")]
+    thread = autotune.thread_mapping(tr)
     for spec in specs:
         kw = _kw(code, spec)
         nsub = spec.f // kw["f0"]
@@ -302,9 +303,18 @@ def test_smem_models_equal_kernel_carve_up(cuda, code):
             for pack in (False, True):
                 got, _ = autotune.unified_smem_bytes(
                     tr, spec, fpb, pack_survivors=pack)
-                assert got == ulib.viterbi_unified_smem_bytes(
+                # B1's thread mapping (3 <= k <= 7, beta <= 3): its ring
+                # and LLR chunks, whatever pack says; else, and for a
+                # launch of such a code on the warp mapping, the warp
+                # mapping's carve-up
+                warp = ulib.viterbi_unified_smem_bytes(
                     tr.k, tr.beta, spec.frame_len, nsub, int(pack), fixed,
                     fpb, 0)
+                assert got == (ulib.viterbi_unified_thread_smem_bytes(
+                    tr.k, tr.beta, kw["f0"], kw["v2s"], fpb) if thread
+                    else warp)
+                assert autotune.unified_smem_bytes(
+                    tr, spec, fpb, pack_survivors=pack, warp=True)[0] == warp
             got, _ = autotune.split_smem_bytes(tr, spec, fpb)
             assert got == flib.viterbi_fwd_smem_bytes(tr.k, tr.beta, fpb)
         got, _ = autotune.unified_smem_bytes(tr, spec, 1, scratch=True)
@@ -339,8 +349,19 @@ def test_register_model_is_the_kernels(cuda, unified):
             out = (ctypes.c_int * 3)()
             assert attrs(k, beta, out) == 0
             tr = make_trellis(k, tuple([(1 << k) - 1] * beta))
-            assert autotune.kernel_registers(tr, unified=unified,
-                                             device="cuda") == out[0]
+            if autotune.thread_mapping(tr, unified):   # B1's thread kernel
+                thread = (ctypes.c_int * 3)()
+                assert lib.viterbi_unified_thread_attrs(k, beta, thread) == 0
+                assert autotune.kernel_registers(tr, device="cuda") == \
+                    thread[0]
+                assert autotune.kernel_registers(tr, device="cuda",
+                                                 warp=True) == out[0]
+                if h100 and (k, beta) == (7, 2):
+                    assert autotune.H100_REGISTERS["unified_thread"] == \
+                        thread[0]
+            else:
+                assert autotune.kernel_registers(tr, unified=unified,
+                                                 device="cuda") == out[0]
             assert out[2] >= (autotune.large_threads(tr)
                               if autotune.smem_mapping(tr)
                               else autotune.BLOCK_THREADS)

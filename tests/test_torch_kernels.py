@@ -284,5 +284,6 @@ def test_kernel_trace_event_records_knobs():
         make_trellis(*K7), spec, pack_survivors=True, radix=2,
         layout="sublane", max_frames=3, device="cpu").frames_per_tile
     assert ev.attrs["radix"] == 2 and ev.attrs["device"] == "cpu"
+    assert ev.attrs["mapping"] == "plain"             # no launch off the card
     assert tracer.counters() == {}
     assert obs.get_tracer() is obs.NULL_TRACER

@@ -496,6 +496,7 @@ def test_split_kernel_trace_event():
         obs.set_tracer(prev)
     (ev,) = [s for s in tracer.spans() if s.name == "decode.kernel"]
     assert ev.attrs["kernel"] == "split" and ev.attrs["frames"] == 3
+    assert ev.attrs["mapping"] == "plain"             # no launch off the card
 
 
 def test_split_cpu_tensor_never_reaches_the_kernels():

@@ -11,8 +11,11 @@ its own wrappers and builds its own sources with its own flags (into its
 own ``build/kernels``); the two sides share only the inputs. Then:
 
 * B1 (``unified_decode_frames_cuda``) and B3 (``forward_frames_cuda``) at
-  the main path's shape (K=7, F=16384, L=321, packed, radix 4, this
-  tree's planned tiles);
+  the main path's shape (K=7, F=16384, L=321, packed, radix 4; B1 at each
+  side's planned tile, B3 at this tree's), and B1 at the K=7 cells' calls
+  (``K7_CELLS``: k7_r12_batch's 65,536 frames of the (171, 133) code,
+  k7_r34_batch's 66,624 rows of the (133, 171) code in its frame), each
+  side at its own planned tile;
 * the split traceback (``traceback_frames_cuda``) at chip_smoke.py's
   ``TB_CASES``, on this tree's forward streams;
 * B1 and B3 at chip_smoke.py's ``WIDE_TIME`` rows (K=16, 17, 18, 19 at
@@ -55,6 +58,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 SOURCES = ("viterbi_unified.cu", "viterbi_fwd.cu", "traceback_frames.cu")
 OTHER = "other_repro_torch"
+#: B1 at the K=7 cells' calls: (cell, code, frames, frame geometry).
+K7_CELLS = (("k7_r12_batch", (7, (0o171, 0o133)), 65536,
+             dict(v1=20, f=256, v2=45, f0=32, v2s=45)),
+            ("k7_r34_batch", (7, (0o133, 0o171)), 66624,
+             dict(v1=21, f=252, v2=45, f0=42, v2s=45)))
 
 
 def load_other(parent: Path, name: str = OTHER) -> None:
@@ -73,6 +81,7 @@ def side(top: str):
     def m(name):
         return importlib.import_module(f"{top}.{name}")
     return dict(trellis=m("core.trellis"), build=m("kernels.build"),
+                autotune=m("kernels.autotune"),
                 vu=m("kernels.viterbi_unified"), vf=m("kernels.viterbi_fwd"),
                 tbf=m("kernels.traceback_frames"))
 
@@ -89,6 +98,7 @@ def main(argv=None) -> int:
         print("FAIL: no CUDA card", flush=True)
         return 2
     import chip_smoke as cs
+    from repro_torch.core.framed import FrameSpec
     from repro_torch.kernels import autotune
 
     cs.phase_device()
@@ -129,11 +139,31 @@ def main(argv=None) -> int:
               for u in (True, False))
     tr = {s: d["trellis"].make_trellis(*cs.CODES[4])
           for s, d in sides.items()}
-    compare("viterbi_unified", f"K=7 F=16384 tile {ut}", {
-        s: (lambda s=s: sides[s]["vu"].unified_decode_frames_cuda(
-            frames, trellis=tr[s], v1=20, f=256, v2=45, f0=32, v2s=45,
-            frames_per_tile=ut, pack_survivors=True, radix=4))
-        for s in sides}, args.reps)
+
+    def b1_turns(fr, code, F, geometry, label, reps):
+        """B1 of both sides on ``fr``, each at its own planned tile."""
+        t = {s: d["trellis"].make_trellis(*code) for s, d in sides.items()}
+        fs = FrameSpec(start="boundary", **geometry)
+        tiles = {s: d["autotune"].plan_tiles(
+            t[s], fs, pack_survivors=True, radix=4, max_frames=F,
+            device="cuda").frames_per_tile for s, d in sides.items()}
+        compare("viterbi_unified", f"{label} tiles other {tiles['other']} "
+                f"tree {tiles['tree']}", {
+                    s: (lambda s=s: sides[s]["vu"].unified_decode_frames_cuda(
+                        fr, trellis=t[s], frames_per_tile=tiles[s],
+                        pack_survivors=True, radix=4, **geometry))
+                    for s in sides}, reps)
+
+    b1_turns(frames, cs.CODES[4], 16384,
+             dict(v1=20, f=256, v2=45, f0=32, v2s=45), "K=7 F=16384",
+             args.reps)
+    for cell, code, F, geometry in K7_CELLS:
+        fs = FrameSpec(start="boundary", **geometry)
+        cf = cs._frames(mine["trellis"].make_trellis(*code), fs, F, gen,
+                        torch.float32)
+        b1_turns(cf, code, F, geometry, f"K=7 {cell} F={F}",
+                 max(1, args.reps // 4))
+        del cf
     compare("viterbi_fwd", f"K=7 F=16384 tile {st}", {
         s: (lambda s=s: sides[s]["vf"].forward_frames_cuda(
             frames, trellis=tr[s], frames_per_tile=st, pack_survivors=True,

@@ -2,7 +2,7 @@
 """Time variant trees' wide-mapping or large-code kernels against this
 tree's, in turns, on one card.
 
-    python3 tools/variant_turns.py [--large | --low-rate] DIR [DIR ...]
+    python3 tools/variant_turns.py [--large | --low-rate | --thread] DIR ...
 
 Each DIR holds a copy of this tree's ``src/`` with edits to try (a
 variant of ``csrc/acs.cuh``, say: another thread count, a knocked-out
@@ -26,7 +26,14 @@ under another name and builds its own sources into its own
   against this tree's (this tree's planned tiles), printed as equal or
   not; B1 and B3 of every tree and of this tree's wide mapping forced
   (``_wide``: the mapping these codes ran on before, its path metrics
-  now in device memory), in turns.
+  now in device memory), in turns;
+* with ``--thread``, B1 at K=7 on the main shape (16384 frames) and at
+  the K=7 cells' calls (parent_turns.py's ``K7_CELLS``): each tree's B1 at
+  tiles 32 and 64 (a tree without the thread mapping takes its own planned
+  tile), equal to this tree's warp mapping forced
+  (``_warp``), which runs in the same turns; then this tree's thread
+  mapping against its warp mapping at the other codes the thread mapping
+  takes (``THREAD_OTHER``).
 
 Turns are a, b, ..., b, a over 2 rounds of 3 launches (CUDA events; the
 minimum). Prints each tree's spill stores of the cluster kernels with 8
@@ -57,11 +64,13 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     large = "--large" in argv
     low_rate = "--low-rate" in argv
-    argv = [a for a in argv if a not in ("--large", "--low-rate")]
+    thread = "--thread" in argv
+    argv = [a for a in argv if a not in ("--large", "--low-rate",
+                                         "--thread")]
     import torch
     if not argv or not torch.cuda.is_available():
-        print("usage: variant_turns.py [--large | --low-rate] DIR [DIR ...] "
-              "(needs a CUDA card)")
+        print("usage: variant_turns.py [--large | --low-rate | --thread] "
+              "DIR [DIR ...] (needs a CUDA card)")
         return 2
     import chip_smoke as cs
     from parent_turns import load_other
@@ -87,7 +96,9 @@ def main(argv=None) -> int:
     for s, m in mods.items():
         for src in SOURCES:
             lines = m["build"].build(src).log.splitlines()
-            pat = (r"Function properties for \w*?(\w+_block(_pe)?_kernel"
+            pat = (r"Function properties for \w*?(\w+_thread_kernel"
+                   r"ILi7ELi2E)" if thread else
+                   r"Function properties for \w*?(\w+_block(_pe)?_kernel"
                    r"ILi\d+E)" if large or low_rate else
                    r"Function properties for \w*?(\w+_cluster_"
                    r"kernelILi(8|16)ELb[01])")
@@ -108,6 +119,8 @@ def main(argv=None) -> int:
         return _large(cs, mods, gen, spec, kw, fkw)
     if low_rate:
         return _low_rate(cs, mods, gen, spec, kw, fkw)
+    if thread:
+        return _thread(cs, mods, gen)
     for code in CODES:
         tr = {s: m["tr"].make_trellis(*code) for s, m in mods.items()}
         frames = cs._frames(tr["tree"], spec, 132, gen, torch.float32)
@@ -257,6 +270,112 @@ def _low_rate(cs, mods, gen, spec, kw, fkw) -> int:
               + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
         del frames, want
     return 0
+
+
+def _sass_size(m, kernel: str) -> int:
+    """SASS instructions of one kernel of a tree's viterbi_unified.cu
+    (``cuobjdump -sass``; -1 without the tool)."""
+    import subprocess
+    tool = Path(m["build"].nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return -1
+    out = subprocess.run([str(tool), "-sass",
+                          str(m["build"].build("viterbi_unified.cu").path)],
+                         capture_output=True, text=True).stdout
+    for blk in out.split("Function : ")[1:]:
+        if kernel in blk.split(None, 1)[0]:
+            return sum(1 for ln in blk.splitlines()
+                       if re.match(r"\s*/\*[0-9a-f]+\*/", ln))
+    return -1
+
+
+def _thread(cs, mods, gen) -> int:
+    """The --thread rows: every tree's B1 at K=7 on the main shape and at
+    the K=7 cells' calls, per tile, equal to this tree's warp mapping
+    forced, all in turns."""
+    import torch
+    from parent_turns import K7_CELLS
+    from repro_torch.core.framed import FrameSpec
+    tree = mods["tree"]
+    rows = ((("main", (7, (0o171, 0o133)), 16384,
+              dict(v1=20, f=256, v2=45, f0=32, v2s=45)),) + K7_CELLS)
+    for label, code, F, geometry in rows:
+        spec = FrameSpec(start="boundary", **geometry)
+        tr = {s: m["tr"].make_trellis(*code) for s, m in mods.items()}
+        frames = cs._frames(tr["tree"], spec, F, gen, torch.float32)
+        kw = dict(geometry, pack_survivors=True, radix=4)
+        want = tree["vu"].unified_decode_frames_cuda(
+            frames, trellis=tr["tree"], frames_per_tile=2, _warp=True, **kw)
+        fns = {"warp": lambda: tree["vu"].unified_decode_frames_cuda(
+            frames, trellis=tr["tree"], frames_per_tile=2, _warp=True,
+            **kw)}
+        for s, m in mods.items():
+            b1 = m["vu"].unified_decode_frames_cuda
+            if "mapping_launches" not in vars(b1):
+                fns[s] = (lambda m=m, s=s: m["vu"].unified_decode_frames_cuda(
+                    frames, trellis=tr[s], frames_per_tile=2, **kw))
+                continue
+            for ft in (32, 64):
+                if F % ft:
+                    continue
+                fns[f"{s} {ft}"] = (
+                    lambda m=m, s=s, ft=ft: m["vu"].unified_decode_frames_cuda(
+                        frames, trellis=tr[s], frames_per_tile=ft, **kw))
+        if label == "main":
+            import ctypes
+            for s, m in mods.items():
+                lib = m["vu"].kernel_library().lib
+                if hasattr(lib, "viterbi_unified_thread_attrs"):
+                    out = (ctypes.c_int * 3)()
+                    lib.viterbi_unified_thread_attrs(7, 2, out)
+                    print(f"[variants] {s} thread kernel K=7 beta=2: "
+                          f"{out[0]} registers, {out[1]} local bytes, "
+                          f"{_sass_size(m, 'thread_kernelILi7ELi2E')} SASS "
+                          f"instructions", flush=True)
+        for name, fn in fns.items():
+            print(f"[variants] K=7 {label} F={F} {name} equal to the warp "
+                  f"mapping: {bool(torch.equal(fn(), want))}", flush=True)
+        ms = cs._interleaved(fns, 5, rounds=2)
+        print(f"[variants] K=7 {label} F={F} ms per launch, in turns: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+        del frames, want
+    _thread_codes(cs, tree, gen)
+    return 0
+
+
+#: The other codes the thread mapping takes: (code, frames).
+THREAD_OTHER = [((3, (0o7, 0o5)), 65536), ((4, (0o13, 0o15, 0o17)), 65536),
+                ((5, (0o23, 0o35)), 65536), ((6, (0o65, 0o57)), 65536),
+                ((7, (0o171, 0o133, 0o165)), 65536),
+                ((5, (0o23, 0o35, 0o25)), 65536), ((6, (0o65, 0o57)), 16384)]
+
+
+def _thread_codes(cs, tree, gen) -> None:
+    """This tree's B1 on the thread mapping (its planned tile) against its
+    warp mapping (``_warp``, two warps of frames a block) at the other
+    codes the thread mapping takes, main frame, in turns."""
+    import torch
+    from repro_torch.core.framed import FrameSpec
+    from repro_torch.kernels import autotune
+    geometry = dict(v1=20, f=256, v2=45, f0=32, v2s=45)
+    spec = FrameSpec(**geometry)
+    for code, F in THREAD_OTHER:
+        tr = tree["tr"].make_trellis(*code)
+        frames = cs._frames(tr, spec, F, gen, torch.float32)
+        kw = dict(geometry, trellis=tr, pack_survivors=True, radix=4)
+        ft = autotune.plan_tiles(tr, spec, pack_survivors=True, radix=4,
+                                 max_frames=F, device="cuda").frames_per_tile
+        wt = autotune.max_frames_per_block(tr, warp=True) // 4
+        fns = {f"thread {ft}": lambda: tree["vu"].unified_decode_frames_cuda(
+                   frames, frames_per_tile=ft, **kw),
+               f"warp {wt}": lambda: tree["vu"].unified_decode_frames_cuda(
+                   frames, frames_per_tile=wt, _warp=True, **kw)}
+        outs = [fn() for fn in fns.values()]
+        ms = cs._interleaved(fns, 5, rounds=2)
+        print(f"[variants] K={code[0]} beta={len(code[1])} F={F}: equal "
+              f"{bool(torch.equal(*outs))}; ms per launch, in turns: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+        del frames, outs
 
 
 if __name__ == "__main__":
